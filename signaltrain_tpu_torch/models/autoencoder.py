@@ -1,0 +1,112 @@
+"""Knob-conditioned asymmetric autoencoder over STFT time frames.
+
+Counterpart of signaltrain_tpu/models/autoencoder.py: nine affine layers
+applied along the time-frame axis of a spectrogram (frames are the feature
+dimension), ELU activations, the knob vector concatenated at the bottleneck,
+Xavier-normal / zero-bias init, and a selectable output skip mode:
+
+    'res'  : ELU(dec(z) + x[..., -OT:])          residual
+    'sf'   : ELU(dec(z)) * x[..., -OT:]          multiplicative skip-filter
+    ''     : ELU(dec(z))                         none
+
+Parameters carry the reference's names and layouts (``fnn_enc.weight`` of
+shape (out, in), ``fnn_enc.bias``). Two layouts over the same parameters:
+``forward`` is batch-major (B, T, F); ``frame_major`` is (T, B, F), the
+layout kernel A emits and kernel B takes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..utils.device import resolve_device
+
+SKIP_MODES = ("res", "sf", "")
+
+
+class Dense(nn.Module):
+    """Affine layer over the last axis: ``weight`` (out, in), ``bias`` (out,).
+    Initialised on the host from an explicit generator: truncated normal
+    with the Xavier (fan-average) variance, zero bias."""
+
+    def __init__(self, in_features: int, out_features: int, device: torch.device,
+                 generator: torch.Generator):
+        super().__init__()
+        std = math.sqrt(2.0 / (in_features + out_features)) / 0.87962566103423978
+        w = torch.empty(out_features, in_features)
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        self.weight = nn.Parameter(w.to(device))
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class AsymAutoEncoder(nn.Module):
+    def __init__(self, time_frames: int = 25, rank: int = 64, n_knobs: int = 4,
+                 output_frames: int = 9, device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        r = rank
+        self.output_frames = output_frames
+
+        def mk(i, o):
+            return Dense(i, o, dev, gen)
+
+        self.fnn_enc = mk(time_frames, r)
+        self.fnn_enc2 = mk(r, r // 2)
+        self.fnn_enc3 = mk(r // 2, r // 4)
+        self.fnn_enc4 = mk(r // 4, r // 4)
+        self.fnn_addknobs = mk(r // 4 + n_knobs, r // 4)
+        self.fnn_dec4 = mk(r // 4, r // 4)
+        self.fnn_dec3 = mk(r // 4, r // 2)
+        self.fnn_dec2 = mk(r // 2, r)
+        self.fnn_dec = mk(r, output_frames)
+
+    def _core(self, z: torch.Tensor, knobs: torch.Tensor) -> torch.Tensor:
+        """From the first layer's output (B, F, R) to the decoder's (B, F, OT)."""
+        elu = F.elu
+        z = elu(self.fnn_enc2(z))
+        z = elu(self.fnn_enc3(z))
+        z = elu(self.fnn_enc4(z))
+        knobs_r = knobs[:, None, :].to(z.dtype).expand(z.shape[0], z.shape[1], knobs.shape[-1])
+        z = elu(self.fnn_addknobs(torch.cat((z, knobs_r), dim=2)))
+        z = elu(self.fnn_dec4(z))
+        z = elu(self.fnn_dec3(z))
+        z = elu(self.fnn_dec2(z))
+        return self.fnn_dec(z)
+
+    @staticmethod
+    def _skip(dec: torch.Tensor, tail: torch.Tensor, mode: str) -> torch.Tensor:
+        if mode == "res":
+            return F.elu(dec + tail)
+        if mode == "sf":
+            return F.elu(dec) * tail
+        return F.elu(dec)
+
+    def forward(self, x: torch.Tensor, knobs: torch.Tensor,
+                skip_connections: str = "res") -> torch.Tensor:
+        """x: (B, T, F) spectrogram; knobs: (B, K) in [-0.5, 0.5] -> (B, OT, F)."""
+        if skip_connections not in SKIP_MODES:
+            raise ValueError(f"unsupported skip mode {skip_connections!r}")
+        x_input = x.transpose(1, 2)  # (B, F, T): frames are features
+        dec = self._core(F.elu(self.fnn_enc(x_input)), knobs)
+        out = self._skip(dec, x_input[:, :, -self.output_frames :], skip_connections)
+        return out.transpose(1, 2)
+
+    def frame_major(self, xf: torch.Tensor, knobs: torch.Tensor,
+                    skip_connections: str = "res") -> torch.Tensor:
+        """xf: (T, B, F) -> (OT, B, F), contiguous. The first layer contracts
+        the leading frame axis; the same math as ``forward``."""
+        if skip_connections not in SKIP_MODES:
+            raise ValueError(f"unsupported skip mode {skip_connections!r}")
+        x_input = xf.permute(1, 2, 0)  # (B, F, T) view
+        dec = self._core(F.elu(self.fnn_enc(x_input)), knobs)
+        out = self._skip(dec, x_input[:, :, -self.output_frames :], skip_connections)
+        return out.permute(2, 0, 1).contiguous()

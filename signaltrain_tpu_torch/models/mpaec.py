@@ -1,0 +1,78 @@
+"""Asymmetric Magnitude-Phase AutoEncoder with knob conditioning (AsymMPAEC).
+
+Counterpart of signaltrain_tpu/models/mpaec.py; the forward math is the
+reference's:
+
+    re, im  = Analysis(x/2)                    # /2 ~ unit-variance trick
+    mag     = sqrt(max(re^2 + im^2, 1e-36))
+    phs     = atan2(im, re + 1e-7)
+    mag_hat = aenc(mag, knobs; skip='sf')      # multiplicative skip-filter
+    phs_hat = phs_aenc(phs, knobs; skip='') + phs[:, -OT:, :]
+    wave    = Synthesis(mag_hat*cos(phs_hat), mag_hat*sin(phs_hat))
+    y_hat   = 2 * (wave + x[:, -out:]/2)
+    returns (y_hat, mag, mag_hat)
+
+Two paths over the same parameters, chosen by ``frontend``:
+
+* ``"gemm"``  -- the formulation above, batch-major (B, T, F) tensors, with
+  the front-end as plain matrix products (JAX ``frontend="xla"``).
+* ``"fused"`` -- kernel A (framing + GEMM + x/2 + magnitude/phase), the
+  autoencoders frame-major, kernel B (trig + GEMM + overlap-add + trim)
+  (JAX ``frontend="pallas"``). mag / mag_hat come back frame-major,
+  (T, B, F) / (OT, B, F); 2*(wave + x_tail/2) is expanded to
+  2*wave + x_tail, and the x/2 happens inside kernel A only.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.cuda_frontend import mag_phs
+from ..ops.frontend import Analysis, Synthesis
+from ..utils.device import resolve_device
+from .autoencoder import AsymAutoEncoder
+
+FRONTENDS = ("gemm", "fused")
+
+
+class AsymMPAEC(nn.Module):
+    def __init__(self, expected_time_frames: int, ft_size: int = 1024, hop_size: int = 384,
+                 decomposition_rank: int = 64, n_knobs: int = 4, output_tf: int | None = None,
+                 frontend: str = "fused", device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if frontend not in FRONTENDS:
+            raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        out_tf = output_tf if output_tf is not None else expected_time_frames
+        self.frontend = frontend
+        self.dft_analysis = Analysis(ft_size, hop_size, device=dev)
+        self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev)
+        self.aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
+                                    out_tf, device=dev, generator=gen)
+        self.phs_aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
+                                        out_tf, device=dev, generator=gen)
+
+    def forward(self, x: torch.Tensor, knobs: torch.Tensor):
+        """x: (B, in_chunk) waveform; knobs: (B, K) normalized to [-0.5, 0.5]."""
+        if self.frontend == "fused":
+            return self._fused(x, knobs)
+        re, im = self.dft_analysis(x / 2)
+        mag, phs = mag_phs(re, im)
+        mag_hat = self.aenc(mag, knobs, skip_connections="sf")
+        phs_hat = self.phs_aenc(phs, knobs, skip_connections="")
+        phs_hat = phs_hat + phs[:, -phs_hat.shape[1] :, :]  # residual phase skip
+        wave = self.dft_synthesis(mag_hat * torch.cos(phs_hat), mag_hat * torch.sin(phs_hat))
+        y_hat = wave + x[:, -wave.shape[-1] :] / 2
+        return 2 * y_hat, mag, mag_hat
+
+    def _fused(self, x: torch.Tensor, knobs: torch.Tensor):
+        mag, phs = self.dft_analysis.mag_phs(x)  # (T, B, half) each
+        mag_hat = self.aenc.frame_major(mag, knobs, skip_connections="sf")
+        phs_hat = self.phs_aenc.frame_major(phs, knobs, skip_connections="")
+        phs_hat = phs_hat + phs[-phs_hat.shape[0] :]  # residual phase skip
+        wave = self.dft_synthesis.from_mag_phs(mag_hat, phs_hat)
+        y_hat = 2.0 * wave + x[:, -wave.shape[-1] :]
+        return y_hat, mag, mag_hat
