@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check its kernels.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit:
@@ -9,21 +9,39 @@ toolkit:
 Phases (any failure raises and exits non-zero):
   1. the card's name and power limit (nvidia-smi); the kernels built from
      signaltrain_tpu_torch/csrc/*.cu, one nvcc per source, all at once;
-  2. each kernel held against its plain PyTorch version on the card, at the
-     shapes the main path gives it, on seeded random inputs (the conditions
-     of the JAX package's own kernel tests), with the tolerance stated;
-  3. the main path, with every kernel counter set to 0 just before it and
+  2. each of the five kernels held against its plain PyTorch version on the
+     card, on seeded random inputs with the tolerance stated: A, B, C at the
+     serving shapes and at the training shapes (flagship geometry, batch
+     200), D and E at the training shapes. A and D are checked on three
+     seeds, A's first check straight after the build; D with unit-normal
+     phase cotangents (dW within 1e-3 * max|dW|) and with well-conditioned
+     ones (every element of dxp and dW); D and E run twice on the same inputs
+     and their dW must be bit-equal;
+  3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
      [-25, 4, 0.005, 0.02], and the comp_4c target by Compressor_4c.go_wc
-     and calc_ct. Every kernel must have launched and no plain version run;
+     and calc_ct. A, B and C must have launched and no plain version run;
      the prediction must be finite, of the expected length, correlate >= 0.98
      with the target (the floor of tests/test_shipped_model_quality.py) and
      agree with the plain CPU path on a short clip (atol 1e-3);
-  4. timing with CUDA events: each kernel, its plain version and the one
-     PyTorch library call nearest to it, beside the bound computed from this
+  4. the training path, counters set to 0 just before and read just after:
+     train() on the card (comp_4c, float32, fused front-end, fresh seeded
+     weights, batch 200, 3 epochs x 20 steps, lr_max 2e-4) in a temporary
+     directory, then its checkpoint through load_model (strict) and
+     predict_long on a 2 s clip. All five kernels must have launched and no
+     plain version run; every loss finite; the mean validation MAE lower
+     after the last epoch than after the first; the served output finite and
+     of the expected length. One more step on the same batch through
+     frontend="fused" (the kernels) and "gemm" (plain autograd): loss rtol
+     1e-5, every gradient within 1e-3 * max|g| of its leaf, no absolute floor;
+  5. timing with CUDA events: each kernel, its plain version and the
+     PyTorch library calls nearest to it, beside the bound computed from this
      run's shapes (f32 CUDA-core peak 67 TFLOP/s, HBM 3.35 TB/s: the H100 SXM
-     data-sheet rates at 700 W), and predict_long's audio-seconds per second.
+     data-sheet rates at 700 W); predict_long's audio-seconds per second; the
+     train step with either front-end (host clock, least and most of two
+     turns) and the data synthesis alone; one torch.profiler window over each
+     for the card's busy time and the kernels launched.
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -33,8 +51,10 @@ when it is not next to the signaltrain_tpu_torch package it drives.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -48,6 +68,9 @@ CLIP_SECONDS = 30.0
 MIN_CORR = 0.98
 PEAK_F32_FLOPS = 67e12  # H100 SXM, CUDA cores, float32
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+TRAIN_BATCH = 200
+TRAIN_EPOCHS, TRAIN_POINTS, TRAIN_LR = 3, 4000, 2e-4  # 3 epochs x 20 steps
+SEEDS = (0, 1, 2)
 
 
 def fail(msg: str) -> None:
@@ -87,6 +110,56 @@ def disagreement(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
             f"kernel {got[idx].item()!r} plain {want[idx].item()!r}")
 
 
+def host_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds of fn() by the host clock, the card drained before
+    and after: what a step costs with its host work included."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def grad_excess(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """Largest error of a gradient and its limit 1e-3 * max|want|, with no
+    absolute floor: the bound for kernel D's dW under unit-normal phase
+    cotangents (the atan2 adjoint dphs / |spec| is heavy-tailed over bins of
+    near-zero magnitude, so the order of the f32 sums moves the largest
+    elements by ~1e-4 of themselves) and for a model's gradients leaf by leaf."""
+    return float((got - want).abs().max()), 1e-3 * float(want.abs().max())
+
+
+def elementwise_excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
+    """Largest error, and its largest excess over tol + tol*|want|."""
+    err = (got - want).abs()
+    return float(err.max()), float((err - (tol + tol * want.abs())).max())
+
+
+def card_busy(fn, reps: int) -> dict:
+    """One torch.profiler window over reps calls of fn(): the card's busy
+    milliseconds (all kernel and copy times summed) and the kernels launched,
+    per call. Raises if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    on_card = torch.autograd.DeviceType.CUDA
+    # an annotation (Optimizer.step#...) shows on both timelines; a kernel only on the card's
+    host_names = {e.key for e in rows if e.device_type != on_card}
+    kernels = [e for e in rows if e.device_type == on_card and e.key not in host_names]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    check(busy_us > 0, "torch.profiler reported no device time")
+    return {"card_busy_ms": busy_us / 1e3 / reps,
+            "kernels_launched": sum(e.count for e in kernels) / reps}
+
+
 def wrapped_phase_excess(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float):
     """Largest wrapped phase difference, and its excess over atol + rtol*|want|
     (a 1-ulp change of im at the branch cut moves atan2 by 2 pi)."""
@@ -102,31 +175,25 @@ def main() -> None:
         fail(f"run from a checkout of the repository: {HERE} lacks the package or {CKPT.name}")
     sys.path.insert(0, str(HERE))
 
+    from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects, synths
     from signaltrain_tpu_torch.inference import predict_long as pl
     from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels
+    from signaltrain_tpu_torch.training import train as train_mod
     from signaltrain_tpu_torch.utils.load_model import load_model
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    # ---- 1. card, build
+    # ---- 1. card, model and clip, build (the build last, so that kernel
+    # A's first check follows it directly)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    built = _cuda.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'nothing (cached)'}"
-          f" {json.dumps({k: round(v, 2) for k, v in built.items()})}")
-    for name in _cuda.sources():
-        for line in _cuda.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
-
     model, rv = load_model(str(CKPT), device=dev)
     spec = model.spec
     ft, hop, half = spec.ft_size, spec.hop_size, spec.ft_size // 2 + 1
@@ -143,44 +210,63 @@ def main() -> None:
         w_syn = model.mpaec.dft_synthesis.stacked_weights().contiguous()
     print(f"main path: {CLIP_SECONDS} s clip, {n_windows} windows of {chunk} -> {out_chunk}, "
           f"ft {ft} hop {hop} T {frames} OT {out_frames}")
+    t0 = time.perf_counter()
+    built = _cuda.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'nothing (cached)'}"
+          f" {json.dumps({k: round(v, 2) for k, v in built.items()})}")
+    for name in _cuda.sources():
+        for line in _cuda.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas[{name}]: {line.strip()}")
 
     # ---- 2. kernels against their plain versions, on the card
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     with torch.inference_mode():
-        xp = torch.nn.functional.pad(
-            torch.randn(n_windows, chunk, generator=gen, device=dev) * 0.3, (ft, ft))
-        mag, phs = cuda_frontend.fused_analysis(xp, w_an, ft, hop)
-        rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w_an, ft, hop)
-        torch.cuda.synchronize()
-        check(mag.shape == (frames, n_windows, half), f"analysis shape {tuple(mag.shape)}")
-        mag_err = float((mag - rmag).abs().max())
-        mag_excess = float(((mag - rmag).abs() - (2e-5 + 2e-5 * rmag.abs())).max())
-        phs_err, phs_excess = wrapped_phase_excess(phs, rphs, 2e-4, 2e-4)
-        print(f"A fused_analysis xp {tuple(xp.shape)}: max|dmag| {mag_err:.3e} "
-              f"max|dphs| (wrapped) {phs_err:.3e}; tolerance mag 2e-5+2e-5|mag|, phase 2e-4+2e-4|phs|")
-        check(mag_excess <= 0, disagreement("A (magnitude)", mag, rmag))
-        check(phs_excess <= 0, disagreement("A (phase)", phs, rphs))
-        check(bool(torch.all(mag[0] == np.float32(1e-18))) and bool(torch.all(phs[0] == 0)),
-              "kernel A: an edge frame is not exactly (1e-18, 0)")
+        mag_err = phs_err = 0.0
+        # the serving batch on three seeds, the first straight after the
+        # build, the training batch in between (the timing takes the last xp)
+        a_checks = [(seed, n_windows) for seed in SEEDS]
+        a_checks.insert(1, (len(SEEDS), TRAIN_BATCH))
+        for seed, nb in a_checks:
+            sg = torch.Generator(device=dev).manual_seed(seed)
+            xp = torch.nn.functional.pad(
+                torch.randn(nb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
+            mag, phs = cuda_frontend.fused_analysis(xp, w_an, ft, hop)
+            rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w_an, ft, hop)
+            torch.cuda.synchronize()
+            check(mag.shape == (frames, nb, half), f"analysis shape {tuple(mag.shape)}")
+            m_err = float((mag - rmag).abs().max())
+            mag_excess = float(((mag - rmag).abs() - (2e-5 + 2e-5 * rmag.abs())).max())
+            p_err, phs_excess = wrapped_phase_excess(phs, rphs, 2e-4, 2e-4)
+            print(f"A fused_analysis xp {tuple(xp.shape)} seed {seed}: max|dmag| {m_err:.3e} "
+                  f"max|dphs| (wrapped) {p_err:.3e}; tolerance mag 2e-5+2e-5|mag|, "
+                  f"phase 2e-4+2e-4|phs|")
+            check(mag_excess <= 0, disagreement(f"A (magnitude, seed {seed})", mag, rmag))
+            check(phs_excess <= 0, disagreement(f"A (phase, seed {seed})", phs, rphs))
+            check(all(bool(torch.all(mag[e] == np.float32(1e-18))) and bool(torch.all(phs[e] == 0))
+                      for e in (0, -1)), "kernel A: an edge frame is not exactly (1e-18, 0)")
+            mag_err, phs_err = max(mag_err, m_err), max(phs_err, p_err)
         results["fused_analysis"] = dict(max_abs_err=mag_err, max_phase_err=phs_err,
                                          tolerance="mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + 2e-4*|phs|")
 
-        smag = torch.nn.functional.softplus(
-            torch.randn(out_frames, n_windows, half, generator=gen, device=dev))
-        sphs = torch.randn(out_frames, n_windows, half, generator=gen, device=dev) * 2.0
-        wave = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
-        rwave = cuda_frontend.fused_synthesis_reference(smag, sphs, w_syn, ft, hop)
-        torch.cuda.synchronize()
-        check(wave.shape == (n_windows, out_len), f"synthesis shape {tuple(wave.shape)}")
-        syn_err = float((wave - rwave).abs().max())
-        syn_excess = float(((wave - rwave).abs() - (3e-4 + 3e-4 * rwave.abs())).max())
-        print(f"B fused_synthesis mag {tuple(smag.shape)}: max|dwave| {syn_err:.3e}; "
-              f"tolerance 3e-4+3e-4|wave|")
-        check(syn_excess <= 0, disagreement("B", wave, rwave))
+        syn_err = 0.0
+        for nb in (TRAIN_BATCH, n_windows):  # smag, sphs end as the serving ones, for the timing
+            smag = torch.nn.functional.softplus(
+                torch.randn(out_frames, nb, half, generator=gen, device=dev))
+            sphs = torch.randn(out_frames, nb, half, generator=gen, device=dev) * 2.0
+            wave = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
+            rwave = cuda_frontend.fused_synthesis_reference(smag, sphs, w_syn, ft, hop)
+            torch.cuda.synchronize()
+            check(wave.shape == (nb, out_len), f"synthesis shape {tuple(wave.shape)}")
+            err, syn_excess = elementwise_excess(wave, rwave, 3e-4)
+            print(f"B fused_synthesis mag {tuple(smag.shape)}: max|dwave| {err:.3e}; "
+                  f"tolerance 3e-4+3e-4|wave|")
+            check(syn_excess <= 0, disagreement("B", wave, rwave))
+            syn_err = max(syn_err, err)
         results["fused_synthesis"] = dict(max_abs_err=syn_err, tolerance="3e-4 + 3e-4*|wave|")
 
-        smooth_shapes = [(1, len(clip)), (1, chunk), (ct_batch, chunk)]
+        smooth_shapes = [(1, len(clip)), (1, chunk), (ct_batch, chunk), (TRAIN_BATCH, chunk)]
         smooth_err, plain_c_ms = 0.0, None
         for b, n in smooth_shapes:
             g = torch.randn(b, n, generator=gen, device=dev)
@@ -202,9 +288,84 @@ def main() -> None:
                   f"(plain version {time.perf_counter() - t_start:.1f} s)")
             check(err <= 1e-6 and bool(torch.all(s[:, 0] == 0)), disagreement("C", s, rs))
         results["switched_one_pole"] = dict(max_abs_err=smooth_err, tolerance="1e-6")
+
+        # D and E at the training shapes; cotangents scaled by 64/ft so the
+        # gradients stay O(1-10), as in the CPU tests against the JAX package
+        tb, tlp = TRAIN_BATCH, chunk + 2 * ft
+        d_dw_err = d_dx_err = d_reg_err = 0.0
+        for seed in SEEDS:
+            sg = torch.Generator(device=dev).manual_seed(100 + seed)
+            txp = torch.nn.functional.pad(
+                torch.randn(tb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
+            tdmag = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
+            tdphs = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
+            dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop)
+            dxp2, dw2 = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop)
+            rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, tdphs, ft, hop)
+            torch.cuda.synchronize()
+            check(dxp.shape == (tb, tlp) and dw.shape == (ft, 2 * half), "D: shapes")
+            check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2),
+                  "kernel D: two runs on the same inputs are not bit-equal")
+            # dx on the unpadded signal: the padding's part carries the
+            # near-singular phase adjoint of the all-zero frames
+            gx, rx = dxp[:, ft:-ft], rdxp[:, ft:-ft]
+            dx_err = float((gx - rx).abs().max())
+            dx_excess = float(((gx - rx).abs() - (5e-4 + 5e-4 * rx.abs())).max())
+            dw_err, dw_lim = grad_excess(dw, rdw)
+            print(f"D fused_analysis_bwd xp {tuple(txp.shape)} seed {seed}: max|d dx| {dx_err:.3e} "
+                  f"(tolerance 5e-4+5e-4|dx|), max|d dW| {dw_err:.3e} (limit {dw_lim:.3e}, "
+                  f"max|dW| {float(rdw.abs().max()):.3e}); two runs bit-equal")
+            check(dx_excess <= 0, disagreement(f"D (dx, seed {seed})", gx, rx))
+            check(dw_err <= dw_lim, disagreement(f"D (dW, seed {seed})", dw, rdw))
+            d_dw_err, d_dx_err = max(d_dw_err, dw_err), max(d_dx_err, dx_err)
+            # the same with the phase cotangent zeroed on the bins of small
+            # magnitude (the all-padding frames among them): dphs / |spec| is
+            # then well conditioned and every element of dxp and dW is held
+            kmag = cuda_frontend.fused_analysis_reference(txp, w_an, ft, hop)[0]
+            cphs = tdphs * (kmag >= 0.25 * kmag.median())
+            dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, cphs, ft, hop)
+            rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, cphs, ft, hop)
+            torch.cuda.synchronize()
+            rx_err, rx_excess = elementwise_excess(dxp, rdxp, 5e-4)
+            rw_err, rw_excess = elementwise_excess(dw, rdw, 5e-4)
+            print(f"D well-conditioned, seed {seed}: max|d dxp| {rx_err:.3e} (median|dxp| "
+                  f"{float(rdxp.abs().median()):.3e}), max|d dW| {rw_err:.3e} (median|dW| "
+                  f"{float(rdw.abs().median()):.3e}, max {float(rdw.abs().max()):.3e}); "
+                  f"tolerance 5e-4+5e-4|g| on every element")
+            check(rx_excess <= 0, disagreement(f"D (dxp, well-conditioned, seed {seed})", dxp, rdxp))
+            check(rw_excess <= 0, disagreement(f"D (dW, well-conditioned, seed {seed})", dw, rdw))
+            d_reg_err = max(d_reg_err, rw_err, rx_err)
+        results["fused_analysis_bwd"] = dict(
+            max_abs_err=d_dw_err, max_dx_err=d_dx_err, max_regular_err=d_reg_err,
+            tolerance="unit-normal phase cotangents: dx 5e-4 + 5e-4*|dx| on the unpadded signal, "
+                      "dW 1e-3*max|dW|; well-conditioned ones: 5e-4 + 5e-4*|g| on every element "
+                      "of dxp and dW; two runs bit-equal")
+
+        tmag = torch.nn.functional.softplus(
+            torch.randn(out_frames, tb, half, generator=gen, device=dev))
+        tphs = torch.randn(out_frames, tb, half, generator=gen, device=dev) * 2.0
+        tdout = torch.randn(tb, out_len, generator=gen, device=dev)
+        e_got = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
+        e_again = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
+        e_want = cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, w_syn, tdout, ft, hop)
+        torch.cuda.synchronize()
+        e_err = 0.0
+        for name, g1, g2, r in zip(("dmag", "dphs", "dW"), e_got, e_again, e_want):
+            check(torch.equal(g1, g2), f"kernel E: two runs differ in {name}")
+            err = float((g1 - r).abs().max())
+            excess = float(((g1 - r).abs() - (5e-4 + 5e-4 * r.abs())).max())
+            check(excess <= 0, disagreement(f"E ({name})", g1, r))
+            e_err = max(e_err, err)
+        for g1 in e_got[:2]:  # frames wholly inside the trimmed margin
+            check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
+                  "kernel E: the first or last frame's gradient is not exactly 0")
+        print(f"E fused_synthesis_bwd mag {tuple(tmag.shape)}: max error {e_err:.3e} "
+              f"(tolerance 5e-4+5e-4|g|); two runs bit-equal; edge frames exactly 0")
+        results["fused_synthesis_bwd"] = dict(
+            max_abs_err=e_err, tolerance="5e-4 + 5e-4*|g| for dmag, dphs, dW; two runs bit-equal")
     torch.cuda.synchronize()
 
-    # ---- 3. the main path, counted
+    # ---- 3. the serving path, counted
     kr = np.asarray(rv["knob_ranges"], np.float32)
     knobs_nn = (KNOBS_WC - kr[:, 0]) / (kr[:, 1] - kr[:, 0]) - 0.5
     _cuda.reset_counts()
@@ -217,11 +378,12 @@ def main() -> None:
     torch.cuda.synchronize()
     t_path = time.perf_counter() - t_path
     counts = {name: (c.launches, c.plain_calls) for name, c in _cuda.COUNTERS.items()}
-    print(f"main path {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
+    print(f"serving path {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
     for name in ("fused_analysis", "fused_synthesis", "switched_one_pole"):
-        check(counts[name][0] > 0, f"main path never launched kernel {name}")
-        check(counts[name][1] == 0, f"main path ran the plain version of {name}")
-        results[name]["launches"] = counts[name][0]
+        check(counts[name][0] > 0, f"serving path never launched kernel {name}")
+    for name in results:
+        check(counts[name][1] == 0, f"serving path ran the plain version of {name}")
+        results[name]["launches_serving"] = counts[name][0]
 
     lookback = chunk - out_chunk
     check(y_pred.shape == (len(clip) - lookback,), f"prediction length {y_pred.shape}")
@@ -246,7 +408,78 @@ def main() -> None:
     print(f"card vs plain CPU path on {len(short)} samples: max|dy| {d_cpu:.3e}; tolerance 1e-3")
     check(d_cpu <= 1e-3, "card and plain CPU path disagree")
 
-    # ---- 4. timing at the main path's shapes
+    # ---- 4. the training path, counted
+    cwd = os.getcwd()
+    _cuda.reset_counts()
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            trained, hist = train_mod.train(
+                effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH,
+                cp_every=TRAIN_EPOCHS, sr=sr, lr_max=TRAIN_LR, seed=218, device=dev)
+            val_lines = [ln.split() for ln in open("val_err_mae.dat").read().strip().splitlines()]
+            vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
+            served, served_rv = load_model("modelcheckpoint.tar", device=dev)  # strict inside
+        finally:
+            os.chdir(cwd)
+    short_clip = synths.music_like_clip(2.0, sr=sr, seed=1)
+    y_served = pl.predict_long(short_clip, knobs_nn, served)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t_path
+    counts = {name: (c.launches, c.plain_calls) for name, c in _cuda.COUNTERS.items()}
+    print(f"\ntraining path {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
+    for name in results:
+        check(counts[name][0] > 0, f"training path never launched kernel {name}")
+        check(counts[name][1] == 0, f"training path ran the plain version of {name}")
+        results[name]["launches_training"] = counts[name][0]
+        results[name]["launches"] = counts[name][0] + results[name]["launches_serving"]
+    steps = TRAIN_EPOCHS * (TRAIN_POINTS // TRAIN_BATCH)
+    check(len(hist["train_loss"]) == steps and hist["step"] == steps, "train(): step count")
+    check(bool(np.all(np.isfinite(hist["train_loss"]))), "train(): a training loss is not finite")
+    check(len(val_lines) == TRAIN_EPOCHS and len(vl_lines) == TRAIN_EPOCHS, "train(): log lines")
+    check(all(np.isfinite(float(v)) for ln in val_lines + vl_lines for v in ln),
+          "train(): a logged validation figure is not finite")
+    mean_maes = [float(ln[2]) for ln in val_lines]
+    print(f"train(): loss first {hist['train_loss'][0]:.4e} last {hist['train_loss'][-1]:.4e}; "
+          f"mean validation MAE by epoch {mean_maes}")
+    check(mean_maes[-1] < mean_maes[0], f"validation MAE did not fall: {mean_maes}")
+    check(served_rv["optax_step"] == steps, "checkpoint: optimizer step")
+    check(all(torch.equal(a, b) for a, b in zip(served.state_dict().values(),
+                                               trained.state_dict().values())),
+          "checkpoint: the served weights are not the trained ones")
+    check(y_served.shape == (len(short_clip) - lookback,) and bool(np.all(np.isfinite(y_served))),
+          "predict_long on the trained checkpoint: wrong length or not finite")
+
+    # one more step on the same batch: the kernels against plain autograd
+    batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
+    data_gen = torch.Generator(device=dev)
+    bx, by, bk = batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, steps))
+    gemm, _ = load_model(str(CKPT), device=dev)
+    gemm.load_state_dict(served.state_dict())
+    gemm.mpaec.frontend = "gemm"
+    served.train(), gemm.train()
+    _cuda.reset_counts()
+    l_fused = train_mod.loss_and_grads(served, bx, by, bk)
+    l_gemm = train_mod.loss_and_grads(gemm, bx, by, bk)
+    torch.cuda.synchronize()
+    check(all(_cuda.COUNTERS[c].launches == 1 for c in
+              ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")),
+          "the fused step did not launch A, B, D and E once each")
+    rel = abs(float(l_fused) - float(l_gemm)) / abs(float(l_gemm))
+    worst, g_max = 0.0, []
+    for (pname, pf_), (_, pg) in zip(served.named_parameters(), gemm.named_parameters()):
+        err, lim = grad_excess(pf_.grad, pg.grad)
+        check(lim > 0 and err <= lim,
+              f"fused and gemm gradients of {pname} differ by {err:.3e} (limit {lim:.3e})")
+        worst = max(worst, err / lim * 1e-3)
+        g_max.append(lim * 1e3)
+    print(f"fused vs gemm step on the card: loss {float(l_fused):.6e} / {float(l_gemm):.6e} "
+          f"(rel {rel:.2e}, tolerance 1e-5); worst gradient error {worst:.2e} of its leaf's "
+          f"max|g| (limit 1e-3; the leaves' max|g| run {min(g_max):.2e} to {max(g_max):.2e})")
+    check(rel <= 1e-5, "fused and gemm losses differ")
+
+    # ---- 5. timing at the main paths' shapes
     with torch.inference_mode():
         results["fused_analysis"]["ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis(xp, w_an, ft, hop), reps=20)
@@ -299,7 +532,120 @@ def main() -> None:
         serve_s = cuda_ms(serve, reps=3, warmup=1) / 1e3
         print(f"predict_long: {CLIP_SECONDS / serve_s:.1f} audio-seconds per second "
               f"({serve_s * 1e3:.1f} ms for the {CLIP_SECONDS} s clip, host-to-host)")
+
+        # D and E at the training shapes (the inputs of their check)
+        r = results["fused_analysis_bwd"]
+        r["ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop), reps=10)
+        r["ms_without_dxp"] = cuda_ms(  # what a train step launches: x needs no gradient
+            lambda: cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop,
+                                                     need_dxp=False), reps=10)
+        r["plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, tdphs, ft, hop),
+            reps=5)
+        x_in = (txp * 0.5)[:, None, :]
+        dspec_bct = torch.randn(tb, 2 * half, frames, generator=gen, device=dev)
+        r["library_ms"] = cuda_ms(  # the linear part only: dspec -> (dxp, dW) by cuDNN
+            lambda: (torch.nn.grad.conv1d_input(x_in.shape, w_conv, dspec_bct, stride=hop),
+                     torch.nn.grad.conv1d_weight(x_in, w_conv.shape, dspec_bct, stride=hop)),
+            reps=5)
+        r.update(zip(("bound_ms", "bound_by"), bound(
+            3 * 2.0 * tb * frames * ft * 2 * half,
+            4.0 * (2 * tb * tlp + 2 * ft * 2 * half + 2 * frames * tb * half))))
+        r["shape"] = f"xp {tuple(txp.shape)}, w {tuple(w_an.shape)}, dmag/dphs {tuple(tdmag.shape)}"
+
+        r = results["fused_synthesis_bwd"]
+        r["ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop), reps=10)
+        r["plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, w_syn, tdout, ft, hop),
+            reps=5)
+        dacc = torch.nn.functional.pad(tdout, (ft, ft))[:, None, :]
+        spec_t = torch.randn(tb, 2 * half, out_frames, generator=gen, device=dev)
+        r["library_ms"] = cuda_ms(  # the linear part only: dout -> (dspec, dW) by cuDNN
+            lambda: (torch.nn.functional.conv1d(dacc, w_tconv, stride=hop),
+                     torch.nn.grad.conv1d_weight(dacc, w_tconv.shape, spec_t, stride=hop)),
+            reps=5)
+        r.update(zip(("bound_ms", "bound_by"), bound(  # the live frame samples only
+            2 * 2.0 * tb * 2 * half * overlap,
+            4.0 * (4 * out_frames * tb * half + 2 * 2 * half * ft + tb * out_len))))
+        r["shape"] = f"mag/phs {tuple(tmag.shape)}, w {tuple(w_syn.shape)}, dout {tuple(tdout.shape)}"
+
+        # A, B, C once more at the training shapes
+        r = results["fused_analysis"]
+        r["train_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(txp, w_an, ft, hop), reps=20)
+        r["train_plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_analysis_reference(txp, w_an, ft, hop), reps=10)
+        r["train_bound_ms"] = bound(2.0 * tb * frames * ft * 2 * half,
+                                    4.0 * (tb * tlp + ft * 2 * half + 2 * frames * tb * half))[0]
+        r["train_shape"] = f"xp {tuple(txp.shape)}"
+        r = results["fused_synthesis"]
+        r["train_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis(tmag, tphs, w_syn, ft, hop), reps=20)
+        r["train_plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis_reference(tmag, tphs, w_syn, ft, hop), reps=10)
+        r["train_bound_ms"] = bound(2.0 * tb * 2 * half * overlap,
+                                    4.0 * (2 * out_frames * tb * half + 2 * half * ft + tb * out_len))[0]
+        r["train_shape"] = f"mag {tuple(tmag.shape)}"
+        r = results["switched_one_pole"]
+        gt = torch.randn(tb, chunk, generator=gen, device=dev)
+        at, rt = torch.full((tb,), 0.99, device=dev), torch.full((tb,), 0.95, device=dev)
+        r["train_ms"] = cuda_ms(lambda: cuda_kernels.switched_one_pole_batched(gt, at, rt), reps=10)
+        r["train_plain_ms"] = cuda_ms(
+            lambda: cuda_kernels.switched_one_pole_reference(gt, at, rt), reps=1, warmup=0)
+        r["train_bound_ms"] = bound(4.0 * gt.numel(), 4.0 * (2 * gt.numel() + 2 * tb))[0]
+        r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis)"
     torch.cuda.synchronize()
+
+    # the train step (forward, loss, backward, clip, Adam) on one fixed batch,
+    # the two front-ends in turns, and the data synthesis alone; host clock,
+    # the card drained before and after
+    training = {"batch": TRAIN_BATCH, "steps": steps, "train_path_s": t_path,
+                "val_mae_mean": mean_maes, "loss_first": hist["train_loss"][0],
+                "loss_last": hist["train_loss"][-1]}
+    opts = {name: train_mod.make_optimizer(m, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
+            for name, m in (("fused", served), ("gemm", gemm))}
+    step_ms = {"fused": [], "gemm": []}
+    for name in ("fused", "gemm", "gemm", "fused"):
+        m, (opt, lr_fn) = (served if name == "fused" else gemm), opts[name]
+        step_ms[name].append(host_ms(
+            lambda: train_mod.train_step_from_arrays(m, opt, lr_fn, 0, bx, by, bk), reps=20))
+    for name, runs in step_ms.items():
+        training[f"step_ms_{name}"] = sum(runs) / len(runs)
+        training[f"step_ms_{name}_min_max"] = [min(runs), max(runs)]
+        training[f"examples_per_s_{name}"] = TRAIN_BATCH / training[f"step_ms_{name}"] * 1e3
+    with torch.no_grad():
+        training["forward_ms_fused"] = host_ms(lambda: served(bx, bk), reps=20)
+    training["forward_backward_ms_fused"] = host_ms(
+        lambda: train_mod.loss_and_grads(served, bx, by, bk), reps=20)
+    training["data_ms"] = host_ms(
+        lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=20)
+    opt, lr_fn = opts["fused"]
+    training["loop_step_ms"] = host_ms(
+        lambda: train_mod.train_step_from_arrays(
+            served, opt, lr_fn, 0, *batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 1))),
+        reps=20)
+    training["loop_examples_per_s"] = TRAIN_BATCH / training["loop_step_ms"] * 1e3
+    # the card's own share of each: host time that is not card time is launch work
+    gopt, glr_fn = opts["gemm"]
+    training["profile"] = {
+        "data": card_busy(
+            lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=10),
+        "step_fused": card_busy(
+            lambda: train_mod.train_step_from_arrays(served, opt, lr_fn, 0, bx, by, bk), reps=10),
+        "step_gemm": card_busy(
+            lambda: train_mod.train_step_from_arrays(gemm, gopt, glr_fn, 0, bx, by, bk), reps=10),
+    }
+    print(f"train step at batch {TRAIN_BATCH}, host clock, mean [least, most] of two turns: fused "
+          f"{training['step_ms_fused']:.3f} {training['step_ms_fused_min_max']} ms "
+          f"({training['examples_per_s_fused']:.0f} examples/s), gemm {training['step_ms_gemm']:.3f} "
+          f"{training['step_ms_gemm_min_max']} ms "
+          f"({training['examples_per_s_gemm']:.0f} examples/s); fused forward "
+          f"{training['forward_ms_fused']:.3f} ms, forward+backward "
+          f"{training['forward_backward_ms_fused']:.3f} ms; data synthesis {training['data_ms']:.3f} ms; "
+          f"data + step {training['loop_step_ms']:.3f} ms "
+          f"({training['loop_examples_per_s']:.0f} examples/s) on {smi}")
+    print(json.dumps({"training": training}))
 
     sources = {
         "fused_analysis": ("signaltrain_tpu_torch/csrc/frontend.cu",
@@ -308,6 +654,10 @@ def main() -> None:
                             "signaltrain_tpu/ops/pallas_frontend.py:458"),
         "switched_one_pole": ("signaltrain_tpu_torch/csrc/smoother.cu",
                               "signaltrain_tpu/ops/pallas_kernels.py:174"),
+        "fused_analysis_bwd": ("signaltrain_tpu_torch/csrc/frontend_bwd.cu",
+                               "signaltrain_tpu/ops/pallas_frontend.py:326"),
+        "fused_synthesis_bwd": ("signaltrain_tpu_torch/csrc/frontend_bwd.cu",
+                                "signaltrain_tpu/ops/pallas_frontend.py:499"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -318,7 +668,9 @@ def main() -> None:
             "tolerance": r["tolerance"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **({"max_phase_err": r["max_phase_err"]} if "max_phase_err" in r else {}),
+            **{k: r[k] for k in ("launches_serving", "launches_training", "max_phase_err",
+                                 "max_dx_err", "max_regular_err", "ms_without_dxp", "train_ms", "train_plain_ms",
+                                 "train_bound_ms", "train_shape") if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "

@@ -7,6 +7,7 @@
 //                           _fused_synthesis_fwd_impl (l.448-475)
 // The plain PyTorch versions are fused_analysis_reference and
 // fused_synthesis_reference in signaltrain_tpu_torch/ops/cuda_frontend.py.
+// Their backward kernels (D, E) are in frontend_bwd.cu.
 //
 // What bounds them on an H100: both are f32 GEMMs with fused prologues and
 // epilogues. The serving path is f32 and TF32 would miss the tolerances

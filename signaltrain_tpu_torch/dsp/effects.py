@@ -31,6 +31,16 @@ class Effect:
         self.sr = sr
         self.device = resolve_device(device)
 
+    @property
+    def num_knobs(self) -> int:
+        return len(self.knob_names)
+
+    def info(self) -> None:
+        assert len(self.knob_names) == len(self.knob_ranges)
+        print(f"Effect: {self.name}.  Knobs:")
+        for i, kn in enumerate(self.knob_names):
+            print(f"    {kn}: {self.knob_ranges[i][0]} to {self.knob_ranges[i][1]}")
+
     def _tensor(self, a, device=None) -> torch.Tensor:
         if isinstance(a, torch.Tensor):
             return a.to(dtype=torch.float32, device=device or a.device)

@@ -12,7 +12,7 @@ nn_proc.py:344-385):
     out_chunk_size  = (OT-1)*hop - ft   (re-derived; warns when it differs)
 
 At defaults: 8192 -> 2048 samples, T=25, OT=9, 513 bins, ~4.2M params. The
-port serves in float32 only.
+port serves and trains in float32 only.
 """
 
 from __future__ import annotations

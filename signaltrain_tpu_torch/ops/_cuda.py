@@ -165,8 +165,10 @@ def check(f: ctypes._CFuncPtr, status: int) -> None:
         raise RuntimeError(f"{f.__name__}: CUDA error {status}: {msg}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """The address of ``t``'s data, or a null pointer for an output that is
+    not asked for."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream(device: torch.device) -> ctypes.c_void_p:

@@ -1,9 +1,11 @@
-"""Fused STFT analysis (kernel A) and iSTFT synthesis (kernel B), forward.
+"""Fused STFT analysis and iSTFT synthesis: kernels A, B (forward), D, E (backward).
 
 Counterparts of signaltrain_tpu/ops/pallas_frontend.py. Each kernel is
-hand-written CUDA C++ for Hopper in ``csrc/frontend.cu`` (its header says
-what bounds it on the card and how its design answers that); this module
-holds its wrapper, its plain PyTorch version and the weight stacking.
+hand-written CUDA C++ for Hopper: A and B in ``csrc/frontend.cu``, D and E in
+``csrc/frontend_bwd.cu`` (the headers say what bounds each on the card and
+how its design answers that); this module holds the wrappers, the plain
+PyTorch version of every kernel, the two ``torch.autograd.Function``s and the
+weight stacking.
 
 * ``fused_analysis(xp, w, ft, hop)``: padded signal (B, Lp), NOT pre-halved
   (the kernel applies the model's x/2) -> (mag, phs), each (T, B, half),
@@ -11,16 +13,29 @@ holds its wrapper, its plain PyTorch version and the weight stacking.
 * ``fused_synthesis(mag, phs, w, ft, hop)``: frame-major (OT, B, half)
   magnitude/phase -> trimmed waveform (B, (OT-1)*hop - ft).
 
-The wrappers dispatch on the tensors' device: a CPU tensor goes to the plain
-version, a CUDA tensor launches the kernel or raises. They are forward-only
-(the backward kernels are not ported yet), so they refuse inputs that would
-need a gradient.
+Both differentiate: forward is kernel A / B, backward kernel D / E, saving
+only (xp, w) and (mag, phs, w) and recomputing the rest.
+
+* ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
+* ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
+
+D and E are bound by operations (f32 matrix products on the CUDA cores). The
+dW sums over all B*T (D) or B*OT (E) rows are cut into a fixed number of
+contiguous slices, each dW tile of a slice owned by one block, and the
+slices are added in a fixed order by a second pass: no atomics, so dW is
+bit-equal from run to run. The overlap-add of dxp is a gather: each sample is
+owned by one thread that sums the frames covering it.
+
+One dispatch rule everywhere: a CPU tensor goes to the plain version, a CUDA
+tensor launches the kernel or raises. Nothing gives way to a plain version on
+the card.
 
 Weight layouts: analysis (ft, 2*half), column c < half is bin c of the real
 part and column half + c bin c of the imaginary part; synthesis (2*half, ft),
 rows in the same order, with the conjugate mirror folded in
 (``frontend.fold_synthesis_weights``). Unlike the TPU layout there is no
-128-lane padding.
+128-lane padding. The gradient of a stacked operand flows back to the
+(ft, ft) parameters through the stacking and folding by plain autograd.
 """
 
 from __future__ import annotations
@@ -28,16 +43,34 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import _cuda, framing
 
 ANALYSIS = _cuda.counter("fused_analysis")
 SYNTHESIS = _cuda.counter("fused_synthesis")
+ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")
+SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ANALYSIS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _SYNTHESIS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ANALYSIS_BWD_ARGS = [_P] * 8 + [_I] * 9 + [_P]
+_SYNTHESIS_BWD_ARGS = [_P] * 9 + [_I] * 8 + [_P]
+
+# Blocks the dW products aim for: their (ft x 2*half) output has too few
+# tiles to fill the card, so the K rows are cut into slices (a fixed number
+# for given shapes) whose partial sums a second pass adds in order.
+_DW_TARGET_BLOCKS = 512
+_DW_TILE = (128, 64)
+_DW_KSTEP = 16
+
+
+def dw_slices(m: int, n: int, k_steps: int) -> int:
+    """How many K slices the dW product of an (m, n) output takes."""
+    tiles = -(-m // _DW_TILE[0]) * -(-n // _DW_TILE[1])
+    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), k_steps // 8))
 
 
 def stack_analysis_weights(w_real: torch.Tensor, w_imag: torch.Tensor, half: int) -> torch.Tensor:
@@ -60,6 +93,8 @@ def mag_phs(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     return mag, phs
 
 
+# ------------------------------------------------------------ plain versions
+
 def fused_analysis_reference(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     """Plain version of kernel A: framing, one GEMM, magnitude and phase."""
     ANALYSIS.plain_calls += 1
@@ -79,27 +114,68 @@ def fused_synthesis_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch.Ten
     return wave[:, ft : wave.shape[1] - ft]
 
 
-def _forward_only(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the CUDA front-end kernels are forward-only (their backward "
-            "kernels are not ported yet); call under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
+def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                                 dphs: torch.Tensor, ft: int, hop: int):
+    """Plain version of kernel D, written out: (dxp, dw) from the saved
+    (xp, w) and the cotangents of (mag, phs).
+
+    The spectrum is computed again; the magnitude term is zero under the
+    1e-36 floor (the gradient of clamp_min passes where sq >= 1e-36); the
+    phase term is the adjoint of atan2(im, re + 1e-7) with plain division;
+    dframe = 0.5 * dspec @ w.T is overlap-added at t*hop; dw = frame.T @ dspec
+    over all (t, b) rows."""
+    ANALYSIS_BWD.plain_calls += 1
+    half = w.shape[1] // 2
+    frames = framing.frame_signal(xp, ft, hop, pad=0).transpose(0, 1) * 0.5  # (T, B, ft)
+    spec = torch.matmul(frames, w)
+    re, im = spec[..., :half], spec[..., half:]
+    sq = re * re + im * im
+    gm = torch.where(sq >= 1e-36, dmag / torch.sqrt(torch.clamp_min(sq, 1e-36)),
+                     torch.zeros_like(sq))
+    rr = re + 1e-7
+    den = rr * rr + im * im
+    dspec = torch.cat([gm * re - dphs * im / den, gm * im + dphs * rr / den], dim=-1)
+    dframes = torch.matmul(dspec, w.t()) * 0.5  # (T, B, ft)
+    dxp = framing.overlap_add(dframes.transpose(0, 1), hop)
+    dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))  # samples past the last frame
+    dw = torch.matmul(frames.reshape(-1, ft).t(), dspec.reshape(-1, 2 * half))
+    return dxp, dw
 
 
-def _cuda_device(t: torch.Tensor) -> torch.device:
+def fused_synthesis_bwd_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
+                                  dout: torch.Tensor, ft: int, hop: int):
+    """Plain version of kernel E, written out: (dmag, dphs, dw) from the saved
+    (mag, phs, w) and the cotangent of the trimmed waveform.
+
+    dout is padded by ft zeros on both sides (the adjoint of the trim) and
+    framed (the adjoint of the overlap-add); dspec = dframe @ w.T;
+    dw = spec.T @ dframe with spec = (mag*cos, mag*sin) computed again;
+    dmag = d_re*cos + d_im*sin, dphs = mag*(d_im*cos - d_re*sin). The first
+    and last frame lie wholly in the trimmed margin: exact zeros."""
+    SYNTHESIS_BWD.plain_calls += 1
+    half = mag.shape[-1]
+    dframes = framing.frame_signal(dout, ft, hop, pad=ft).transpose(0, 1)  # (OT, B, ft)
+    dspec = torch.matmul(dframes, w.t())
+    c, s = torch.cos(phs), torch.sin(phs)
+    spec = torch.cat([mag * c, mag * s], dim=-1)
+    dw = torch.matmul(spec.reshape(-1, 2 * half).t(), dframes.reshape(-1, ft))
+    d_re, d_im = dspec[..., :half], dspec[..., half:]
+    return d_re * c + d_im * s, mag * (d_im * c - d_re * s), dw
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    """The dispatch rule: True for a CPU tensor (plain version), False for a
+    CUDA tensor (kernel); anything else is refused."""
+    if t.device.type == "cpu":
+        return True
     if t.device.type != "cuda":
         raise ValueError(f"expected a CPU or CUDA tensor, got one on {t.device}")
-    return t.device
+    return False
 
 
-def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
-    """Kernel A on CUDA tensors, its plain version on CPU tensors."""
-    if xp.device.type == "cpu":
-        return fused_analysis_reference(xp, w, ft, hop)
-    dev = _cuda_device(xp)
-    _forward_only(xp, w)
+def _analysis_dims(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     if xp.dim() != 2 or w.dim() != 2:
         raise ValueError("fused_analysis: xp must be (B, Lp) and w (ft, 2*half)")
     b, lp = xp.shape
@@ -107,6 +183,24 @@ def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     t = (lp - ft) // hop + 1
     if b < 1 or t < 1 or lp < ft:
         raise ValueError(f"fused_analysis: no frame fits (B={b}, Lp={lp}, ft={ft})")
+    return b, lp, half, t
+
+
+def _synthesis_dims(mag: torch.Tensor, ft: int, hop: int):
+    if mag.dim() != 3:
+        raise ValueError("fused_synthesis: mag and phs must be (OT, B, half)")
+    ot, b, half = mag.shape
+    out_len = (ot - 1) * hop - ft
+    if b < 1 or out_len < 1:
+        raise ValueError(f"fused_synthesis: empty output (OT={ot}, B={b}, ft={ft}, hop={hop})")
+    return ot, b, half, out_len
+
+
+def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
+    if _is_cpu(xp):
+        return fused_analysis_reference(xp, w, ft, hop)
+    dev = xp.device
+    b, lp, half, t = _analysis_dims(xp, w, ft, hop)
     _cuda.require(xp, "xp", (b, lp), dev)
     _cuda.require(w, "w", (ft, 2 * half), dev)
     mag = torch.empty((t, b, half), device=dev, dtype=torch.float32)
@@ -120,19 +214,12 @@ def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     return mag, phs
 
 
-def fused_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                    ft: int, hop: int) -> torch.Tensor:
-    """Kernel B on CUDA tensors, its plain version on CPU tensors."""
-    if mag.device.type == "cpu":
+def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
+                   ft: int, hop: int) -> torch.Tensor:
+    if _is_cpu(mag):
         return fused_synthesis_reference(mag, phs, w, ft, hop)
-    dev = _cuda_device(mag)
-    _forward_only(mag, phs, w)
-    if mag.dim() != 3:
-        raise ValueError("fused_synthesis: mag and phs must be (OT, B, half)")
-    ot, b, half = mag.shape
-    out_len = (ot - 1) * hop - ft
-    if b < 1 or out_len < 1:
-        raise ValueError(f"fused_synthesis: empty output (OT={ot}, B={b}, ft={ft}, hop={hop})")
+    dev = mag.device
+    ot, b, half, out_len = _synthesis_dims(mag, ft, hop)
     _cuda.require(mag, "mag", (ot, b, half), dev)
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
@@ -144,3 +231,129 @@ def fused_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     _cuda.check(f, status)
     SYNTHESIS.launches += 1
     return out
+
+
+def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                       dphs: torch.Tensor, ft: int, hop: int,
+                       need_dxp: bool = True, need_dw: bool = True):
+    """Kernel D on CUDA tensors, its plain version on CPU tensors:
+    (dxp (B, Lp), dw (ft, 2*half)); a gradient that is not needed is None."""
+    if _is_cpu(xp):
+        dxp, dw = fused_analysis_bwd_reference(xp, w, dmag, dphs, ft, hop)
+        return (dxp if need_dxp else None), (dw if need_dw else None)
+    dev = xp.device
+    b, lp, half, t = _analysis_dims(xp, w, ft, hop)
+    _cuda.require(xp, "xp", (b, lp), dev)
+    _cuda.require(w, "w", (ft, 2 * half), dev)
+    _cuda.require(dmag, "dmag", (t, b, half), dev)
+    _cuda.require(dphs, "dphs", (t, b, half), dev)
+    nsplit = dw_slices(ft, 2 * half, t * -(-b // _DW_KSTEP))
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    dspec = empty(t * b, 2 * half)
+    dxp = empty(b, lp) if need_dxp else None
+    dw = empty(ft, 2 * half) if need_dw else None
+    partial = empty(nsplit, ft, 2 * half) if need_dw and nsplit > 1 else None
+    f = _cuda.function("frontend_bwd", "st_analysis_bwd", _ANALYSIS_BWD_ARGS)
+    with torch.cuda.device(dev):
+        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs),
+                   _cuda.ptr(dspec), _cuda.ptr(partial), _cuda.ptr(dxp), _cuda.ptr(dw),
+                   b, lp, ft, hop, half, t, nsplit, int(need_dxp), int(need_dw),
+                   _cuda.stream(dev))
+    _cuda.check(f, status)
+    ANALYSIS_BWD.launches += 1
+    return dxp, dw
+
+
+def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
+                        dout: torch.Tensor, ft: int, hop: int, need_dw: bool = True):
+    """Kernel E on CUDA tensors, its plain version on CPU tensors:
+    (dmag, dphs (OT, B, half), dw (2*half, ft) or None)."""
+    if _is_cpu(mag):
+        dmag, dphs, dw = fused_synthesis_bwd_reference(mag, phs, w, dout, ft, hop)
+        return dmag, dphs, (dw if need_dw else None)
+    dev = mag.device
+    ot, b, half, out_len = _synthesis_dims(mag, ft, hop)
+    _cuda.require(mag, "mag", (ot, b, half), dev)
+    _cuda.require(phs, "phs", (ot, b, half), dev)
+    _cuda.require(w, "w", (2 * half, ft), dev)
+    _cuda.require(dout, "dout", (b, out_len), dev)
+    nsplit = dw_slices(2 * half, ft, (ot - 2) * -(-b // _DW_KSTEP))
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    dmag, dphs = empty(ot, b, half), empty(ot, b, half)
+    spec = empty(ot * b, 2 * half)
+    dw = empty(2 * half, ft) if need_dw else None
+    partial = empty(nsplit, 2 * half, ft) if need_dw and nsplit > 1 else None
+    f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
+    with torch.cuda.device(dev):
+        status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout),
+                   _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(spec), _cuda.ptr(partial),
+                   _cuda.ptr(dw), b, ot, ft, hop, half, out_len, nsplit, int(need_dw),
+                   _cuda.stream(dev))
+    _cuda.check(f, status)
+    SYNTHESIS_BWD.launches += 1
+    return dmag, dphs, dw
+
+
+# ------------------------------------------------------- autograd Functions
+
+class FusedAnalysis(torch.autograd.Function):
+    """(xp, w) -> (mag, phs): kernel A forward, kernel D backward (their plain
+    versions on CPU tensors). Saves (xp, w) only; D computes the spectrum
+    again."""
+
+    @staticmethod
+    def forward(ctx, xp, w, ft, hop):
+        ctx.save_for_backward(xp, w)
+        ctx.geometry = (ft, hop)
+        return _analysis_fwd(xp, w, ft, hop)
+
+    @staticmethod
+    def backward(ctx, dmag, dphs):
+        xp, w = ctx.saved_tensors
+        ft, hop = ctx.geometry
+        # the cotangents may be expanded or strided views; the kernels take
+        # raw pointers
+        dxp, dw = fused_analysis_bwd(xp, w, dmag.contiguous(), dphs.contiguous(), ft, hop,
+                                     need_dxp=ctx.needs_input_grad[0],
+                                     need_dw=ctx.needs_input_grad[1])
+        return dxp, dw, None, None
+
+
+class FusedSynthesis(torch.autograd.Function):
+    """(mag, phs, w) -> waveform: kernel B forward, kernel E backward (their
+    plain versions on CPU tensors). Saves (mag, phs, w); E computes the
+    spectrum again."""
+
+    @staticmethod
+    def forward(ctx, mag, phs, w, ft, hop):
+        ctx.save_for_backward(mag, phs, w)
+        ctx.geometry = (ft, hop)
+        return _synthesis_fwd(mag, phs, w, ft, hop)
+
+    @staticmethod
+    def backward(ctx, dout):
+        mag, phs, w = ctx.saved_tensors
+        ft, hop = ctx.geometry
+        dmag, dphs, dw = fused_synthesis_bwd(mag, phs, w, dout.contiguous(), ft, hop,
+                                             need_dw=ctx.needs_input_grad[2])
+        return (dmag if ctx.needs_input_grad[0] else None,
+                dphs if ctx.needs_input_grad[1] else None, dw, None, None)
+
+
+def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
+    """Kernel A (backward: kernel D) on CUDA tensors, the plain versions on
+    CPU tensors."""
+    return FusedAnalysis.apply(xp, w, ft, hop)
+
+
+def fused_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
+                    ft: int, hop: int) -> torch.Tensor:
+    """Kernel B (backward: kernel E) on CUDA tensors, the plain versions on
+    CPU tensors."""
+    return FusedSynthesis.apply(mag, phs, w, ft, hop)

@@ -12,8 +12,12 @@ Two paths over the same parameters:
   one matmul against the stacked used rows; one matmul against the
   mirror-folded synthesis rows, overlap-add, trim), batch-major.
 * ``Analysis.mag_phs`` / ``Synthesis.from_mag_phs``: the fused kernels A and
-  B (``ops/cuda_frontend.py``), frame-major (T, B, half) in and out of the
-  autoencoders. On CPU tensors they run the kernels' plain versions.
+  B, with kernels D and E as their backward (``ops/cuda_frontend.py``),
+  frame-major (T, B, half) in and out of the autoencoders. On CPU tensors
+  they run the kernels' plain versions.
+
+Both paths train: the GEMM path by plain autograd, the fused path through the
+backward kernels.
 
 Synthesis folds the conjugate-symmetric mirror into the weights: full
 spectrum channel j in [half, ft) carries bin ft - j with re_full[j] = re[c],

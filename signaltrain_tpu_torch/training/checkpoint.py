@@ -1,4 +1,4 @@
-"""Checkpoint loading, in the reference's .tar schema.
+"""Checkpoint loading and saving, in the reference's .tar schema.
 
 The reference bundles weights and run metadata into one torch.save dict:
 {epoch, state_dict, optimizer, effect_name, knob_names, knob_ranges,
@@ -12,7 +12,26 @@ model carries the reference's state_dict names and layouts, so a checkpoint's
   mpaec.{aenc,phs_aenc}.fnn_*.bias                       (out,)
 
 ``params_to_state_dict`` maps the JAX package's parameter tree (numpy
-leaves) onto those names, so both packages can run the same weights.
+leaves) onto those names and ``state_dict_to_params`` maps back, so both
+packages can run the same weights.
+
+The optimizer state travels in the JAX package's form, so a ``.tar`` written
+by either package resumes in the other: ``optax_state`` is the list of numpy
+leaves of ``optax.adam(schedule).init(params)`` after ``optax_step`` updates,
+in ``jax.tree_util.tree_leaves`` order:
+
+  [count (int32 scalar),
+   first moments  mu, one leaf per parameter,
+   second moments nu, one leaf per parameter,
+   count of the schedule (int32 scalar)]
+
+A dict flattens in sorted key order, so the per-parameter leaves run
+aenc, dft_analysis, dft_synthesis, phs_aenc; inside an autoencoder
+fnn_addknobs, fnn_dec, fnn_dec2, fnn_dec3, fnn_dec4, fnn_enc, fnn_enc2,
+fnn_enc3, fnn_enc4, each as bias then kernel (in, out); inside a front-end
+side w_imag then w_real (ft, ft). ``torch.optim.Adam`` keeps the same
+moments as ``exp_avg`` / ``exp_avg_sq`` per parameter and the same count as
+``step``.
 """
 
 from __future__ import annotations
@@ -50,6 +69,98 @@ def params_to_state_dict(params) -> dict[str, torch.Tensor]:
                 np.asarray(node["bias"], dtype=np.float32).copy()
             )
     return sd
+
+
+def state_dict_to_params(sd) -> dict:
+    """The inverse of ``params_to_state_dict``: a state_dict (tensors or
+    arrays) -> the JAX package's parameter tree with numpy leaves."""
+
+    def arr(key):
+        v = sd[key]
+        v = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        return np.asarray(v, dtype=np.float32)
+
+    p: dict[str, Any] = {}
+    for side, name in (("dft_analysis", "conv_analysis"), ("dft_synthesis", "conv_synthesis")):
+        p[side] = {f"w_{part}": arr(f"mpaec.{side}.{name}_{part}.weight")[:, 0, :].copy()
+                   for part in ("real", "imag")}
+    for ae in ("aenc", "phs_aenc"):
+        p[ae] = {layer: {"kernel": arr(f"mpaec.{ae}.{layer}.weight").T.copy(),
+                         "bias": arr(f"mpaec.{ae}.{layer}.bias").copy()}
+                 for layer in AE_LAYERS}
+    return {"params": p}
+
+
+def _leaves(tree) -> list:
+    """Leaves of a nested dict in sorted-key order (how JAX flattens one)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
+    return [tree]
+
+
+def _unflatten(template, leaves: list):
+    """Rebuild ``template``'s nesting from ``leaves`` (consumed in order)."""
+    if isinstance(template, dict):
+        return {k: _unflatten(template[k], leaves) for k in sorted(template)}
+    return leaves.pop(0)
+
+
+def optimizer_to_optax_leaves(model: torch.nn.Module, optimizer: torch.optim.Adam,
+                              step: int) -> list[np.ndarray]:
+    """Adam's state in the JAX package's ``optax_state`` form (module
+    docstring). A parameter that has not been stepped yet has zero moments."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    moments = {"exp_avg": {}, "exp_avg_sq": {}}
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            for key, sd in moments.items():
+                sd[names[id(p)]] = st[key] if key in st else torch.zeros_like(p)
+    count = np.asarray(step, dtype=np.int32)
+    return [count, *_leaves(state_dict_to_params(moments["exp_avg"])),
+            *_leaves(state_dict_to_params(moments["exp_avg_sq"])), count.copy()]
+
+
+def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leaves: list,
+                      step: int) -> None:
+    """Load ``optax_state`` leaves (module docstring) into Adam's state."""
+    template = state_dict_to_params(model.state_dict())
+    n = len(_leaves(template))
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves, expected {2 * n + 2}")
+    mu = params_to_state_dict(_unflatten(template, list(leaves[1 : 1 + n])))
+    nu = params_to_state_dict(_unflatten(template, list(leaves[1 + n : 1 + 2 * n])))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).contiguous(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).contiguous(),
+        }
+
+
+def save_checkpoint(checkpointname: str, model: torch.nn.Module, effect, epoch: int,
+                    optimizer: torch.optim.Adam | None = None, step: int = 0) -> None:
+    """Write a reference-schema .tar checkpoint of ``model`` (an ``STModel``);
+    with ``optimizer`` also its state, as ``optax_state`` / ``optax_step``."""
+    print(f"\nsaving model to {checkpointname}", end="")
+    spec = model.spec
+    state = {
+        "epoch": epoch + 1,
+        "state_dict": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+        "optimizer": {},  # schema slot; the reference never restores it either
+        "effect_name": effect.name,
+        "knob_names": effect.knob_names,
+        "knob_ranges": np.asarray(effect.knob_ranges),
+        "scale_factor": spec.scale_factor,
+        "shrink_factor": spec.shrink_factor,
+        "in_chunk_size": spec.in_chunk_size,
+        "out_chunk_size": spec.out_chunk_size,
+        "sr": spec.sr,
+    }
+    if optimizer is not None:
+        state["optax_state"] = optimizer_to_optax_leaves(model, optimizer, step)
+        state["optax_step"] = step
+    torch.save(state, checkpointname)
 
 
 def load_checkpoint(checkpointname: str):

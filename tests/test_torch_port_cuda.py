@@ -8,7 +8,11 @@ skip. Run them on a GPU machine without the JAX package's test setup:
 
 Tolerances are those the port's CPU tests hold the plain versions to against
 the JAX package: magnitude 2e-5, wrapped phase 2e-4, synthesis 3e-4,
-smoother 1e-6, model output 1e-3.
+smoother 1e-6, model output 1e-3; gradients 5e-4 + 5e-4*|g| element by
+element, kernel D's dW with well-conditioned phase cotangents included; its
+dW with unit-normal phase cotangents on every bin (heavy-tailed: max|dW| is
+50-1,600 against a median of 0.7-18) and the whole model's gradients (largest
+per leaf 1e-5 to 1e-1) within 1e-3 * max|g| of the leaf, no absolute floor.
 """
 
 import os
@@ -18,6 +22,9 @@ import pytest
 import torch
 
 from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels, frontend
+
+from tests.torch_port_util import (BWD_GEOMS, analysis_bwd_inputs, assert_dw_close,
+                                   regular_phase_cotangent, synthesis_bwd_inputs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 pytestmark = pytest.mark.cuda
@@ -103,9 +110,107 @@ def test_wrappers_check_their_inputs(dev):
         cuda_kernels.switched_one_pole_batched(torch.zeros(2, 8, device=dev),
                                                torch.zeros(3, device=dev),
                                                torch.zeros(3, device=dev))
-    wr = torch.zeros(64, 66, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError):
-        cuda_frontend.fused_analysis(x, wr, 64, 24)
+    with pytest.raises(ValueError):
+        cuda_frontend.fused_analysis_bwd(x, w, torch.zeros(6, 2, 33, device=dev).transpose(0, 1),
+                                         torch.zeros(6, 2, 33, device=dev), 64, 24)
+
+
+TRAIN_GEOM = (1024, 384, 8192, 200)  # the training shapes: flagship, batch 200
+
+
+@pytest.mark.parametrize("cot", ["full", "regular"])
+@pytest.mark.parametrize("ft,hop,chunk,b", BWD_GEOMS + [TRAIN_GEOM])
+def test_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
+    inp = analysis_bwd_inputs(ft, hop, chunk, b)
+    if cot == "regular":
+        inp["c"] = regular_phase_cotangent(inp, ft, hop)
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
+    half = ft // 2 + 1
+    xp = torch.nn.functional.pad(inp["x"], (ft, ft))
+    w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
+    before = cuda_frontend.ANALYSIS_BWD.launches
+    dxp, dw = cuda_frontend.fused_analysis_bwd(xp, w, inp["a"], inp["c"], ft, hop)
+    dxp2, dw2 = cuda_frontend.fused_analysis_bwd(xp, w, inp["a"], inp["c"], ft, hop)
+    assert cuda_frontend.ANALYSIS_BWD.launches == before + 2
+    rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(xp, w, inp["a"], inp["c"], ft, hop)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2) and torch.equal(dxp, dxp2)  # no atomics: bit-equal
+    if cot == "regular":  # every element of both, dxp on the padding included
+        torch.testing.assert_close(dxp, rdxp, atol=5e-4, rtol=5e-4)
+        torch.testing.assert_close(dw, rdw, atol=5e-4, rtol=5e-4)
+    else:
+        # dx on the unpadded signal: the padding's part of dxp carries the
+        # near-singular phase adjoint of the all-zero frames
+        torch.testing.assert_close(dxp[:, ft:-ft], rdxp[:, ft:-ft], atol=5e-4, rtol=5e-4)
+        assert_dw_close(dw.cpu(), rdw.cpu())
+    only_dw = cuda_frontend.fused_analysis_bwd(xp, w, inp["a"], inp["c"], ft, hop, need_dxp=False)
+    assert only_dw[0] is None and torch.equal(only_dw[1], dw)
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", BWD_GEOMS + [TRAIN_GEOM])
+def test_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in synthesis_bwd_inputs(ft, hop, b).items()}
+    half = ft // 2 + 1
+    w = cuda_frontend.stack_synthesis_weights(
+        *frontend.fold_synthesis_weights(inp["wr"], inp["wi"], half))
+    args = (inp["mag"], inp["phs"], w, inp["a"], ft, hop)
+    got = cuda_frontend.fused_synthesis_bwd(*args)
+    again = cuda_frontend.fused_synthesis_bwd(*args)
+    want = cuda_frontend.fused_synthesis_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for g, g2, r in zip(got, again, want):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
+    for g in got[:2]:  # frames wholly inside the trimmed margin
+        assert torch.all(g[0] == 0) and torch.all(g[-1] == 0)
+
+
+def test_functions_backward_through_the_kernels(dev):
+    """autograd through fused_analysis / fused_synthesis on the card runs D
+    and E, takes strided cotangents, and skips dxp when x needs no gradient."""
+    ft, hop, chunk, b = BWD_GEOMS[0]
+    half = ft // 2 + 1
+    ia = {k: torch.from_numpy(v).to(dev) for k, v in analysis_bwd_inputs(ft, hop, chunk, b).items()}
+    xp = torch.nn.functional.pad(ia["x"], (ft, ft))
+    wr = ia["wr"].clone().requires_grad_()
+    wi = ia["wi"].clone().requires_grad_()
+    _cuda.reset_counts()
+    mag, phs = cuda_frontend.fused_analysis(
+        xp, cuda_frontend.stack_analysis_weights(wr, wi, half), ft, hop)
+    # an expanded cotangent for mag, a strided one for phs
+    loss = mag.sum() + (phs.transpose(0, 1) * ia["c"].transpose(0, 1)).sum()
+    loss.backward()
+    assert cuda_frontend.ANALYSIS_BWD.launches == 1 and cuda_frontend.ANALYSIS_BWD.plain_calls == 0
+    _, rdw = cuda_frontend.fused_analysis_bwd_reference(
+        xp, cuda_frontend.stack_analysis_weights(wr, wi, half).detach(),
+        torch.ones_like(mag), ia["c"], ft, hop)
+    assert_dw_close(wr.grad[:half].t().cpu(), rdw[:, :half].cpu())
+    assert_dw_close(wi.grad[:half].t().cpu(), rdw[:, half:].cpu())
+    assert torch.all(wr.grad[half:] == 0) and torch.all(wi.grad[half:] == 0)
+
+
+def test_train_step_fused_matches_gemm_on_card(dev):
+    """One train step's loss and gradients through the kernels (fused) and
+    through plain autograd (gemm), flagship geometry, batch 8."""
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    spec = compute_spec()
+    fused = STModel(spec, frontend="fused", device=dev, generator=torch.Generator().manual_seed(1))
+    gemm = STModel(spec, frontend="gemm", device=dev, generator=torch.Generator().manual_seed(1))
+    gemm.load_state_dict(fused.state_dict())
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, spec.in_chunk_size, generator=g, device=dev) * 0.3
+    y = torch.randn(8, spec.out_chunk_size, generator=g, device=dev) * 0.3
+    knobs = torch.rand(8, 4, generator=g, device=dev) - 0.5
+    _cuda.reset_counts()
+    lf = train_mod.loss_and_grads(fused, x, y, knobs)
+    lg = train_mod.loss_and_grads(gemm, x, y, knobs)
+    for c in ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd"):
+        assert _cuda.COUNTERS[c].launches == 1 and _cuda.COUNTERS[c].plain_calls == 0, c
+    torch.testing.assert_close(lf, lg, rtol=1e-5, atol=0)
+    for (name, pf_), (_, pg) in zip(fused.named_parameters(), gemm.named_parameters()):
+        assert_dw_close(pf_.grad.cpu(), pg.grad.cpu(), name)
 
 
 def test_model_fused_matches_gemm_on_card(dev):

@@ -56,7 +56,7 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    assert int(out.stdout.strip()) >= 31
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
@@ -73,6 +73,20 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
             call()
     st_model(device="cpu")
     effects.Compressor_4c(device="cpu")
+
+
+def test_training_entry_points_need_cuda_or_an_explicit_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-CUDA error cannot be shown here")
+    from signaltrain_tpu_torch.cli import run_train
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.training.train import train
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(effects.Compressor_4c(device="cpu"), epochs=1, n_data_points=8, batch_size=8)
+    with pytest.raises(SystemExit) as e:  # the CLI's default device is the card too
+        run_train.main(["--epochs", "1", "-n", "8", "-b", "8"])
+    assert e.value.code == 1 and "device='cpu'" in capsys.readouterr().out
 
 
 def test_every_port_directory_is_a_discovered_package():

@@ -26,16 +26,13 @@ from signaltrain_tpu.utils.load_model import load_model as jload_model
 from signaltrain_tpu_torch.dsp import synths
 from signaltrain_tpu_torch.models import autoencoder, st_model
 from signaltrain_tpu_torch.ops import _cuda, cuda_frontend
-from signaltrain_tpu_torch.training import checkpoint
 from signaltrain_tpu_torch.utils.load_model import load_model
-from tests.torch_port_util import n, t
+from tests.torch_port_util import jax_params as _jax_params
+from tests.torch_port_util import model_inputs as _inputs
+from tests.torch_port_util import n, port_model as _port_model, t, tiny_spec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TINY = jst.ModelSpec(
-    scale_factor=512 / 8192.0, shrink_factor=4.0, num_knobs=4, sr=44100,
-    in_chunk_size=512, out_chunk_size=128, ft_size=64, hop_size=24,
-    time_frames=25, output_time_frames=9,
-)
+TINY = tiny_spec()
 
 
 @pytest.mark.parametrize("args", [
@@ -53,32 +50,6 @@ def test_compute_spec_matches_jax(args, capsys):
 
 def dataclasses_dict(spec):
     return dataclasses.asdict(spec)
-
-
-def _jax_params(spec, seed):
-    jm = jst.STModel(spec)
-    params = jax.device_get(jm.init(jax.random.PRNGKey(seed)))
-    rng = np.random.default_rng(seed)
-    p = params["params"]
-    for side in ("dft_analysis", "dft_synthesis"):
-        for k in ("w_real", "w_imag"):
-            w = np.asarray(p[side][k])
-            p[side][k] = (w + rng.normal(size=w.shape) * 0.3 * np.abs(w).mean()).astype(np.float32)
-    return jm, jax.tree_util.tree_map(jnp.asarray, params)
-
-
-def _port_model(spec, params, frontend):
-    m = st_model.STModel(st_model.ModelSpec(**dataclasses_dict(spec)), frontend=frontend,
-                         device="cpu")
-    m.load_state_dict(checkpoint.params_to_state_dict(params), strict=True)
-    return m.eval()
-
-
-def _inputs(spec, b, seed):
-    rng = np.random.default_rng(seed)
-    x = (rng.normal(size=(b, spec.in_chunk_size)) * 0.4).astype(np.float32)
-    knobs = rng.uniform(-0.5, 0.5, size=(b, spec.num_knobs)).astype(np.float32)
-    return x, knobs
 
 
 @pytest.mark.parametrize("size", ["tiny", "flagship"])
