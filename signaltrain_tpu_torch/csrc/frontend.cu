@@ -9,159 +9,52 @@
 // fused_synthesis_reference in signaltrain_tpu_torch/ops/cuda_frontend.py.
 // Their backward kernels (D, E) are in frontend_bwd.cu.
 //
-// What bounds them on an H100: both are f32 GEMMs with fused prologues and
-// epilogues. The serving path is f32 and TF32 would miss the tolerances
-// (magnitude 2e-5), so the tensor cores are out and the bound is the f32
-// CUDA-core rate (67 TFLOP/s): at the flagship geometry A does
+// What bounds them on an H100: both are f32-accurate matrix products with
+// fused prologues and epilogues. At the flagship geometry A does
 // 2*25*1024*1026 flops per window against ~0.35 MB of its own traffic,
-// B 2*1026*5376 flops against ~0.05 MB. So both are bound by operations.
-// The design answer here is a register-tiled SIMT GEMM: shared-memory tiles,
-// every thread holding a block of accumulators, and the bytes that the XLA
-// formulation sends through HBM (the framed signal, the spectrum, the
-// untrimmed frames) never leave the SM:
-//   A folds the framing into its loads (frame t of window b is the row of xp
-//     at offset t*hop) and the magnitude/phase into its epilogue; each thread
-//     keeps the re and im accumulators of the same bins together, so the
-//     thread that finishes bin k has both.
-//   B builds mag*cos(phs) and mag*sin(phs) as it stages the spectrum tile,
+// B 2*1026*5376 flops against ~0.05 MB. So both are bound by operations, and
+// the bytes that the XLA formulation sends through HBM (the framed signal,
+// the spectrum, the untrimmed frames) never leave the SM.
+//   A runs its product on the tensor cores: the split-TF32 main loop of
+//     tc_product.cuh (three TF32 mma products per f32 product, as accurate as
+//     an f32 one, so the 2e-5 magnitude tolerance holds), fed by a cp.async
+//     ring of shared-memory stages. Its bound is 165 TFLOP/s of f32-accurate
+//     work. Framing is folded into the loads (frame t of window b is the row
+//     of xp at offset t*hop) and the magnitude/phase into the epilogue: re and
+//     im of a bin are neighbouring columns of the repacked weights, so the
+//     thread that finishes bin k holds both. Kernel D's first product is the
+//     same code, so it finds the spectrum A found, bit for bit.
+//   B is a register-tiled SIMT product on the CUDA cores (bound: 67 TFLOP/s).
+//     It builds mag*cos(phs) and mag*sin(phs) as it stages the spectrum tile,
 //     and writes the overlap-add as a gather: output sample m only sums the
 //     frames t with t*hop <= m < t*hop+ft, so every output is owned by one
 //     thread, the result is deterministic and no atomics are needed. Only the
 //     trimmed output is computed.
-// Faster versions (wgmma with split-f32 operands, TMA, warp specialisation)
-// are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_product.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------- A
-// One block: 128 frame rows x 64 bins (re and im of each), K step 16.
-// 256 threads as 16 x 16; thread (tx, ty) owns rows ty*8+i (i < 8) and bins
-// tx*4+j (j < 4): 64 accumulators, read from shared memory as float4s. The
-// next K step's operands are loaded into registers while this one's
-// products run, so the global loads' latency hides behind the FMAs.
-constexpr int AN_BM = 128;
-constexpr int AN_BN = 64;
-constexpr int AN_BK = 16;
-constexpr int AN_TM = 8;
-constexpr int AN_TN = 4;
-constexpr int AN_LDA = AN_BM + 4;  // padded row, still 16-byte aligned
-
-__global__ void __launch_bounds__(256) analysis_fwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ w,
-    float* __restrict__ mag, float* __restrict__ phs,
-    int batch, int lp, int ft, int hop, int half, int frames) {
-  __shared__ __align__(16) float as[AN_BK][AN_LDA];  // frame tile, k-major
-  __shared__ __align__(16) float wr[AN_BK][AN_BN];
-  __shared__ __align__(16) float wi[AN_BK][AN_BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int64_t rows = (int64_t)frames * batch;  // row r = t*batch + b (frame-major output)
-  const int64_t row0 = (int64_t)blockIdx.x * AN_BM;
-  const int bin0 = blockIdx.y * AN_BN;
-  const int ldw = 2 * half;
-
-  // loads: this thread fetches column a_k of frame rows tid/16 + 16*e, and
-  // W elements tid + 256*e of the 16 x 64 re and im tiles
-  const int a_k = tid % AN_BK;
-  const float* a_src[AN_TM];
-  bool a_ok[AN_TM];
-#pragma unroll
-  for (int e = 0; e < AN_TM; ++e) {
-    const int64_t r = row0 + tid / AN_BK + 16 * e;
-    a_ok[e] = r < rows;
-    const int64_t t = a_ok[e] ? r / batch : 0;
-    const int64_t b = a_ok[e] ? r % batch : 0;
-    a_src[e] = xp + b * lp + t * hop;  // framing folded into the load address
+// The spectrum product of tc_product.cuh; a finished (re, im) pair becomes
+// the magnitude with the 1e-36 floor (edge frames give exactly 1e-18) and the
+// phase atan2(im, re + 1e-7) (edge frames give exactly 0).
+struct AnalysisFwd : tc::Spectrum {
+  float* mag;
+  float* phs;
+  __device__ void pair(int r, int n, float re2, float im2, int) const {
+    const int bin = n >> 1;
+    if (r >= frames * batch || bin >= half) return;
+    const float re = 0.5f * re2;  // the model's x/2
+    const float im = 0.5f * im2;
+    mag[(int64_t)r * half + bin] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
+    phs[(int64_t)r * half + bin] = atan2f(im, re + 1e-7f);
   }
-  float a_reg[AN_TM], wr_reg[4], wi_reg[4];
-  auto fetch = [&](int k0) {
-    const int k = k0 + a_k;
-#pragma unroll
-    for (int e = 0; e < AN_TM; ++e) a_reg[e] = (a_ok[e] && k < ft) ? a_src[e][k] : 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + 256 * e;
-      const int kg = k0 + idx / AN_BN;
-      const int bin = bin0 + idx % AN_BN;
-      const bool ok = kg < ft && bin < half;
-      wr_reg[e] = ok ? w[(int64_t)kg * ldw + bin] : 0.f;
-      wi_reg[e] = ok ? w[(int64_t)kg * ldw + half + bin] : 0.f;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int e = 0; e < AN_TM; ++e) as[a_k][tid / AN_BK + 16 * e] = a_reg[e] * 0.5f;  // the x/2
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int idx = tid + 256 * e;
-      wr[idx / AN_BN][idx % AN_BN] = wr_reg[e];
-      wi[idx / AN_BN][idx % AN_BN] = wi_reg[e];
-    }
-  };
-
-  float acc_re[AN_TM][AN_TN];
-  float acc_im[AN_TM][AN_TN];
-#pragma unroll
-  for (int i = 0; i < AN_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < AN_TN; ++j) {
-      acc_re[i][j] = 0.f;
-      acc_im[i][j] = 0.f;
-    }
-
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int k0 = 0; k0 < ft; k0 += AN_BK) {
-    const bool more = k0 + AN_BK < ft;
-    if (more) fetch(k0 + AN_BK);
-#pragma unroll
-    for (int kk = 0; kk < AN_BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[kk][ty * AN_TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[kk][ty * AN_TM + 4]);
-      const float4 r4 = *reinterpret_cast<const float4*>(&wr[kk][tx * AN_TN]);
-      const float4 i4 = *reinterpret_cast<const float4*>(&wi[kk][tx * AN_TN]);
-      const float a[AN_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[AN_TN] = {r4.x, r4.y, r4.z, r4.w};
-      const float bi[AN_TN] = {i4.x, i4.y, i4.z, i4.w};
-#pragma unroll
-      for (int i = 0; i < AN_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < AN_TN; ++j) {
-          acc_re[i][j] = fmaf(a[i], br[j], acc_re[i][j]);
-          acc_im[i][j] = fmaf(a[i], bi[j], acc_im[i][j]);
-        }
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-
-  // epilogue: magnitude with the 1e-36 floor (edge frames give exactly
-  // 1e-18) and phase atan2(im, re + 1e-7) (edge frames give exactly 0)
-#pragma unroll
-  for (int i = 0; i < AN_TM; ++i) {
-    const int64_t r = row0 + ty * AN_TM + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < AN_TN; ++j) {
-      const int bin = bin0 + tx * AN_TN + j;
-      if (bin >= half) continue;
-      const float re = acc_re[i][j];
-      const float im = acc_im[i][j];
-      mag[r * half + bin] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
-      phs[r * half + bin] = atan2f(im, re + 1e-7f);
-    }
-  }
-}
+};
 
 // ---------------------------------------------------------------- B
 // One block: 64 batch rows x 128 trimmed output samples, K step 16 over the
@@ -296,16 +189,36 @@ extern "C" {
 const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half) stacked analysis
-// weights; mag, phs (frames, batch, half) with frames = (lp - ft)/hop + 1.
-int st_analysis_fwd(const void* xp, const void* w, void* mag, void* phs,
-                    int batch, int lp, int ft, int hop, int half, int frames,
+// weights; wp scratch (ft, 2*half rounded up to a multiple of 4); mag, phs
+// (frames, batch, half) with frames = (lp - ft)/hop + 1. vec is 4 when hop,
+// lp, ft and the pointers allow 16-byte copies, else 1.
+int st_analysis_fwd(const void* xp, const void* w, void* wp, void* mag, void* phs,
+                    int batch, int lp, int ft, int hop, int half, int frames, int vec,
                     void* stream) {
-  const int64_t rows = (int64_t)frames * batch;
-  dim3 grid((unsigned)((rows + AN_BM - 1) / AN_BM), (unsigned)((half + AN_BN - 1) / AN_BN));
-  analysis_fwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)xp, (const float*)w, (float*)mag, (float*)phs,
-      batch, lp, ft, hop, half, frames);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = tc::pack((const float*)w, (float*)wp, ft, half, s);
+  if (err) return err;
+  AnalysisFwd p;
+  p.xp = (const float*)xp;
+  p.wp = (const float*)wp;
+  p.batch = batch, p.lp = lp, p.ft = ft, p.hop = hop, p.half = half, p.frames = frames;
+  p.ldc = tc::packed_width(half);
+  p.mag = (float*)mag;
+  p.phs = (float*)phs;
+  return tc::launch(p, (int64_t)frames * batch, p.ldc, 1, vec, s);
+}
+
+// How many blocks of kernel A's product (16-byte loader) fit one SM at once,
+// by the runtime's occupancy calculation; for reports.
+int st_analysis_blocks_per_sm(void) {
+  int blocks = 0;
+  void (*kernel)(const AnalysisFwd, int, int) = tc::product<AnalysisFwd, 4>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tc::THREADS,
+                                                    tc::SMEM_BYTES) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 // mag, phs (out_frames, batch, half) frame-major; w (2*half, ft) stacked

@@ -21,39 +21,52 @@
 //   dw[c, j] = sum over (t, b) of spec[t, b, c] * dframe[t, b, j],
 // with spec = (mag*cos, mag*sin).
 //
-// What bounds them on an H100: five f32 matrix products with fused prologues
-// and epilogues (D three of 2*B*T*ft*2*half flops, E two over the frame
-// samples that reach the trimmed output), against a few tens of MB of
-// traffic. Training is f32 and the gradients are held to 5e-4, so like the
-// forward kernels they run on the CUDA cores and are bound by operations.
+// What bounds them on an H100: five f32-accurate matrix products with fused
+// prologues and epilogues (D three of 2*B*T*ft*2*half flops, E two over the
+// frame samples that reach the trimmed output), against a few tens of MB of
+// traffic: operations, not bytes. dspec's trip through device memory between
+// D's products (20.5 MB at batch 200, written once and read twice) is ~18 us
+// at 3.35 TB/s, a few percent of D; the product rate is what counts.
 //
-// The design. One register-tiled SIMT product (128 x 64 tile, K step 16, 256
-// threads, 8 x 4 accumulators a thread, the next step's operands fetched into
-// registers while this step's products run) is instantiated five times; each
-// instance supplies how an operand element is addressed and what happens to
-// the finished tile:
-//   * framing stays an address offset (xp + b*lp + t*hop + j), the padding of
-//     dout a bounds check: no (B, T, ft) tensor and no padded copy exists;
-//   * the overlap-add of dxp is a gather, as in kernel B: sample n is owned by
-//     one thread, which walks the <= ceil(ft/hop) frames that cover it;
-//   * the TPU kernels add each grid step's dW into one buffer, serially. Here
-//     blocks run in parallel, so every dW tile is owned by one block per K
-//     slice: the (t, b) rows are cut into `nsplit` contiguous slices, each
-//     block writes its partial tile to scratch, and a second kernel adds the
-//     slices in a fixed order. No atomics, so dW is bit-equal from run to run;
-//   * re and im of a bin sit in neighbouring virtual columns (2*bin,
-//     2*bin + 1), so the thread that finishes a bin holds both for the
-//     magnitude / phase adjoints;
-//   * E skips what is zero by construction: a frame's samples outside the
-//     trimmed output (frames 0 and OT-1 entirely) take no K steps, and their
-//     dmag / dphs come out as exact zeros;
-//   * every load that feeds dW is bounds-checked to an exact 0.
-// dspec (and E's spec) pass through device memory between the products
-// (B*T*2*half floats); tensor cores, TMA and fusing those away are later work.
+// The design of D: its three products run on the tensor cores through the
+// split-TF32 main loop of tc_product.cuh (as accurate as f32, bound 165
+// TFLOP/s of f32-accurate work, cp.async ring, 128 x 128 tiles); each
+// instance only says how an operand element is addressed and what happens to
+// a finished pair of columns:
+//   * the first product is kernel A's (tc::Spectrum, the same code, so the
+//     spectrum is A's bit for bit and `sq >= 1e-36` decides as the forward
+//     did); re and im of a bin are neighbouring columns, so one thread holds
+//     both for the magnitude / phase adjoints. dspec is written in that
+//     interleaved order, (rows, ldc) with ldc = 2*half rounded up to a
+//     multiple of 4 and zeros in the padding columns, so that every later
+//     16-byte copy of it is aligned;
+//   * framing of the input stays an address offset (xp + b*lp + t*hop + j):
+//     no framed copy of xp exists;
+//   * dxp comes from the gradient of every frame, dframes = dspec . w^T, one
+//     plain product, and an overlap-add written as a gather: a sample is owned
+//     by one thread, which adds the frames that cover it in order. dframes
+//     (B*T, ft) exists only when dxp is asked for (training does not);
+//   * dW sums over all (t, b) rows as one flat K. The TPU kernel adds each
+//     grid step's dW into one buffer, serially. Here every dW tile is owned by
+//     one block per K slice: the rows are cut into `nsplit` contiguous slices
+//     (as many as keep all blocks on the card at once), each block writes its
+//     partial tile to scratch, and a second kernel adds the slices in a fixed
+//     order and undoes the interleave. No atomics, so dW is bit-equal from
+//     run to run;
+//   * every load is bounds-checked to an exact 0 (cp.async zero fill).
+// The design of E: one register-tiled SIMT product on the CUDA cores (128 x 64
+// tile, K step 16, 256 threads, 8 x 4 accumulators a thread, the next step's
+// operands fetched into registers while this step's products run),
+// instantiated twice. E skips what is zero by construction: a frame's samples
+// outside the trimmed output (frames 0 and OT-1 entirely) take no K steps, and
+// their dmag / dphs come out as exact zeros; its dW is cut into K slices as
+// D's. E's spectrum passes through device memory between its products.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tc_product.cuh"
 
 namespace {
 
@@ -172,7 +185,6 @@ __global__ void __launch_bounds__(THREADS, 2) tiled_product(const P p) {
   p.epilogue(m0 + ty * TM, n0 + tx * TN, acc, z);
 }
 
-struct Nothing {};
 struct KStep {
   int k0;
 };
@@ -182,182 +194,152 @@ struct FrameStep {  // one frame t, and 16 batch rows or 16 spectrum channels of
 };
 
 // ------------------------------------------------------------------ D, part 1
-// spec = (xp framed, halved) @ w again, then (dmag, dphs) -> dspec.
-// Rows r = t*batch + b; virtual column 2*bin + part (part 0 re, 1 im).
-struct AnalysisDspec {
-  static constexpr bool A_KFAST = true;
-  static constexpr bool B_KFAST = false;
-  const float* xp;
-  const float* w;
+// The spectrum again (tc::Spectrum), then (dmag, dphs) -> dspec, interleaved.
+struct AnalysisDspec : tc::Spectrum {
   const float* dmag;
   const float* dphs;
   float* dspec;
-  int batch, lp, ft, hop, half, frames;
-  using Tile = Nothing;
-  using Step = KStep;
-  struct RowA {
-    const float* src;
-    bool ok;
-  };
-  struct ColB {
-    const float* src;
-    bool ok;
-  };
-  __device__ int begin_tile(Tile&, int, int) const { return (ft + BK - 1) / BK; }
-  __device__ RowA row_a(const Tile&, int r) const {
-    const bool ok = r < frames * batch;
-    const int t = ok ? r / batch : 0;
-    const int b = ok ? r % batch : 0;
-    return {xp + (int64_t)b * lp + (int64_t)t * hop, ok};
-  }
-  __device__ ColB col_b(const Tile&, int n) const {
+  __device__ void pair(int r, int n, float re2, float im2, int) const {
+    if (r >= frames * batch || n >= ldc) return;
+    float2 d = make_float2(0.f, 0.f);  // the padding columns stay zero
     const int bin = n >> 1;
-    const bool ok = bin < half;
-    return {w + (n & 1) * half + (ok ? bin : 0), ok};
-  }
-  __device__ void begin_step(const Tile&, int step, Step& st) const { st.k0 = step * BK; }
-  __device__ float load_a(const RowA& r, const Step& st, int kk) const {
-    const int k = st.k0 + kk;
-    return (r.ok && k < ft) ? r.src[k] * 0.5f : 0.f;  // the model's x/2
-  }
-  __device__ float load_b(const ColB& c, const Step& st, int kk) const {
-    const int k = st.k0 + kk;
-    return (c.ok && k < ft) ? c.src[(int64_t)k * 2 * half] : 0.f;
-  }
-  __device__ void epilogue(int m, int n, const float (&acc)[TM][TN], int) const {
-    const int64_t rows = (int64_t)frames * batch;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t r = m + i;
-      if (r >= rows) continue;
-#pragma unroll
-      for (int q = 0; q < TN / 2; ++q) {
-        const int bin = n / 2 + q;
-        if (bin >= half) continue;
-        const float re = acc[i][2 * q];
-        const float im = acc[i][2 * q + 1];
-        const float dm = dmag[r * half + bin];
-        const float dp = dphs[r * half + bin];
-        // mag = sqrt(max(sq, 1e-36)): no gradient under the floor
-        const float sq = re * re + im * im;
-        const float gm = sq >= 1e-36f ? dm / sqrtf(fmaxf(sq, 1e-36f)) : 0.f;
-        // phs = atan2(im, re + 1e-7)
-        const float rr = re + 1e-7f;
-        const float den = rr * rr + im * im;
-        dspec[r * 2 * half + bin] = gm * re - dp * im / den;
-        dspec[r * 2 * half + half + bin] = gm * im + dp * rr / den;
-      }
+    if (bin < half) {
+      const float re = 0.5f * re2;  // the model's x/2
+      const float im = 0.5f * im2;
+      const float dm = dmag[(int64_t)r * half + bin];
+      const float dp = dphs[(int64_t)r * half + bin];
+      // mag = sqrt(max(sq, 1e-36)): no gradient under the floor
+      const float sq = re * re + im * im;
+      const float gm = sq >= 1e-36f ? dm / sqrtf(fmaxf(sq, 1e-36f)) : 0.f;
+      // phs = atan2(im, re + 1e-7)
+      const float rr = re + 1e-7f;
+      const float den = rr * rr + im * im;
+      d.x = gm * re - dp * im / den;
+      d.y = gm * im + dp * rr / den;
     }
+    *reinterpret_cast<float2*>(dspec + (int64_t)r * ldc + n) = d;
   }
 };
 
 // ------------------------------------------------------------------ D, part 2
-// dxp[b, n] = 0.5 * sum over frames t covering n, channels c of
-// dspec[t, b, c] * w[n - t*hop, c]. K runs over (t, c).
-struct AnalysisDx {
+// dframes[r, j] = sum over channels c of dspec[r, c] * wp[j, c]: the gradient
+// of every frame, both operands contiguous along c. dxp is its overlap-add,
+// taken as a gather by a second kernel: sample n of window b is owned by one
+// thread, which adds the <= ceil(ft/hop) frames that cover it, in order. (One
+// product whose K runs over the covering frames too would spare dframes' trip
+// through device memory, ~20 MB at batch 200 or ~10 us, but a 128-sample tile
+// is covered by 3 frames where a sample is covered by 2.67, and 200 windows
+// fill 2 tiles of 128 rows by 78%: it did 58% more work and took 0.47 ms
+// against 0.29.)
+struct AnalysisDframes {
   static constexpr bool A_KFAST = true;
   static constexpr bool B_KFAST = true;
   const float* dspec;
-  const float* w;
-  float* dxp;
-  int batch, lp, ft, hop, half, frames;
-  struct Tile {
-    int t_lo;
-    int nck;
+  const float* wp;
+  float* dframes;
+  int rows, ft, ldc;
+  struct Tile {};
+  struct Step {
+    int c0;
   };
-  using Step = FrameStep;
-  struct RowA {
-    int b;
-    bool ok;
-  };
-  struct ColB {
-    int n;
-  };
-  __device__ int begin_tile(Tile& tile, int, int n0) const {
-    // frames with t*hop <= n0 + BN - 1 and t*hop + ft > n0
-    tile.t_lo = n0 >= ft ? (n0 - ft) / hop + 1 : 0;
-    int t_hi = (n0 + BN - 1) / hop;
-    if (t_hi > frames - 1) t_hi = frames - 1;
-    tile.nck = (2 * half + BK - 1) / BK;
-    return t_hi >= tile.t_lo ? (t_hi - tile.t_lo + 1) * tile.nck : 0;
+  __device__ int begin_tile(Tile&, int, int) const { return (ldc + tc::BK - 1) / tc::BK; }
+  __device__ int row_a(const Tile&, int r) const { return r < rows ? r * ldc : -1; }
+  __device__ int col_b(const Tile&, int j) const { return j < ft ? j * ldc : -1; }
+  __device__ void begin_step(const Tile&, int step, Step& st) const { st.c0 = step * tc::BK; }
+  __device__ const float* src_a(int row, const Step& st, int kk, int& n) const {
+    n = row < 0 ? 0 : ldc - st.c0 - kk;
+    return dspec + row + st.c0 + kk;
   }
-  __device__ RowA row_a(const Tile&, int m) const { return {m, m < batch}; }
-  __device__ ColB col_b(const Tile&, int n) const { return {n}; }
-  __device__ void begin_step(const Tile& tile, int step, Step& st) const {
-    st.t = tile.t_lo + step / tile.nck;
-    st.k0 = (step % tile.nck) * BK;
+  __device__ const float* src_b(int col, const Step& st, int kk, int& n) const {
+    n = col < 0 ? 0 : ldc - st.c0 - kk;
+    return wp + col + st.c0 + kk;
   }
-  __device__ float load_a(const RowA& r, const Step& st, int kk) const {
-    const int c = st.k0 + kk;
-    return (r.ok && c < 2 * half) ? dspec[((int64_t)st.t * batch + r.b) * 2 * half + c] : 0.f;
-  }
-  __device__ float load_b(const ColB& col, const Step& st, int kk) const {
-    const int c = st.k0 + kk;
-    const int j = col.n - st.t * hop;
-    return (j >= 0 && j < ft && c < 2 * half) ? w[(int64_t)j * 2 * half + c] : 0.f;
-  }
-  __device__ void epilogue(int m, int n, const float (&acc)[TM][TN], int) const {
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (m + i >= batch) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (n + j < lp) dxp[(int64_t)(m + i) * lp + n + j] = 0.5f * acc[i][j];  // chain of the x/2
-    }
+  __device__ const float* base_a() const { return dspec; }
+  __device__ const float* base_b() const { return wp; }
+  __device__ void pair(int r, int j, float v0, float v1, int) const {
+    if (r >= rows) return;
+    float* dst = dframes + (int64_t)r * ft + j;
+    if (j < ft) dst[0] = v0;
+    if (j + 1 < ft) dst[1] = v1;
   }
 };
 
+// dxp[b, n] = 0.5 * sum over the frames t covering n of dframes[t*batch + b, n - t*hop]
+// (the 0.5 is the chain of the model's x/2); 0 past the last frame.
+__global__ void overlap_add_dx(const float* __restrict__ dframes, float* __restrict__ dxp,
+                               int batch, int lp, int ft, int hop, int frames) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)batch * lp) return;
+  const int b = (int)(i / lp), n = (int)(i % lp);
+  const int t_lo = n >= ft ? (n - ft) / hop + 1 : 0;
+  const int t_hi = n / hop < frames - 1 ? n / hop : frames - 1;
+  float s = 0.f;
+  for (int t = t_lo; t <= t_hi; ++t) s += dframes[((int64_t)t * batch + b) * ft + n - t * hop];
+  dxp[i] = 0.5f * s;
+}
+
 // ------------------------------------------------------------------ D, part 3
-// dw[j, c] = sum over (t, b) of 0.5*xp[b, t*hop + j] * dspec[t, b, c].
-// K runs over frames, and within a frame over the batch in steps of 16.
+// partial[z][j, c] = sum over the rows r = t*batch + b of slice z of
+// xp[b, t*hop + j] * dspec[r, c] (c interleaved; the x/2 is applied by the
+// second pass). K is the flat row index.
 struct AnalysisDw {
   static constexpr bool A_KFAST = false;
   static constexpr bool B_KFAST = false;
   const float* xp;
   const float* dspec;
-  float* out;  // dw, or nsplit partial copies of it
-  int batch, lp, ft, hop, half, frames;
-  struct Tile {
-    int nbt;
+  float* partial;
+  int batch, lp, ft, hop, frames, ldc;
+  struct Tile {};
+  struct Step {
+    int r0;  // first row of the step, = t0 * batch + b0
+    int t0;
+    int b0;
   };
-  using Step = FrameStep;
-  struct RowA {
-    int j;
-    bool ok;
-  };
-  struct ColB {
-    int c;
-    bool ok;
-  };
-  __device__ int begin_tile(Tile& tile, int, int) const {
-    tile.nbt = (batch + BK - 1) / BK;
-    return frames * tile.nbt;
+  __device__ int begin_tile(Tile&, int, int) const {
+    return (frames * batch + tc::BK - 1) / tc::BK;
   }
-  __device__ RowA row_a(const Tile&, int m) const { return {m, m < ft}; }
-  __device__ ColB col_b(const Tile&, int n) const { return {n, n < 2 * half}; }
-  __device__ void begin_step(const Tile& tile, int step, Step& st) const {
-    st.t = step / tile.nbt;
-    st.k0 = (step % tile.nbt) * BK;
+  __device__ int row_a(const Tile&, int j) const { return j; }
+  __device__ int col_b(const Tile&, int c) const { return c; }
+  __device__ void begin_step(const Tile&, int step, Step& st) const {
+    st.r0 = step * tc::BK;
+    st.t0 = st.r0 / batch;  // the step's one division
+    st.b0 = st.r0 - st.t0 * batch;
   }
-  __device__ float load_a(const RowA& r, const Step& st, int kk) const {
-    const int b = st.k0 + kk;
-    return (r.ok && b < batch) ? 0.5f * xp[(int64_t)b * lp + (int64_t)st.t * hop + r.j] : 0.f;
-  }
-  __device__ float load_b(const ColB& col, const Step& st, int kk) const {
-    const int b = st.k0 + kk;
-    return (col.ok && b < batch) ? dspec[((int64_t)st.t * batch + b) * 2 * half + col.c] : 0.f;
-  }
-  __device__ void epilogue(int m, int n, const float (&acc)[TM][TN], int z) const {
-    float* dst = out + (int64_t)z * ft * 2 * half;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      if (m + i >= ft) continue;
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-        if (n + j < 2 * half) dst[(int64_t)(m + i) * 2 * half + n + j] = acc[i][j];
+  __device__ const float* src_a(int j, const Step& st, int kk, int& n) const {
+    int t = st.t0, b = st.b0 + kk;
+    while (b >= batch) {
+      b -= batch;
+      ++t;
     }
+    n = st.r0 + kk < frames * batch ? ft - j : 0;
+    return xp + (int64_t)b * lp + t * hop + j;
+  }
+  __device__ const float* src_b(int c, const Step& st, int kk, int& n) const {
+    const int r = st.r0 + kk;
+    n = r < frames * batch ? ldc - c : 0;
+    return dspec + (int64_t)r * ldc + c;
+  }
+  __device__ const float* base_a() const { return xp; }
+  __device__ const float* base_b() const { return dspec; }
+  __device__ void pair(int j, int c, float v0, float v1, int z) const {
+    if (j >= ft || c >= ldc) return;
+    *reinterpret_cast<float2*>(partial + ((int64_t)z * ft + j) * ldc + c) = make_float2(v0, v1);
   }
 };
+
+// dw[j, part*half + bin] = 0.5 * (partial[0] + partial[1] + ...)[j, 2*bin + part],
+// the slices in that order for every run.
+__global__ void sum_analysis_partials(const float* __restrict__ partial, float* __restrict__ dw,
+                                      int ft, int half, int ldc, int nsplit) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)ft * 2 * half) return;
+  const int j = (int)(i / (2 * half)), col = (int)(i % (2 * half));
+  const int part = col >= half, bin = col - part * half;
+  const int64_t src = (int64_t)j * ldc + 2 * bin + part;
+  float s = partial[src];
+  for (int z = 1; z < nsplit; ++z) s += partial[(int64_t)z * ft * ldc + src];
+  dw[i] = 0.5f * s;
+}
 
 // ------------------------------------------------------------------ E, part 1
 // dspec[t, b, c] = sum_j dframe[t, b, j] * w[c, j], then dmag, dphs and the
@@ -545,33 +527,49 @@ extern "C" {
 const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half); dmag, dphs
-// (frames, batch, half); dspec scratch (frames*batch, 2*half); dw_partial
-// scratch (nsplit, ft, 2*half), read only when nsplit > 1; dxp (batch, lp),
-// written when need_dxp; dw (ft, 2*half), written when need_dw.
+// (frames, batch, half); scratch: wp (ft, ldc), dspec (frames*batch, ldc),
+// dw_partial (nsplit, ft, ldc), with ldc = 2*half rounded up to a multiple of
+// 4, and dframes (frames*batch, ft), read and written when need_dxp; dxp
+// (batch, lp), written when need_dxp; dw (ft, 2*half), written when need_dw. vec is 4 when hop, lp, ft and the pointers allow 16-byte copies,
+// else 1.
 int st_analysis_bwd(const void* xp, const void* w, const void* dmag, const void* dphs,
-                    void* dspec, void* dw_partial, void* dxp, void* dw,
+                    void* wp, void* dspec, void* dw_partial, void* dframes, void* dxp, void* dw,
                     int batch, int lp, int ft, int hop, int half, int frames,
-                    int nsplit, int need_dxp, int need_dw, void* stream) {
+                    int nsplit, int need_dxp, int need_dw, int vec, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int ldc = tc::packed_width(half);
   const int64_t rows = (int64_t)frames * batch;
-  int err = launch(AnalysisDspec{(const float*)xp, (const float*)w, (const float*)dmag,
-                                 (const float*)dphs, (float*)dspec,
-                                 batch, lp, ft, hop, half, frames},
-                   rows, 2 * (int64_t)half, 1, s);
+  int err = tc::pack((const float*)w, (float*)wp, ft, half, s);
+  if (err) return err;
+  AnalysisDspec p1;
+  p1.xp = (const float*)xp;
+  p1.wp = (const float*)wp;
+  p1.batch = batch, p1.lp = lp, p1.ft = ft, p1.hop = hop, p1.half = half, p1.frames = frames;
+  p1.ldc = ldc;
+  p1.dmag = (const float*)dmag;
+  p1.dphs = (const float*)dphs;
+  p1.dspec = (float*)dspec;
+  err = tc::launch(p1, rows, ldc, 1, vec, s);
   if (err) return err;
   if (need_dxp) {
-    err = launch(AnalysisDx{(const float*)dspec, (const float*)w, (float*)dxp,
-                            batch, lp, ft, hop, half, frames},
-                 batch, lp, 1, s);
+    err = tc::launch(AnalysisDframes{(const float*)dspec, (const float*)wp, (float*)dframes,
+                                     (int)rows, ft, ldc},
+                     rows, ft, 1, vec, s);
+    if (err) return err;
+    overlap_add_dx<<<tiles((int64_t)batch * lp, 256), 256, 0, s>>>(
+        (const float*)dframes, (float*)dxp, batch, lp, ft, hop, frames);
+    err = (int)cudaGetLastError();
     if (err) return err;
   }
   if (need_dw) {
-    float* out = nsplit > 1 ? (float*)dw_partial : (float*)dw;
-    err = launch(AnalysisDw{(const float*)xp, (const float*)dspec, out,
-                            batch, lp, ft, hop, half, frames},
-                 ft, 2 * (int64_t)half, nsplit, s);
+    err = tc::launch(AnalysisDw{(const float*)xp, (const float*)dspec, (float*)dw_partial,
+                                batch, lp, ft, hop, frames, ldc},
+                     ft, ldc, nsplit, vec, s);
     if (err) return err;
-    if (nsplit > 1) err = reduce(out, (float*)dw, (int64_t)ft * 2 * half, nsplit, s);
+    const int64_t size = (int64_t)ft * 2 * half;
+    sum_analysis_partials<<<tiles(size, 256), 256, 0, s>>>(
+        (const float*)dw_partial, (float*)dw, ft, half, ldc, nsplit);
+    err = (int)cudaGetLastError();
   }
   return err;
 }

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds) and loaded with ``ctypes``. Libraries go to
-``build/kernels/`` at the repository root, named by a hash of the source and
-the flags, so a fresh checkout builds them at first use and later calls reuse
+``build/kernels/`` at the repository root, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a fresh checkout builds them at first use and later calls reuse
 them. ``build()`` starts one ``nvcc`` per missing source, all at once.
 
 Every exported launcher takes its pointers and the stream as ``void*``,
@@ -88,7 +88,8 @@ def sources() -> list[str]:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # any may be included
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

@@ -3,9 +3,12 @@
 Counterparts of signaltrain_tpu/ops/pallas_frontend.py. Each kernel is
 hand-written CUDA C++ for Hopper: A and B in ``csrc/frontend.cu``, D and E in
 ``csrc/frontend_bwd.cu`` (the headers say what bounds each on the card and
-how its design answers that); this module holds the wrappers, the plain
-PyTorch version of every kernel, the two ``torch.autograd.Function``s and the
-weight stacking.
+how its design answers that); A and the three products of D share one
+tensor-core main loop, ``csrc/tc_product.cuh``, which forms every f32 product
+from three TF32 ones (``split_tf32_matmul`` below is that arithmetic in plain
+PyTorch, for the tests and reports; nothing on the main path calls it). This
+module holds the wrappers, the plain PyTorch version of every kernel, the two
+``torch.autograd.Function``s and the weight stacking.
 
 * ``fused_analysis(xp, w, ft, hop)``: padded signal (B, Lp), NOT pre-halved
   (the kernel applies the model's x/2) -> (mag, phs), each (T, B, half),
@@ -19,12 +22,14 @@ only (xp, w) and (mag, phs, w) and recomputing the rest.
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
-D and E are bound by operations (f32 matrix products on the CUDA cores). The
+D and E are bound by operations (f32-accurate matrix products, D's on the
+tensor cores, E's on the CUDA cores). The
 dW sums over all B*T (D) or B*OT (E) rows are cut into a fixed number of
 contiguous slices, each dW tile of a slice owned by one block, and the
 slices are added in a fixed order by a second pass: no atomics, so dW is
-bit-equal from run to run. The overlap-add of dxp is a gather: each sample is
-owned by one thread that sums the frames covering it.
+bit-equal from run to run. The overlap-add of dxp (D) and of the waveform (B)
+is a gather: each sample is owned by one thread that sums the frames covering
+it.
 
 One dispatch rule everywhere: a CPU tensor goes to the plain version, a CUDA
 tensor launches the kernel or raises. Nothing gives way to a plain version on
@@ -54,23 +59,51 @@ SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ANALYSIS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ANALYSIS_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 _SYNTHESIS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_ANALYSIS_BWD_ARGS = [_P] * 8 + [_I] * 9 + [_P]
+_ANALYSIS_BWD_ARGS = [_P] * 10 + [_I] * 10 + [_P]
 _SYNTHESIS_BWD_ARGS = [_P] * 9 + [_I] * 8 + [_P]
 
-# Blocks the dW products aim for: their (ft x 2*half) output has too few
-# tiles to fill the card, so the K rows are cut into slices (a fixed number
-# for given shapes) whose partial sums a second pass adds in order.
+# The dW products' (ft x 2*half) output has too few tiles to fill the card, so
+# the K rows are cut into slices (a fixed number for given shapes) whose
+# partial sums a second pass adds in order. Kernel E's SIMT product (128 x 64
+# tiles, K step 16) aims for 512 blocks. Kernel D's tensor-core product
+# (128 x 128 tiles, K step 32, two blocks of 110 KB shared memory an SM) takes
+# as many slices as keep every full-width block on the card's 132 SMs at once
+# (a second round of a few blocks would cost as much as a full one); the
+# blocks of a narrow last column tile are cheap and not counted.
 _DW_TARGET_BLOCKS = 512
 _DW_TILE = (128, 64)
 _DW_KSTEP = 16
+_TC_DW_RESIDENT_BLOCKS = 2 * 132
+_TC_DW_TILE = (128, 128)
+_TC_DW_KSTEP = 32
 
 
 def dw_slices(m: int, n: int, k_steps: int) -> int:
-    """How many K slices the dW product of an (m, n) output takes."""
+    """How many K slices kernel E's dW product of an (m, n) output takes."""
     tiles = -(-m // _DW_TILE[0]) * -(-n // _DW_TILE[1])
     return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), k_steps // 8))
+
+
+def tc_dw_slices(m: int, n: int, k_steps: int) -> int:
+    """How many K slices kernel D's dW product of an (m, n) output takes."""
+    tiles = -(-m // _TC_DW_TILE[0]) * max(1, n // _TC_DW_TILE[1])
+    return max(1, min(_TC_DW_RESIDENT_BLOCKS // tiles, k_steps // 8))
+
+
+def packed_width(half: int) -> int:
+    """Columns of the repacked analysis weights and of kernel D's dspec:
+    2*half rounded up to a multiple of 4, so every row starts on 16 bytes."""
+    return -(-2 * half // 4) * 4
+
+
+def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor) -> int:
+    """Floats per cp.async copy of kernels A and D: 4 (16 bytes) when the
+    frame offsets b*lp + t*hop, the frame length and every pointer are
+    multiples of 4 floats, else 1. Two loaders of the same kernel."""
+    aligned = ft % 4 == 0 and hop % 4 == 0 and lp % 4 == 0
+    return 4 if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
 def stack_analysis_weights(w_real: torch.Tensor, w_imag: torch.Tensor, half: int) -> torch.Tensor:
@@ -91,6 +124,60 @@ def mag_phs(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Ten
     mag = torch.sqrt(torch.clamp_min(re * re + im * im, 1e-36))
     phs = torch.atan2(im, re + 1e-7)
     return mag, phs
+
+
+# ------------------------------------- the kernels' arithmetic, in plain torch
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (float32) -> (hi, lo), both TF32 values held in float32: hi is x
+    rounded to 10 mantissa bits as ``cvt.rna.tf32.f32`` rounds (to nearest,
+    ties away from zero: ``(bits + 0x1000) & ~0x1FFF``), lo is x - hi cut to
+    10 mantissa bits (the tensor core ignores the low 13 bits of an operand).
+    hi + lo recovers x to 2^-21 |x|; zeros split into zeros."""
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+    return hi, lo
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as kernels A and D form it on the tensor cores: three products
+    of TF32 operands summed in float32, the small terms first. Not used on
+    the main path: the tests and ``chip_smoke.py`` hold the kernels' accuracy
+    against it."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def fused_analysis_bwd_conditioning(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                                    dphs: torch.Tensor, ft: int, hop: int,
+                                    sigma: float = 5e-7, k: float = 6.0):
+    """How far kernel D's (dxp, dw) move, element by element, when every
+    component of the recomputed spectrum moves at random by ``sigma``, as
+    ``k`` standard deviations, in float64: (dxp_slack, dw_slack). Two f32
+    spectra differ by up to ~1e-6 (the order of the sums; sigma is the largest
+    error of an f32 product against a float64 one seen on the CPU), and the
+    adjoints divide by the magnitude: with r = |spec|, d(re/r) <= 1/r and
+    d(im/(rr^2 + im^2)) = 1/r^2 per unit, so dspec moves by
+    sigma*(|dmag|/r + |dphs|/r^2), taken at r - k*sigma. That is pushed through
+    the two linear products in quadrature (independent errors). It is huge on
+    bins of near-zero magnitude (nothing can be said there) and exactly 0
+    where the frame is all padding. Not used on the main path: the tests and
+    ``chip_smoke.py`` add it to the tolerance of D's ill-conditioned case."""
+    half = w.shape[1] // 2
+    frames = framing.frame_signal(xp.double(), ft, hop, pad=0).transpose(0, 1) * 0.5
+    w = w.double()
+    spec = torch.matmul(frames, w)
+    re, im = spec[..., :half], spec[..., half:]
+    r = torch.sqrt(re * re + im * im)
+    r_near = torch.clamp_min(r - k * sigma, 1e-30)
+    moved = sigma * (dmag.double().abs() / r_near + dphs.double().abs() / (r_near * r_near))
+    moved = torch.where(r > 0, moved, torch.zeros_like(moved))  # an exact 0 stays exact
+    var = torch.cat([moved, moved], dim=-1) ** 2
+    dxp = framing.overlap_add((torch.matmul(var, (w * w).t()) * 0.25).transpose(0, 1), hop)
+    dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))
+    dw = torch.matmul((frames * frames).reshape(-1, ft).t(), var.reshape(-1, 2 * half))
+    return k * torch.sqrt(dxp), k * torch.sqrt(dw)
 
 
 # ------------------------------------------------------------ plain versions
@@ -183,6 +270,8 @@ def _analysis_dims(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     t = (lp - ft) // hop + 1
     if b < 1 or t < 1 or lp < ft:
         raise ValueError(f"fused_analysis: no frame fits (B={b}, Lp={lp}, ft={ft})")
+    if max(b * lp, t * b * packed_width(half)) >= 2 ** 31:
+        raise ValueError(f"fused_analysis: too large for 32-bit offsets (B={b}, Lp={lp}, T={t})")
     return b, lp, half, t
 
 
@@ -205,10 +294,11 @@ def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     _cuda.require(w, "w", (ft, 2 * half), dev)
     mag = torch.empty((t, b, half), device=dev, dtype=torch.float32)
     phs = torch.empty((t, b, half), device=dev, dtype=torch.float32)
+    wp = torch.empty((ft, packed_width(half)), device=dev, dtype=torch.float32)
     f = _cuda.function("frontend", "st_analysis_fwd", _ANALYSIS_ARGS)
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(mag), _cuda.ptr(phs),
-                   b, lp, ft, hop, half, t, _cuda.stream(dev))
+        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(wp), _cuda.ptr(mag), _cuda.ptr(phs),
+                   b, lp, ft, hop, half, t, copy_width(ft, hop, lp, xp, wp), _cuda.stream(dev))
     _cuda.check(f, status)
     ANALYSIS.launches += 1
     return mag, phs
@@ -247,21 +337,23 @@ def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
     _cuda.require(w, "w", (ft, 2 * half), dev)
     _cuda.require(dmag, "dmag", (t, b, half), dev)
     _cuda.require(dphs, "dphs", (t, b, half), dev)
-    nsplit = dw_slices(ft, 2 * half, t * -(-b // _DW_KSTEP))
+    ldc = packed_width(half)
+    nsplit = tc_dw_slices(ft, ldc, -(-t * b // _TC_DW_KSTEP))
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    dspec = empty(t * b, 2 * half)
+    wp, dspec = empty(ft, ldc), empty(t * b, ldc)
     dxp = empty(b, lp) if need_dxp else None
+    dframes = empty(t * b, ft) if need_dxp else None
     dw = empty(ft, 2 * half) if need_dw else None
-    partial = empty(nsplit, ft, 2 * half) if need_dw and nsplit > 1 else None
+    partial = empty(nsplit, ft, ldc) if need_dw else None
     f = _cuda.function("frontend_bwd", "st_analysis_bwd", _ANALYSIS_BWD_ARGS)
     with torch.cuda.device(dev):
         status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs),
-                   _cuda.ptr(dspec), _cuda.ptr(partial), _cuda.ptr(dxp), _cuda.ptr(dw),
-                   b, lp, ft, hop, half, t, nsplit, int(need_dxp), int(need_dw),
-                   _cuda.stream(dev))
+                   _cuda.ptr(wp), _cuda.ptr(dspec), _cuda.ptr(partial), _cuda.ptr(dframes),
+                   _cuda.ptr(dxp), _cuda.ptr(dw), b, lp, ft, hop, half, t, nsplit, int(need_dxp), int(need_dw),
+                   copy_width(ft, hop, lp, xp, wp, dspec), _cuda.stream(dev))
     _cuda.check(f, status)
     ANALYSIS_BWD.launches += 1
     return dxp, dw

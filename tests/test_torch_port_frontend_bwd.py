@@ -231,7 +231,11 @@ def test_framing_adjoints_match_jax(ft, hop, length, pad):
 def test_dw_slices_are_fixed_by_the_shapes():
     """The number of K slices of the dW products depends on shapes only (a
     fixed summation order), is at least 1 and leaves every slice work."""
-    assert cuda_frontend.dw_slices(1024, 1026, 25 * 13) == 4  # flagship, batch 200
-    assert cuda_frontend.dw_slices(1026, 1024, 7 * 13) == 4
-    assert cuda_frontend.dw_slices(64, 66, 25) == 3
-    assert cuda_frontend.dw_slices(64, 66, 7) == 1
+    # kernel D (tensor-core product, 128 x 128 tiles, K step 32 over the flat rows)
+    assert cuda_frontend.tc_dw_slices(1024, 1028, 157) == 4  # flagship, batch 200: 256 blocks
+    assert cuda_frontend.tc_dw_slices(1024, 1028, 7) == 1
+    assert cuda_frontend.tc_dw_slices(64, 68, 400) == 50
+    assert cuda_frontend.tc_dw_slices(64, 68, 4) == 1
+    # kernel E (SIMT product, 128 x 64 tiles, K step 16 within a frame)
+    assert cuda_frontend.dw_slices(1026, 1024, 7 * 13) == 4  # flagship, batch 200
+    assert cuda_frontend.dw_slices(66, 64, 7) == 1

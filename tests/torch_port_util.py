@@ -88,6 +88,21 @@ def assert_dw_close(got, want, name: str = "dw"):
     assert scale > 0 and err <= 1e-3 * scale, (name, err, scale)
 
 
+def assert_close_where_conditioned(got, exact, slack, tol: float = 5e-4, name: str = ""):
+    """Every element of `got` within tol + tol*|exact| + slack of the float64
+    result `exact`, where `slack` says, element by element, how far the result
+    moves under a perturbation that no f32 computation can avoid
+    (cuda_frontend.fused_analysis_bwd_conditioning). For kernel D's gradients
+    under a unit-normal phase cotangent on every bin: dphs / |spec| amplifies
+    the ~5e-7 by which any two f32 spectra differ, so two f32 results cannot
+    be compared with each other (the plain version itself is off the float64
+    one by ~1e-2 in dx)."""
+    got, exact, slack = (np.asarray(n(a), np.float64) for a in (got, exact, slack))
+    excess = np.abs(got - exact) - (tol + tol * np.abs(exact) + slack)
+    worst = int(np.argmax(excess))
+    assert excess.flat[worst] <= 0, (name, got.flat[worst], exact.flat[worst], slack.flat[worst])
+
+
 def t(a) -> torch.Tensor:
     """numpy/JAX array -> float32 CPU tensor."""
     return torch.from_numpy(np.array(a, dtype=np.float32))
@@ -110,6 +125,30 @@ def assert_phase_close(got, want, atol: float, rtol: float):
     wrapped = np.abs(np.mod(d + np.pi, 2 * np.pi) - np.pi)
     excess = wrapped - (atol + rtol * np.abs(want))
     assert excess.max() <= 0, (wrapped.max(), excess.max())
+
+
+def assert_analysis_close(mag, phs, want_mag, want_phs) -> dict:
+    """Kernel A's rule, for any way of adding up the spectrum's products.
+    Every magnitude within 2e-5 + 2e-5*|mag|. The phase atan2(im, re + 1e-7)
+    turns an error e of the spectrum into e / mag, so it is held in two
+    classes: bins whose wanted magnitude is >= 1e-2 to the wrapped 2e-4 +
+    2e-4*|phs| (an f32 product's own error is ~5e-7: a 4x margin at 1e-2),
+    smaller ones to 2e-6 / mag (four times the f32 product's largest error
+    against a float64 one). Returns the count and the worst of each class."""
+    mag, phs, want_mag, want_phs = (np.asarray(n(a), np.float64)
+                                    for a in (mag, phs, want_mag, want_phs))
+    d_mag = np.abs(mag - want_mag)
+    assert (d_mag - (2e-5 + 2e-5 * np.abs(want_mag))).max() <= 0, ("magnitude", d_mag.max())
+    d_phs = np.abs(np.mod(phs - want_phs + np.pi, 2 * np.pi) - np.pi)
+    big = want_mag >= 1e-2
+    limit = np.where(big, 2e-4 + 2e-4 * np.abs(want_phs), 2e-6 / want_mag)
+    worst = int(np.argmax(d_phs - limit))
+    assert d_phs.flat[worst] <= limit.flat[worst], (
+        "phase", d_phs.flat[worst], limit.flat[worst], want_mag.flat[worst])
+    return dict(max_mag_err=float(d_mag.max()), regular_bins=int(big.sum()),
+                regular_max_phase_err=float(d_phs[big].max(initial=0.0)),
+                small_bins=int((~big).sum()),
+                small_max_phase_err=float(d_phs[~big].max(initial=0.0)))
 
 
 # ---- a model of both packages holding the same weights (JAX imported here,
