@@ -21,8 +21,11 @@ Phases (any failure raises and exits non-zero):
      near-zero magnitude, so the kernel is held against a float64 plain
      version, with the slack each element's conditioning gives it) and with
      well-conditioned ones (every element
-     of dxp and dW against the plain version); D and E run twice on the same
-     inputs and their dW must be bit-equal;
+     of dxp and dW against the plain version); B, D and E run twice on the
+     same inputs and must be bit-equal; B and E are also held, as A is, to
+     their largest error against a float64 plain version beside the plain f32
+     version's (within twice it plus 1e-6 * max|result|); E's edge frames must
+     be exact zeros;
   3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
@@ -40,15 +43,17 @@ Phases (any failure raises and exits non-zero):
      after the last epoch than after the first; the served output finite and
      of the expected length. One more step on the same batch through
      frontend="fused" (the kernels) and "gemm" (plain autograd), each against
-     the gemm step in float64: loss rtol 1e-5, every fused gradient within
-     twice the gemm step's error plus 1e-3 * max|g| of its leaf;
+     the gemm step in float64: the fused loss within twice the gemm step's
+     relative error plus 1e-5, every fused gradient within twice the gemm
+     step's error plus 1e-3 * max|g| of its leaf;
   5. timing with CUDA events: each kernel, its plain version and the
      PyTorch library calls nearest to it, beside the bound computed from this
-     run's shapes (HBM 3.35 TB/s; f32 CUDA-core peak 67 TFLOP/s for B, E, C;
-     for A and D, whose products run as three TF32 tensor-core products, a
-     third of the 495 TFLOP/s dense TF32 peak = 165 TFLOP/s of f32-accurate
-     work, with the 67 TFLOP/s bound beside it: the H100 SXM data-sheet rates
-     at 700 W), and for C the bound of its dependent chain; predict_long's
+     run's shapes (HBM 3.35 TB/s; for A, B, D and E, whose products run as
+     three TF32 tensor-core products, a third of the 495 TFLOP/s dense TF32
+     peak = 165 TFLOP/s of f32-accurate work, with the bound at the CUDA
+     cores' f32 67 TFLOP/s beside it: the H100 SXM data-sheet rates at 700 W;
+     for C the f32 67 TFLOP/s and the bound of its dependent chain), with the
+     TFLOP/s that A, B, D and E reach; predict_long's
      audio-seconds per second; the
      train step with either front-end (host clock, least and most of two
      turns) and the data synthesis alone; one torch.profiler window over each
@@ -250,9 +255,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s wall for {sorted(built) or 'nothing (cached)'}"
           f" {json.dumps({k: round(v, 2) for k, v in built.items()})}")
     for name in _cuda.sources():
-        for line in _cuda.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas[{name}]: {line.strip()}")
+        for line in _cuda.build_report(name):
+            print(f"  ptxas[{name}]: {line}")
 
     occupancy = _cuda.function("frontend", "st_analysis_blocks_per_sm", [])()
     print(f"blocks of the tensor-core product an SM holds at once: {occupancy}")
@@ -310,21 +314,33 @@ def main() -> None:
             tolerance="mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + 2e-4*|phs| where mag >= 1e-2, "
                       "2e-6/mag below; magnitude error against float64 <= 2 x plain's + 1e-7")
 
-        syn_err = 0.0
+        syn_err = syn_f64 = syn_f64_plain = 0.0
         for nb in (TRAIN_BATCH, n_windows):  # smag, sphs end as the serving ones, for the timing
             smag = torch.nn.functional.softplus(
                 torch.randn(out_frames, nb, half, generator=gen, device=dev))
             sphs = torch.randn(out_frames, nb, half, generator=gen, device=dev) * 2.0
             wave = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
+            wave2 = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
             rwave = cuda_frontend.fused_synthesis_reference(smag, sphs, w_syn, ft, hop)
+            xwave = cuda_frontend.fused_synthesis_reference(smag.double(), sphs.double(),
+                                                            w_syn.double(), ft, hop)
             torch.cuda.synchronize()
             check(wave.shape == (nb, out_len), f"synthesis shape {tuple(wave.shape)}")
+            check(torch.equal(wave, wave2), "kernel B: two runs on the same inputs are not bit-equal")
             err, syn_excess = elementwise_excess(wave, rwave, 3e-4)
+            f64, f64_plain = as_accurate("B", wave, rwave, xwave, 1e-6 * float(xwave.abs().max()))
             print(f"B fused_synthesis mag {tuple(smag.shape)}: max|dwave| {err:.3e}; "
-                  f"tolerance 3e-4+3e-4|wave|")
+                  f"tolerance 3e-4+3e-4|wave|; against float64: kernel {f64:.3e}, plain version "
+                  f"{f64_plain:.3e} (limit 2 x plain + 1e-6 max|wave|, max|wave| "
+                  f"{float(xwave.abs().max()):.3f}); two runs bit-equal")
             check(syn_excess <= 0, disagreement("B", wave, rwave))
-            syn_err = max(syn_err, err)
-        results["fused_synthesis"] = dict(max_abs_err=syn_err, tolerance="3e-4 + 3e-4*|wave|")
+            syn_err, syn_f64, syn_f64_plain = (max(syn_err, err), max(syn_f64, f64),
+                                               max(syn_f64_plain, f64_plain))
+            del xwave
+        results["fused_synthesis"] = dict(
+            max_abs_err=syn_err, max_err_vs_float64=syn_f64, plain_max_err_vs_float64=syn_f64_plain,
+            tolerance="3e-4 + 3e-4*|wave|; error against float64 <= 2 x plain's + 1e-6*max|wave|; "
+                      "two runs bit-equal")
 
         smooth_shapes = [(1, len(clip)), (1, chunk), (ct_batch, chunk), (TRAIN_BATCH, chunk)]
         smooth_err, plain_c_ms = 0.0, None
@@ -430,21 +446,29 @@ def main() -> None:
         e_got = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
         e_again = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
         e_want = cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, w_syn, tdout, ft, hop)
+        e_exact = cuda_frontend.fused_synthesis_bwd_reference(
+            tmag.double(), tphs.double(), w_syn.double(), tdout.double(), ft, hop)
         torch.cuda.synchronize()
-        e_err = 0.0
-        for name, g1, g2, r in zip(("dmag", "dphs", "dW"), e_got, e_again, e_want):
+        e_err = e_f64 = e_f64_plain = 0.0
+        for name, g1, g2, r, x in zip(("dmag", "dphs", "dW"), e_got, e_again, e_want, e_exact):
             check(torch.equal(g1, g2), f"kernel E: two runs differ in {name}")
             err = float((g1 - r).abs().max())
             excess = float(((g1 - r).abs() - (5e-4 + 5e-4 * r.abs())).max())
             check(excess <= 0, disagreement(f"E ({name})", g1, r))
-            e_err = max(e_err, err)
+            f64, f64_plain = as_accurate(f"E ({name})", g1, r, x, 1e-6 * float(x.abs().max()))
+            print(f"E {name}: max error {err:.3e}; against float64: kernel {f64:.3e}, plain "
+                  f"version {f64_plain:.3e} (max|{name}| {float(x.abs().max()):.3e})")
+            e_err, e_f64, e_f64_plain = max(e_err, err), max(e_f64, f64), max(e_f64_plain, f64_plain)
+        del e_exact
         for g1 in e_got[:2]:  # frames wholly inside the trimmed margin
             check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
                   "kernel E: the first or last frame's gradient is not exactly 0")
         print(f"E fused_synthesis_bwd mag {tuple(tmag.shape)}: max error {e_err:.3e} "
               f"(tolerance 5e-4+5e-4|g|); two runs bit-equal; edge frames exactly 0")
         results["fused_synthesis_bwd"] = dict(
-            max_abs_err=e_err, tolerance="5e-4 + 5e-4*|g| for dmag, dphs, dW; two runs bit-equal")
+            max_abs_err=e_err, max_err_vs_float64=e_f64, plain_max_err_vs_float64=e_f64_plain,
+            tolerance="5e-4 + 5e-4*|g| for dmag, dphs, dW; error against float64 <= 2 x plain's + "
+                      "1e-6*max|g|; two runs bit-equal; edge frames exactly 0")
     torch.cuda.synchronize()
 
     # ---- 3. the serving path, counted
@@ -557,6 +581,7 @@ def main() -> None:
     l_exact = train_mod.loss_and_grads(gemm64, bx.double(), by.double(), bk.double())
     rel = abs(float(l_fused) - float(l_gemm)) / abs(float(l_gemm))
     rel64 = abs(float(l_fused) - float(l_exact)) / abs(float(l_exact))
+    rel64_gemm = abs(float(l_gemm) - float(l_exact)) / abs(float(l_exact))
     worst, worst_gemm, worst_diff, g_max = 0.0, 0.0, 0.0, []
     for (pname, pf_), (_, pg), (_, px) in zip(served.named_parameters(), gemm.named_parameters(),
                                               gemm64.named_parameters()):
@@ -570,11 +595,14 @@ def main() -> None:
         worst_diff = max(worst_diff, grad_excess(pf_.grad, pg.grad)[0] / scale)
         g_max.append(scale)
     print(f"fused vs gemm step on the card: loss {float(l_fused):.6e} / {float(l_gemm):.6e} "
-          f"(rel {rel:.2e}; against float64 {rel64:.2e}; tolerance 1e-5); worst gradient error "
+          f"(rel {rel:.2e}; against float64: fused {rel64:.2e}, gemm {rel64_gemm:.2e}; limit 2 x "
+          f"gemm's + 1e-5); worst gradient error "
           f"against float64 in units of the leaf's max|g|: fused {worst:.2e}, gemm {worst_gemm:.2e} "
           f"(limit 2 x gemm's + 1e-3); worst fused-gemm difference {worst_diff:.2e}; the leaves' "
           f"max|g| run {min(g_max):.2e} to {max(g_max):.2e}")
-    check(rel <= 1e-5 and rel64 <= 1e-5, "fused, gemm and float64 losses differ")
+    # the loss takes the phase as an input of the autoencoder, so a bin at
+    # atan2's branch cut moves it: each f32 loss is held against float64
+    check(rel64 <= 2 * rel64_gemm + 1e-5, "the fused loss is off the float64 one")
     del gemm64
 
     # ---- 5. timing at the main paths' shapes
@@ -606,10 +634,13 @@ def main() -> None:
         la = (out_frames - 1) * hop + ft
         overlap = sum(max(0, min(t * hop + ft, la - ft) - max(t * hop, ft))
                       for t in range(out_frames))  # frame samples that reach the trimmed output
-        results["fused_synthesis"].update(zip(("bound_ms", "bound_by"), bound(
-            2.0 * n_windows * 2 * half * overlap,
-            4.0 * (2 * out_frames * n_windows * half + 2 * half * ft + n_windows * out_len))))
-        results["fused_synthesis"]["shape"] = f"mag {tuple(smag.shape)}, w {tuple(w_syn.shape)}"
+        r = results["fused_synthesis"]
+        b_flops = 2.0 * n_windows * 2 * half * overlap
+        b_bytes = 4.0 * (2 * out_frames * n_windows * half + 2 * half * ft + n_windows * out_len)
+        r.update(zip(("bound_ms", "bound_by"), bound(b_flops, b_bytes, PEAK_SPLIT_TF32_FLOPS)))
+        r["bound_ms_cuda_cores"] = bound(b_flops, b_bytes)[0]
+        r["tflops"] = b_flops / r["ms"] / 1e9
+        r["shape"] = f"mag {tuple(smag.shape)}, w {tuple(w_syn.shape)}"
 
         g = torch.randn(1, len(clip), generator=gen, device=dev)
         aa = torch.full((1,), 0.99, device=dev)
@@ -677,9 +708,11 @@ def main() -> None:
             lambda: (torch.nn.functional.conv1d(dacc, w_tconv, stride=hop),
                      torch.nn.grad.conv1d_weight(dacc, w_tconv.shape, spec_t, stride=hop)),
             reps=5)
-        r.update(zip(("bound_ms", "bound_by"), bound(  # the live frame samples only
-            2 * 2.0 * tb * 2 * half * overlap,
-            4.0 * (4 * out_frames * tb * half + 2 * 2 * half * ft + tb * out_len))))
+        e_flops = 2 * 2.0 * tb * 2 * half * overlap  # the live frame samples only
+        e_bytes = 4.0 * (4 * out_frames * tb * half + 2 * 2 * half * ft + tb * out_len)
+        r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_SPLIT_TF32_FLOPS)))
+        r["bound_ms_cuda_cores"] = bound(e_flops, e_bytes)[0]
+        r["tflops"] = e_flops / r["ms"] / 1e9
         r["shape"] = f"mag/phs {tuple(tmag.shape)}, w {tuple(w_syn.shape)}, dout {tuple(tdout.shape)}"
 
         # A, B, C once more at the training shapes
@@ -705,8 +738,11 @@ def main() -> None:
         tspec_bct = tspec_bct.permute(1, 2, 0).contiguous()  # (B, 2*half, OT)
         r["train_library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv_transpose1d(tspec_bct, w_tconv, stride=hop), reps=10)
-        r["train_bound_ms"] = bound(2.0 * tb * 2 * half * overlap,
-                                    4.0 * (2 * out_frames * tb * half + 2 * half * ft + tb * out_len))[0]
+        bt_flops = 2.0 * tb * 2 * half * overlap
+        bt_bytes = 4.0 * (2 * out_frames * tb * half + 2 * half * ft + tb * out_len)
+        r["train_bound_ms"] = bound(bt_flops, bt_bytes, PEAK_SPLIT_TF32_FLOPS)[0]
+        r["train_bound_ms_cuda_cores"] = bound(bt_flops, bt_bytes)[0]
+        r["train_tflops"] = bt_flops / r["train_ms"] / 1e9
         r["train_shape"] = f"mag {tuple(tmag.shape)}"
         r = results["switched_one_pole"]
         gt = torch.randn(tb, chunk, generator=gen, device=dev)
@@ -809,8 +845,10 @@ def main() -> None:
               f"plain {r['plain_ms']:.4f} ms, library {lib}{extra}) on {smi}")
         if "train_ms" in r:
             tlib = f"{r['train_library_ms']:.4f} ms" if "train_library_ms" in r else "n/a"
+            ttf = f", {r['train_tflops']:.1f} TFLOP/s" if "train_tflops" in r else ""
             print(f"  at the training shape {r['train_shape']}: {r['train_ms']:.4f} ms (bound "
-                  f"{r['train_bound_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, library {tlib})")
+                  f"{r['train_bound_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, library "
+                  f"{tlib}{ttf})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

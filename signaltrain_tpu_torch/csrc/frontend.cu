@@ -12,24 +12,28 @@
 // What bounds them on an H100: both are f32-accurate matrix products with
 // fused prologues and epilogues. At the flagship geometry A does
 // 2*25*1024*1026 flops per window against ~0.35 MB of its own traffic,
-// B 2*1026*5376 flops against ~0.05 MB. So both are bound by operations, and
-// the bytes that the XLA formulation sends through HBM (the framed signal,
-// the spectrum, the untrimmed frames) never leave the SM.
-//   A runs its product on the tensor cores: the split-TF32 main loop of
-//     tc_product.cuh (three TF32 mma products per f32 product, as accurate as
-//     an f32 one, so the 2e-5 magnitude tolerance holds), fed by a cp.async
-//     ring of shared-memory stages. Its bound is 165 TFLOP/s of f32-accurate
-//     work. Framing is folded into the loads (frame t of window b is the row
-//     of xp at offset t*hop) and the magnitude/phase into the epilogue: re and
-//     im of a bin are neighbouring columns of the repacked weights, so the
-//     thread that finishes bin k holds both. Kernel D's first product is the
-//     same code, so it finds the spectrum A found, bit for bit.
-//   B is a register-tiled SIMT product on the CUDA cores (bound: 67 TFLOP/s).
-//     It builds mag*cos(phs) and mag*sin(phs) as it stages the spectrum tile,
-//     and writes the overlap-add as a gather: output sample m only sums the
-//     frames t with t*hop <= m < t*hop+ft, so every output is owned by one
-//     thread, the result is deterministic and no atomics are needed. Only the
-//     trimmed output is computed.
+// B 2*1026*5376 (the frame samples that reach the trimmed output) against
+// ~0.05 MB. So both are bound by operations. Both run their product on the
+// tensor cores: the split-TF32 main loop of tc_product.cuh (three TF32 mma
+// products per f32 product, as accurate as an f32 one, so the 2e-5 magnitude
+// and 3e-4 waveform tolerances hold), fed by a cp.async ring of shared-memory
+// stages. Their bound is 165 TFLOP/s of f32-accurate work.
+//   A: framing is folded into the loads (frame t of window b is the row of xp
+//     at offset t*hop) and the magnitude/phase into the epilogue: re and im of
+//     a bin are neighbouring columns of the repacked weights, so the thread
+//     that finishes bin k holds both. Kernel D's first product is the same
+//     code, so it finds the spectrum A found, bit for bit.
+//   B: three steps. An elementwise pass writes the spectrum (mag*cos(phs),
+//     mag*sin(phs)) of the live frames once, interleaved like the repacked
+//     weights (7 MB at batch 200, a few us); the frame product
+//     frames = spec . w (tc::Frames, kernel D's frame product) runs over the
+//     live frames only, those with samples inside the trimmed output (frames
+//     1 .. OT-2); a gather writes the trimmed output, each sample owned by one
+//     thread that adds the frames covering it in a fixed order (no atomics,
+//     so the result is bit-equal from run to run). 7 frames x 200 windows are
+//     88 output tiles against 264 resident blocks, so the product's K (the
+//     2*half spectrum columns) is cut into slices by the rule of
+//     cuda_frontend.k_slices and the gather adds them in order.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,129 +61,34 @@ struct AnalysisFwd : tc::Spectrum {
 };
 
 // ---------------------------------------------------------------- B
-// One block: 64 batch rows x 128 trimmed output samples, K step 16 over the
-// 2*half spectrum channels (re then im), looping over the frames that reach
-// the tile. 256 threads as 16 x 16; thread (tx, ty) owns rows ty*4+i (i < 4)
-// and samples 64*h + tx*4 + q (h < 2, q < 4): 32 accumulators, read from
-// shared memory as float4s. The next step's magnitude, phase and weights are
-// loaded into registers while this step's products run; the trig happens
-// when they are staged.
-constexpr int SY_BM = 64;
-constexpr int SY_BN = 128;
-constexpr int SY_BK = 16;
-constexpr int SY_TM = 4;
-constexpr int SY_TN = 8;
-constexpr int SY_LDS = SY_BM + 4;  // padded row, still 16-byte aligned
-
-__global__ void __launch_bounds__(256) synthesis_fwd_kernel(
-    const float* __restrict__ mag, const float* __restrict__ phs,
-    const float* __restrict__ w, float* __restrict__ out,
-    int batch, int out_frames, int ft, int hop, int half, int out_len) {
-  __shared__ __align__(16) float ss[SY_BK][SY_LDS];  // spectrum tile, channel-major
-  __shared__ __align__(16) float ws[SY_BK][SY_BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int b0 = blockIdx.y * SY_BM;
-  const int n0 = blockIdx.x * SY_BN;  // first trimmed output sample of the tile
-  const int m0 = ft + n0;             // its position in the untrimmed buffer
-  const int kdim = 2 * half;
-  const int nck = (kdim + SY_BK - 1) / SY_BK;
-
-  // frames t that reach [m0, m0 + SY_BN): t*hop <= m0 + SY_BN - 1 and
-  // t*hop + ft > m0, i.e. t*hop > n0
-  const int t_lo = n0 / hop + 1;
-  int t_hi = (m0 + SY_BN - 1) / hop;
-  if (t_hi > out_frames - 1) t_hi = out_frames - 1;
-  const int steps = t_hi >= t_lo ? (t_hi - t_lo + 1) * nck : 0;
-
-  // loads: this thread fetches channel s_c of rows tid/16 + 16*e, and W
-  // elements tid + 256*e of the 16 x 128 tile
-  const int s_c = tid % SY_BK;
-  float m_reg[SY_TM], p_reg[SY_TM], w_reg[8];
-  int c_cur = 0;
-  auto fetch = [&](int step) {
-    const int t = t_lo + step / nck;
-    const int c0 = (step % nck) * SY_BK;
-    const int c = c0 + s_c;
-    c_cur = c;
-#pragma unroll
-    for (int e = 0; e < SY_TM; ++e) {
-      const int b = b0 + tid / SY_BK + 16 * e;
-      m_reg[e] = 0.f;
-      p_reg[e] = 0.f;
-      if (b < batch && c < kdim) {
-        const int64_t o = ((int64_t)t * batch + b) * half + (c < half ? c : c - half);
-        m_reg[e] = mag[o];
-        p_reg[e] = phs[o];
-      }
-    }
-    const int shift = m0 - t * hop;  // sample of frame t that lands on output n0
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int idx = tid + 256 * e;
-      const int cg = c0 + idx / SY_BN;
-      const int j = shift + idx % SY_BN;
-      const bool ok = cg < kdim && j >= 0 && j < ft;
-      w_reg[e] = ok ? w[(int64_t)cg * ft + j] : 0.f;
-    }
-  };
-  auto stash = [&]() {
-    const bool is_re = c_cur < half;
-#pragma unroll
-    for (int e = 0; e < SY_TM; ++e)
-      ss[s_c][tid / SY_BK + 16 * e] = is_re ? m_reg[e] * cosf(p_reg[e]) : m_reg[e] * sinf(p_reg[e]);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int idx = tid + 256 * e;
-      ws[idx / SY_BN][idx % SY_BN] = w_reg[e];
-    }
-  };
-
-  float acc[SY_TM][SY_TN];
-#pragma unroll
-  for (int i = 0; i < SY_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < SY_TN; ++j) acc[i][j] = 0.f;
-
-  if (steps > 0) {
-    fetch(0);
-    stash();
-    __syncthreads();
+// spec[r, 2 * bin + part] = mag * (cos, sin)(phs) at frame-major row r + row0
+// of the (frames, batch, half) magnitude and phase, for r < rows; the columns
+// past 2 * half zero: the first operand of B's frame product.
+__global__ void spectrum_rows(const float* __restrict__ mag, const float* __restrict__ phs,
+                              float* __restrict__ spec, int64_t rows, int64_t row0, int half,
+                              int ldc) {
+  const int pairs = ldc / 2;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rows * pairs) return;
+  const int64_t r = i / pairs;
+  const int bin = (int)(i - r * pairs);
+  float2 v = make_float2(0.f, 0.f);
+  if (bin < half) {
+    const int64_t o = (r + row0) * half + bin;
+    float s, c;
+    sincosf(phs[o], &s, &c);
+    v = make_float2(mag[o] * c, mag[o] * s);
   }
-  for (int step = 0; step < steps; ++step) {
-    const bool more = step + 1 < steps;
-    if (more) fetch(step + 1);
-#pragma unroll
-    for (int kk = 0; kk < SY_BK; ++kk) {
-      const float4 s4 = *reinterpret_cast<const float4*>(&ss[kk][ty * SY_TM]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-      const float a[SY_TM] = {s4.x, s4.y, s4.z, s4.w};
-      const float bv[SY_TN] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < SY_TM; ++i)
-#pragma unroll
-        for (int j = 0; j < SY_TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
+  *reinterpret_cast<float2*>(spec + r * ldc + 2 * bin) = v;
+}
 
-#pragma unroll
-  for (int i = 0; i < SY_TM; ++i) {
-    const int b = b0 + ty * SY_TM + i;
-    if (b >= batch) continue;
-#pragma unroll
-    for (int j = 0; j < SY_TN; ++j) {
-      const int n = n0 + (j / 4) * 64 + tx * 4 + j % 4;
-      if (n < out_len) out[(int64_t)b * out_len + n] = acc[i][j];
-    }
-  }
+int synthesis_spectrum(const float* mag, const float* phs, float* spec, int64_t rows,
+                       int64_t row0, int half, cudaStream_t stream) {
+  const int ldc = tc::packed_width(half);
+  if (rows <= 0) return 0;
+  spectrum_rows<<<tc::blocks(rows * (ldc / 2), 256), 256, 0, stream>>>(mag, phs, spec, rows,
+                                                                       row0, half, ldc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -203,6 +112,7 @@ int st_analysis_fwd(const void* xp, const void* w, void* wp, void* mag, void* ph
   p.wp = (const float*)wp;
   p.batch = batch, p.lp = lp, p.ft = ft, p.hop = hop, p.half = half, p.frames = frames;
   p.ldc = tc::packed_width(half);
+  p.live_lo = 0, p.live_hi = lp;  // every sample
   p.mag = (float*)mag;
   p.phs = (float*)phs;
   return tc::launch(p, (int64_t)frames * batch, p.ldc, 1, vec, s);
@@ -223,15 +133,29 @@ int st_analysis_blocks_per_sm(void) {
 
 // mag, phs (out_frames, batch, half) frame-major; w (2*half, ft) stacked
 // synthesis weights with the conjugate mirror folded in; out (batch, out_len)
-// with out_len = (out_frames - 1)*hop + ft - 2*ft.
-int st_synthesis_fwd(const void* mag, const void* phs, const void* w, void* out,
-                     int batch, int out_frames, int ft, int hop, int half, int out_len,
-                     void* stream) {
-  dim3 grid((unsigned)((out_len + SY_BN - 1) / SY_BN), (unsigned)((batch + SY_BM - 1) / SY_BM));
-  synthesis_fwd_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const float*)mag, (const float*)phs, (const float*)w, (float*)out,
-      batch, out_frames, ft, hop, half, out_len);
-  return (int)cudaGetLastError();
+// with out_len = (out_frames - 1)*hop - ft. Scratch: wp (ft, ldc), spec (rows,
+// ldc) and frames (nsplit, rows, ft), with ldc = 2*half rounded up to a
+// multiple of 4 and rows = (out_frames - 2)*batch, the live frames. vec is 4
+// when spec and wp allow 16-byte copies, else 1.
+int st_synthesis_fwd(const void* mag, const void* phs, const void* w, void* wp, void* spec,
+                     void* frames, void* out, int batch, int out_frames, int ft, int hop,
+                     int half, int out_len, int nsplit, int vec, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int64_t rows = (int64_t)live * batch;
+  int err = tc::pack_synthesis((const float*)w, (float*)wp, ft, half, s);
+  if (err) return err;
+  err = synthesis_spectrum((const float*)mag, (const float*)phs, (float*)spec, rows, batch,
+                               half, s);
+  if (err) return err;
+  // live frame t's sample j lies at position (t + 1)*hop + j; the trimmed
+  // output is [ft, ft + out_len)
+  err = tc::launch(tc::Frames{(const float*)spec, (const float*)wp, (float*)frames, (int)rows, ft,
+                              tc::packed_width(half), batch, hop, ft - hop, ft + out_len - hop},
+                   rows, ft, nsplit, vec, s);
+  if (err) return err;
+  return tc::gather((const float*)frames, (float*)out, batch, out_len, ft, ft, hop, 1, live,
+                    nsplit, 1.f, s);
 }
 
 }  // extern "C"

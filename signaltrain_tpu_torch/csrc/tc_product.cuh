@@ -1,6 +1,8 @@
 // One tensor-core matrix product with float32 accuracy, for Hopper (sm_90a),
-// shared by kernel A (frontend.cu) and the three products of kernel D
-// (frontend_bwd.cu).
+// shared by kernels A and B (frontend.cu) and the products of kernels D and E
+// (frontend_bwd.cu), with the passes around it that more than one of them
+// uses: the weight repacks, the ordered sum of K slices and the overlap-add
+// gather.
 //
 // Arithmetic: split TF32. Every f32 operand x is cut in registers into
 // hi = tf32(x), rounded as cvt.rna.tf32.f32 rounds, and lo = x - hi, of which
@@ -41,7 +43,10 @@
 //   base_a(), base_b(): any valid address of the operand
 //   pair(m, n, v0, v1, z): elements (m, n) and (m, n + 1) of the finished
 //       tile (n is even), K slice z
-// The K steps of a tile can be cut into gridDim.z contiguous slices.
+// The K steps of a tile can be cut into gridDim.z contiguous slices; slice z
+// writes its own copy of the output and the pass that follows adds the copies
+// in the order 0, 1, ... (sum_slices), so a result is bit-equal from run to
+// run with no atomics.
 
 #pragma once
 
@@ -287,9 +292,13 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
 
 inline unsigned tiles(int64_t n) { return (unsigned)((n + TILE - 1) / TILE); }
 
-// Launch an (m x n) product in nsplit K slices; vec as for `product`.
+inline unsigned blocks(int64_t n, int per) { return (unsigned)((n + per - 1) / per); }
+
+// Launch an (m x n) product in nsplit K slices; vec as for `product`. An
+// empty output launches nothing.
 template <class P>
 int launch(const P& p, int64_t m, int64_t n, int nsplit, int vec, cudaStream_t stream) {
+  if (m <= 0 || n <= 0) return 0;
   dim3 grid(tiles(m), tiles(n), (unsigned)nsplit);
   void (*kernel)(const P, int, int) = vec == 4 ? product<P, 4> : product<P, 1>;
   cudaError_t err =
@@ -302,12 +311,26 @@ int launch(const P& p, int64_t m, int64_t n, int nsplit, int vec, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------- the analysis operands
-// The stacked analysis weights w (ft, 2 * half), column part * half + bin, are
-// repacked into wp (ft, ldc): column 2 * bin + part, so that the thread that
-// finishes a bin holds its re and im; ldc = 2 * half rounded up to a multiple
-// of 4, the columns past 2 * half zero. Every row of wp then starts on a
-// 16-byte boundary and a tile's columns are one contiguous run.
+// ------------------------------------------------------- K slices, in order
+// The sum of the nsplit copies of one output element that a K-sliced product
+// wrote, `slice` floats apart, added in the order 0, 1, ... for every run.
+__device__ __forceinline__ float sum_slices(const float* p, int64_t slice, int nsplit) {
+  float s = p[0];
+  for (int z = 1; z < nsplit; ++z) s += p[z * slice];
+  return s;
+}
+
+// ---------------------------------------------------------------- the weights
+// Both stacked weights are repacked into wp (ft, ldc) before a product: column
+// 2 * bin + part holds the stacked column part * half + bin, so that the
+// thread that finishes a bin holds its re and im; ldc = 2 * half rounded up to
+// a multiple of 4, the columns past 2 * half zero. Every row of wp then starts
+// on a 16-byte boundary and a tile's columns are one contiguous run.
+//   pack: the analysis weights w (ft, 2 * half), read as they lie.
+//   pack_synthesis: the synthesis weights w (2 * half, ft), read transposed,
+//     wp[j, 2 * bin + part] = w[part * half + bin, j]. Kernel B reads it
+//     K-fast (K is the spectrum column), kernel E as the weights of its
+//     spectrum product (K is the frame sample).
 inline int packed_width(int half) { return (2 * half + 3) / 4 * 4; }
 
 __global__ void pack_weights(const float* __restrict__ w, float* __restrict__ wp,
@@ -321,33 +344,83 @@ __global__ void pack_weights(const float* __restrict__ w, float* __restrict__ wp
 inline int pack(const float* w, float* wp, int ft, int half, cudaStream_t stream) {
   const int ldc = packed_width(half);
   const int64_t size = (int64_t)ft * ldc;
-  pack_weights<<<(unsigned)((size + 255) / 256), 256, 0, stream>>>(w, wp, ft, half, ldc);
+  pack_weights<<<blocks(size, 256), 256, 0, stream>>>(w, wp, ft, half, ldc);
   return (int)cudaGetLastError();
 }
 
+// 32 x 32 tiles through shared memory (32 x 8 threads), so that the reads run
+// along the rows of w and the writes along the rows of wp.
+__global__ void pack_transposed(const float* __restrict__ w, float* __restrict__ wp,
+                                int ft, int half, int ldc) {
+  __shared__ float tile[32][33];
+  const int j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, j = j0 + tx;
+    tile[i][tx] = c < 2 * half && j < ft ? w[(int64_t)((c & 1) * half + (c >> 1)) * ft + j] : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int j = j0 + i, c = c0 + tx;
+    if (j < ft && c < ldc) wp[(int64_t)j * ldc + c] = tile[tx][i];
+  }
+}
+
+inline int pack_synthesis(const float* w, float* wp, int ft, int half, cudaStream_t stream) {
+  const int ldc = packed_width(half);
+  pack_transposed<<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
+      w, wp, ft, half, ldc);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ live samples
+// Kernels B and E work on the padded output (gradient), of which only the
+// positions [live_lo, live_hi) of a row (counted from the first frame the
+// kernel reads) can be non-zero: the trimmed output. A tile whose frames have
+// no live sample in its part of a product skips the K steps or the whole tile
+// that would only add zeros. For A and D every sample is live (0, lp), and
+// nothing is skipped.
+__device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b : -((b - 1 - a) / b); }
+
+// ------------------------------------------------------- the spectrum product
 // spec2[r, 2 * bin + part] = sum_k xp[b, t * hop + k] * wp[k, 2 * bin + part]
-// for row r = t * batch + b: twice the spectrum (the model's x/2 is a factor
-// 0.5 on the finished sum, which is exact). Framing is an address offset.
-// Kernel A and kernel D's first product derive from this, so D's spectrum is
-// A's bit for bit.
+// for row r = t * batch + b < frames * batch. Framing is an address offset.
+// Kernel A: xp is the padded signal and the result twice the spectrum (the
+// model's x/2 is a factor 0.5 on the finished sum, which is exact); kernel D's
+// first product is the same code, so D's spectrum is A's bit for bit. Kernel E:
+// xp is the padded output gradient, offset to the first frame that reaches
+// the trimmed output, and wp the packed synthesis weights; a tile takes only
+// the K steps (frame samples) that are live for one of its frames.
 struct Spectrum {
   static constexpr bool A_KFAST = true;
   static constexpr bool B_KFAST = false;
   const float* xp;
   const float* wp;
   int batch, lp, ft, hop, half, frames, ldc;
-  struct Tile {};
+  int live_lo, live_hi;
+  struct Tile {
+    int k0;  // first K index of the tile's steps
+  };
   struct Step {
     int k0;
   };
-  __device__ int begin_tile(Tile&, int, int) const { return (ft + BK - 1) / BK; }
+  __device__ int begin_tile(Tile& tile, int m0, int) const {
+    const int t_first = m0 / batch;
+    const int t_last = (min(m0 + TILE, frames * batch) - 1) / batch;
+    const int lo = max(0, live_lo - t_last * hop);
+    const int hi = min(ft, live_hi - t_first * hop);
+    tile.k0 = lo / BK * BK;
+    return hi > tile.k0 ? (hi - tile.k0 + BK - 1) / BK : 0;
+  }
   __device__ int row_a(const Tile&, int r) const {  // offset of the frame in xp, or -1
     if (r >= frames * batch) return -1;
     const int t = r / batch;
     return (r - t * batch) * lp + t * hop;
   }
   __device__ int col_b(const Tile&, int n) const { return n; }
-  __device__ void begin_step(const Tile&, int step, Step& st) const { st.k0 = step * BK; }
+  __device__ void begin_step(const Tile& tile, int step, Step& st) const {
+    st.k0 = tile.k0 + step * BK;
+  }
   __device__ const float* src_a(int row, const Step& st, int kk, int& n) const {
     n = row < 0 ? 0 : ft - st.k0 - kk;
     return xp + row + st.k0 + kk;
@@ -359,6 +432,83 @@ struct Spectrum {
   __device__ const float* base_a() const { return xp; }
   __device__ const float* base_b() const { return wp; }
 };
+
+// --------------------------------------------------------- the frame product
+// out[z][r, j] = sum over the columns c of K slice z of spec[r, c] * wp[j, c],
+// for r < rows: every sample of every frame, from an interleaved spectrum
+// (rows, ldc) and packed weights (ft, ldc), both contiguous along c. Kernel
+// D's frame gradients (its dspec and the analysis weights, one slice) and
+// kernel B's frames (the spectrum and the synthesis weights) are this product.
+// Row r is frame r / batch, whose sample j lies at position (r / batch) * hop
+// + j; a tile with no live sample is skipped (its output is never read).
+struct Frames {
+  static constexpr bool A_KFAST = true;
+  static constexpr bool B_KFAST = true;
+  const float* spec;
+  const float* wp;
+  float* out;
+  int rows, ft, ldc, batch, hop, live_lo, live_hi;
+  struct Tile {};
+  struct Step {
+    int c0;
+  };
+  __device__ int begin_tile(Tile&, int m0, int n0) const {
+    const int t_first = m0 / batch;
+    const int t_last = (min(m0 + TILE, rows) - 1) / batch;
+    const bool dead = n0 >= live_hi - t_first * hop || n0 + TILE <= live_lo - t_last * hop;
+    return dead ? 0 : (ldc + BK - 1) / BK;
+  }
+  __device__ int row_a(const Tile&, int r) const { return r < rows ? r * ldc : -1; }
+  __device__ int col_b(const Tile&, int j) const { return j < ft ? j * ldc : -1; }
+  __device__ void begin_step(const Tile&, int step, Step& st) const { st.c0 = step * BK; }
+  __device__ const float* src_a(int row, const Step& st, int kk, int& n) const {
+    n = row < 0 ? 0 : ldc - st.c0 - kk;
+    return spec + row + st.c0 + kk;
+  }
+  __device__ const float* src_b(int col, const Step& st, int kk, int& n) const {
+    n = col < 0 ? 0 : ldc - st.c0 - kk;
+    return wp + col + st.c0 + kk;
+  }
+  __device__ const float* base_a() const { return spec; }
+  __device__ const float* base_b() const { return wp; }
+  __device__ void pair(int r, int j, float v0, float v1, int z) const {
+    if (r >= rows) return;
+    float* dst = out + ((int64_t)z * rows + r) * ft + j;
+    if (j < ft) dst[0] = v0;
+    if (j + 1 < ft) dst[1] = v1;
+  }
+};
+
+// ------------------------------------------------------------ the overlap-add
+// out[b, n] = scale * sum over the frames t that cover sample p = n + offset,
+// in order of t, of frames[(t - t_first) * batch + b, p - t * hop] (the sum
+// of its nsplit K slices), for n < len. Only frames t_first ..
+// t_first + n_frames - 1 are stored. A gather: every output is owned by one
+// thread. Kernel D's dxp (offset 0, every frame, scale 0.5: the chain of the
+// model's x/2) and kernel B's trimmed waveform (offset ft, the live frames).
+__global__ void overlap_add(const float* __restrict__ frames, float* __restrict__ out, int batch,
+                            int len, int offset, int ft, int hop, int t_first, int n_frames,
+                            int nsplit, float scale) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)batch * len) return;
+  const int b = (int)(i / len), p = (int)(i % len) + offset;
+  const int t_lo = max(t_first, p >= ft ? (p - ft) / hop + 1 : 0);
+  const int t_hi = min(p / hop, t_first + n_frames - 1);
+  const int64_t slice = (int64_t)n_frames * batch * ft;
+  float s = 0.f;
+  for (int t = t_lo; t <= t_hi; ++t)
+    s += sum_slices(frames + ((int64_t)(t - t_first) * batch + b) * ft + p - t * hop, slice, nsplit);
+  out[i] = scale * s;
+}
+
+inline int gather(const float* frames, float* out, int batch, int len, int offset, int ft, int hop,
+                  int t_first, int n_frames, int nsplit, float scale, cudaStream_t stream) {
+  const int64_t size = (int64_t)batch * len;
+  if (size <= 0) return 0;
+  overlap_add<<<blocks(size, 256), 256, 0, stream>>>(frames, out, batch, len, offset, ft, hop,
+                                                     t_first, n_frames, nsplit, scale);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 }  // namespace tc

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -136,6 +137,39 @@ def build_log(name: str) -> str:
     """What nvcc and ptxas printed when ``csrc/<name>.cu`` was built."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """A readable name of a kernel from its mangled one: the identifiers in
+    it, without the namespaces, and the loader width of a product."""
+    vec = re.search(r"Li(\d+)E", mangled)
+    rest, names = re.sub(r"Li\d+E", "", mangled), []
+    while rest:
+        m = re.match(r"\d+", rest)
+        if m:
+            n = int(m.group())
+            names.append(rest[len(m.group()) : len(m.group()) + n])
+            rest = rest[len(m.group()) + n :]
+        else:
+            rest = rest[1:]
+    names = [x for x in names if len(x) > 2 and not x.startswith("_GLOBAL__N")]
+    return " ".join(names) + (f" (vec {vec.group(1)})" if vec else "")
+
+
+def build_report(name: str) -> list[str]:
+    """One line per kernel of ``csrc/<name>.cu``: its registers, shared
+    memory and spills, as ptxas printed them."""
+    lines, kernel, spills = [], None, ""
+    for line in build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel, spills = _kernel_name(m.group(1)), ""
+        elif kernel and "spill" in line:
+            spills = line.split(",", 1)[-1].strip()
+        elif kernel and "Used" in line:
+            lines.append(f"{kernel}: {line.split(':', 1)[-1].strip()}; {spills}")
+            kernel = None
+    return lines
 
 
 _FUNCTIONS: dict[tuple[str, str], ctypes._CFuncPtr] = {}

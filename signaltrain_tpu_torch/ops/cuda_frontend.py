@@ -3,7 +3,7 @@
 Counterparts of signaltrain_tpu/ops/pallas_frontend.py. Each kernel is
 hand-written CUDA C++ for Hopper: A and B in ``csrc/frontend.cu``, D and E in
 ``csrc/frontend_bwd.cu`` (the headers say what bounds each on the card and
-how its design answers that); A and the three products of D share one
+how its design answers that); the products of all four share one
 tensor-core main loop, ``csrc/tc_product.cuh``, which forms every f32 product
 from three TF32 ones (``split_tf32_matmul`` below is that arithmetic in plain
 PyTorch, for the tests and reports; nothing on the main path calls it). This
@@ -22,14 +22,15 @@ only (xp, w) and (mag, phs, w) and recomputing the rest.
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
-D and E are bound by operations (f32-accurate matrix products, D's on the
-tensor cores, E's on the CUDA cores). The
-dW sums over all B*T (D) or B*OT (E) rows are cut into a fixed number of
-contiguous slices, each dW tile of a slice owned by one block, and the
-slices are added in a fixed order by a second pass: no atomics, so dW is
-bit-equal from run to run. The overlap-add of dxp (D) and of the waveform (B)
-is a gather: each sample is owned by one thread that sums the frames covering
-it.
+All four are bound by operations (f32-accurate matrix products). A product
+whose output has too few tiles to fill the card (dW of D and E, B's frames,
+E's dspec) has its K cut into a fixed number of contiguous slices
+(``k_slices``), each output tile of a slice owned by one block, and the
+slices are added in a fixed order by the pass that follows: no atomics, so
+every result is bit-equal from run to run. The overlap-add of dxp (D) and of
+the waveform (B) is a gather: each sample is owned by one thread that sums
+the frames covering it. B and E work on the live frames only (1 .. OT-2, the
+ones with samples inside the trimmed output).
 
 One dispatch rule everywhere: a CPU tensor goes to the plain version, a CUDA
 tensor launches the kernel or raises. Nothing gives way to a plain version on
@@ -60,48 +61,41 @@ SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ANALYSIS_ARGS = [_P] * 5 + [_I] * 7 + [_P]
-_SYNTHESIS_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_SYNTHESIS_ARGS = [_P] * 7 + [_I] * 8 + [_P]
 _ANALYSIS_BWD_ARGS = [_P] * 10 + [_I] * 10 + [_P]
-_SYNTHESIS_BWD_ARGS = [_P] * 9 + [_I] * 8 + [_P]
+_SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 10 + [_P]
 
-# The dW products' (ft x 2*half) output has too few tiles to fill the card, so
-# the K rows are cut into slices (a fixed number for given shapes) whose
-# partial sums a second pass adds in order. Kernel E's SIMT product (128 x 64
-# tiles, K step 16) aims for 512 blocks. Kernel D's tensor-core product
-# (128 x 128 tiles, K step 32, two blocks of 110 KB shared memory an SM) takes
-# as many slices as keep every full-width block on the card's 132 SMs at once
-# (a second round of a few blocks would cost as much as a full one); the
+# A product whose (m x n) output has too few tiles to fill the card has its K
+# cut into slices (a fixed number for given shapes) whose partial sums the pass
+# that follows adds in order. The tensor-core product (128 x 128 tiles, K step
+# 32, two blocks of 110 KB shared memory an SM) takes as many slices as keep
+# every full-width block on the card's 132 SMs at once (a second round of a few
+# blocks would cost as much as a full one), and at least 8 K steps a slice; the
 # blocks of a narrow last column tile are cheap and not counted.
-_DW_TARGET_BLOCKS = 512
-_DW_TILE = (128, 64)
-_DW_KSTEP = 16
-_TC_DW_RESIDENT_BLOCKS = 2 * 132
-_TC_DW_TILE = (128, 128)
-_TC_DW_KSTEP = 32
+_RESIDENT_BLOCKS = 2 * 132
+_TILE = 128
+_KSTEP = 32
 
 
-def dw_slices(m: int, n: int, k_steps: int) -> int:
-    """How many K slices kernel E's dW product of an (m, n) output takes."""
-    tiles = -(-m // _DW_TILE[0]) * -(-n // _DW_TILE[1])
-    return max(1, min(-(-_DW_TARGET_BLOCKS // tiles), k_steps // 8))
-
-
-def tc_dw_slices(m: int, n: int, k_steps: int) -> int:
-    """How many K slices kernel D's dW product of an (m, n) output takes."""
-    tiles = -(-m // _TC_DW_TILE[0]) * max(1, n // _TC_DW_TILE[1])
-    return max(1, min(_TC_DW_RESIDENT_BLOCKS // tiles, k_steps // 8))
+def k_slices(m: int, n: int, k: int) -> int:
+    """How many K slices the tensor-core product of an (m, n) output over K = k
+    takes: kernel D's and E's dW, B's frames and E's dspec."""
+    tiles = -(-m // _TILE) * max(1, n // _TILE)
+    return max(1, min(_RESIDENT_BLOCKS // tiles, -(-k // _KSTEP) // 8))
 
 
 def packed_width(half: int) -> int:
-    """Columns of the repacked analysis weights and of kernel D's dspec:
-    2*half rounded up to a multiple of 4, so every row starts on 16 bytes."""
+    """Columns of the repacked weights and of the interleaved spectra (re and
+    im of a bin side by side): 2*half rounded up to a multiple of 4, so every
+    row starts on 16 bytes."""
     return -(-2 * half // 4) * 4
 
 
 def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor) -> int:
-    """Floats per cp.async copy of kernels A and D: 4 (16 bytes) when the
-    frame offsets b*lp + t*hop, the frame length and every pointer are
-    multiples of 4 floats, else 1. Two loaders of the same kernel."""
+    """Floats per cp.async copy of the tensor-core products: 4 (16 bytes) when
+    the frame offsets b*lp + t*hop, the frame length and every pointer are
+    multiples of 4 floats, else 1. Two loaders of the same kernel. Kernel B's
+    operands are rows of packed_width floats: only its pointers count."""
     aligned = ft % 4 == 0 and hop % 4 == 0 and lp % 4 == 0
     return 4 if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
@@ -140,7 +134,7 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as kernels A and D form it on the tensor cores: three products
+    """a @ b as kernels A, B, D and E form it on the tensor cores: three products
     of TF32 operands summed in float32, the small terms first. Not used on
     the main path: the tests and ``chip_smoke.py`` hold the kernels' accuracy
     against it."""
@@ -282,6 +276,9 @@ def _synthesis_dims(mag: torch.Tensor, ft: int, hop: int):
     out_len = (ot - 1) * hop - ft
     if b < 1 or out_len < 1:
         raise ValueError(f"fused_synthesis: empty output (OT={ot}, B={b}, ft={ft}, hop={hop})")
+    rows = max(0, ot - 2) * b
+    if max(b * (out_len + 2 * ft), rows * max(ft, packed_width(half))) >= 2 ** 31:
+        raise ValueError(f"fused_synthesis: too large for 32-bit offsets (OT={ot}, B={b}, ft={ft})")
     return ot, b, half, out_len
 
 
@@ -313,11 +310,18 @@ def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     _cuda.require(mag, "mag", (ot, b, half), dev)
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
-    out = torch.empty((b, out_len), device=dev, dtype=torch.float32)
+    ldc, rows = packed_width(half), max(0, ot - 2) * b  # the live frames 1 .. OT-2
+    nsplit = k_slices(rows, ft, ldc)
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    wp, spec, frames, out = empty(ft, ldc), empty(rows, ldc), empty(nsplit, rows, ft), empty(b, out_len)
     f = _cuda.function("frontend", "st_synthesis_fwd", _SYNTHESIS_ARGS)
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(out),
-                   b, ot, ft, hop, half, out_len, _cuda.stream(dev))
+        status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(wp), _cuda.ptr(spec),
+                   _cuda.ptr(frames), _cuda.ptr(out), b, ot, ft, hop, half, out_len, nsplit,
+                   copy_width(0, 0, 0, wp, spec), _cuda.stream(dev))
     _cuda.check(f, status)
     SYNTHESIS.launches += 1
     return out
@@ -338,7 +342,7 @@ def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
     _cuda.require(dmag, "dmag", (t, b, half), dev)
     _cuda.require(dphs, "dphs", (t, b, half), dev)
     ldc = packed_width(half)
-    nsplit = tc_dw_slices(ft, ldc, -(-t * b // _TC_DW_KSTEP))
+    nsplit = k_slices(ft, ldc, t * b)
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
@@ -372,21 +376,24 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
     _cuda.require(dout, "dout", (b, out_len), dev)
-    nsplit = dw_slices(2 * half, ft, (ot - 2) * -(-b // _DW_KSTEP))
+    ldc, rows, lp = packed_width(half), max(0, ot - 2) * b, out_len + 2 * ft
+    n_dspec, n_dw = k_slices(rows, ldc, ft), k_slices(ft, ldc, rows)
 
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
+    wp, doutp, dspec = empty(ft, ldc), empty(b, lp), empty(n_dspec, rows, ldc)
     dmag, dphs = empty(ot, b, half), empty(ot, b, half)
-    spec = empty(ot * b, 2 * half)
+    spec = empty(rows, ldc) if need_dw else None
+    partial = empty(n_dw, ft, ldc) if need_dw else None
     dw = empty(2 * half, ft) if need_dw else None
-    partial = empty(nsplit, 2 * half, ft) if need_dw and nsplit > 1 else None
     f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
     with torch.cuda.device(dev):
         status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout),
-                   _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(spec), _cuda.ptr(partial),
-                   _cuda.ptr(dw), b, ot, ft, hop, half, out_len, nsplit, int(need_dw),
-                   _cuda.stream(dev))
+                   _cuda.ptr(wp), _cuda.ptr(doutp), _cuda.ptr(dspec), _cuda.ptr(spec),
+                   _cuda.ptr(partial), _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(dw),
+                   b, ot, ft, hop, half, out_len, n_dspec, n_dw, int(need_dw),
+                   copy_width(ft, hop, lp, doutp, wp, dspec), _cuda.stream(dev))
     _cuda.check(f, status)
     SYNTHESIS_BWD.launches += 1
     return dmag, dphs, dw

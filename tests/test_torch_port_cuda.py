@@ -89,7 +89,14 @@ def test_analysis_kernel_is_as_accurate_as_f32(dev):
     assert err <= 2 * plain_err + 1e-7, (err, plain_err)
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b", GEOMS)
+# kernels B and E: a ragged last row tile (7 live frames x 100 windows = 700
+# rows), a narrow last column tile (ft 600 / 602, ldc 604) and two K slices in
+# each product (cuda_frontend.k_slices), with 16-byte copies (600, 200) and
+# 4-byte ones (602, 201; E's padded dout rows of 2,210 floats)
+SYN_GEOMS = [(600, 200, 0, 100), (602, 201, 0, 100)]
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", GEOMS + SYN_GEOMS + [(1024, 384, 8192, 643)])
 def test_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
     g = torch.Generator(device=dev).manual_seed(ft + b + 1)
     half, ot = ft // 2 + 1, 9
@@ -98,10 +105,14 @@ def test_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
         w = sy.stacked_weights()
         mag = torch.nn.functional.softplus(torch.randn(ot, b, half, generator=g, device=dev))
         phs = torch.randn(ot, b, half, generator=g, device=dev) * 2.0
+        before = cuda_frontend.SYNTHESIS.launches
         wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop)
+        again = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop)
+        assert cuda_frontend.SYNTHESIS.launches == before + 2
         ref = cuda_frontend.fused_synthesis_reference(mag, phs, w, ft, hop)
     torch.cuda.synchronize()
     assert wave.shape == ref.shape == (b, (ot - 1) * hop - ft)
+    assert torch.equal(wave, again)  # K slices added in a fixed order: bit-equal
     torch.testing.assert_close(wave, ref, atol=3e-4, rtol=3e-4)
 
 
@@ -176,7 +187,7 @@ def test_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
     assert only_dw[0] is None and torch.equal(only_dw[1], dw)
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b", BWD_GEOMS + [TRAIN_GEOM])
+@pytest.mark.parametrize("ft,hop,chunk,b", BWD_GEOMS + [TRAIN_GEOM] + SYN_GEOMS)
 def test_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
     inp = {k: torch.from_numpy(v).to(dev) for k, v in synthesis_bwd_inputs(ft, hop, b).items()}
     half = ft // 2 + 1
@@ -192,6 +203,8 @@ def test_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
         torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
     for g in got[:2]:  # frames wholly inside the trimmed margin
         assert torch.all(g[0] == 0) and torch.all(g[-1] == 0)
+    only = cuda_frontend.fused_synthesis_bwd(*args, need_dw=False)
+    assert only[2] is None and torch.equal(only[0], got[0]) and torch.equal(only[1], got[1])
 
 
 def test_functions_backward_through_the_kernels(dev):

@@ -228,14 +228,28 @@ def test_framing_adjoints_match_jax(ft, hop, length, pad):
     np.testing.assert_allclose(n(got), np.asarray(want), atol=1e-5)
 
 
-def test_dw_slices_are_fixed_by_the_shapes():
-    """The number of K slices of the dW products depends on shapes only (a
-    fixed summation order), is at least 1 and leaves every slice work."""
-    # kernel D (tensor-core product, 128 x 128 tiles, K step 32 over the flat rows)
-    assert cuda_frontend.tc_dw_slices(1024, 1028, 157) == 4  # flagship, batch 200: 256 blocks
-    assert cuda_frontend.tc_dw_slices(1024, 1028, 7) == 1
-    assert cuda_frontend.tc_dw_slices(64, 68, 400) == 50
-    assert cuda_frontend.tc_dw_slices(64, 68, 4) == 1
-    # kernel E (SIMT product, 128 x 64 tiles, K step 16 within a frame)
-    assert cuda_frontend.dw_slices(1026, 1024, 7 * 13) == 4  # flagship, batch 200
-    assert cuda_frontend.dw_slices(66, 64, 7) == 1
+# (m, n, k) of a tensor-core product, and the K slices the rule gives it
+K_SLICES = {
+    "D dW, flagship batch 200": ((1024, 1028, 25 * 200), 4),  # 64 tiles: 256 blocks
+    "D dW, 7 K steps": ((1024, 1028, 7 * 32), 1),
+    "D dW, small, 400 K steps": ((64, 68, 400 * 32), 50),
+    "D dW, small, 4 K steps": ((64, 68, 4 * 32), 1),
+    "B frames, flagship batch 200": ((7 * 200, 1024, 1028), 3),  # 88 tiles: 264 blocks
+    "B frames, flagship batch 643": ((7 * 643, 1024, 1028), 1),  # 288 tiles fill the card
+    "E dspec, flagship batch 200": ((7 * 200, 1028, 1024), 3),
+    "E dW, flagship batch 200": ((1024, 1028, 7 * 200), 4),
+    "B frames, ft 600 batch 100": ((7 * 100, 600, 604), 2),  # at least 8 K steps a slice
+    "E dW, ft 600 batch 100": ((600, 604, 7 * 100), 2),
+}
+
+
+@pytest.mark.parametrize("shape,want", K_SLICES.values(), ids=K_SLICES.keys())
+def test_dw_slices_are_fixed_by_the_shapes(shape, want):
+    """The number of K slices of a tensor-core product (dW of D and E, B's
+    frames, E's dspec) depends on shapes only (a fixed summation order), is at
+    least 1, keeps every full-width block on the card at once and leaves every
+    slice at least 8 K steps."""
+    m, nn, k = shape
+    got = cuda_frontend.k_slices(m, nn, k)
+    assert got == want
+    assert got == 1 or (-(-m // 128) * (nn // 128) * got <= 2 * 132 and -(-k // 32) // got >= 8)

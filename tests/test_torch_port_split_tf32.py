@@ -1,14 +1,16 @@
-"""The split-TF32 arithmetic of kernels A and D, on the CPU.
+"""The split-TF32 arithmetic of kernels A, B, D and E, on the CPU.
 
 csrc/tc_product.cuh forms every f32 product on the tensor cores from three
 TF32 ones. A CUDA kernel cannot run here, but its arithmetic can:
 cuda_frontend.split_tf32 / split_tf32_matmul round as the kernel does and add
-the three products in its order. These tests hold that arithmetic to the
+the three products in its order; K slices are summed in order as the passes
+after a sliced product add them. These tests hold that arithmetic to the
 tolerances the kernels are held to on the card: the analysis rule of
 tests/torch_port_util.assert_analysis_close against the plain version and
-against the JAX package's Pallas kernel (interpret mode), and 5e-4 on the
-gradients with well-conditioned cotangents. One TF32 product alone misses the
-magnitude tolerance: that is why the split is there.
+against the JAX package's Pallas kernel (interpret mode), 5e-4 on the
+gradients with well-conditioned cotangents, 3e-4 + 3e-4|wave| on the
+synthesis waveform and 5e-4 + 5e-4|g| on the synthesis gradients. One TF32
+product alone misses the magnitude tolerance: that is why the split is there.
 """
 
 import os
@@ -18,16 +20,18 @@ import numpy as np
 import pytest
 import torch
 
+from signaltrain_tpu.ops import frontend as jfrontend
 from signaltrain_tpu.ops import pallas_frontend as pf
-from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, framing
+from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, framing, frontend
 from signaltrain_tpu_torch.utils.load_model import load_model
 from tests.torch_port_util import (FLAGSHIP, analysis_bwd_inputs, assert_analysis_close,
                                    assert_close_where_conditioned, n,
-                                   regular_phase_cotangent, t)
+                                   regular_phase_cotangent, synthesis_bwd_inputs, t)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FT, HOP, CHUNK = FLAGSHIP["ft"], FLAGSHIP["hop"], FLAGSHIP["chunk"]
 HALF = FT // 2 + 1
+LDC = cuda_frontend.packed_width(HALF)
 BATCH = 4
 
 
@@ -159,6 +163,102 @@ def test_split_gradients_match_plain(cot):
     # and the all-padding edge frames contribute exactly nothing
     assert float((sdxp[:, sl] < 5e-4).double().mean()) > 0.4
     assert torch.isfinite(sdw).all() and torch.isfinite(sdxp).all()
+
+
+# ---- kernels B and E: the synthesis side
+
+@pytest.fixture(scope="module")
+def syn():
+    """Seeded synthesis inputs at the flagship geometry, batch 4 (OT 9), and
+    the folded, stacked synthesis weights (2*half, ft)."""
+    inp = synthesis_bwd_inputs(FT, HOP, BATCH)
+    w = cuda_frontend.stack_synthesis_weights(
+        *frontend.fold_synthesis_weights(t(inp["wr"]), t(inp["wi"]), HALF))
+    return dict(inp, w=w)
+
+
+def _interleave(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2*half) stacked as [re | im] -> (..., ldc) with re and im of a bin
+    side by side and zero padding columns: the layout of the kernels' packed
+    weights and spectra."""
+    out = torch.zeros(*x.shape[:-1], LDC)
+    out[..., 0 : 2 * HALF : 2] = x[..., :HALF]
+    out[..., 1 : 2 * HALF : 2] = x[..., HALF:]
+    return out
+
+
+def _sliced_matmul(a: torch.Tensor, b: torch.Tensor, nsplit: int) -> torch.Tensor:
+    """a @ b in split arithmetic with K cut as the kernels cut it: the 32-wide
+    K steps in nsplit contiguous slices, the slices' results added in order."""
+    steps = -(-a.shape[-1] // 32)
+    bounds = [steps * z // nsplit * 32 for z in range(nsplit + 1)]
+    parts = [cuda_frontend.split_tf32_matmul(a[..., lo:hi], b[lo:hi])
+             for lo, hi in zip(bounds, bounds[1:])]
+    out = parts[0]
+    for part in parts[1:]:
+        out = out + part
+    return out
+
+
+def _split_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Kernel B's arithmetic: the interleaved spectrum of the live frames
+    1 .. OT-2, the K-sliced split product with the packed (ft, ldc) weights,
+    the overlap-add and the trim."""
+    ot, b = mag.shape[:2]
+    live = mag[1:-1]
+    spec = _interleave(torch.cat([live * torch.cos(phs[1:-1]), live * torch.sin(phs[1:-1])], -1))
+    rows = (ot - 2) * b
+    wp = _interleave(w.t())  # wp[j, 2*bin + part] = w[part*half + bin, j]
+    frames = _sliced_matmul(spec.reshape(rows, LDC), wp.t(), cuda_frontend.k_slices(rows, FT, LDC))
+    wave = framing.overlap_add(frames.reshape(ot - 2, b, FT).transpose(0, 1), HOP)
+    out_len = (ot - 1) * HOP - FT
+    return wave[:, FT - HOP : FT - HOP + out_len]  # the live frames start at sample hop
+
+
+def test_split_synthesis_matches_plain_and_pallas(syn):
+    mag, phs, w = t(syn["mag"]), t(syn["phs"]), syn["w"]
+    assert cuda_frontend.k_slices((mag.shape[0] - 2) * BATCH, FT, LDC) > 1  # slices are summed
+    wave = _split_synthesis(mag, phs, w)
+    ref = cuda_frontend.fused_synthesis_reference(mag, phs, w, FT, HOP)
+    assert wave.shape == ref.shape == (BATCH, 2048)
+    np.testing.assert_allclose(n(wave), n(ref), atol=3e-4, rtol=3e-4)
+
+    jwr, jwi = jfrontend.fold_synthesis_weights(jnp.asarray(syn["wr"]), jnp.asarray(syn["wi"]), HALF)
+    want = pf.fused_synthesis(jnp.asarray(syn["mag"]), jnp.asarray(syn["phs"]),
+                              pf.stack_synthesis_weights(jwr, jwi, HALF), FT, HOP, HALF,
+                              jnp.float32, True)
+    np.testing.assert_allclose(n(wave), np.asarray(want), atol=3e-4, rtol=3e-4)
+
+
+def test_split_synthesis_bwd_matches_plain(syn):
+    """Kernel E's arithmetic: dspec by tc::Spectrum on the padded dout from the
+    first live frame on, K-sliced, then dmag and dphs; dW^T by the K-sliced
+    product of the frames with the interleaved spectrum, un-interleaved and
+    transposed. Frames 0 and OT-1 are never read: exact zeros."""
+    mag, phs, w, dout = t(syn["mag"]), t(syn["phs"]), syn["w"], t(syn["a"])
+    ot, b = mag.shape[:2]
+    rows = (ot - 2) * b
+    doutp = torch.nn.functional.pad(dout, (FT, FT))
+    dframe = framing.frame_signal(doutp[:, HOP:], FT, HOP, pad=0)[:, : ot - 2]
+    dframe = dframe.transpose(0, 1).reshape(rows, FT)
+    n_dspec, n_dw = cuda_frontend.k_slices(rows, LDC, FT), cuda_frontend.k_slices(FT, LDC, rows)
+    assert n_dspec > 1 and n_dw == 1  # batch 4: E's dW has 4 K steps
+    dspec = _sliced_matmul(dframe, _interleave(w.t()), n_dspec).reshape(ot - 2, b, LDC)
+    d_re, d_im = dspec[..., 0 : 2 * HALF : 2], dspec[..., 1 : 2 * HALF : 2]
+    c, s = torch.cos(phs[1:-1]), torch.sin(phs[1:-1])
+    dmag, dphs = torch.zeros_like(mag), torch.zeros_like(mag)
+    dmag[1:-1] = d_re * c + d_im * s
+    dphs[1:-1] = mag[1:-1] * (d_im * c - d_re * s)
+    spec = _interleave(torch.cat([mag[1:-1] * c, mag[1:-1] * s], -1)).reshape(rows, LDC)
+    dwt = _sliced_matmul(dframe.t().contiguous(), spec, n_dw)  # (ft, ldc)
+    dw = torch.cat([dwt[:, 0 : 2 * HALF : 2], dwt[:, 1 : 2 * HALF : 2]], 1).t()
+
+    want = cuda_frontend.fused_synthesis_bwd_reference(mag, phs, w, dout, FT, HOP)
+    for got, ref, name in zip((dmag, dphs, dw), want, ("dmag", "dphs", "dW")):
+        assert got.shape == ref.shape, name
+        np.testing.assert_allclose(n(got), n(ref), atol=5e-4, rtol=5e-4, err_msg=name)
+    for ref in want[:2]:
+        assert torch.all(ref[0] == 0) and torch.all(ref[-1] == 0)
 
 
 @pytest.mark.parametrize("ft,hop,lp,width", [(1024, 384, 10240, 4), (64, 24, 640, 4),
