@@ -25,12 +25,15 @@ Phases (any failure raises and exits non-zero):
      same inputs and must be bit-equal; B and E are also held, as A is, to
      their largest error against a float64 plain version beside the plain f32
      version's (within twice it plus 1e-6 * max|result|); E's edge frames must
-     be exact zeros;
+     be exact zeros. C's chunked schedule (a 30 s row) must be bit-equal to its
+     row schedule on the serving path's gain curve, on randn and on a step to
+     silence that never meets, and all within 1e-6 of the plain version;
   3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
      [-25, 4, 0.005, 0.02], and the comp_4c target by Compressor_4c.go_wc
-     and calc_ct. A, B and C must have launched and no plain version run;
+     and calc_ct. A, B and C (go_wc's whole-clip row by its chunked schedule)
+     must have launched and no plain version run;
      the prediction must be finite, of the expected length, correlate >= 0.98
      with the target (the floor of tests/test_shipped_model_quality.py) and
      agree with the plain CPU path on a short clip (atol 1e-3);
@@ -52,8 +55,12 @@ Phases (any failure raises and exits non-zero):
      three TF32 tensor-core products, a third of the 495 TFLOP/s dense TF32
      peak = 165 TFLOP/s of f32-accurate work, with the bound at the CUDA
      cores' f32 67 TFLOP/s beside it: the H100 SXM data-sheet rates at 700 W;
-     for C the f32 67 TFLOP/s and the bound of its dependent chain), with the
-     TFLOP/s that A, B, D and E reach; predict_long's
+     for C the f32 67 TFLOP/s, and beside it the floor of its schedule's
+     dependent chain: W + L steps chunked, a row's length by rows), with the
+     TFLOP/s that A, B, D and E reach; C chunked on the serving gain curve, on
+     randn and on the row that never meets (at most 1.2 x the row schedule),
+     each beside the row schedule, with W, L, the virtual rows and the steps
+     re-run; predict_long's
      audio-seconds per second; the
      train step with either front-end (host clock, least and most of two
      turns) and the data synthesis alone; one torch.profiler window over each
@@ -68,6 +75,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -215,6 +223,7 @@ def main() -> None:
         fail(f"run from a checkout of the repository: {HERE} lacks the package or {CKPT.name}")
     sys.path.insert(0, str(HERE))
 
+    from signaltrain_tpu_torch.cli import time_smoother
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects, synths
     from signaltrain_tpu_torch.inference import predict_long as pl
@@ -343,7 +352,7 @@ def main() -> None:
                       "two runs bit-equal")
 
         smooth_shapes = [(1, len(clip)), (1, chunk), (ct_batch, chunk), (TRAIN_BATCH, chunk)]
-        smooth_err, plain_c_ms = 0.0, None
+        smooth_err, plain_c_s = 0.0, 0.0
         for b, n in smooth_shapes:
             g = torch.randn(b, n, generator=gen, device=dev)
             aa = torch.empty(b, device=dev).uniform_(0.9, 0.999, generator=gen)
@@ -351,19 +360,43 @@ def main() -> None:
             s = cuda_kernels.switched_one_pole_batched(g, aa, ar)
             torch.cuda.synchronize()
             t_start = time.perf_counter()
-            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            ev0.record()
             rs = cuda_kernels.switched_one_pole_reference(g, aa, ar)
-            ev1.record()
-            ev1.synchronize()
-            if (b, n) == smooth_shapes[0]:
-                plain_c_ms = ev0.elapsed_time(ev1)
+            plain_c_s += time.perf_counter() - t_start
             err = float((s - rs).abs().max())
             smooth_err = max(smooth_err, err)
-            print(f"C switched_one_pole g {(b, n)}: max|ds| {err:.3e}; tolerance 1e-6 "
-                  f"(plain version {time.perf_counter() - t_start:.1f} s)")
+            print(f"C switched_one_pole g {(b, n)} ({'chunked' if cuda_kernels.uses_chunks(b, n) else 'row'}"
+                  f" schedule): max|ds| {err:.3e}; tolerance 1e-6 (plain version "
+                  f"{time.perf_counter() - t_start:.2f} s)")
             check(err <= 1e-6 and bool(torch.all(s[:, 0] == 0)), disagreement("C", s, rs))
-        results["switched_one_pole"] = dict(max_abs_err=smooth_err, tolerance="1e-6")
+        # the chunked schedule on whole-clip rows, bit-equal to the row schedule:
+        # the serving path's own gain curve, randn, and a row that never meets
+        plain_c_ms = None
+        for case in ("serving_curve", "randn", "step_to_silence"):
+            g, aa, ar = time_smoother.long_rows(case, dev)
+            s, stats = cuda_kernels.smoother_chunked(g, aa, ar)
+            rows = cuda_kernels.smoother_rows(g, aa, ar)
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            rs = cuda_kernels.switched_one_pole_reference(g, aa, ar)
+            t_plain = time.perf_counter() - t_start
+            plain_c_s += t_plain
+            if case == "serving_curve":
+                plain_c_ms = t_plain * 1e3
+            err = float((s - rs).abs().max())
+            smooth_err = max(smooth_err, err)
+            print(f"C chunked schedule, {case} g {tuple(g.shape)}: bit-equal to the row schedule "
+                  f"{torch.equal(s, rows)}; max|ds| {err:.3e} against the plain version "
+                  f"({t_plain:.2f} s); W {int(stats[0, 0])}, L {cuda_kernels.CHUNK}, "
+                  f"{math.ceil(g.shape[1] / cuda_kernels.CHUNK)} virtual rows, "
+                  f"{int(stats[0, 1])} steps re-run")
+            check(torch.equal(s, rows), f"kernel C: the chunked schedule differs from the row "
+                                        f"schedule on {case}")
+            check(err <= 1e-6, disagreement(f"C (chunked, {case})", s, rs))
+        print(f"C: the plain version took {plain_c_s:.2f} s in all")
+        results["switched_one_pole"] = dict(
+            max_abs_err=smooth_err, plain_s_all_checks=plain_c_s,
+            tolerance="1e-6 against the plain version; the chunked schedule bit-equal to the row "
+                      "schedule")
 
         # D and E at the training shapes; cotangents scaled by 64/ft so the
         # gradients stay O(1-10), as in the CPU tests against the JAX package
@@ -485,7 +518,8 @@ def main() -> None:
     t_path = time.perf_counter() - t_path
     counts = {name: (c.launches, c.plain_calls) for name, c in _cuda.COUNTERS.items()}
     print(f"serving path {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
-    for name in ("fused_analysis", "fused_synthesis", "switched_one_pole"):
+    for name in ("fused_analysis", "fused_synthesis", "switched_one_pole",
+                 "switched_one_pole_chunked"):
         check(counts[name][0] > 0, f"serving path never launched kernel {name}")
     for name in results:
         check(counts[name][1] == 0, f"serving path ran the plain version of {name}")
@@ -642,23 +676,37 @@ def main() -> None:
         r["tflops"] = b_flops / r["ms"] / 1e9
         r["shape"] = f"mag {tuple(smag.shape)}, w {tuple(w_syn.shape)}"
 
-        g = torch.randn(1, len(clip), generator=gen, device=dev)
-        aa = torch.full((1,), 0.99, device=dev)
-        ar = torch.full((1,), 0.95, device=dev)
-        results["switched_one_pole"]["ms"] = cuda_ms(
-            lambda: cuda_kernels.switched_one_pole_batched(g, aa, ar), reps=5, warmup=1)
-        results["switched_one_pole"]["plain_ms"] = plain_c_ms
-        results["switched_one_pole"]["library_ms"] = None
-        results["switched_one_pole"].update(zip(("bound_ms", "bound_by"), bound(
-            4.0 * g.numel(), 4.0 * (2 * g.numel() + 2))))
-        # the bound that applies to a serial recursion: its dependent chain,
-        # at the SM clock the card reports while it is busy
+        # C on the whole clip as one row, chunked: the serving path's gain
+        # curve, the randn input of earlier runs, and the row that never meets,
+        # each beside the row schedule; the statistics read after the timing
+        r = results["switched_one_pole"]
+        for case, key in (("serving_curve", ""), ("randn", "randn_"), ("step_to_silence", "worst_")):
+            g, aa, ar = time_smoother.long_rows(case, dev)
+            r[f"{key}ms"] = cuda_ms(lambda: cuda_kernels.smoother_chunked(g, aa, ar), reps=20)
+            r[f"{key}rows_ms"] = cuda_ms(lambda: cuda_kernels.smoother_rows(g, aa, ar), reps=5,
+                                         warmup=1)
+            stats = cuda_kernels.smoother_chunked(g, aa, ar)[1].tolist()[0]
+            r[f"{key}warmup"], r[f"{key}rerun_steps"] = stats
+            print(f"C at g {tuple(g.shape)}, {case}: chunked {r[f'{key}ms']:.4f} ms, row schedule "
+                  f"{r[f'{key}rows_ms']:.4f} ms; W {stats[0]}, L {cuda_kernels.CHUNK}, "
+                  f"{math.ceil(g.shape[1] / cuda_kernels.CHUNK)} virtual rows, {stats[1]} steps re-run")
+        check(r["worst_ms"] <= 1.2 * r["worst_rows_ms"],
+              f"kernel C: the chunked schedule on a row that never meets takes {r['worst_ms']:.3f} ms, "
+              f"over 1.2 x the row schedule's {r['worst_rows_ms']:.3f}")
+        r["chunk"] = cuda_kernels.CHUNK
+        r["virtual_rows"] = math.ceil(len(clip) / cuda_kernels.CHUNK)
+        r["plain_ms"] = plain_c_ms
+        r["library_ms"] = None
+        r.update(zip(("bound_ms", "bound_by"), bound(4.0 * len(clip), 4.0 * (2 * len(clip) + 2))))
+        # the chunked design's own floor: each virtual row's dependent chain of
+        # W + L steps, at the SM clock the card reports while it is busy
         sm_mhz = float(subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
-        results["switched_one_pole"]["sm_clock_mhz"] = sm_mhz
-        results["switched_one_pole"]["chain_bound_ms"] = g.shape[1] * CHAIN_CYCLES / (sm_mhz * 1e3)
-        results["switched_one_pole"]["shape"] = f"g {tuple(g.shape)} (go_wc on the whole clip)"
+        r["sm_clock_mhz"] = sm_mhz
+        r["chain_floor_ms"] = (r["warmup"] + r["chunk"]) * CHAIN_CYCLES / (sm_mhz * 1e3)
+        r["shape"] = (f"g {(1, len(clip))} (go_wc on the whole clip, the serving gain curve; "
+                      f"chunked schedule)")
         gb = torch.randn(ct_batch, chunk, generator=gen, device=dev)
         ab = torch.full((ct_batch,), 0.99, device=dev)
         rb = torch.full((ct_batch,), 0.95, device=dev)
@@ -751,7 +799,9 @@ def main() -> None:
         r["train_plain_ms"] = cuda_ms(
             lambda: cuda_kernels.switched_one_pole_reference(gt, at, rt), reps=1, warmup=0)
         r["train_bound_ms"] = bound(4.0 * gt.numel(), 4.0 * (2 * gt.numel() + 2 * tb))[0]
-        r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis)"
+        r["train_chain_floor_ms"] = chunk * CHAIN_CYCLES / (sm_mhz * 1e3)  # one thread a row
+        r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis; row schedule)"
+        r["ct_batch_ms"] = batch_ms
     torch.cuda.synchronize()
 
     # the train step (forward, loss, backward, clip, Adam) on one fixed batch,
@@ -829,8 +879,11 @@ def main() -> None:
                 "launches_serving", "launches_training", "max_phase_err",
                 "max_small_bin_phase_err", "max_err_vs_float64", "plain_max_err_vs_float64",
                 "max_dx_err", "max_regular_err", "ms_without_dxp", "bound_ms_cuda_cores", "tflops",
-                "tflops_without_dxp", "sm_clock_mhz", "chain_bound_ms", "train_ms",
-                "train_plain_ms", "train_library_ms", "train_bound_ms",
+                "tflops_without_dxp", "sm_clock_mhz", "chain_floor_ms", "rows_ms", "randn_ms",
+                "randn_rows_ms", "worst_ms", "worst_rows_ms", "warmup", "rerun_steps",
+                "randn_warmup", "randn_rerun_steps", "worst_warmup", "worst_rerun_steps", "chunk",
+                "virtual_rows", "plain_s_all_checks", "ct_batch_ms", "train_ms",
+                "train_plain_ms", "train_library_ms", "train_bound_ms", "train_chain_floor_ms",
                 "train_bound_ms_cuda_cores", "train_tflops", "train_shape") if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -838,9 +891,12 @@ def main() -> None:
         if "tflops" in r:
             extra = (f"; {r['tflops']:.1f} TFLOP/s of f32-accurate work, bound at the CUDA cores' "
                      f"67 TFLOP/s {r['bound_ms_cuda_cores']:.4f} ms")
-        if "chain_bound_ms" in r:
-            extra = (f"; dependent chain {r['chain_bound_ms']:.3f} ms at {CHAIN_CYCLES} cycles a "
-                     f"step and {r['sm_clock_mhz']:.0f} MHz")
+        if "chain_floor_ms" in r:
+            extra = (f"; the chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
+                     f"{CHAIN_CYCLES} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "
+                     f"ms; row schedule {r['rows_ms']:.4f} ms; randn input {r['randn_ms']:.4f} ms "
+                     f"(row schedule {r['randn_rows_ms']:.4f}); never meeting {r['worst_ms']:.4f} "
+                     f"ms (row schedule {r['worst_rows_ms']:.4f}); {r['rerun_steps']} steps re-run")
         print(f"{name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}{extra}) on {smi}")
         if "train_ms" in r:

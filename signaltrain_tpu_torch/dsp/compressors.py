@@ -35,18 +35,10 @@ def _smooth(g: torch.Tensor, alpha_a: torch.Tensor, alpha_r: torch.Tensor) -> to
     return out[0] if g.dim() == 1 else out
 
 
-def compressor_4controls(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0.01,
-                         release_time=0.01, sr: float = 44100.0) -> torch.Tensor:
-    """4-knob feed-forward compressor (Tarr, Hack Audio p.428):
-
-      x_dB  = max(20*log10(|x| + 1e-8), -96)
-      gc_dB = thresh + (x_dB - thresh)/ratio - x_dB   where x_dB > thresh else 0
-      env   = switched one-pole smoothing of gc_dB with
-              alpha_{a,r} = exp(-ln 9 / (sr * t_{attack,release})), env[0] = 0
-      y     = x * 10^(env/20)
-
-    x is (N,) or (B, N) float32; each knob is a scalar or a (B,) tensor.
-    """
+def gain_curve(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0.01,
+               release_time=0.01, sr: float = 44100.0):
+    """The smoother's inputs in compressor_4controls: the gain change gc_dB
+    (x's shape) and alpha_a, alpha_r (0-d, or (B, 1) for per-example knobs)."""
     thresh = _per_example(thresh, x)
     ratio = _per_example(ratio, x)
     attack_time = _per_example(attack_time, x)
@@ -60,7 +52,22 @@ def compressor_4controls(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0
     gain_change_db = torch.where(
         x_db > thresh, thresh + (x_db - thresh) / ratio - x_db, torch.zeros_like(x_db)
     )
-    env = _smooth(gain_change_db, alpha_a, alpha_r)
+    return gain_change_db, alpha_a, alpha_r
+
+
+def compressor_4controls(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0.01,
+                         release_time=0.01, sr: float = 44100.0) -> torch.Tensor:
+    """4-knob feed-forward compressor (Tarr, Hack Audio p.428):
+
+      x_dB  = max(20*log10(|x| + 1e-8), -96)
+      gc_dB = thresh + (x_dB - thresh)/ratio - x_dB   where x_dB > thresh else 0
+      env   = switched one-pole smoothing of gc_dB with
+              alpha_{a,r} = exp(-ln 9 / (sr * t_{attack,release})), env[0] = 0
+      y     = x * 10^(env/20)
+
+    x is (N,) or (B, N) float32; each knob is a scalar or a (B,) tensor.
+    """
+    env = _smooth(*gain_curve(x, thresh, ratio, attack_time, release_time, sr))
     return torch.pow(10.0, env / 20.0) * x
 
 

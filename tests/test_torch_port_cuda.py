@@ -9,8 +9,8 @@ skip. Run them on a GPU machine without the JAX package's test setup:
 Tolerances are those the port's CPU tests hold the plain versions to against
 the JAX package: magnitude 2e-5, wrapped phase 2e-4 on the bins of magnitude
 >= 1e-2 and 2e-6 / mag below (assert_analysis_close), synthesis 3e-4,
-smoother 1e-6, model output 1e-3; gradients 5e-4 + 5e-4*|g| element by
-element, kernel D's with well-conditioned phase cotangents included; kernel
+smoother 1e-6 (its chunked schedule bit-equal to its row schedule), model
+output 1e-3; gradients 5e-4 + 5e-4*|g| element by element, kernel D's with well-conditioned phase cotangents included; kernel
 D's with unit-normal phase cotangents on every bin (heavy-tailed and
 ill-conditioned: max|dW| is 50-24,000 against a median of 0.7-18) against a
 float64 plain version with the slack that each element's conditioning gives
@@ -18,12 +18,14 @@ float64 plain version with the slack that each element's conditioning gives
 1e-1) within 1e-3 * max|g| of the leaf, no absolute floor.
 """
 
+import math
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from signaltrain_tpu_torch.cli import time_smoother
 from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels, frontend
 
 from tests.torch_port_util import (BWD_GEOMS, analysis_bwd_inputs, assert_analysis_close,
@@ -123,13 +125,60 @@ def test_smoother_kernel_matches_plain(dev, b, n):
     x = torch.randn(b, n, generator=g, device=dev)
     aa = torch.empty(b, device=dev).uniform_(0.9, 0.999, generator=g)
     ar = torch.empty(b, device=dev).uniform_(0.9, 0.999, generator=g)
-    before = cuda_kernels.SMOOTHER.launches
+    before, chunked = cuda_kernels.SMOOTHER.launches, cuda_kernels.SMOOTHER_CHUNKED.launches
     s = cuda_kernels.switched_one_pole_batched(x, aa, ar)
     assert cuda_kernels.SMOOTHER.launches == before + 1
+    assert cuda_kernels.SMOOTHER_CHUNKED.launches == chunked  # the row schedule
     ref = cuda_kernels.switched_one_pole_reference(x, aa, ar)
     torch.cuda.synchronize()
     assert torch.all(s[:, 0] == 0)
     torch.testing.assert_close(s, ref, atol=1e-6, rtol=0)
+
+
+# the chunked schedule's rows (signaltrain_tpu_torch/cli/time_smoother.py), at lengths
+# that chunk: the whole 30 s clip for the serving curve and randn, shorter for the others
+SMOOTHER_ROW_LENGTHS = {"serving_curve": None, "randn": time_smoother.CLIP_N,
+                        "step_to_silence": 300_000, "alpha_9999": 200_000,
+                        "alphas_equal": 200_000, "ragged": 70_000, "at_warmup_cap": None,
+                        "three_rows": 300_000}
+
+
+@pytest.mark.parametrize("case", time_smoother.CASES)
+def test_chunked_smoother_is_bit_equal_to_row_kernel(dev, case):
+    n = SMOOTHER_ROW_LENGTHS[case]
+    g, aa, ar = time_smoother.long_rows(case, dev, *([n] if n else []))
+    b, n = g.shape
+    assert cuda_kernels.uses_chunks(b, n)
+    before, chunked = cuda_kernels.SMOOTHER.launches, cuda_kernels.SMOOTHER_CHUNKED.launches
+    s = cuda_kernels.switched_one_pole_batched(g, aa, ar)
+    assert cuda_kernels.SMOOTHER.launches == before + 1
+    assert cuda_kernels.SMOOTHER_CHUNKED.launches == chunked + 1
+    again, stats = cuda_kernels.smoother_chunked(g, aa, ar)
+    rows = cuda_kernels.smoother_rows(g, aa, ar)
+    assert cuda_kernels.SMOOTHER_CHUNKED.launches == chunked + 2
+    plain = cuda_kernels.switched_one_pole_reference(g, aa, ar)
+    torch.cuda.synchronize()
+    assert torch.equal(s, rows) and torch.equal(s, again)
+    torch.testing.assert_close(s, plain, atol=1e-6, rtol=0)
+    w = 24.0 / (1.0 - torch.maximum(aa, ar))  # in float32, as the kernel computes it
+    assert stats[:, 0].tolist() == [min(65536, -(-math.ceil(v) // 256) * 256) for v in w.tolist()]
+    if case == "step_to_silence":  # W = 65,536: the walk re-ran all from the first guessed chunk
+        assert int(stats[0, 1]) == n - (65536 + cuda_kernels.CHUNK)
+
+
+@pytest.mark.parametrize("n,chunked", [(65_535, False), (65_536, True)])
+def test_smoother_dispatch_threshold(dev, n, chunked):
+    g = torch.randn(1, n, generator=torch.Generator(device=dev).manual_seed(n), device=dev)
+    aa, ar = torch.full((1,), 0.99, device=dev), torch.full((1,), 0.95, device=dev)
+    before = cuda_kernels.SMOOTHER_CHUNKED.launches
+    s = cuda_kernels.switched_one_pole_batched(g, aa, ar)
+    assert cuda_kernels.SMOOTHER_CHUNKED.launches == before + int(chunked)
+    other = (cuda_kernels.smoother_rows(g, aa, ar) if chunked
+             else cuda_kernels.smoother_chunked(g, aa, ar)[0])
+    plain = cuda_kernels.switched_one_pole_reference(g, aa, ar)
+    torch.cuda.synchronize()
+    assert torch.equal(s, other)
+    torch.testing.assert_close(s, plain, atol=1e-6, rtol=0)
 
 
 def test_wrappers_check_their_inputs(dev):
