@@ -28,6 +28,18 @@ Phases (any failure raises and exits non-zero):
      be exact zeros. C's chunked schedule (a 30 s row) must be bit-equal to its
      row schedule on the serving path's gain curve, on randn and on a step to
      silence that never meets, and all within 1e-6 of the plain version;
+  2b. the bf16 modes of A, B, D and E (compute_dtype=torch.bfloat16), each
+     against its plain bf16 version (the same operands rounded to bf16, a
+     float32 product with TF32 off) at the training shapes, A and B also at
+     the serving batch: A's magnitude and phase by A's float32 rule, with the
+     float32 kernel more than 20x further off (the operands were rounded); B
+     and E element by element (3e-4 and 5e-4 + 5e-4|g|); D, which rounds its
+     own dspec before its products, against the float64 plain version of the
+     same bf16-rounded computation with unit-normal and well-conditioned
+     phase cotangents (within 2 x the plain f32 version's error + 1e-3 *
+     max|g|), E also so; B, D and E twice, bit-equal. Each check's control:
+     the float32 kernel on the same inputs must land more than GAP_B, GAP_D,
+     GAP_E times over its limit;
   3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
@@ -37,18 +49,25 @@ Phases (any failure raises and exits non-zero):
      the prediction must be finite, of the expected length, correlate >= 0.98
      with the target (the floor of tests/test_shipped_model_quality.py) and
      agree with the plain CPU path on a short clip (atol 1e-3);
-  4. the training path, counters set to 0 just before and read just after:
-     train() on the card (comp_4c, float32, fused front-end, fresh seeded
-     weights, batch 200, 3 epochs x 20 steps, lr_max 2e-4) in a temporary
-     directory, then its checkpoint through load_model (strict) and
-     predict_long on a 2 s clip. All five kernels must have launched and no
-     plain version run; every loss finite; the mean validation MAE lower
-     after the last epoch than after the first; the served output finite and
-     of the expected length. One more step on the same batch through
-     frontend="fused" (the kernels) and "gemm" (plain autograd), each against
-     the gemm step in float64: the fused loss within twice the gemm step's
+  4. the training paths, float32 then bfloat16 (the JAX package's default),
+     each with the counters set to 0 just before and read just after:
+     train() on the card (comp_4c, fused front-end, fresh seeded weights,
+     batch 200, 3 epochs x 20 steps, lr_max 2e-4) in a temporary directory,
+     then its checkpoint through load_model (strict, in the same compute
+     dtype) and predict_long on a 2 s clip. The path's four front-end
+     kernels (A, B, D, E in its mode) and C must have launched, none of the
+     other mode, and no plain version run; every loss finite; the mean
+     validation MAE lower after the last epoch than after the first;
+     parameters float32; the served output finite and of the expected
+     length. In each dtype one more step on the same batch through
+     frontend="fused" (the kernels) and "gemm" (plain autograd in float32,
+     the bf16 gemm policy in bfloat16), each against the gemm step with
+     float64 parameters (in bf16 the same roundings, the front-end's bf16
+     operands summed in float64): the fused loss within twice the gemm step's
      relative error plus 1e-5, every fused gradient within twice the gemm
-     step's error plus 1e-3 * max|g| of its leaf;
+     step's error plus 1e-3 * max|g| of its leaf (bf16: STEP_LOSS_FLOOR_BF16,
+     STEP_GRAD_FLOOR_BF16), and in bf16 a control, the bf16 model on the
+     float32 kernels, more than GAP_STEP times over both limits;
   5. timing with CUDA events: each kernel, its plain version and the
      PyTorch library calls nearest to it, beside the bound computed from this
      run's shapes (HBM 3.35 TB/s; for A, B, D and E, whose products run as
@@ -62,9 +81,12 @@ Phases (any failure raises and exits non-zero):
      each beside the row schedule, with W, L, the virtual rows and the steps
      re-run; predict_long's
      audio-seconds per second; the
-     train step with either front-end (host clock, least and most of two
-     turns) and the data synthesis alone; one torch.profiler window over each
-     for the card's busy time and the kernels launched.
+     train step with either front-end in either dtype (host clock, least and
+     most of two turns) and the data synthesis alone; one torch.profiler
+     window over each for the card's busy time and the kernels launched; the
+     bf16 modes of A, B, D and E at the training shapes (A and B also at the
+     serving batch) beside their plain bf16 versions, cuDNN's bf16
+     convolutions and the bound at the dense bf16 rate (989 TFLOP/s).
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -74,6 +96,7 @@ when it is not next to the signaltrain_tpu_torch package it drives.
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -94,10 +117,19 @@ MIN_CORR = 0.98
 PEAK_F32_FLOPS = 67e12  # H100 SXM, CUDA cores, float32
 PEAK_SPLIT_TF32_FLOPS = 495e12 / 3  # tensor cores, dense TF32, three products per f32 product
 CHAIN_CYCLES = 8  # kernel C: one fma and one select per step, each ~4 cycles, dependent
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense bf16
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+BF16 = torch.bfloat16
 TRAIN_BATCH = 200
 TRAIN_EPOCHS, TRAIN_POINTS, TRAIN_LR = 3, 4000, 2e-4  # 3 epochs x 20 steps
 SEEDS = (0, 1, 2)
+# the controls of the bf16 checks: how many times over a check's limit the
+# float32 kernel (or, for the train step, the bf16 model on the float32
+# kernels) must land
+GAP_B, GAP_D, GAP_E, GAP_STEP = 5.0, 2.0, 4.0, 2.0
+# the bf16 train step's floors, loss (relative) and gradients (of a leaf's
+# max|g|), each between the fused step's reading and its control's
+STEP_LOSS_FLOOR_BF16, STEP_GRAD_FLOOR_BF16 = 3e-5, 2e-2
 
 
 def fail(msg: str) -> None:
@@ -148,11 +180,6 @@ def host_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def grad_excess(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """Largest error of a gradient, and 1e-3 * max|want|."""
-    return float((got - want).abs().max()), 1e-3 * float(want.abs().max())
 
 
 def elementwise_excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> tuple[float, float]:
@@ -216,6 +243,256 @@ def as_accurate(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.
     return err, plain_err
 
 
+def f64_rule(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor) -> tuple:
+    """A bf16 mode's result that rounds one of its own results (D's dspec) or
+    a gradient: the kernel's largest error against the float64 plain version
+    of the same bf16-rounded computation within twice the plain f32
+    version's plus 1e-3 * max|exact|. Returns both errors."""
+    return as_accurate(name, got, plain, exact, 1e-3 * float(exact.abs().max()))
+
+
+def rounding_shows(name: str, ratio: float, factor: float) -> float:
+    """The control of a bf16 check: ``ratio`` is how many times over the
+    check's limit the float32 kernel lands on the same inputs (a mode that
+    forgot to round); raises unless it exceeds ``factor``."""
+    check(ratio > factor, f"{name}: the control is only {ratio:.2f}x the bf16 check's limit "
+                          f"(needs > {factor:g}x): the check cannot tell a mode that did not round")
+    return ratio
+
+
+def excess_ratio(got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """The largest of |got - want| / (tol + tol*|want|): over 1 fails that check."""
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def check_bf16_kernels(cf, dev, w_an, w_syn, ft, hop, chunk, out_frames, n_windows) -> tuple:
+    """Phase 2b: the bf16 modes of A, B, D and E, each against its plain bf16
+    version (the same operands rounded to bf16, a float32 product with TF32
+    off) at the training shapes, A and B also at the serving batch. Returns
+    the results and the inputs the timing reuses."""
+    half = ft // 2 + 1
+    out_len = (out_frames - 1) * hop - ft
+    res, ins = {}, {}
+    errs = {"mag": 0.0, "phs": 0.0, "small": 0.0, "gap": float("inf")}
+    for nb in (TRAIN_BATCH, n_windows):
+        sg = torch.Generator(device=dev).manual_seed(300 + nb)
+        xp = torch.nn.functional.pad(torch.randn(nb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
+        mag, phs = cf.fused_analysis(xp, w_an, ft, hop, BF16)
+        rmag, rphs = cf.fused_analysis_reference(xp, w_an, ft, hop, BF16)
+        f32_mag = cf.fused_analysis(xp, w_an, ft, hop)[0]
+        torch.cuda.synchronize()
+        check(mag.shape == rmag.shape and mag.dtype == torch.float32, "bf16 A: shape or dtype")
+        m_err, mag_excess = elementwise_excess(mag, rmag, 2e-5)
+        cls = phase_classes(phs, rphs, rmag)
+        gap = float((f32_mag - rmag).abs().max())
+        print(f"A bf16 xp {tuple(xp.shape)}: max|dmag| {m_err:.3e} (tolerance 2e-5+2e-5|mag|); "
+              f"wrapped phase {cls['regular']['worst']:.3e} on {cls['regular']['bins']} bins >= 1e-2 "
+              f"(2e-4+2e-4|phs|), {cls['small']['worst']:.3e} on {cls['small']['bins']} smaller "
+              f"(2e-6/mag); the float32 kernel is {gap:.3e} off the plain bf16 version")
+        check(mag_excess <= 0, disagreement("A bf16 (magnitude)", mag, rmag))
+        for name, c in cls.items():
+            check(c["excess"] <= 0, f"kernel A bf16 (phase, {name} bins): {c['worst']:.3e}")
+        check(gap > 20 * m_err, "kernel A bf16 is as close to the float32 kernel as to its plain "
+                                "bf16 version: the operands were not rounded")
+        check(all(bool(torch.all(mag[e] == np.float32(1e-18))) for e in (0, -1)),
+              "kernel A bf16: an edge frame's magnitude is not exactly 1e-18")
+        errs = {"mag": max(errs["mag"], m_err), "phs": max(errs["phs"], cls["regular"]["worst"]),
+                "small": max(errs["small"], cls["small"]["worst"]), "gap": min(errs["gap"], gap)}
+        ins["xp", nb] = xp
+    res["bf16_fused_analysis"] = dict(
+        max_abs_err=errs["mag"], max_phase_err=errs["phs"], max_small_bin_phase_err=errs["small"],
+        f32_kernel_gap=errs["gap"],
+        tolerance="against the plain bf16 version: mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + "
+                  "2e-4*|phs| where mag >= 1e-2, 2e-6/mag below; the float32 kernel > 20x further")
+
+    b_err, b_gap = 0.0, float("inf")
+    for nb in (TRAIN_BATCH, n_windows):
+        sg = torch.Generator(device=dev).manual_seed(400 + nb)
+        smag = torch.nn.functional.softplus(torch.randn(out_frames, nb, half, generator=sg, device=dev))
+        sphs = torch.randn(out_frames, nb, half, generator=sg, device=dev) * 2.0
+        wave = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16)
+        wave2 = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16)
+        rwave = cf.fused_synthesis_reference(smag, sphs, w_syn, ft, hop, BF16)
+        f32_wave = cf.fused_synthesis(smag, sphs, w_syn, ft, hop)
+        torch.cuda.synchronize()
+        check(wave.shape == (nb, out_len), f"bf16 synthesis shape {tuple(wave.shape)}")
+        check(torch.equal(wave, wave2), "kernel B bf16: two runs are not bit-equal")
+        err, excess = elementwise_excess(wave, rwave, 3e-4)
+        gap = excess_ratio(f32_wave, rwave, 3e-4)
+        print(f"B bf16 mag {tuple(smag.shape)}: max|dwave| {err:.3e} (tolerance 3e-4+3e-4|wave|, "
+              f"max|wave| {float(rwave.abs().max()):.3f}); two runs bit-equal; the float32 kernel "
+              f"is {gap:.2f}x the tolerance off the plain bf16 version")
+        check(excess <= 0, disagreement("B bf16", wave, rwave))
+        b_err, b_gap = max(b_err, err), min(b_gap, rounding_shows("B bf16", gap, GAP_B))
+        ins["syn", nb] = (smag, sphs)
+    res["bf16_fused_synthesis"] = dict(
+        max_abs_err=b_err, f32_kernel_gap=b_gap,
+        tolerance=f"3e-4 + 3e-4*|wave| against the plain bf16 version, the float32 kernel > {GAP_B:g}x "
+                  "it; two runs bit-equal")
+
+    # D: unit-normal and well-conditioned phase cotangents, both against float64
+    tb, lp = TRAIN_BATCH, chunk + 2 * ft
+    frames = (lp - ft) // hop + 1
+    sg = torch.Generator(device=dev).manual_seed(500)
+    txp = torch.nn.functional.pad(torch.randn(tb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
+    tdmag = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
+    tdphs = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
+    kmag = cf.fused_analysis_reference(txp, w_an, ft, hop)[0]
+    d_err, d_gap = {}, {}
+    for cot, dphs in (("unit-normal", tdphs), ("well-conditioned", tdphs * (kmag >= 0.25 * kmag.median()))):
+        args = (txp, w_an, tdmag, dphs, ft, hop)
+        dxp, dw = cf.fused_analysis_bwd(*args, compute_dtype=BF16)
+        dxp2, dw2 = cf.fused_analysis_bwd(*args, compute_dtype=BF16)
+        rdxp, rdw = cf.fused_analysis_bwd_reference(*args, compute_dtype=BF16)
+        xdxp, xdw = cf.fused_analysis_bwd_reference(*(a.double() for a in args[:4]), ft, hop, BF16)
+        fdxp, fdw = cf.fused_analysis_bwd(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2), "kernel D bf16: runs not bit-equal")
+        sl = slice(ft, -ft) if cot == "unit-normal" else slice(None)
+        ex, ex_plain = f64_rule(f"D bf16 ({cot} dx)", dxp[:, sl], rdxp[:, sl], xdxp[:, sl])
+        ew, ew_plain = f64_rule(f"D bf16 ({cot} dW)", dw, rdw, xdw)
+        # the float32 kernel against the same limits: how far over them it lands
+        gaps = [float((f - x).abs().max()) / (2 * e_plain + 1e-3 * float(x.abs().max()))
+                for f, x, e_plain in ((fdxp[:, sl], xdxp[:, sl], ex_plain), (fdw, xdw, ew_plain))]
+        print(f"D bf16 xp {tuple(txp.shape)}, {cot} phase cotangents, against float64: dx kernel "
+              f"{ex:.3e} plain {ex_plain:.3e} (max {float(xdxp[:, sl].abs().max()):.3e}); dW kernel "
+              f"{ew:.3e} plain {ew_plain:.3e} (max {float(xdw.abs().max()):.3e}); limit 2 x plain + "
+              f"1e-3 max; two runs bit-equal; the float32 kernel {gaps[0]:.2f}x (dx), "
+              f"{gaps[1]:.2f}x (dW) the limit")
+        d_err[cot] = (ew, ex)
+        d_gap[cot] = max(gaps)
+        del xdxp, xdw, fdxp, fdw
+    for cot, gap in d_gap.items():
+        rounding_shows(f"D bf16 ({cot})", gap, GAP_D)
+    res["bf16_fused_analysis_bwd"] = dict(
+        max_abs_err=d_err["unit-normal"][0], max_dx_err=d_err["unit-normal"][1],
+        max_regular_err=max(d_err["well-conditioned"]), f32_kernel_gap=min(d_gap.values()),
+        tolerance="against the float64 plain version of the same bf16-rounded computation, with "
+                  "unit-normal and with well-conditioned phase cotangents: within 2 x the plain "
+                  "f32 version's error + 1e-3*max|g| (dx on the unpadded signal under unit-normal "
+                  f"ones), the float32 kernel > {GAP_D:g}x that limit in both; two runs bit-equal")
+    ins["D"] = (txp, tdmag, tdphs)
+
+    tmag, tphs = ins["syn", TRAIN_BATCH]
+    tdout = torch.randn(tb, out_len, generator=sg, device=dev)
+    args = (tmag, tphs, w_syn, tdout, ft, hop)
+    got = cf.fused_synthesis_bwd(*args, compute_dtype=BF16)
+    again = cf.fused_synthesis_bwd(*args, compute_dtype=BF16)
+    want = cf.fused_synthesis_bwd_reference(*args, compute_dtype=BF16)
+    exact = cf.fused_synthesis_bwd_reference(*(a.double() for a in args[:4]), ft, hop, BF16)
+    f32_got = cf.fused_synthesis_bwd(*args)
+    torch.cuda.synchronize()
+    e_err = e_f64 = 0.0
+    e_gap = float("inf")
+    for name, g1, g2, r, x, f in zip(("dmag", "dphs", "dW"), got, again, want, exact, f32_got):
+        check(torch.equal(g1, g2), f"kernel E bf16: two runs differ in {name}")
+        err, excess = elementwise_excess(g1, r, 5e-4)
+        check(excess <= 0, disagreement(f"E bf16 ({name})", g1, r))
+        f64, f64_plain = f64_rule(f"E bf16 ({name})", g1, r, x)
+        gap = excess_ratio(f, r, 5e-4)
+        print(f"E bf16 {name}: max error {err:.3e} (tolerance 5e-4+5e-4|g|); against float64: "
+              f"kernel {f64:.3e}, plain {f64_plain:.3e} (max {float(x.abs().max()):.3e}); the float32 "
+              f"kernel is {gap:.2f}x the tolerance off the plain bf16 version")
+        e_err, e_f64 = max(e_err, err), max(e_f64, f64)
+        e_gap = min(e_gap, rounding_shows(f"E bf16 ({name})", gap, GAP_E))
+    for g1 in got[:2]:
+        check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
+              "kernel E bf16: an edge frame's gradient is not exactly 0")
+    res["bf16_fused_synthesis_bwd"] = dict(
+        max_abs_err=e_err, max_err_vs_float64=e_f64, f32_kernel_gap=e_gap,
+        tolerance="5e-4 + 5e-4*|g| against the plain bf16 version (the float32 kernel > "
+                  f"{GAP_E:g}x it), and against float64 within 2 x the plain version's error + "
+                  "1e-3*max|g|; two runs bit-equal; edge frames 0")
+    ins["E"] = tdout
+    return res, ins
+
+
+class Bf16GemmFloat64(torch.autograd.Function):
+    """The float64 reference's front-end product in bf16: the bf16 gemm
+    policy of ops/frontend.Bf16Gemm (the operands and the cotangent rounded
+    to bf16, the bf16 operands kept for the backward) with every product
+    summed in float64."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ac, bc = a.to(BF16).double(), b.to(BF16).double()
+        ctx.save_for_backward(ac, bc)
+        return ac @ bc
+
+    @staticmethod
+    def backward(ctx, g):
+        ac, bc = ctx.saved_tensors
+        gc = g.to(BF16).double()
+        return gc @ bc.t(), ac.reshape(-1, ac.shape[-1]).t() @ gc.reshape(-1, gc.shape[-1])
+
+
+def step_errors(train_mod, model, ref, l_ref, bx, by, bk) -> tuple[float, list]:
+    """One step of ``model`` on the batch: its loss's relative error and each
+    leaf's gradient error against the float64 reference step."""
+    loss = train_mod.loss_and_grads(model, bx, by, bk)
+    torch.cuda.synchronize()
+    rel = abs(float(loss) - float(l_ref)) / abs(float(l_ref))
+    return rel, [float((p.grad.double() - px.grad).abs().max())
+                 for p, px in zip(model.parameters(), ref.parameters())]
+
+
+def step_against_float64(train_mod, fused, gemm, bx, by, bk, prefix: str, loss_floor: float,
+                         grad_floor: float, control=None) -> dict:
+    """One more step on the same batch through frontend="fused" (the kernels)
+    and "gemm", each against the gemm step with float64 parameters (in bf16
+    the same roundings: the bf16 autoencoders, and the front-end's bf16
+    operands summed in float64 by Bf16GemmFloat64): the fused loss within
+    twice the gemm step's relative error plus loss_floor, every fused
+    gradient within twice the gemm step's error plus grad_floor * max|g| of
+    its leaf. ``control``, a model that must fail both rules, is held to them
+    too: its loss and its worst leaf each more than GAP_STEP times over."""
+    from unittest import mock
+
+    from signaltrain_tpu_torch.ops import _cuda, frontend
+
+    ref = copy.deepcopy(gemm).double()
+    with mock.patch.object(frontend, "Bf16Gemm", Bf16GemmFloat64):
+        l_ref = train_mod.loss_and_grads(ref, bx.double(), by.double(), bk.double())
+    _cuda.reset_counts()
+    rel, errs = step_errors(train_mod, fused, ref, l_ref, bx, by, bk)
+    check(all(_cuda.COUNTERS[prefix + c].launches == 1 for c in
+              ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")),
+          f"the fused step did not launch {prefix}A, B, D and E once each")
+    rel_gemm, errs_gemm = step_errors(train_mod, gemm, ref, l_ref, bx, by, bk)
+    names = [n for n, _ in ref.named_parameters()]
+    scales = [float(px.grad.abs().max()) for px in ref.parameters()]
+    check(min(scales) > 0, f"{prefix}a float64 gradient is all zero")
+    loss_limit = 2 * rel_gemm + loss_floor
+    limits = [2 * e + grad_floor * m for e, m in zip(errs_gemm, scales)]
+    over = max(e / lim for e, lim in zip(errs, limits))
+    worst, worst_gemm = (max(e / m for e, m in zip(es, scales)) for es in (errs, errs_gemm))
+    print(f"{prefix or 'f32 '}fused vs gemm step on the card: loss against float64: fused "
+          f"{rel:.2e}, gemm {rel_gemm:.2e} (limit 2 x gemm's + {loss_floor:g}); worst gradient "
+          f"error against float64 in units of the leaf's max|g|: fused {worst:.2e}, gemm "
+          f"{worst_gemm:.2e} (limit 2 x gemm's + {grad_floor:g}; the fused step at {over:.2f}x "
+          f"its worst leaf's limit); the leaves' max|g| run {min(scales):.2e} to {max(scales):.2e}")
+    out = {"loss_rel_vs_f64": rel, "gemm_loss_rel_vs_f64": rel_gemm,
+           "grad_err_vs_f64": worst, "gemm_grad_err_vs_f64": worst_gemm}
+    if control is not None:
+        rel_c, errs_c = step_errors(train_mod, control, ref, l_ref, bx, by, bk)
+        over_c = max(e / lim for e, lim in zip(errs_c, limits))
+        out.update(control_loss_rel_vs_f64=rel_c,
+                   control_grad_err_vs_f64=max(e / m for e, m in zip(errs_c, scales)))
+        print(f"{prefix}control (the bf16 model on the float32 kernels): loss against float64 "
+              f"{rel_c:.2e} ({rel_c / loss_limit:.2f}x the limit); worst gradient error "
+              f"{out['control_grad_err_vs_f64']:.2e} of its leaf's max|g| ({over_c:.2f}x its limit)")
+    # the loss takes the phase as an input of the autoencoder, so a bin at
+    # atan2's branch cut moves it: each loss is held against float64
+    check(rel <= loss_limit, f"the {prefix}fused loss is off the float64 one")
+    for name, e, lim, e_gemm, m in zip(names, errs, limits, errs_gemm, scales):
+        check(e <= lim, f"{prefix}fused gradient of {name} is off the float64 one by {e:.3e}, the "
+                        f"gemm step's by {e_gemm:.3e} (max|g| {m:.3e})")
+    if control is not None:
+        rounding_shows(f"{prefix}train step (loss)", rel_c / loss_limit, GAP_STEP)
+        rounding_shows(f"{prefix}train step (gradients)", over_c, GAP_STEP)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
@@ -267,8 +544,9 @@ def main() -> None:
         for line in _cuda.build_report(name):
             print(f"  ptxas[{name}]: {line}")
 
-    occupancy = _cuda.function("frontend", "st_analysis_blocks_per_sm", [])()
-    print(f"blocks of the tensor-core product an SM holds at once: {occupancy}")
+    occupancy = _cuda.function("frontend", "st_analysis_blocks_per_sm", [ctypes.c_int])
+    print(f"blocks of the tensor-core product an SM holds at once: {occupancy(0)} (float32), "
+          f"{occupancy(1)} (bfloat16)")
 
     # ---- 2. kernels against their plain versions, on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -504,6 +782,12 @@ def main() -> None:
                       "1e-6*max|g|; two runs bit-equal; edge frames exactly 0")
     torch.cuda.synchronize()
 
+    # ---- 2b. the bf16 modes of A, B, D and E against their plain bf16 versions
+    with torch.inference_mode():
+        bf16_results, bf16_ins = check_bf16_kernels(cuda_frontend, dev, w_an, w_syn, ft, hop, chunk,
+                                                    out_frames, n_windows)
+    results.update(bf16_results)
+
     # ---- 3. the serving path, counted
     kr = np.asarray(rv["knob_ranges"], np.float32)
     knobs_nn = (KNOBS_WC - kr[:, 0]) / (kr[:, 1] - kr[:, 0]) - 0.5
@@ -548,96 +832,103 @@ def main() -> None:
     print(f"card vs plain CPU path on {len(short)} samples: max|dy| {d_cpu:.3e}; tolerance 1e-3")
     check(d_cpu <= 1e-3, "card and plain CPU path disagree")
 
-    # ---- 4. the training path, counted
-    cwd = os.getcwd()
-    _cuda.reset_counts()
-    t_path = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        os.chdir(tmp)
-        try:
-            trained, hist = train_mod.train(
-                effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH,
-                cp_every=TRAIN_EPOCHS, sr=sr, lr_max=TRAIN_LR, seed=218, device=dev)
-            val_lines = [ln.split() for ln in open("val_err_mae.dat").read().strip().splitlines()]
-            vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
-            served, served_rv = load_model("modelcheckpoint.tar", device=dev)  # strict inside
-        finally:
-            os.chdir(cwd)
+    # ---- 4. the training paths, float32 then bfloat16, each counted
     short_clip = synths.music_like_clip(2.0, sr=sr, seed=1)
-    y_served = pl.predict_long(short_clip, knobs_nn, served)
-    torch.cuda.synchronize()
-    t_path = time.perf_counter() - t_path
-    counts = {name: (c.launches, c.plain_calls) for name, c in _cuda.COUNTERS.items()}
-    print(f"\ntraining path {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
-    for name in results:
-        check(counts[name][0] > 0, f"training path never launched kernel {name}")
-        check(counts[name][1] == 0, f"training path ran the plain version of {name}")
-        results[name]["launches_training"] = counts[name][0]
-        results[name]["launches"] = counts[name][0] + results[name]["launches_serving"]
     steps = TRAIN_EPOCHS * (TRAIN_POINTS // TRAIN_BATCH)
-    check(len(hist["train_loss"]) == steps and hist["step"] == steps, "train(): step count")
-    check(bool(np.all(np.isfinite(hist["train_loss"]))), "train(): a training loss is not finite")
-    check(len(val_lines) == TRAIN_EPOCHS and len(vl_lines) == TRAIN_EPOCHS, "train(): log lines")
-    check(all(np.isfinite(float(v)) for ln in val_lines + vl_lines for v in ln),
-          "train(): a logged validation figure is not finite")
-    mean_maes = [float(ln[2]) for ln in val_lines]
-    print(f"train(): loss first {hist['train_loss'][0]:.4e} last {hist['train_loss'][-1]:.4e}; "
-          f"mean validation MAE by epoch {mean_maes}")
-    check(mean_maes[-1] < mean_maes[0], f"validation MAE did not fall: {mean_maes}")
-    check(served_rv["optax_step"] == steps, "checkpoint: optimizer step")
-    check(all(torch.equal(a, b) for a, b in zip(served.state_dict().values(),
-                                               trained.state_dict().values())),
-          "checkpoint: the served weights are not the trained ones")
-    check(y_served.shape == (len(short_clip) - lookback,) and bool(np.all(np.isfinite(y_served))),
-          "predict_long on the trained checkpoint: wrong length or not finite")
+    f32_names = ["fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd"]
+    bf16_names = ["bf16_" + name for name in f32_names]
 
-    # one more step on the same batch: the kernels against plain autograd
+    def training_path(compute_dtype, names, others):
+        """train() on the card in compute_dtype in a temporary directory, its
+        checkpoint through load_model (strict) and predict_long, with every
+        counter set to 0 just before and read just after: the kernels in
+        names and C must have launched, none in others, and no plain version
+        run. Returns the served model, the mean validation MAEs and the
+        seconds the path took."""
+        tag = str(compute_dtype).removeprefix("torch.")
+        cwd = os.getcwd()
+        _cuda.reset_counts()
+        t_path = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                trained, hist = train_mod.train(
+                    effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS,
+                    batch_size=TRAIN_BATCH, cp_every=TRAIN_EPOCHS, sr=sr, lr_max=TRAIN_LR,
+                    seed=218, device=dev, compute_dtype=compute_dtype)
+                val_lines = [ln.split() for ln in open("val_err_mae.dat").read().strip().splitlines()]
+                vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
+                served, served_rv = load_model("modelcheckpoint.tar", device=dev,  # strict inside
+                                               compute_dtype=compute_dtype)
+            finally:
+                os.chdir(cwd)
+        y_served = pl.predict_long(short_clip, knobs_nn, served)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t_path
+        counts = {name: (c.launches, c.plain_calls) for name, c in _cuda.COUNTERS.items()}
+        print(f"\ntraining path, {tag}, {t_path:.2f} s; launches / plain calls: {json.dumps(counts)}")
+        for name in names + ["switched_one_pole"]:
+            check(counts[name][0] > 0, f"{tag} training path never launched kernel {name}")
+            results[name][f"launches_training_{tag}"] = counts[name][0]
+        for name in others:
+            check(counts[name][0] == 0, f"{tag} training path launched kernel {name}")
+        for name in results:
+            check(counts[name][1] == 0, f"{tag} training path ran the plain version of {name}")
+        check(len(hist["train_loss"]) == steps and hist["step"] == steps, "train(): step count")
+        check(bool(np.all(np.isfinite(hist["train_loss"]))), "train(): a training loss is not finite")
+        check(len(val_lines) == TRAIN_EPOCHS and len(vl_lines) == TRAIN_EPOCHS, "train(): log lines")
+        check(all(np.isfinite(float(v)) for ln in val_lines + vl_lines for v in ln),
+              "train(): a logged validation figure is not finite")
+        mean_maes = [float(ln[2]) for ln in val_lines]
+        print(f"train({tag}): loss first {hist['train_loss'][0]:.4e} last "
+              f"{hist['train_loss'][-1]:.4e}; mean validation MAE by epoch {mean_maes}")
+        check(mean_maes[-1] < mean_maes[0], f"validation MAE did not fall: {mean_maes}")
+        check(served_rv["optax_step"] == steps, "checkpoint: optimizer step")
+        check(all(torch.equal(a, b) for a, b in zip(served.state_dict().values(),
+                                                   trained.state_dict().values())),
+              "checkpoint: the served weights are not the trained ones")
+        check(all(p.dtype == torch.float32 for p in served.parameters()),
+              "checkpoint: a parameter is not float32")
+        check(y_served.shape == (len(short_clip) - lookback,) and bool(np.all(np.isfinite(y_served))),
+              "predict_long on the trained checkpoint: wrong length or not finite")
+        return served, hist, mean_maes, t_path
+
+    served, hist, mean_maes, t_path = training_path(torch.float32, f32_names, bf16_names)
+    served_b, hist_b, mean_maes_b, t_path_b = training_path(BF16, bf16_names, f32_names)
+    for name, r in results.items():
+        r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
+
+    # one more step on the same batch, in each dtype: the kernels against the
+    # gemm front-end (plain autograd in float32, the bf16 gemm policy in
+    # bfloat16), both against the gemm step in float64. The front-end's
+    # gradients carry the phase adjoint dphs / |spec|, which amplifies the
+    # ~5e-7 by which the kernels' spectrum and cuBLAS's differ (and in bf16
+    # moves roundings by an ulp), so the two steps are never compared with
+    # each other, only each with float64.
     batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
     data_gen = torch.Generator(device=dev)
     bx, by, bk = batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, steps))
-    gemm, _ = load_model(str(CKPT), device=dev)
-    gemm.load_state_dict(served.state_dict())
+    gemm = copy.deepcopy(served)
     gemm.mpaec.frontend = "gemm"
-    served.train(), gemm.train()
-    _cuda.reset_counts()
-    l_fused = train_mod.loss_and_grads(served, bx, by, bk)
-    l_gemm = train_mod.loss_and_grads(gemm, bx, by, bk)
-    torch.cuda.synchronize()
-    check(all(_cuda.COUNTERS[c].launches == 1 for c in
-              ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")),
-          "the fused step did not launch A, B, D and E once each")
-    # The front-end's gradients carry the phase adjoint dphs / |spec|, which
-    # amplifies the ~5e-7 by which the kernels' spectrum and cuBLAS's differ,
-    # so the two f32 steps are each held against the same step in float64:
-    # every gradient of the fused step within twice the gemm step's error plus
-    # 1e-3 * max|g| of its leaf, no absolute floor.
-    gemm64 = copy.deepcopy(gemm).double()
-    l_exact = train_mod.loss_and_grads(gemm64, bx.double(), by.double(), bk.double())
-    rel = abs(float(l_fused) - float(l_gemm)) / abs(float(l_gemm))
-    rel64 = abs(float(l_fused) - float(l_exact)) / abs(float(l_exact))
-    rel64_gemm = abs(float(l_gemm) - float(l_exact)) / abs(float(l_exact))
-    worst, worst_gemm, worst_diff, g_max = 0.0, 0.0, 0.0, []
-    for (pname, pf_), (_, pg), (_, px) in zip(served.named_parameters(), gemm.named_parameters(),
-                                              gemm64.named_parameters()):
-        scale = float(px.grad.abs().max())
-        err = float((pf_.grad.double() - px.grad).abs().max())
-        err_gemm = float((pg.grad.double() - px.grad).abs().max())
-        check(scale > 0 and err <= 2 * err_gemm + 1e-3 * scale,
-              f"fused gradient of {pname} is off the float64 one by {err:.3e}, the gemm step's by "
-              f"{err_gemm:.3e} (max|g| {scale:.3e})")
-        worst, worst_gemm = max(worst, err / scale), max(worst_gemm, err_gemm / scale)
-        worst_diff = max(worst_diff, grad_excess(pf_.grad, pg.grad)[0] / scale)
-        g_max.append(scale)
-    print(f"fused vs gemm step on the card: loss {float(l_fused):.6e} / {float(l_gemm):.6e} "
-          f"(rel {rel:.2e}; against float64: fused {rel64:.2e}, gemm {rel64_gemm:.2e}; limit 2 x "
-          f"gemm's + 1e-5); worst gradient error "
-          f"against float64 in units of the leaf's max|g|: fused {worst:.2e}, gemm {worst_gemm:.2e} "
-          f"(limit 2 x gemm's + 1e-3); worst fused-gemm difference {worst_diff:.2e}; the leaves' "
-          f"max|g| run {min(g_max):.2e} to {max(g_max):.2e}")
-    # the loss takes the phase as an input of the autoencoder, so a bin at
-    # atan2's branch cut moves it: each f32 loss is held against float64
-    check(rel64 <= 2 * rel64_gemm + 1e-5, "the fused loss is off the float64 one")
-    del gemm64
+    gemm_b = copy.deepcopy(served_b)
+    gemm_b.mpaec.frontend = "gemm"
+    # the control of the bf16 rule: the bf16 model with its front-end on the
+    # float32 kernels, as if the modes had not rounded
+    control_b = copy.deepcopy(served_b)
+    control_b.mpaec.dft_analysis.compute_dtype = torch.float32
+    control_b.mpaec.dft_synthesis.compute_dtype = torch.float32
+    for m in (served, gemm, served_b, gemm_b, control_b):
+        m.train()
+    # In bf16 the gemm step shares the reference's bf16 autoencoders and
+    # roundings, so it lands within float32 noise of it, while any
+    # float32-level difference in the kernels' spectrum moves a bf16 rounding
+    # downstream by an ulp (2^-8): the fused step is held to floors between
+    # its own readings and the control's (PERF.md, Findings).
+    step_checks = {"float32": step_against_float64(train_mod, served, gemm, bx, by, bk, "", 1e-5,
+                                                   1e-3),
+                   "bfloat16": step_against_float64(train_mod, served_b, gemm_b, bx, by, bk,
+                                                    "bf16_", STEP_LOSS_FLOOR_BF16,
+                                                    STEP_GRAD_FLOOR_BF16, control=control_b)}
 
     # ---- 5. timing at the main paths' shapes
     with torch.inference_mode():
@@ -802,6 +1093,79 @@ def main() -> None:
         r["train_chain_floor_ms"] = chunk * CHAIN_CYCLES / (sm_mhz * 1e3)  # one thread a row
         r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis; row schedule)"
         r["ct_batch_ms"] = batch_ms
+
+        # the bf16 modes at the training shapes (A and B also at the serving
+        # batch), on the inputs of their checks; the bound at the dense bf16
+        # rate; the library calls the same linear parts in bf16 (cuDNN)
+        w_conv16, w_tconv16 = w_conv.to(BF16), w_tconv.to(BF16)
+        r = results["bf16_fused_analysis"]
+        bxp = bf16_ins["xp", TRAIN_BATCH]
+        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(bxp, w_an, ft, hop, BF16), reps=20)
+        r["plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_analysis_reference(bxp, w_an, ft, hop, BF16), reps=10)
+        bxp16 = bxp[:, None, :].to(BF16)
+        r["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.conv1d(bxp16, w_conv16, stride=hop), reps=10)
+        r.update(zip(("bound_ms", "bound_by"), bound(at_flops, at_bytes, PEAK_BF16_FLOPS)))
+        r["tflops"] = at_flops / r["ms"] / 1e9
+        r["shape"] = f"xp {tuple(bxp.shape)}, w {tuple(w_an.shape)}"
+        sxp = bf16_ins["xp", n_windows]
+        r["serve_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(sxp, w_an, ft, hop, BF16), reps=20)
+        r["serve_bound_ms"] = bound(a_flops, a_bytes, PEAK_BF16_FLOPS)[0]
+        r["serve_shape"] = f"xp {tuple(sxp.shape)}"
+
+        r = results["bf16_fused_synthesis"]
+        bmag, bphs = bf16_ins["syn", TRAIN_BATCH]
+        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis(bmag, bphs, w_syn, ft, hop, BF16),
+                          reps=20)
+        r["plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis_reference(bmag, bphs, w_syn, ft, hop, BF16), reps=10)
+        bspec16 = torch.cat([bmag * torch.cos(bphs), bmag * torch.sin(bphs)], -1).permute(1, 2, 0)
+        bspec16 = bspec16.contiguous().to(BF16)  # (B, 2*half, OT)
+        r["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.conv_transpose1d(bspec16, w_tconv16, stride=hop), reps=10)
+        r.update(zip(("bound_ms", "bound_by"), bound(bt_flops, bt_bytes, PEAK_BF16_FLOPS)))
+        r["tflops"] = bt_flops / r["ms"] / 1e9
+        r["shape"] = f"mag {tuple(bmag.shape)}, w {tuple(w_syn.shape)}"
+        smag_b, sphs_b = bf16_ins["syn", n_windows]
+        r["serve_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis(smag_b, sphs_b, w_syn, ft, hop, BF16), reps=20)
+        r["serve_bound_ms"] = bound(b_flops, b_bytes, PEAK_BF16_FLOPS)[0]
+        r["serve_shape"] = f"mag {tuple(smag_b.shape)}"
+
+        r = results["bf16_fused_analysis_bwd"]
+        dxp_in, ddmag, ddphs = bf16_ins["D"]
+        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd(
+            dxp_in, w_an, ddmag, ddphs, ft, hop, compute_dtype=BF16), reps=10)
+        r["ms_without_dxp"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd(
+            dxp_in, w_an, ddmag, ddphs, ft, hop, need_dxp=False, compute_dtype=BF16), reps=10)
+        r["plain_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd_reference(
+            dxp_in, w_an, ddmag, ddphs, ft, hop, BF16), reps=5)
+        x_in16, dspec16 = x_in.to(BF16), dspec_bct.to(BF16)
+        r["library_ms"] = cuda_ms(
+            lambda: (torch.nn.grad.conv1d_input(x_in16.shape, w_conv16, dspec16, stride=hop),
+                     torch.nn.grad.conv1d_weight(x_in16, w_conv16.shape, dspec16, stride=hop)),
+            reps=5)
+        r.update(zip(("bound_ms", "bound_by"), bound(d_flops, d_bytes, PEAK_BF16_FLOPS)))
+        r["tflops"] = d_flops / r["ms"] / 1e9
+        r["tflops_without_dxp"] = d_flops * 2 / 3 / r["ms_without_dxp"] / 1e9
+        r["shape"] = f"xp {tuple(dxp_in.shape)}, w {tuple(w_an.shape)}, dmag/dphs {tuple(ddmag.shape)}"
+
+        r = results["bf16_fused_synthesis_bwd"]
+        edout = bf16_ins["E"]
+        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis_bwd(
+            bmag, bphs, w_syn, edout, ft, hop, compute_dtype=BF16), reps=10)
+        r["plain_ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis_bwd_reference(
+            bmag, bphs, w_syn, edout, ft, hop, BF16), reps=5)
+        dacc16 = torch.nn.functional.pad(edout, (ft, ft))[:, None, :].to(BF16)
+        spec_t16 = spec_t.to(BF16)
+        r["library_ms"] = cuda_ms(
+            lambda: (torch.nn.functional.conv1d(dacc16, w_tconv16, stride=hop),
+                     torch.nn.grad.conv1d_weight(dacc16, w_tconv16.shape, spec_t16, stride=hop)),
+            reps=5)
+        r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_BF16_FLOPS)))
+        r["tflops"] = e_flops / r["ms"] / 1e9
+        r["shape"] = f"mag/phs {tuple(bmag.shape)}, w {tuple(w_syn.shape)}, dout {tuple(edout.shape)}"
     torch.cuda.synchronize()
 
     # the train step (forward, loss, backward, clip, Adam) on one fixed batch,
@@ -809,12 +1173,16 @@ def main() -> None:
     # the card drained before and after
     training = {"batch": TRAIN_BATCH, "steps": steps, "train_path_s": t_path,
                 "val_mae_mean": mean_maes, "loss_first": hist["train_loss"][0],
-                "loss_last": hist["train_loss"][-1]}
+                "loss_last": hist["train_loss"][-1], "train_path_s_bf16": t_path_b,
+                "val_mae_mean_bf16": mean_maes_b, "loss_first_bf16": hist_b["train_loss"][0],
+                "loss_last_bf16": hist_b["train_loss"][-1], "step_checks": step_checks}
+    models = {"fused": served, "gemm": gemm, "fused_bf16": served_b, "gemm_bf16": gemm_b}
     opts = {name: train_mod.make_optimizer(m, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
-            for name, m in (("fused", served), ("gemm", gemm))}
-    step_ms = {"fused": [], "gemm": []}
-    for name in ("fused", "gemm", "gemm", "fused"):
-        m, (opt, lr_fn) = (served if name == "fused" else gemm), opts[name]
+            for name, m in models.items()}
+    step_ms = {name: [] for name in models}
+    for name in ("fused", "gemm", "fused_bf16", "gemm_bf16", "gemm_bf16", "fused_bf16", "gemm",
+                 "fused"):
+        m, (opt, lr_fn) = models[name], opts[name]
         step_ms[name].append(host_ms(
             lambda: train_mod.train_step_from_arrays(m, opt, lr_fn, 0, bx, by, bk), reps=20))
     for name, runs in step_ms.items():
@@ -833,16 +1201,21 @@ def main() -> None:
             served, opt, lr_fn, 0, *batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 1))),
         reps=20)
     training["loop_examples_per_s"] = TRAIN_BATCH / training["loop_step_ms"] * 1e3
+    bopt, blr_fn = opts["fused_bf16"]
+    training["loop_step_ms_bf16"] = host_ms(
+        lambda: train_mod.train_step_from_arrays(
+            served_b, bopt, blr_fn, 0,
+            *batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 1))),
+        reps=20)
+    training["loop_examples_per_s_bf16"] = TRAIN_BATCH / training["loop_step_ms_bf16"] * 1e3
     # the card's own share of each: host time that is not card time is launch work
-    gopt, glr_fn = opts["gemm"]
     training["profile"] = {
         "data": card_busy(
-            lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=10),
-        "step_fused": card_busy(
-            lambda: train_mod.train_step_from_arrays(served, opt, lr_fn, 0, bx, by, bk), reps=10),
-        "step_gemm": card_busy(
-            lambda: train_mod.train_step_from_arrays(gemm, gopt, glr_fn, 0, bx, by, bk), reps=10),
-    }
+            lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=10)}
+    for name, m in models.items():
+        mopt, mlr_fn = opts[name]
+        training["profile"][f"step_{name}"] = card_busy(
+            lambda: train_mod.train_step_from_arrays(m, mopt, mlr_fn, 0, bx, by, bk), reps=10)
     print(f"train step at batch {TRAIN_BATCH}, host clock, mean [least, most] of two turns: fused "
           f"{training['step_ms_fused']:.3f} {training['step_ms_fused_min_max']} ms "
           f"({training['examples_per_s_fused']:.0f} examples/s), gemm {training['step_ms_gemm']:.3f} "
@@ -852,6 +1225,13 @@ def main() -> None:
           f"{training['forward_backward_ms_fused']:.3f} ms; data synthesis {training['data_ms']:.3f} ms; "
           f"data + step {training['loop_step_ms']:.3f} ms "
           f"({training['loop_examples_per_s']:.0f} examples/s) on {smi}")
+    print(f"bf16 train step at batch {TRAIN_BATCH}: fused {training['step_ms_fused_bf16']:.3f} "
+          f"{training['step_ms_fused_bf16_min_max']} ms, gemm {training['step_ms_gemm_bf16']:.3f} "
+          f"{training['step_ms_gemm_bf16_min_max']} ms; data + step "
+          f"{training['loop_step_ms_bf16']:.3f} ms "
+          f"({training['loop_examples_per_s_bf16']:.0f} examples/s); card busy per step: " + ", ".join(
+              f"{k} {v['card_busy_ms']:.3f} ms ({v['kernels_launched']:.0f} kernels)"
+              for k, v in training["profile"].items()))
     print(json.dumps({"training": training}))
 
     sources = {
@@ -866,6 +1246,8 @@ def main() -> None:
         "fused_synthesis_bwd": ("signaltrain_tpu_torch/csrc/frontend_bwd.cu",
                                 "signaltrain_tpu/ops/pallas_frontend.py:499"),
     }
+    for name in f32_names:  # the bf16 modes: the same sources and TPU kernels
+        sources["bf16_" + name] = sources[name]
     kernels = []
     for name, (source, replaces) in sources.items():
         r = results[name]
@@ -876,7 +1258,8 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
             **{k: r[k] for k in (
-                "launches_serving", "launches_training", "max_phase_err",
+                "launches_serving", "launches_training_float32", "launches_training_bfloat16",
+                "max_phase_err", "f32_kernel_gap", "serve_ms", "serve_bound_ms", "serve_shape",
                 "max_small_bin_phase_err", "max_err_vs_float64", "plain_max_err_vs_float64",
                 "max_dx_err", "max_regular_err", "ms_without_dxp", "bound_ms_cuda_cores", "tflops",
                 "tflops_without_dxp", "sm_clock_mhz", "chain_floor_ms", "rows_ms", "randn_ms",
@@ -888,9 +1271,14 @@ def main() -> None:
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         extra = ""
-        if "tflops" in r:
+        if "bound_ms_cuda_cores" in r:
             extra = (f"; {r['tflops']:.1f} TFLOP/s of f32-accurate work, bound at the CUDA cores' "
                      f"67 TFLOP/s {r['bound_ms_cuda_cores']:.4f} ms")
+        elif "tflops" in r:
+            extra = f"; {r['tflops']:.1f} TFLOP/s of bf16 products (bound at 989 TFLOP/s dense)"
+        if "serve_ms" in r:
+            extra += (f"; at the serving shape {r['serve_shape']}: {r['serve_ms']:.4f} ms (bound "
+                      f"{r['serve_bound_ms']:.4f} ms)")
         if "chain_floor_ms" in r:
             extra = (f"; the chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
                      f"{CHAIN_CYCLES} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "

@@ -4,8 +4,9 @@ far as the port reaches.
 Example:
     python -m signaltrain_tpu_torch.cli.run_train --epochs 10 -n 2000 -b 100 --effect comp_4c
 
-Runs on the CUDA card unless ``--device cpu`` is given. Options that belong
-to parts not ported yet (file datasets, companding, bf16, model parallelism,
+Runs on the CUDA card unless ``--device cpu`` is given, in bfloat16 unless
+``--dtype float32`` is given (the JAX CLI's default). Options that belong to
+parts not ported yet (file datasets, companding, model parallelism,
 profiling) exit with a message that says so.
 """
 
@@ -38,8 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Scale factor (of input size & whole model)", default=1.0)
     parser.add_argument("--shrink", type=int,
                         help="Shink output chunk relative to input by this divisor", default=4)
-    parser.add_argument("--dtype", default="float32",
-                        help="compute dtype: float32 (bfloat16 is not ported yet)")
+    parser.add_argument("--dtype", default="bfloat16",
+                        help="compute dtype: bfloat16 (bf16) or float32 (f32)")
     parser.add_argument("--nmodel", type=int, default=1,
                         help="model-axis size (model parallelism is not ported yet)")
     parser.add_argument("--seed", type=int, default=218)
@@ -53,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+DTYPES = {"bfloat16": "bfloat16", "bf16": "bfloat16", "float32": "float32", "f32": "float32"}
+
+
 def unported(args) -> list[str]:
     """The options on this command line that need a part not ported yet."""
     found = []
@@ -60,8 +64,6 @@ def unported(args) -> list[str]:
         found.append("--path (file datasets)")
     if args.compand:
         found.append("--compand (file datasets)")
-    if args.dtype not in ("float32", "f32"):
-        found.append(f"--dtype {args.dtype} (the bf16 operand policy)")
     if args.nmodel != 1:
         found.append("--nmodel (model parallelism)")
     if args.profile is not None:
@@ -76,6 +78,11 @@ def main(argv=None) -> None:
     if missing:
         print("Error: not yet ported: " + ", ".join(missing))
         sys.exit(1)
+    if args.dtype not in DTYPES:
+        print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
+        sys.exit(1)
+
+    import torch
 
     from ..dsp import effects
     from ..training.train import train
@@ -100,6 +107,7 @@ def main(argv=None) -> None:
         out_checkpointname=args.out_checkpoint or args.checkpoint,
         seed=args.seed,
         device=args.device,
+        compute_dtype=getattr(torch, DTYPES[args.dtype]),
     )
     print("run_train: Execution completed.")
 

@@ -9,6 +9,17 @@
 // fused_synthesis_reference in signaltrain_tpu_torch/ops/cuda_frontend.py.
 // Their backward kernels (D, E) are in frontend_bwd.cu.
 //
+// Each has two modes, the JAX kernels' compute_dtype: float32 (the split-TF32
+// product below) and bfloat16, where the operands that the JAX kernel casts
+// are rounded to bf16 (to nearest even) by the pass that writes them and the
+// product runs on the bf16 tensor cores with f32 accumulation (tc_product.cuh):
+// A rounds the halved frame (_an_fwd_kernel l.181-183: a pass writes
+// bf16(0.5 * xp)) and the weights (the call's w.astype, l.302: the pack); B
+// rounds its spectrum after the trig (l.371) and the weights (l.474). The
+// magnitude, phase, trig and overlap-add stay in f32, as in JAX. In bf16 both
+// are bound by operations at the 989 TFLOP/s dense bf16 rate only at large
+// batch; at batch 200 B's bound is its bytes.
+//
 // What bounds them on an H100: both are f32-accurate matrix products with
 // fused prologues and epilogues. At the flagship geometry A does
 // 2*25*1024*1026 flops per window against ~0.35 MB of its own traffic,
@@ -44,51 +55,104 @@
 namespace {
 
 // ---------------------------------------------------------------- A
-// The spectrum product of tc_product.cuh; a finished (re, im) pair becomes
-// the magnitude with the 1e-36 floor (edge frames give exactly 1e-18) and the
-// phase atan2(im, re + 1e-7) (edge frames give exactly 0).
-struct AnalysisFwd : tc::Spectrum {
+// The spectrum product of tc_product.cuh; a finished (re, im) pair, times
+// `scale` (the model's x/2 where the products read the unhalved signal),
+// becomes the magnitude with the 1e-36 floor (edge frames give exactly 1e-18)
+// and the phase atan2(im, re + 1e-7) (edge frames give exactly 0).
+template <class T>
+struct AnalysisFwd : tc::Spectrum<T> {
   float* mag;
   float* phs;
+  float scale;
   __device__ void pair(int r, int n, float re2, float im2, int) const {
     const int bin = n >> 1;
-    if (r >= frames * batch || bin >= half) return;
-    const float re = 0.5f * re2;  // the model's x/2
-    const float im = 0.5f * im2;
-    mag[(int64_t)r * half + bin] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
-    phs[(int64_t)r * half + bin] = atan2f(im, re + 1e-7f);
+    if (r >= this->frames * this->batch || bin >= this->half) return;
+    const float re = scale * re2;
+    const float im = scale * im2;
+    mag[(int64_t)r * this->half + bin] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
+    phs[(int64_t)r * this->half + bin] = atan2f(im, re + 1e-7f);
   }
 };
 
+template <class T>
+int analysis_fwd(const float* xp, const float* w, T* xq, T* wp, float* mag, float* phs, int batch,
+                 int lp, int ft, int hop, int half, int frames, int vec, cudaStream_t s) {
+  int err = tc::pack(w, wp, ft, half, s);
+  if (err) return err;
+  AnalysisFwd<T> p;
+  err = tc::signal(xp, xq, (int64_t)batch * lp, &p.xp, s);
+  if (err) return err;
+  p.wp = wp;
+  p.batch = batch, p.lp = lp, p.ft = ft, p.hop = hop, p.half = half, p.frames = frames;
+  p.ldc = tc::packed_width<T>(half);
+  p.live_lo = 0, p.live_hi = lp;  // every sample
+  p.mag = mag;
+  p.phs = phs;
+  p.scale = tc::SIGNAL_SCALE<T>;
+  return tc::launch(p, (int64_t)frames * batch, p.ldc, 1, vec, s);
+}
+
 // ---------------------------------------------------------------- B
 // spec[r, 2 * bin + part] = mag * (cos, sin)(phs) at frame-major row r + row0
-// of the (frames, batch, half) magnitude and phase, for r < rows; the columns
-// past 2 * half zero: the first operand of B's frame product.
+// of the (frames, batch, half) magnitude and phase, for r < rows, in the
+// operand type (bf16: rounded after the trig, as the JAX kernel rounds
+// `spec.astype(compute_dtype)`); the columns past 2 * half zero: the first
+// operand of B's frame product.
+template <class T>
 __global__ void spectrum_rows(const float* __restrict__ mag, const float* __restrict__ phs,
-                              float* __restrict__ spec, int64_t rows, int64_t row0, int half,
+                              T* __restrict__ spec, int64_t rows, int64_t row0, int half,
                               int ldc) {
   const int pairs = ldc / 2;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * pairs) return;
   const int64_t r = i / pairs;
   const int bin = (int)(i - r * pairs);
-  float2 v = make_float2(0.f, 0.f);
+  float re = 0.f, im = 0.f;
   if (bin < half) {
     const int64_t o = (r + row0) * half + bin;
     float s, c;
     sincosf(phs[o], &s, &c);
-    v = make_float2(mag[o] * c, mag[o] * s);
+    re = mag[o] * c;
+    im = mag[o] * s;
   }
-  *reinterpret_cast<float2*>(spec + r * ldc + 2 * bin) = v;
+  tc::store2(spec + r * ldc + 2 * bin, re, im);
 }
 
-int synthesis_spectrum(const float* mag, const float* phs, float* spec, int64_t rows,
-                       int64_t row0, int half, cudaStream_t stream) {
-  const int ldc = tc::packed_width(half);
-  if (rows <= 0) return 0;
-  spectrum_rows<<<tc::blocks(rows * (ldc / 2), 256), 256, 0, stream>>>(mag, phs, spec, rows,
-                                                                       row0, half, ldc);
-  return (int)cudaGetLastError();
+template <class T>
+int synthesis_fwd(const float* mag, const float* phs, const float* w, T* wp, T* spec,
+                  float* frames, float* out, int batch, int out_frames, int ft, int hop, int half,
+                  int out_len, int nsplit, int vec, cudaStream_t s) {
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int64_t rows = (int64_t)live * batch;
+  const int ldc = tc::packed_width<T>(half);
+  int err = tc::pack_synthesis(w, wp, ft, half, s);
+  if (err) return err;
+  if (rows > 0) {
+    spectrum_rows<T><<<tc::blocks(rows * (ldc / 2), 256), 256, 0, s>>>(mag, phs, spec, rows,
+                                                                       batch, half, ldc);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  // live frame t's sample j lies at position (t + 1)*hop + j; the trimmed
+  // output is [ft, ft + out_len)
+  err = tc::launch(tc::Frames<T>{spec, wp, frames, (int)rows, ft, ldc, batch, hop, ft - hop,
+                                 ft + out_len - hop},
+                   rows, ft, nsplit, vec, s);
+  if (err) return err;
+  return tc::gather(frames, out, batch, out_len, ft, ft, hop, 1, live, nsplit, 1.f, s);
+}
+
+template <class T>
+int blocks_per_sm() {
+  using S = tc::Smem<T>;
+  void (*kernel)(const AnalysisFwd<T>, int, int) = tc::product<AnalysisFwd<T>, S::WIDE>;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES) !=
+          cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tc::THREADS, S::BYTES) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -98,64 +162,48 @@ extern "C" {
 const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half) stacked analysis
-// weights; wp scratch (ft, 2*half rounded up to a multiple of 4); mag, phs
-// (frames, batch, half) with frames = (lp - ft)/hop + 1. vec is 4 when hop,
-// lp, ft and the pointers allow 16-byte copies, else 1.
-int st_analysis_fwd(const void* xp, const void* w, void* wp, void* mag, void* phs,
-                    int batch, int lp, int ft, int hop, int half, int frames, int vec,
+// weights; mag, phs (frames, batch, half) with frames = (lp - ft)/hop + 1.
+// bf16 selects the compute dtype: 0 float32 (split TF32), 1 bfloat16. Scratch
+// in that dtype: wp (ft, ldc), ldc = 2*half rounded up to a multiple of 16
+// bytes, and for bf16 xq (batch, lp), the halved and rounded signal (null for
+// float32). vec, elements a copy: 16 bytes' worth when hop, lp, ft and the
+// pointers allow, else 1.
+int st_analysis_fwd(const void* xp, const void* w, void* xq, void* wp, void* mag, void* phs,
+                    int batch, int lp, int ft, int hop, int half, int frames, int vec, int bf16,
                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int err = tc::pack((const float*)w, (float*)wp, ft, half, s);
-  if (err) return err;
-  AnalysisFwd p;
-  p.xp = (const float*)xp;
-  p.wp = (const float*)wp;
-  p.batch = batch, p.lp = lp, p.ft = ft, p.hop = hop, p.half = half, p.frames = frames;
-  p.ldc = tc::packed_width(half);
-  p.live_lo = 0, p.live_hi = lp;  // every sample
-  p.mag = (float*)mag;
-  p.phs = (float*)phs;
-  return tc::launch(p, (int64_t)frames * batch, p.ldc, 1, vec, s);
+  if (bf16)
+    return analysis_fwd((const float*)xp, (const float*)w, (tc::bf16*)xq, (tc::bf16*)wp,
+                        (float*)mag, (float*)phs, batch, lp, ft, hop, half, frames, vec, s);
+  return analysis_fwd((const float*)xp, (const float*)w, (float*)nullptr, (float*)wp, (float*)mag,
+                      (float*)phs, batch, lp, ft, hop, half, frames, vec, s);
 }
 
 // How many blocks of kernel A's product (16-byte loader) fit one SM at once,
-// by the runtime's occupancy calculation; for reports.
-int st_analysis_blocks_per_sm(void) {
-  int blocks = 0;
-  void (*kernel)(const AnalysisFwd, int, int) = tc::product<AnalysisFwd, 4>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::SMEM_BYTES) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, tc::THREADS,
-                                                    tc::SMEM_BYTES) != cudaSuccess)
-    return -1;
-  return blocks;
+// by the runtime's occupancy calculation, in float32 (bf16 = 0) or bfloat16
+// (bf16 = 1); for reports.
+int st_analysis_blocks_per_sm(int bf16) {
+  return bf16 ? blocks_per_sm<tc::bf16>() : blocks_per_sm<float>();
 }
 
 // mag, phs (out_frames, batch, half) frame-major; w (2*half, ft) stacked
 // synthesis weights with the conjugate mirror folded in; out (batch, out_len)
-// with out_len = (out_frames - 1)*hop - ft. Scratch: wp (ft, ldc), spec (rows,
-// ldc) and frames (nsplit, rows, ft), with ldc = 2*half rounded up to a
-// multiple of 4 and rows = (out_frames - 2)*batch, the live frames. vec is 4
-// when spec and wp allow 16-byte copies, else 1.
+// with out_len = (out_frames - 1)*hop - ft. bf16 as for st_analysis_fwd.
+// Scratch, in the compute dtype: wp (ft, ldc) and spec (rows, ldc), with ldc
+// = 2*half rounded up to a multiple of 16 bytes and rows = (out_frames -
+// 2)*batch, the live frames; in float32: frames (nsplit, rows, ft). vec,
+// elements a copy: 16 bytes' worth when spec and wp allow, else 1.
 int st_synthesis_fwd(const void* mag, const void* phs, const void* w, void* wp, void* spec,
                      void* frames, void* out, int batch, int out_frames, int ft, int hop,
-                     int half, int out_len, int nsplit, int vec, void* stream) {
+                     int half, int out_len, int nsplit, int vec, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
-  const int64_t rows = (int64_t)live * batch;
-  int err = tc::pack_synthesis((const float*)w, (float*)wp, ft, half, s);
-  if (err) return err;
-  err = synthesis_spectrum((const float*)mag, (const float*)phs, (float*)spec, rows, batch,
-                               half, s);
-  if (err) return err;
-  // live frame t's sample j lies at position (t + 1)*hop + j; the trimmed
-  // output is [ft, ft + out_len)
-  err = tc::launch(tc::Frames{(const float*)spec, (const float*)wp, (float*)frames, (int)rows, ft,
-                              tc::packed_width(half), batch, hop, ft - hop, ft + out_len - hop},
-                   rows, ft, nsplit, vec, s);
-  if (err) return err;
-  return tc::gather((const float*)frames, (float*)out, batch, out_len, ft, ft, hop, 1, live,
-                    nsplit, 1.f, s);
+  if (bf16)
+    return synthesis_fwd((const float*)mag, (const float*)phs, (const float*)w, (tc::bf16*)wp,
+                         (tc::bf16*)spec, (float*)frames, (float*)out, batch, out_frames, ft,
+                         hop, half, out_len, nsplit, vec, s);
+  return synthesis_fwd((const float*)mag, (const float*)phs, (const float*)w, (float*)wp,
+                       (float*)spec, (float*)frames, (float*)out, batch, out_frames, ft, hop,
+                       half, out_len, nsplit, vec, s);
 }
 
 }  // extern "C"

@@ -21,6 +21,16 @@
 //   dw[c, j] = sum over (t, b) of spec[t, b, c] * dframe[t, b, j],
 // with spec = (mag*cos, mag*sin).
 //
+// Each has two modes, the JAX kernels' compute_dtype: float32 (split TF32)
+// and bfloat16, where every operand the JAX kernel casts is rounded to bf16
+// (to nearest even) by the pass that writes it and the products run on the
+// bf16 tensor cores with f32 accumulation (tc_product.cuh). D recomputes the
+// spectrum from the bf16 frame bf16(0.5 * xp) and bf16 weights (l.215-216),
+// forms dspec in f32 and rounds it once (l.239) for its dxp and dW products;
+// dW is the bf16 frame's product with it, so no 0.5 is left for the sum. E
+// rounds its padded dframe (l.402), and the spectrum for dW after the trig
+// (l.424). Weights are rounded by the pack (the calls' w.astype, l.344, 522).
+//
 // What bounds them on an H100: f32-accurate matrix products with fused
 // prologues and epilogues (D three of 2*B*T*ft*2*half flops, E two over the
 // frame samples that reach the trimmed output), against a few tens of MB of
@@ -81,18 +91,23 @@
 namespace {
 
 // ------------------------------------------------------------------ D, part 1
-// The spectrum again (tc::Spectrum), then (dmag, dphs) -> dspec, interleaved.
-struct AnalysisDspec : tc::Spectrum {
+// The spectrum again (tc::Spectrum), then (dmag, dphs) -> dspec, interleaved,
+// in the operand type (bf16: dspec is formed in f32 and rounded once, as the
+// JAX kernel rounds `dspec.astype(compute_dtype)`).
+template <class T>
+struct AnalysisDspec : tc::Spectrum<T> {
   const float* dmag;
   const float* dphs;
-  float* dspec;
+  T* dspec;
+  float scale;  // the model's x/2 where the products read the unhalved signal
   __device__ void pair(int r, int n, float re2, float im2, int) const {
-    if (r >= frames * batch || n >= ldc) return;
-    float2 d = make_float2(0.f, 0.f);  // the padding columns stay zero
+    if (r >= this->frames * this->batch || n >= this->ldc) return;
+    float d_re = 0.f, d_im = 0.f;  // the padding columns stay zero
     const int bin = n >> 1;
+    const int half = this->half;
     if (bin < half) {
-      const float re = 0.5f * re2;  // the model's x/2
-      const float im = 0.5f * im2;
+      const float re = scale * re2;
+      const float im = scale * im2;
       const float dm = dmag[(int64_t)r * half + bin];
       const float dp = dphs[(int64_t)r * half + bin];
       // mag = sqrt(max(sq, 1e-36)): no gradient under the floor
@@ -101,10 +116,10 @@ struct AnalysisDspec : tc::Spectrum {
       // phs = atan2(im, re + 1e-7)
       const float rr = re + 1e-7f;
       const float den = rr * rr + im * im;
-      d.x = gm * re - dp * im / den;
-      d.y = gm * im + dp * rr / den;
+      d_re = gm * re - dp * im / den;
+      d_im = gm * im + dp * rr / den;
     }
-    *reinterpret_cast<float2*>(dspec + (int64_t)r * ldc + n) = d;
+    tc::store2(dspec + (int64_t)r * this->ldc + n, d_re, d_im);
   }
 };
 
@@ -120,15 +135,18 @@ struct AnalysisDspec : tc::Spectrum {
 // ------------------------------------------------------ D, part 3 and E, part 2
 // partial[z][j, c] = sum over the rows r = t*batch + b of slice z of
 // xp[b, t*hop + j] * spec[r, c] (c interleaved). K is the flat row index.
-// D: xp the padded signal, spec its dspec (the x/2 is applied by the second
-// pass). E: xp the padded output gradient from the first live frame on, spec
-// the spectrum of the live frames; a tile of samples j takes only the K steps
-// of the frames with a live sample among them (tc_product.cuh, live samples).
+// D: xp the signal operand (tc::signal), spec its dspec (in f32 the x/2 is
+// applied by the second pass). E: xp the padded output gradient from the
+// first live frame on, spec the spectrum of the live frames; a tile of
+// samples j takes only the K steps of the frames with a live sample among
+// them (tc_product.cuh, live samples).
+template <class T_>
 struct FrameDw {
+  using T = T_;
   static constexpr bool A_KFAST = false;
   static constexpr bool B_KFAST = false;
-  const float* xp;
-  const float* spec;
+  const T* xp;
+  const T* spec;
   float* partial;
   int batch, lp, ft, hop, frames, ldc, live_lo, live_hi;
   struct Tile {
@@ -154,7 +172,7 @@ struct FrameDw {
     st.t0 = st.r0 / batch;  // the step's one division
     st.b0 = st.r0 - st.t0 * batch;
   }
-  __device__ const float* src_a(int j, const Step& st, int kk, int& n) const {
+  __device__ const T* src_a(int j, const Step& st, int kk, int& n) const {
     int t = st.t0, b = st.b0 + kk;
     while (b >= batch) {
       b -= batch;
@@ -163,49 +181,93 @@ struct FrameDw {
     n = st.r0 + kk < frames * batch ? ft - j : 0;
     return xp + (int64_t)b * lp + t * hop + j;
   }
-  __device__ const float* src_b(int c, const Step& st, int kk, int& n) const {
+  __device__ const T* src_b(int c, const Step& st, int kk, int& n) const {
     const int r = st.r0 + kk;
     n = r < frames * batch ? ldc - c : 0;
     return spec + (int64_t)r * ldc + c;
   }
-  __device__ const float* base_a() const { return xp; }
-  __device__ const float* base_b() const { return spec; }
+  __device__ const T* base_a() const { return xp; }
+  __device__ const T* base_b() const { return spec; }
   __device__ void pair(int j, int c, float v0, float v1, int z) const {
     if (j >= ft || c >= ldc) return;
     *reinterpret_cast<float2*>(partial + ((int64_t)z * ft + j) * ldc + c) = make_float2(v0, v1);
   }
 };
 
-// dw[j, part*half + bin] = 0.5 * (partial[0] + partial[1] + ...)[j, 2*bin + part],
+// dw[j, part*half + bin] = scale * (partial[0] + partial[1] + ...)[j, 2*bin + part],
 // the slices in that order for every run.
 __global__ void sum_analysis_partials(const float* __restrict__ partial, float* __restrict__ dw,
-                                      int ft, int half, int ldc, int nsplit) {
+                                      int ft, int half, int ldc, int nsplit, float scale) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)ft * 2 * half) return;
   const int j = (int)(i / (2 * half)), col = (int)(i % (2 * half));
   const int part = col >= half, bin = col - part * half;
-  dw[i] = 0.5f * tc::sum_slices(partial + (int64_t)j * ldc + 2 * bin + part, (int64_t)ft * ldc,
-                                nsplit);
+  dw[i] = scale * tc::sum_slices(partial + (int64_t)j * ldc + 2 * bin + part, (int64_t)ft * ldc,
+                                 nsplit);
+}
+
+template <class T>
+int analysis_bwd(const float* xp, const float* w, const float* dmag, const float* dphs, T* xq,
+                 T* wp, T* dspec, float* dw_partial, float* dframes, float* dxp, float* dw,
+                 int batch, int lp, int ft, int hop, int half, int frames, int nsplit,
+                 int need_dxp, int need_dw, int vec, cudaStream_t s) {
+  const int ldc = tc::packed_width<T>(half);
+  const int64_t rows = (int64_t)frames * batch;
+  int err = tc::pack(w, wp, ft, half, s);
+  if (err) return err;
+  AnalysisDspec<T> p1;
+  err = tc::signal(xp, xq, (int64_t)batch * lp, &p1.xp, s);
+  if (err) return err;
+  p1.wp = wp;
+  p1.batch = batch, p1.lp = lp, p1.ft = ft, p1.hop = hop, p1.half = half, p1.frames = frames;
+  p1.ldc = ldc;
+  p1.live_lo = 0, p1.live_hi = lp;  // every sample
+  p1.dmag = dmag;
+  p1.dphs = dphs;
+  p1.dspec = dspec;
+  p1.scale = tc::SIGNAL_SCALE<T>;
+  err = tc::launch(p1, rows, ldc, 1, vec, s);
+  if (err) return err;
+  if (need_dxp) {
+    err = tc::launch(tc::Frames<T>{dspec, wp, dframes, (int)rows, ft, ldc, batch, hop, 0, lp},
+                     rows, ft, 1, vec, s);
+    if (err) return err;
+    err = tc::gather(dframes, dxp, batch, lp, 0, ft, hop, 0, frames, 1, 0.5f, s);
+    if (err) return err;
+  }
+  if (need_dw) {
+    err = tc::launch(FrameDw<T>{p1.xp, dspec, dw_partial, batch, lp, ft, hop, frames, ldc, 0, lp},
+                     ft, ldc, nsplit, vec, s);
+    if (err) return err;
+    const int64_t size = (int64_t)ft * 2 * half;
+    sum_analysis_partials<<<tc::blocks(size, 256), 256, 0, s>>>(dw_partial, dw, ft, half, ldc,
+                                                                nsplit, tc::SIGNAL_SCALE<T>);
+    err = (int)cudaGetLastError();
+  }
+  return err;
 }
 
 // ------------------------------------------------------------------ E, part 1
-// doutp[b, p] = dout[b, p - ft] inside the trimmed output, 0 in the margins.
-__global__ void pad_dout(const float* __restrict__ dout, float* __restrict__ doutp, int batch,
+// doutp[b, p] = dout[b, p - ft] inside the trimmed output, 0 in the margins,
+// in the operand type (bf16: the JAX kernel's `dframe.astype(compute_dtype)`).
+template <class T>
+__global__ void pad_dout(const float* __restrict__ dout, T* __restrict__ doutp, int batch,
                          int out_len, int ft, int lp) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)batch * lp) return;
   const int b = (int)(i / lp), p = (int)(i % lp) - ft;
-  doutp[i] = p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f;
+  doutp[i] = tc::round_to<T>(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
 }
 
 // dspec of the live frames, interleaved: slice z of the K steps (frame samples)
 // of tc::Spectrum on doutp, written to partial[z] (rows, ldc).
-struct SynthesisDspec : tc::Spectrum {
+template <class T>
+struct SynthesisDspec : tc::Spectrum<T> {
   float* partial;
   __device__ void pair(int r, int n, float d_re, float d_im, int z) const {
-    const int rows = frames * batch;
-    if (r >= rows || n >= ldc) return;
-    *reinterpret_cast<float2*>(partial + ((int64_t)z * rows + r) * ldc + n) =
+    const int rows = this->frames * this->batch;
+    if (r >= rows || n >= this->ldc) return;
+    *reinterpret_cast<float2*>(partial + ((int64_t)z * rows + r) * this->ldc + n) =
         make_float2(d_re, d_im);
   }
 };
@@ -215,10 +277,12 @@ struct SynthesisDspec : tc::Spectrum {
 // dmag = d_re*cos + d_im*sin and dphs = mag*(d_im*cos - d_re*sin). Frames 0
 // and out_frames - 1 lie wholly in the trimmed margin: exact zeros. When spec
 // is given, the live rows' spectrum (mag*cos, mag*sin) goes there too, in the
-// layout kernel B's product reads, for the dW product.
+// layout kernel B's product reads and in the operand type (bf16: the JAX
+// kernel's `spec.astype(compute_dtype)`), for the dW product.
+template <class T>
 __global__ void synthesis_adjoint(const float* __restrict__ mag, const float* __restrict__ phs,
                                   const float* __restrict__ dspec, float* __restrict__ dmag,
-                                  float* __restrict__ dphs, float* __restrict__ spec, int batch,
+                                  float* __restrict__ dphs, T* __restrict__ spec, int batch,
                                   int out_frames, int half, int ldc, int nsplit) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)out_frames * batch * half) return;
@@ -237,10 +301,10 @@ __global__ void synthesis_adjoint(const float* __restrict__ mag, const float* __
     dm = d_re * c + d_im * s;
     dp = m * (d_im * c - d_re * s);
     if (spec) {
-      float* row = spec + (r - batch) * ldc;
-      *reinterpret_cast<float2*>(row + 2 * bin) = make_float2(m * c, m * s);
+      T* row = spec + (r - batch) * ldc;
+      tc::store2(row + 2 * bin, m * c, m * s);
       if (bin == half - 1)
-        for (int col = 2 * half; col < ldc; ++col) row[col] = 0.f;  // the padding columns
+        for (int col = 2 * half; col < ldc; ++col) row[col] = tc::round_to<T>(0.f);  // padding
     }
   }
   dmag[i] = dm;
@@ -269,6 +333,47 @@ __global__ void sum_synthesis_partials(const float* __restrict__ partial, float*
   }
 }
 
+template <class T>
+int synthesis_bwd(const float* mag, const float* phs, const float* w, const float* dout, T* wp,
+                  T* doutp, float* dspec, T* spec, float* dw_partial, float* dmag, float* dphs,
+                  float* dw, int batch, int out_frames, int ft, int hop, int half, int out_len,
+                  int nsplit_dspec, int nsplit_dw, int need_dw, int vec, cudaStream_t s) {
+  const int ldc = tc::packed_width<T>(half);
+  const int lp = out_len + 2 * ft;
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int64_t rows = (int64_t)live * batch;
+  const T* frame1 = doutp + hop;  // frame t of the live ones at t*hop
+  const int live_lo = ft - hop, live_hi = ft + out_len - hop;  // the trimmed output, from frame1
+  int err = tc::pack_synthesis(w, wp, ft, half, s);
+  if (err) return err;
+  pad_dout<T><<<tc::blocks((int64_t)batch * lp, 256), 256, 0, s>>>(dout, doutp, batch, out_len,
+                                                                   ft, lp);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  SynthesisDspec<T> p1;
+  p1.xp = frame1;
+  p1.wp = wp;
+  p1.batch = batch, p1.lp = lp, p1.ft = ft, p1.hop = hop, p1.half = half, p1.frames = live;
+  p1.ldc = ldc;
+  p1.live_lo = live_lo, p1.live_hi = live_hi;
+  p1.partial = dspec;
+  err = tc::launch(p1, rows, ldc, nsplit_dspec, vec, s);
+  if (err) return err;
+  const int64_t size = (int64_t)out_frames * batch * half;
+  synthesis_adjoint<T><<<tc::blocks(size, 256), 256, 0, s>>>(
+      mag, phs, dspec, dmag, dphs, need_dw ? spec : nullptr, batch, out_frames, half, ldc,
+      nsplit_dspec);
+  err = (int)cudaGetLastError();
+  if (err || !need_dw) return err;
+  err = tc::launch(FrameDw<T>{frame1, spec, dw_partial, batch, lp, ft, hop, live, ldc, live_lo,
+                              live_hi},
+                   ft, ldc, nsplit_dw, vec, s);
+  if (err) return err;
+  sum_synthesis_partials<<<dim3(tc::blocks(ft, 32), tc::blocks(ldc, 32)), dim3(32, 8), 0, s>>>(
+      dw_partial, dw, ft, half, ldc, nsplit_dw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -276,100 +381,57 @@ extern "C" {
 const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half); dmag, dphs
-// (frames, batch, half); scratch: wp (ft, ldc), dspec (frames*batch, ldc),
-// dw_partial (nsplit, ft, ldc), with ldc = 2*half rounded up to a multiple of
-// 4, and dframes (frames*batch, ft), read and written when need_dxp; dxp
-// (batch, lp), written when need_dxp; dw (ft, 2*half), written when need_dw.
-// vec is 4 when hop, lp, ft and the pointers allow 16-byte copies, else 1.
-int st_analysis_bwd(const void* xp, const void* w, const void* dmag, const void* dphs,
+// (frames, batch, half); dxp (batch, lp), written when need_dxp; dw (ft,
+// 2*half), written when need_dw. bf16 selects the compute dtype: 0 float32
+// (split TF32), 1 bfloat16. Scratch, with ldc = 2*half rounded up to a
+// multiple of 16 bytes, in the compute dtype: wp (ft, ldc), dspec
+// (frames*batch, ldc), and for bf16 xq (batch, lp), the halved and rounded
+// signal (null for float32); in float32: dw_partial (nsplit, ft, ldc) and
+// dframes (frames*batch, ft), read and written when need_dxp. vec, elements a
+// copy: 16 bytes' worth when hop, lp, ft and the pointers allow, else 1.
+int st_analysis_bwd(const void* xp, const void* w, const void* dmag, const void* dphs, void* xq,
                     void* wp, void* dspec, void* dw_partial, void* dframes, void* dxp, void* dw,
-                    int batch, int lp, int ft, int hop, int half, int frames,
-                    int nsplit, int need_dxp, int need_dw, int vec, void* stream) {
+                    int batch, int lp, int ft, int hop, int half, int frames, int nsplit,
+                    int need_dxp, int need_dw, int vec, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int ldc = tc::packed_width(half);
-  const int64_t rows = (int64_t)frames * batch;
-  int err = tc::pack((const float*)w, (float*)wp, ft, half, s);
-  if (err) return err;
-  AnalysisDspec p1;
-  p1.xp = (const float*)xp;
-  p1.wp = (const float*)wp;
-  p1.batch = batch, p1.lp = lp, p1.ft = ft, p1.hop = hop, p1.half = half, p1.frames = frames;
-  p1.ldc = ldc;
-  p1.live_lo = 0, p1.live_hi = lp;  // every sample
-  p1.dmag = (const float*)dmag;
-  p1.dphs = (const float*)dphs;
-  p1.dspec = (float*)dspec;
-  err = tc::launch(p1, rows, ldc, 1, vec, s);
-  if (err) return err;
-  if (need_dxp) {
-    err = tc::launch(tc::Frames{(const float*)dspec, (const float*)wp, (float*)dframes, (int)rows,
-                                ft, ldc, batch, hop, 0, lp},
-                     rows, ft, 1, vec, s);
-    if (err) return err;
-    err = tc::gather((const float*)dframes, (float*)dxp, batch, lp, 0, ft, hop, 0, frames, 1, 0.5f,
-                     s);
-    if (err) return err;
-  }
-  if (need_dw) {
-    err = tc::launch(FrameDw{(const float*)xp, (const float*)dspec, (float*)dw_partial,
-                             batch, lp, ft, hop, frames, ldc, 0, lp},
-                     ft, ldc, nsplit, vec, s);
-    if (err) return err;
-    const int64_t size = (int64_t)ft * 2 * half;
-    sum_analysis_partials<<<tc::blocks(size, 256), 256, 0, s>>>(
-        (const float*)dw_partial, (float*)dw, ft, half, ldc, nsplit);
-    err = (int)cudaGetLastError();
-  }
-  return err;
+  if (bf16)
+    return analysis_bwd((const float*)xp, (const float*)w, (const float*)dmag, (const float*)dphs,
+                        (tc::bf16*)xq, (tc::bf16*)wp, (tc::bf16*)dspec, (float*)dw_partial,
+                        (float*)dframes, (float*)dxp, (float*)dw, batch, lp, ft, hop, half,
+                        frames, nsplit, need_dxp, need_dw, vec, s);
+  return analysis_bwd((const float*)xp, (const float*)w, (const float*)dmag, (const float*)dphs,
+                      (float*)nullptr, (float*)wp, (float*)dspec, (float*)dw_partial,
+                      (float*)dframes, (float*)dxp, (float*)dw, batch, lp, ft, hop, half, frames,
+                      nsplit, need_dxp, need_dw, vec, s);
 }
 
 // mag, phs (out_frames, batch, half); w (2*half, ft); dout (batch, out_len)
 // with out_len = (out_frames - 1)*hop - ft; dmag, dphs like mag; dw (2*half,
-// ft), written when need_dw. Scratch, with ldc = 2*half rounded up to a
-// multiple of 4 and rows = (out_frames - 2)*batch, the live frames: wp (ft,
-// ldc), doutp (batch, out_len + 2*ft), dspec (nsplit_dspec, rows, ldc), and
-// when need_dw spec (rows, ldc) and dw_partial (nsplit_dw, ft, ldc). vec is 4
-// when hop, ft, out_len + 2*ft and the pointers allow 16-byte copies, else 1.
+// ft), written when need_dw. bf16 as for st_analysis_bwd. Scratch, with ldc =
+// 2*half rounded up to a multiple of 16 bytes and rows = (out_frames -
+// 2)*batch, the live frames: in the compute dtype wp (ft, ldc), doutp (batch,
+// out_len + 2*ft) and, when need_dw, spec (rows, ldc); in float32 dspec
+// (nsplit_dspec, rows, ldc) and, when need_dw, dw_partial (nsplit_dw, ft,
+// ldc). vec, elements a copy: 16 bytes' worth when hop, ft, out_len + 2*ft
+// and the pointers allow, else 1.
 int st_synthesis_bwd(const void* mag, const void* phs, const void* w, const void* dout,
                      void* wp, void* doutp, void* dspec, void* spec, void* dw_partial,
                      void* dmag, void* dphs, void* dw,
                      int batch, int out_frames, int ft, int hop, int half, int out_len,
-                     int nsplit_dspec, int nsplit_dw, int need_dw, int vec, void* stream) {
+                     int nsplit_dspec, int nsplit_dw, int need_dw, int vec, int bf16,
+                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int ldc = tc::packed_width(half);
-  const int lp = out_len + 2 * ft;
-  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
-  const int64_t rows = (int64_t)live * batch;
-  const float* frame1 = (const float*)doutp + hop;  // frame t of the live ones at t*hop
-  const int live_lo = ft - hop, live_hi = ft + out_len - hop;  // the trimmed output, from frame1
-  int err = tc::pack_synthesis((const float*)w, (float*)wp, ft, half, s);
-  if (err) return err;
-  pad_dout<<<tc::blocks((int64_t)batch * lp, 256), 256, 0, s>>>(
-      (const float*)dout, (float*)doutp, batch, out_len, ft, lp);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  SynthesisDspec p1;
-  p1.xp = frame1;
-  p1.wp = (const float*)wp;
-  p1.batch = batch, p1.lp = lp, p1.ft = ft, p1.hop = hop, p1.half = half, p1.frames = live;
-  p1.ldc = ldc;
-  p1.live_lo = live_lo, p1.live_hi = live_hi;
-  p1.partial = (float*)dspec;
-  err = tc::launch(p1, rows, ldc, nsplit_dspec, vec, s);
-  if (err) return err;
-  const int64_t size = (int64_t)out_frames * batch * half;
-  synthesis_adjoint<<<tc::blocks(size, 256), 256, 0, s>>>(
-      (const float*)mag, (const float*)phs, (const float*)dspec, (float*)dmag, (float*)dphs,
-      need_dw ? (float*)spec : nullptr, batch, out_frames, half, ldc, nsplit_dspec);
-  err = (int)cudaGetLastError();
-  if (err || !need_dw) return err;
-  err = tc::launch(FrameDw{frame1, (const float*)spec, (float*)dw_partial, batch, lp, ft, hop,
-                           live, ldc, live_lo, live_hi},
-                   ft, ldc, nsplit_dw, vec, s);
-  if (err) return err;
-  sum_synthesis_partials<<<dim3(tc::blocks(ft, 32), tc::blocks(ldc, 32)), dim3(32, 8), 0, s>>>(
-      (const float*)dw_partial, (float*)dw, ft, half, ldc, nsplit_dw);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return synthesis_bwd((const float*)mag, (const float*)phs, (const float*)w,
+                         (const float*)dout, (tc::bf16*)wp, (tc::bf16*)doutp, (float*)dspec,
+                         (tc::bf16*)spec, (float*)dw_partial, (float*)dmag, (float*)dphs,
+                         (float*)dw, batch, out_frames, ft, hop, half, out_len, nsplit_dspec,
+                         nsplit_dw, need_dw, vec, s);
+  return synthesis_bwd((const float*)mag, (const float*)phs, (const float*)w, (const float*)dout,
+                       (float*)wp, (float*)doutp, (float*)dspec, (float*)spec,
+                       (float*)dw_partial, (float*)dmag, (float*)dphs, (float*)dw, batch,
+                       out_frames, ft, hop, half, out_len, nsplit_dspec, nsplit_dw, need_dw,
+                       vec, s);
 }
 
 }  // extern "C"

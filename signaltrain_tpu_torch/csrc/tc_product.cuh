@@ -1,38 +1,53 @@
-// One tensor-core matrix product with float32 accuracy, for Hopper (sm_90a),
+// One tensor-core matrix product for Hopper (sm_90a), in two operand modes,
 // shared by kernels A and B (frontend.cu) and the products of kernels D and E
 // (frontend_bwd.cu), with the passes around it that more than one of them
 // uses: the weight repacks, the ordered sum of K slices and the overlap-add
-// gather.
+// gather. An instance P names its operand type P::T; the loop is one template
+// for both.
 //
-// Arithmetic: split TF32. Every f32 operand x is cut in registers into
-// hi = tf32(x), rounded as cvt.rna.tf32.f32 rounds, and lo = x - hi, of which
-// the tensor core reads the leading 11 bits (so hi + lo recovers x to
-// 2^-21 |x|), and a . b is formed as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi,
-// small terms first, by three mma.sync.m16n8k8 TF32 products with f32
-// accumulation. The tensor cores round their running sum toward zero, so the
-// three products of one K chunk of 8 start from zero and their sum is added
-// to the thread's f32 accumulator by an ordinary (round-to-nearest) add: 128
-// such adds at K = 1024 instead of a chain of 384 truncations. Zeros split
-// into zeros, so an all-padding frame still gives an exact 0 spectrum.
+// float operands (the float32 compute dtype): split TF32. Every f32 operand x
+// is cut in registers into hi = tf32(x), rounded as cvt.rna.tf32.f32 rounds,
+// and lo = x - hi, of which the tensor core reads the leading 11 bits (so
+// hi + lo recovers x to 2^-21 |x|), and a . b is formed as
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, small terms first, by three
+// mma.sync.m16n8k8 TF32 products with f32 accumulation. The tensor cores
+// round their running sum toward zero, so the three products of one K chunk
+// of 8 start from zero and their sum is added to the thread's f32
+// accumulator by an ordinary (round-to-nearest) add: 128 such adds at
+// K = 1024 instead of a chain of 384 truncations. Zeros split into zeros, so
+// an all-padding frame still gives an exact 0 spectrum. Bound: three TF32
+// products at 495 TFLOP/s dense are 165 TFLOP/s of f32-accurate work, 2.5x
+// the CUDA cores' 67 TFLOP/s.
 //
-// What bounds it: operations. Three TF32 products at 495 TFLOP/s dense are
-// 165 TFLOP/s of f32-accurate work, 2.5x the CUDA cores' 67 TFLOP/s.
+// bf16 operands (the bfloat16 compute dtype, the JAX package's
+// `dot(x.astype(bf16), w.astype(bf16), preferred_element_type=f32)`): the
+// operands were rounded to bf16 (to nearest even) by the pass that wrote
+// them, and one mma.sync.m16n8k16 bf16 product with f32 accumulation a K
+// chunk of 16 forms the exact products; as above, each chunk starts from
+// zero and is added to the f32 accumulator by a round-to-nearest add (64 adds
+// at K = 1024). Bound: the dense bf16 rate, 989 TFLOP/s; mma.sync reaches
+// about half of it (wgmma is later work).
 //
 // Feeding it: a 128 x 128 output tile a block (256 threads, 8 warps as 2 x 4,
-// 4 x 4 mma tiles a warp, 64 accumulators a thread), K step
-// 32, a ring of 3 shared-memory stages (110,592 bytes of dynamic shared
-// memory, two blocks an SM) filled by cp.async with one __syncthreads() a
+// 4 x 4 mma tiles a warp, 64 accumulators a thread), K step 32, a ring of 3
+// shared-memory stages (f32: 110,592 bytes of dynamic shared memory; bf16:
+// 61,440; two blocks an SM) filled by cp.async with one __syncthreads() a
 // step. An operand tile is stored as it lies in device memory: K-fast
-// ([row][36]) or M/N-fast ([k][136]); both paddings make the mma fragment
-// reads (32-bit scalars per thread) free of bank conflicts, so no operand is
-// transposed anywhere. Out-of-range elements are zero-filled by cp.async's
-// source size. VEC says how the tile is copied: 4 (16-byte copies, when hop,
-// lp, ft and the pointers are multiples of 4 floats, as at the flagship
-// geometry) or 1 (4-byte copies, any geometry). It is a choice between two
-// loaders of the same kernel.
+// ([row][LDK]) or M/N-fast ([k][136]). f32: LDK 36, the fragments are
+// 32-bit scalars; bf16: LDK 40, a fragment register is two K-adjacent
+// values, one 32-bit read from a K-fast tile and two 16-bit reads from an
+// M/N-fast one. Every one of these paddings keeps the fragment reads free of
+// bank conflicts, so no operand is transposed anywhere. Out-of-range elements
+// are zero-filled by cp.async's source size. VEC says how the tile is copied:
+// 16 bytes (4 floats or 8 bf16, when hop, lp, ft and the pointers are
+// multiples of 16 bytes, as at the flagship geometry) or one element (any
+// geometry: a 4-byte cp.async for f32; for bf16, whose 2 bytes are below
+// cp.async's smallest copy, an ordinary load and shared-memory store). It is
+// a choice between two loaders of the same kernel.
 //
 // An instance P says what the operands are and what happens to a finished
 // tile:
+//   T                   the operand type, float or __nv_bfloat16
 //   A_KFAST / B_KFAST   which direction is contiguous in device memory
 //   begin_tile(tile, m0, n0) -> K steps (of 32) this tile needs
 //   row_a(tile, m), col_b(tile, n) -> int, what is fixed per row / column
@@ -50,6 +65,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,11 +78,43 @@ constexpr int TILE = 128;    // rows and columns of a block's output tile
 constexpr int BK = 32;       // K step
 constexpr int STAGES = 3;
 constexpr int THREADS = 256;
-constexpr int LDK = BK + 4;     // K-fast tile: [TILE][LDK]
-constexpr int LDM = TILE + 8;   // M/N-fast tile: [BK][LDM]
-constexpr int OPERAND = TILE * LDK;  // floats per operand and stage (>= BK * LDM)
-constexpr int SMEM_BYTES = STAGES * 2 * OPERAND * (int)sizeof(float);
-static_assert(BK * LDM <= OPERAND, "an M/N-fast tile must fit the operand's room");
+
+using bf16 = __nv_bfloat16;
+
+template <class T>
+__host__ __device__ constexpr bool is_f32() { return std::is_same<T, float>::value; }
+
+// The shared-memory layout of one operand type T.
+template <class T>
+struct Smem {
+  static_assert(is_f32<T>() || std::is_same<T, bf16>::value, "float or bf16 operands");
+  static constexpr int LDK = BK + (is_f32<T>() ? 4 : 8);  // K-fast tile: [TILE][LDK]
+  static constexpr int LDM = TILE + 8;                    // M/N-fast tile: [BK][LDM]
+  static constexpr int OPERAND = TILE * LDK;  // elements per operand and stage (>= BK * LDM)
+  static constexpr int BYTES = STAGES * 2 * OPERAND * (int)sizeof(T);
+  static constexpr int WIDE = 16 / (int)sizeof(T);  // elements of a 16-byte copy
+  static_assert(BK * LDM <= OPERAND, "an M/N-fast tile must fit the operand's room");
+};
+
+// x rounded to the operand type: bf16 to nearest even, as JAX's astype rounds.
+template <class T>
+__device__ __forceinline__ T round_to(float x) {
+  if constexpr (is_f32<T>()) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// p[0] = a, p[1] = b in the operand type (p is 2-element aligned).
+template <class T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (is_f32<T>()) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+}
 
 // hi = x rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away),
 // done on the integer pipe, which is faster than the conversion unit; lo is
@@ -94,17 +142,45 @@ __device__ __forceinline__ void mma_add(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Copy VEC floats to the shared-memory address d, the first n of them from
-// src and zeros for the rest.
-template <int VEC>
-__device__ __forceinline__ void copy_async(unsigned d, const float* src, int n) {
-  const int bytes = (n < 0 ? 0 : (n > VEC ? VEC : n)) * 4;
-  if constexpr (VEC == 4) {
+// d = a . b (16 x 8 x 16, bf16 operands, f32 sum from zero)
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+// Copy VEC elements of type T to the shared-memory address d, the first n of
+// them from src and zeros for the rest.
+template <class T, int VEC>
+__device__ __forceinline__ void copy_async(unsigned d, const T* src, int n) {
+  constexpr int SIZE = VEC * (int)sizeof(T);
+  const int bytes = (n < 0 ? 0 : (n > VEC ? VEC : n)) * (int)sizeof(T);
+  if constexpr (SIZE == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(bytes)
                  : "memory");
-  } else {
+  } else if constexpr (SIZE == 4) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(bytes)
                  : "memory");
+  } else {
+    static_assert(SIZE == 2, "16-, 4- or 2-byte copies");
+    // below cp.async's smallest copy: an ordinary load and store, which the
+    // ring's barrier orders like a landed cp.async
+    const unsigned short v = bytes > 0 ? *reinterpret_cast<const unsigned short*>(src) : 0;
+    asm volatile("st.shared.u16 [%0], %1;" ::"r"(d), "h"(v) : "memory");
+  }
+}
+
+// Two K-adjacent bf16 (K indices k and k + 1, the first in the low half) of
+// row (or column) r of an operand tile: one 32-bit read from a K-fast tile
+// [r][LD], two 16-bit reads from an M/N-fast one [k][LD].
+template <bool KFAST, int LD>
+__device__ __forceinline__ uint32_t bf16_pair(const unsigned short* s, int r, int k) {
+  if constexpr (KFAST) {
+    return *reinterpret_cast<const uint32_t*>(s + r * LD + k);
+  } else {
+    return (uint32_t)s[k * LD + r] | ((uint32_t)s[(k + 1) * LD + r] << 16);
   }
 }
 
@@ -114,7 +190,11 @@ __device__ __forceinline__ void copy_async(unsigned d, const float* src, int n) 
 // beside full ones, instead of forming a round of their own at the end.
 template <class P, int VEC>
 __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
-  extern __shared__ __align__(16) float smem[];
+  using T = typename P::T;
+  using S = Smem<T>;
+  constexpr int LDK = S::LDK, LDM = S::LDM, OPERAND = S::OPERAND;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  const T* smem = reinterpret_cast<const T*>(smem_bytes);
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * TILE;
@@ -128,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
   const int s_begin = (int)((int64_t)total * z / gridDim.z);
   const int s_end = (int)((int64_t)total * (z + 1) / gridDim.z);
 
-  // ---- loaders: copies of VEC floats, COPIES of them a thread and operand.
+  // ---- loaders: copies of VEC elements, COPIES of them a thread and operand.
   // K-fast operand: a thread keeps one K offset (k_lane) and takes rows
   // k_row + K_ROWS * e; M/N-fast: it keeps one row offset (m_lane) and takes K
   // indices m_k + M_KS * e. Rows and columns outside the block's part of the
@@ -138,6 +218,7 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
   constexpr int M_LANES = TILE / VEC, M_KS = THREADS / M_LANES;
   constexpr int NA = P::A_KFAST ? COPIES : 1;
   constexpr int NB = P::B_KFAST ? COPIES : 1;
+  constexpr int ES = (int)sizeof(T);
   const int k_lane = (tid % K_LANES) * VEC, k_row = tid / K_LANES;
   const int m_lane = (tid % M_LANES) * VEC, m_k = tid / M_LANES;
   int rows[NA], cols[NB];
@@ -148,58 +229,52 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
   for (int e = 0; e < NB; ++e)
     cols[e] = p.col_b(tile, n0 + (P::B_KFAST ? k_row + K_ROWS * e : m_lane));
 
-  const unsigned smem_at = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned smem_at = (unsigned)__cvta_generic_to_shared(smem_bytes);
   auto load = [&](int step, int stage) {
-    const unsigned sa = smem_at + stage * 2 * OPERAND * 4;  // byte addresses
-    const unsigned sb = sa + OPERAND * 4;
+    const unsigned sa = smem_at + stage * 2 * OPERAND * ES;  // byte addresses
+    const unsigned sb = sa + OPERAND * ES;
     typename P::Step st;
     p.begin_step(tile, step, st);
 #pragma unroll
     for (int e = 0; e < COPIES; ++e) {
       int c;
       if constexpr (P::A_KFAST) {
-        const float* src = p.src_a(rows[e], st, k_lane, c);
+        const T* src = p.src_a(rows[e], st, k_lane, c);
         if (k_row + K_ROWS * e >= m_rows) c = 0;
-        copy_async<VEC>(sa + ((k_row + K_ROWS * e) * LDK + k_lane) * 4,
-                        c > 0 ? src : p.base_a(), c);
+        copy_async<T, VEC>(sa + ((k_row + K_ROWS * e) * LDK + k_lane) * ES,
+                           c > 0 ? src : p.base_a(), c);
       } else {
         const int kk = m_k + M_KS * e;
-        const float* src = p.src_a(rows[0], st, kk, c);
+        const T* src = p.src_a(rows[0], st, kk, c);
         c = min(c, m_rows - m_lane);
-        copy_async<VEC>(sa + (kk * LDM + m_lane) * 4, c > 0 ? src : p.base_a(), c);
+        copy_async<T, VEC>(sa + (kk * LDM + m_lane) * ES, c > 0 ? src : p.base_a(), c);
       }
       if constexpr (P::B_KFAST) {
-        const float* src = p.src_b(cols[e], st, k_lane, c);
+        const T* src = p.src_b(cols[e], st, k_lane, c);
         if (k_row + K_ROWS * e >= n_cols) c = 0;
-        copy_async<VEC>(sb + ((k_row + K_ROWS * e) * LDK + k_lane) * 4,
-                        c > 0 ? src : p.base_b(), c);
+        copy_async<T, VEC>(sb + ((k_row + K_ROWS * e) * LDK + k_lane) * ES,
+                           c > 0 ? src : p.base_b(), c);
       } else {
         const int kk = m_k + M_KS * e;
-        const float* src = p.src_b(cols[0], st, kk, c);
+        const T* src = p.src_b(cols[0], st, kk, c);
         c = min(c, n_cols - m_lane);
-        copy_async<VEC>(sb + (kk * LDM + m_lane) * 4, c > 0 ? src : p.base_b(), c);
+        copy_async<T, VEC>(sb + (kk * LDM + m_lane) * ES, c > 0 ? src : p.base_b(), c);
       }
     }
   };
 
-  // ---- mma fragments: lane = 4 * g + tig. A (16 x 8): rows g, g + 8,
-  // K columns tig, tig + 4. B (8 x 8): K rows tig, tig + 4, column g.
-  // C (16 x 8): rows g, g + 8, columns 2 * tig, 2 * tig + 1.
-  // The 8 warps lie 2 x 4 over the tile. The 16-row mma tiles are dealt to
-  // the two warp rows in turn (tile i of warp row r is rows 32 i + 16 r ...),
-  // so a ragged last row tile (batch 200 = 128 + 72) leaves both with the same
-  // work; a warp column owns 32 columns. A warp skips the mma tiles outside
-  // the output, so a narrow last column tile (2*half = 1026 columns leave 2)
-  // costs its block little.
+  // ---- mma fragments: lane = 4 * g + tig. The 8 warps lie 2 x 4 over the
+  // tile. The 16-row mma tiles are dealt to the two warp rows in turn (tile i
+  // of warp row r is rows 32 i + 16 r ...), so a ragged last row tile (batch
+  // 200 = 128 + 72) leaves both with the same work; a warp column owns 32
+  // columns. A warp skips the mma tiles outside the output, so a narrow last
+  // column tile (2*half = 1026 columns leave 2) costs its block little.
+  // C (16 x 8), both modes: rows g, g + 8, columns 2 * tig, 2 * tig + 1.
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tig = lane & 3;
   const int wm = (warp & 1) * 16, wn = (warp >> 1) * 32;
   const int mt = max(0, (m_rows - wm + 31) / 32);
   const int nt = max(0, min(4, (n_cols - wn + 7) / 8));
-  const int a_base = P::A_KFAST ? (wm + g) * LDK + tig : tig * LDM + wm + g;
-  const int b_base = P::B_KFAST ? (wn + g) * LDK + tig : tig * LDM + wn + g;
-  constexpr int A_ROW = P::A_KFAST ? LDK : 1, A_K = P::A_KFAST ? 1 : LDM;
-  constexpr int B_COL = P::B_KFAST ? LDK : 1, B_K = P::B_KFAST ? 1 : LDM;
 
   float acc[4][4][4];
 #pragma unroll
@@ -209,13 +284,19 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
 
-  // One stage's products. FULL: the warp has all four of its column tiles
-  // (every warp of every block but those of a narrow last column tile), and
-  // the code carries no test of nt.
-  auto compute = [&](int stage, auto full) {
+  // One stage's products, split TF32 (f32 operands). Fragments: A (16 x 8)
+  // rows g, g + 8, K columns tig, tig + 4; B (8 x 8) K rows tig, tig + 4,
+  // column g. FULL: the warp has all four of its column tiles (every warp of
+  // every block but those of a narrow last column tile), and the code carries
+  // no test of nt.
+  auto compute_tf32 = [&](int stage, auto full) {
     constexpr bool FULL = decltype(full)::value;
-    const float* sa = smem + stage * 2 * OPERAND + a_base;
-    const float* sb = smem + stage * 2 * OPERAND + OPERAND + b_base;
+    const int a_base = P::A_KFAST ? (wm + g) * LDK + tig : tig * LDM + wm + g;
+    const int b_base = P::B_KFAST ? (wn + g) * LDK + tig : tig * LDM + wn + g;
+    constexpr int A_ROW = P::A_KFAST ? LDK : 1, A_K = P::A_KFAST ? 1 : LDM;
+    constexpr int B_COL = P::B_KFAST ? LDK : 1, B_K = P::B_KFAST ? 1 : LDM;
+    const float* sa = reinterpret_cast<const float*>(smem) + stage * 2 * OPERAND + a_base;
+    const float* sb = reinterpret_cast<const float*>(smem) + stage * 2 * OPERAND + OPERAND + b_base;
 #pragma unroll
     for (int k8 = 0; k8 < BK; k8 += 8) {
       uint32_t bh[4][2], bl[4][2];
@@ -253,6 +334,57 @@ __global__ void __launch_bounds__(THREADS, 2) product(const P p, int m, int n) {
               for (int q = 0; q < 4; ++q) acc[i][j][q] += part[j][q];
             }
         }
+    }
+  };
+
+  // One stage's products, bf16 operands. Fragments, each register two
+  // K-adjacent values: A (16 x 16) register q holds row g + 8 (q & 1), K
+  // columns 2 tig + 8 (q >> 1) and the next; B (16 x 8) register q holds K
+  // rows 2 tig + 8 q and the next, column g.
+  auto compute_bf16 = [&](int stage, auto full) {
+    constexpr bool FULL = decltype(full)::value;
+    const unsigned short* sa = reinterpret_cast<const unsigned short*>(smem) + stage * 2 * OPERAND;
+    const unsigned short* sb = sa + OPERAND;
+    constexpr int LDA = P::A_KFAST ? LDK : LDM, LDB = P::B_KFAST ? LDK : LDM;
+#pragma unroll
+    for (int k16 = 0; k16 < BK; k16 += 16) {
+      uint32_t b[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (FULL || j < nt) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            b[j][q] = bf16_pair<P::B_KFAST, LDB>(sb, wn + j * 8 + g, k16 + 2 * tig + 8 * q);
+        }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < mt) {
+          uint32_t a[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[q] = bf16_pair<P::A_KFAST, LDA>(sa, wm + i * 32 + (q & 1) * 8 + g,
+                                              k16 + 2 * tig + (q >> 1) * 8);
+          // the chunk's product on the tensor core, from zero; then one
+          // round-to-nearest add into the long sum
+          float part[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (FULL || j < nt) mma_bf16_zero(part[j], a, b[j]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (FULL || j < nt) {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) acc[i][j][q] += part[j][q];
+            }
+        }
+    }
+  };
+
+  auto compute = [&](int stage, auto full) {
+    if constexpr (is_f32<T>()) {
+      compute_tf32(stage, full);
+    } else {
+      compute_bf16(stage, full);
     }
   };
 
@@ -294,20 +426,23 @@ inline unsigned tiles(int64_t n) { return (unsigned)((n + TILE - 1) / TILE); }
 
 inline unsigned blocks(int64_t n, int per) { return (unsigned)((n + per - 1) / per); }
 
-// Launch an (m x n) product in nsplit K slices; vec as for `product`. An
-// empty output launches nothing.
+// Launch an (m x n) product in nsplit K slices; vec, elements a copy, is
+// Smem<P::T>::WIDE (16 bytes) or 1 (one element), as for `product`. An empty
+// output launches nothing.
 template <class P>
 int launch(const P& p, int64_t m, int64_t n, int nsplit, int vec, cudaStream_t stream) {
+  using S = Smem<typename P::T>;
   if (m <= 0 || n <= 0) return 0;
+  if (vec != S::WIDE && vec != 1) return (int)cudaErrorInvalidValue;
   dim3 grid(tiles(m), tiles(n), (unsigned)nsplit);
-  void (*kernel)(const P, int, int) = vec == 4 ? product<P, 4> : product<P, 1>;
+  void (*kernel)(const P, int, int) = vec == S::WIDE ? product<P, S::WIDE> : product<P, 1>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(p, (int)m, (int)n);
+  kernel<<<grid, THREADS, S::BYTES, stream>>>(p, (int)m, (int)n);
   return (int)cudaGetLastError();
 }
 
@@ -321,37 +456,47 @@ __device__ __forceinline__ float sum_slices(const float* p, int64_t slice, int n
 }
 
 // ---------------------------------------------------------------- the weights
-// Both stacked weights are repacked into wp (ft, ldc) before a product: column
-// 2 * bin + part holds the stacked column part * half + bin, so that the
-// thread that finishes a bin holds its re and im; ldc = 2 * half rounded up to
-// a multiple of 4, the columns past 2 * half zero. Every row of wp then starts
-// on a 16-byte boundary and a tile's columns are one contiguous run.
+// Both stacked weights are repacked into wp (ft, ldc) of the operand type T
+// before a product (bf16: rounded to nearest even, the counterpart of the JAX
+// package's `w.astype(compute_dtype)` at the call): column 2 * bin + part
+// holds the stacked column part * half + bin, so that the thread that
+// finishes a bin holds its re and im; ldc = 2 * half rounded up to a multiple
+// of 16 bytes (4 floats, 8 bf16), the columns past 2 * half zero. Every row of
+// wp then starts on a 16-byte boundary and a tile's columns are one
+// contiguous run.
 //   pack: the analysis weights w (ft, 2 * half), read as they lie.
 //   pack_synthesis: the synthesis weights w (2 * half, ft), read transposed,
 //     wp[j, 2 * bin + part] = w[part * half + bin, j]. Kernel B reads it
 //     K-fast (K is the spectrum column), kernel E as the weights of its
 //     spectrum product (K is the frame sample).
-inline int packed_width(int half) { return (2 * half + 3) / 4 * 4; }
+template <class T>
+inline int packed_width(int half) {
+  constexpr int a = Smem<T>::WIDE;
+  return (2 * half + a - 1) / a * a;
+}
 
-__global__ void pack_weights(const float* __restrict__ w, float* __restrict__ wp,
-                             int ft, int half, int ldc) {
+template <class T>
+__global__ void pack_weights(const float* __restrict__ w, T* __restrict__ wp, int ft, int half,
+                             int ldc) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)ft * ldc) return;
   const int k = (int)(i / ldc), c = (int)(i % ldc);
-  wp[i] = c < 2 * half ? w[(int64_t)k * 2 * half + (c & 1) * half + (c >> 1)] : 0.f;
+  wp[i] = round_to<T>(c < 2 * half ? w[(int64_t)k * 2 * half + (c & 1) * half + (c >> 1)] : 0.f);
 }
 
-inline int pack(const float* w, float* wp, int ft, int half, cudaStream_t stream) {
-  const int ldc = packed_width(half);
+template <class T>
+inline int pack(const float* w, T* wp, int ft, int half, cudaStream_t stream) {
+  const int ldc = packed_width<T>(half);
   const int64_t size = (int64_t)ft * ldc;
-  pack_weights<<<blocks(size, 256), 256, 0, stream>>>(w, wp, ft, half, ldc);
+  pack_weights<T><<<blocks(size, 256), 256, 0, stream>>>(w, wp, ft, half, ldc);
   return (int)cudaGetLastError();
 }
 
 // 32 x 32 tiles through shared memory (32 x 8 threads), so that the reads run
 // along the rows of w and the writes along the rows of wp.
-__global__ void pack_transposed(const float* __restrict__ w, float* __restrict__ wp,
-                                int ft, int half, int ldc) {
+template <class T>
+__global__ void pack_transposed(const float* __restrict__ w, T* __restrict__ wp, int ft, int half,
+                                int ldc) {
   __shared__ float tile[32][33];
   const int j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const int tx = threadIdx.x;
@@ -362,15 +507,44 @@ __global__ void pack_transposed(const float* __restrict__ w, float* __restrict__
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int j = j0 + i, c = c0 + tx;
-    if (j < ft && c < ldc) wp[(int64_t)j * ldc + c] = tile[tx][i];
+    if (j < ft && c < ldc) wp[(int64_t)j * ldc + c] = round_to<T>(tile[tx][i]);
   }
 }
 
-inline int pack_synthesis(const float* w, float* wp, int ft, int half, cudaStream_t stream) {
-  const int ldc = packed_width(half);
-  pack_transposed<<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
+template <class T>
+inline int pack_synthesis(const float* w, T* wp, int ft, int half, cudaStream_t stream) {
+  const int ldc = packed_width<T>(half);
+  pack_transposed<T><<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
       w, wp, ft, half, ldc);
   return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------- the signal
+// Kernels A and D read the padded signal xp as frames of the model's x/2. In
+// f32 the products read xp itself and the 0.5 is applied to the finished sums
+// (exact); in bf16 the frame is rounded after the halving, as the JAX kernels
+// round `(xp * 0.5).astype(compute_dtype)`, so a pass writes xq = bf16(0.5 * xp)
+// and nothing is scaled after the product. signal() returns the operand the
+// products read; SIGNAL_SCALE<T> is the factor left for their results.
+template <class T>
+constexpr float SIGNAL_SCALE = is_f32<T>() ? 0.5f : 1.f;
+
+__global__ void halve_to_bf16(const float* __restrict__ x, bf16* __restrict__ y, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = __float2bfloat16_rn(0.5f * x[i]);
+}
+
+template <class T>
+inline int signal(const float* xp, T* xq, int64_t n, const T** operand, cudaStream_t stream) {
+  if constexpr (is_f32<T>()) {
+    *operand = xp;
+    return 0;
+  } else {
+    *operand = xq;
+    if (n <= 0) return 0;
+    halve_to_bf16<<<blocks(n, 256), 256, 0, stream>>>(xp, xq, n);
+    return (int)cudaGetLastError();
+  }
 }
 
 // ------------------------------------------------------------ live samples
@@ -385,17 +559,20 @@ __device__ __forceinline__ int floor_div(int a, int b) { return a >= 0 ? a / b :
 // ------------------------------------------------------- the spectrum product
 // spec2[r, 2 * bin + part] = sum_k xp[b, t * hop + k] * wp[k, 2 * bin + part]
 // for row r = t * batch + b < frames * batch. Framing is an address offset.
-// Kernel A: xp is the padded signal and the result twice the spectrum (the
-// model's x/2 is a factor 0.5 on the finished sum, which is exact); kernel D's
+// Kernel A: xp is the signal operand (signal(): in f32 the padded signal, and
+// the result twice the spectrum, the model's x/2 a factor 0.5 on the finished
+// sum, which is exact; in bf16 the halved and rounded frames); kernel D's
 // first product is the same code, so D's spectrum is A's bit for bit. Kernel E:
 // xp is the padded output gradient, offset to the first frame that reaches
 // the trimmed output, and wp the packed synthesis weights; a tile takes only
 // the K steps (frame samples) that are live for one of its frames.
+template <class T_>
 struct Spectrum {
+  using T = T_;
   static constexpr bool A_KFAST = true;
   static constexpr bool B_KFAST = false;
-  const float* xp;
-  const float* wp;
+  const T* xp;
+  const T* wp;
   int batch, lp, ft, hop, half, frames, ldc;
   int live_lo, live_hi;
   struct Tile {
@@ -421,16 +598,16 @@ struct Spectrum {
   __device__ void begin_step(const Tile& tile, int step, Step& st) const {
     st.k0 = tile.k0 + step * BK;
   }
-  __device__ const float* src_a(int row, const Step& st, int kk, int& n) const {
+  __device__ const T* src_a(int row, const Step& st, int kk, int& n) const {
     n = row < 0 ? 0 : ft - st.k0 - kk;
     return xp + row + st.k0 + kk;
   }
-  __device__ const float* src_b(int col, const Step& st, int kk, int& n) const {
+  __device__ const T* src_b(int col, const Step& st, int kk, int& n) const {
     n = st.k0 + kk < ft ? ldc - col : 0;
     return wp + (int64_t)(st.k0 + kk) * ldc + col;
   }
-  __device__ const float* base_a() const { return xp; }
-  __device__ const float* base_b() const { return wp; }
+  __device__ const T* base_a() const { return xp; }
+  __device__ const T* base_b() const { return wp; }
 };
 
 // --------------------------------------------------------- the frame product
@@ -441,11 +618,13 @@ struct Spectrum {
 // kernel B's frames (the spectrum and the synthesis weights) are this product.
 // Row r is frame r / batch, whose sample j lies at position (r / batch) * hop
 // + j; a tile with no live sample is skipped (its output is never read).
+template <class T_>
 struct Frames {
+  using T = T_;
   static constexpr bool A_KFAST = true;
   static constexpr bool B_KFAST = true;
-  const float* spec;
-  const float* wp;
+  const T* spec;
+  const T* wp;
   float* out;
   int rows, ft, ldc, batch, hop, live_lo, live_hi;
   struct Tile {};
@@ -461,16 +640,16 @@ struct Frames {
   __device__ int row_a(const Tile&, int r) const { return r < rows ? r * ldc : -1; }
   __device__ int col_b(const Tile&, int j) const { return j < ft ? j * ldc : -1; }
   __device__ void begin_step(const Tile&, int step, Step& st) const { st.c0 = step * BK; }
-  __device__ const float* src_a(int row, const Step& st, int kk, int& n) const {
+  __device__ const T* src_a(int row, const Step& st, int kk, int& n) const {
     n = row < 0 ? 0 : ldc - st.c0 - kk;
     return spec + row + st.c0 + kk;
   }
-  __device__ const float* src_b(int col, const Step& st, int kk, int& n) const {
+  __device__ const T* src_b(int col, const Step& st, int kk, int& n) const {
     n = col < 0 ? 0 : ldc - st.c0 - kk;
     return wp + col + st.c0 + kk;
   }
-  __device__ const float* base_a() const { return spec; }
-  __device__ const float* base_b() const { return wp; }
+  __device__ const T* base_a() const { return spec; }
+  __device__ const T* base_b() const { return wp; }
   __device__ void pair(int r, int j, float v0, float v1, int z) const {
     if (r >= rows) return;
     float* dst = out + ((int64_t)z * rows + r) * ft + j;

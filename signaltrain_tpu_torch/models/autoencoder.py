@@ -13,6 +13,13 @@ Parameters carry the reference's names and layouts (``fnn_enc.weight`` of
 shape (out, in), ``fnn_enc.bias``). Two layouts over the same parameters:
 ``forward`` is batch-major (B, T, F); ``frame_major`` is (T, B, F), the
 layout kernel A emits and kernel B takes.
+
+``compute_dtype`` is the JAX package's (its ``_Dense``): the layers run in
+it, the parameters stay float32. In bfloat16 the input and the weight are
+cast to bf16, the product's result is bf16, the bias is cast to bf16 and
+added after it (two roundings, as in JAX), ELU runs in bf16 and the knobs are
+cast to the activations' dtype; the skip ``tail`` stays float32, so
+``elu(dec) * tail`` (and the caller's ``phs_hat + phs``) come out float32.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cuda_frontend import COMPUTE_DTYPES
 from ..utils.device import resolve_device
 
 SKIP_MODES = ("res", "sf", "")
@@ -34,8 +42,9 @@ class Dense(nn.Module):
     with the Xavier (fan-average) variance, zero bias."""
 
     def __init__(self, in_features: int, out_features: int, device: torch.device,
-                 generator: torch.Generator):
+                 generator: torch.Generator, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         std = math.sqrt(2.0 / (in_features + out_features)) / 0.87962566103423978
         w = torch.empty(out_features, in_features)
         nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
@@ -43,21 +52,27 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.compute_dtype == torch.float32:
+            return F.linear(x, self.weight, self.bias)
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class AsymAutoEncoder(nn.Module):
     def __init__(self, time_frames: int = 25, rank: int = 64, n_knobs: int = 4,
                  output_frames: int = 9, device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise TypeError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         r = rank
         self.output_frames = output_frames
 
         def mk(i, o):
-            return Dense(i, o, dev, gen)
+            return Dense(i, o, dev, gen, compute_dtype)
 
         self.fnn_enc = mk(time_frames, r)
         self.fnn_enc2 = mk(r, r // 2)

@@ -21,6 +21,10 @@ Two paths over the same parameters, chosen by ``frontend``:
   (JAX ``frontend="pallas"``). mag / mag_hat come back frame-major,
   (T, B, F) / (OT, B, F); 2*(wave + x_tail/2) is expanded to
   2*wave + x_tail, and the x/2 happens inside kernel A only.
+
+``compute_dtype`` (float32 or bfloat16, JAX's mixed precision): the
+front-end products and the autoencoders run in it; the parameters, the
+magnitude / phase, the trig and the outputs stay float32.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ class AsymMPAEC(nn.Module):
     def __init__(self, expected_time_frames: int, ft_size: int = 1024, hop_size: int = 384,
                  decomposition_rank: int = 64, n_knobs: int = 4, output_tf: int | None = None,
                  frontend: str = "fused", device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if frontend not in FRONTENDS:
             raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
@@ -48,12 +53,13 @@ class AsymMPAEC(nn.Module):
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         out_tf = output_tf if output_tf is not None else expected_time_frames
         self.frontend = frontend
-        self.dft_analysis = Analysis(ft_size, hop_size, device=dev)
-        self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev)
+        self.dft_analysis = Analysis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
+        self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
         self.aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
-                                    out_tf, device=dev, generator=gen)
+                                    out_tf, device=dev, generator=gen, compute_dtype=compute_dtype)
         self.phs_aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
-                                        out_tf, device=dev, generator=gen)
+                                        out_tf, device=dev, generator=gen,
+                                        compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor, knobs: torch.Tensor):
         """x: (B, in_chunk) waveform; knobs: (B, K) normalized to [-0.5, 0.5]."""

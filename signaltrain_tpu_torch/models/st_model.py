@@ -12,7 +12,8 @@ nn_proc.py:344-385):
     out_chunk_size  = (OT-1)*hop - ft   (re-derived; warns when it differs)
 
 At defaults: 8192 -> 2048 samples, T=25, OT=9, 513 bins, ~4.2M params. The
-port serves and trains in float32 only.
+model computes in ``compute_dtype`` (float32 or bfloat16; parameters are
+float32 either way).
 """
 
 from __future__ import annotations
@@ -84,9 +85,11 @@ class STModel(nn.Module):
 
     def __init__(self, spec: ModelSpec, frontend: str = "fused",
                  device: str | torch.device = "cuda",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.spec = spec
+        self.compute_dtype = compute_dtype
         self.mpaec = AsymMPAEC(
             expected_time_frames=spec.time_frames,
             ft_size=spec.ft_size,
@@ -96,6 +99,7 @@ class STModel(nn.Module):
             frontend=frontend,
             device=resolve_device(device),
             generator=generator,
+            compute_dtype=compute_dtype,
         )
 
     @property
@@ -108,7 +112,8 @@ class STModel(nn.Module):
 
 def st_model(scale_factor: float = 1.0, shrink_factor: float = 4.0, num_knobs: int = 4,
              sr: int = 44100, scale_scheme: str = "lean", device: str | torch.device = "cuda",
-             generator: torch.Generator | None = None) -> STModel:
+             generator: torch.Generator | None = None,
+             compute_dtype: torch.dtype = torch.float32) -> STModel:
     """The model with the geometry ``compute_spec`` derives, fused front-end."""
     spec = compute_spec(scale_factor, shrink_factor, num_knobs, sr, scale_scheme)
-    return STModel(spec, device=device, generator=generator)
+    return STModel(spec, device=device, generator=generator, compute_dtype=compute_dtype)

@@ -19,6 +19,15 @@ module holds the wrappers, the plain PyTorch version of every kernel, the two
 Both differentiate: forward is kernel A / B, backward kernel D / E, saving
 only (xp, w) and (mag, phs, w) and recomputing the rest.
 
+Each takes ``compute_dtype``, the JAX kernels' argument: ``torch.float32``
+(split-TF32 products, as accurate as float32) or ``torch.bfloat16``, where
+exactly the operands that the JAX kernels cast are rounded to bf16 (to
+nearest even) and multiplied with float32 accumulation: A's halved frame and
+weights, B's spectrum and weights, D's halved frame, weights and dspec, E's
+padded dframe, weights and spectrum. Inputs, outputs and everything else
+(magnitude, phase, trig, overlap-add) stay float32. Each mode has its own
+launch counter (``bf16_*`` for bfloat16).
+
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
@@ -57,13 +66,25 @@ ANALYSIS = _cuda.counter("fused_analysis")
 SYNTHESIS = _cuda.counter("fused_synthesis")
 ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")
 SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
+ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")
+SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")
+ANALYSIS_BWD_BF16 = _cuda.counter("bf16_fused_analysis_bwd")
+SYNTHESIS_BWD_BF16 = _cuda.counter("bf16_fused_synthesis_bwd")
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ANALYSIS_ARGS = [_P] * 5 + [_I] * 7 + [_P]
-_SYNTHESIS_ARGS = [_P] * 7 + [_I] * 8 + [_P]
-_ANALYSIS_BWD_ARGS = [_P] * 10 + [_I] * 10 + [_P]
-_SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 10 + [_P]
+_ANALYSIS_ARGS = [_P] * 6 + [_I] * 8 + [_P]
+_SYNTHESIS_ARGS = [_P] * 7 + [_I] * 9 + [_P]
+_ANALYSIS_BWD_ARGS = [_P] * 11 + [_I] * 11 + [_P]
+_SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 11 + [_P]
+
+
+def _counters(f32: _cuda.KernelCounter, bf16: _cuda.KernelCounter, compute_dtype: torch.dtype):
+    """The counter of the kernel mode that compute_dtype selects."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise TypeError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    return bf16 if compute_dtype == torch.bfloat16 else f32
 
 # A product whose (m x n) output has too few tiles to fill the card has its K
 # cut into slices (a fixed number for given shapes) whose partial sums the pass
@@ -84,20 +105,40 @@ def k_slices(m: int, n: int, k: int) -> int:
     return max(1, min(_RESIDENT_BLOCKS // tiles, -(-k // _KSTEP) // 8))
 
 
-def packed_width(half: int) -> int:
+def _wide(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes: 4 floats, 8 bf16."""
+    return 16 // dtype.itemsize
+
+
+def packed_width(half: int, dtype: torch.dtype = torch.float32) -> int:
     """Columns of the repacked weights and of the interleaved spectra (re and
-    im of a bin side by side): 2*half rounded up to a multiple of 4, so every
-    row starts on 16 bytes."""
-    return -(-2 * half // 4) * 4
+    im of a bin side by side) in the operand type ``dtype``: 2*half rounded up
+    to a multiple of 16 bytes (4 floats, 8 bf16), so every row starts on 16
+    bytes."""
+    wide = _wide(dtype)
+    return -(-2 * half // wide) * wide
 
 
-def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor) -> int:
-    """Floats per cp.async copy of the tensor-core products: 4 (16 bytes) when
-    the frame offsets b*lp + t*hop, the frame length and every pointer are
-    multiples of 4 floats, else 1. Two loaders of the same kernel. Kernel B's
-    operands are rows of packed_width floats: only its pointers count."""
-    aligned = ft % 4 == 0 and hop % 4 == 0 and lp % 4 == 0
-    return 4 if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Elements per copy of the tensor-core products with operands of type
+    ``dtype``: 16 bytes' worth (4 floats, 8 bf16) when the frame offsets
+    b*lp + t*hop, the frame length and every pointer are multiples of 16
+    bytes, else 1. Two loaders of the same kernel. Kernel B's operands are
+    rows of packed_width elements: only its pointers count."""
+    wide = _wide(dtype)
+    aligned = ft % wide == 0 and hop % wide == 0 and lp % wide == 0
+    return wide if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+
+
+def round_operand(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """x as a product's operand of the compute dtype sees it, in x's own
+    dtype: unchanged for float32, rounded to bf16 (to nearest even, as JAX's
+    ``astype`` rounds) and back for bfloat16. The plain versions' one
+    rounding rule."""
+    if compute_dtype == torch.bfloat16:
+        return x.to(torch.bfloat16).to(x.dtype)
+    return x
 
 
 def stack_analysis_weights(w_real: torch.Tensor, w_imag: torch.Tensor, half: int) -> torch.Tensor:
@@ -175,28 +216,36 @@ def fused_analysis_bwd_conditioning(xp: torch.Tensor, w: torch.Tensor, dmag: tor
 
 
 # ------------------------------------------------------------ plain versions
+# In bfloat16 each rounds, with round_operand, exactly the operands that the
+# JAX kernel casts, and multiplies in its input's own dtype (float32: with
+# TF32 off on the card, as the callers that compare set it).
 
-def fused_analysis_reference(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
+def fused_analysis_reference(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
+                             compute_dtype: torch.dtype = torch.float32):
     """Plain version of kernel A: framing, one GEMM, magnitude and phase."""
-    ANALYSIS.plain_calls += 1
+    _counters(ANALYSIS, ANALYSIS_BF16, compute_dtype).plain_calls += 1
     half = w.shape[1] // 2
     frames = framing.frame_signal(xp, ft, hop, pad=0) * 0.5  # (B, T, ft)
+    frames, w = round_operand(frames, compute_dtype), round_operand(w, compute_dtype)
     spec = torch.matmul(frames.transpose(0, 1), w)  # (T, B, 2*half)
     return mag_phs(spec[..., :half], spec[..., half:])
 
 
 def fused_synthesis_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                              ft: int, hop: int) -> torch.Tensor:
+                              ft: int, hop: int,
+                              compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of kernel B: trig, one GEMM, overlap-add, trim."""
-    SYNTHESIS.plain_calls += 1
+    _counters(SYNTHESIS, SYNTHESIS_BF16, compute_dtype).plain_calls += 1
     spec = torch.cat([mag * torch.cos(phs), mag * torch.sin(phs)], dim=-1)
+    spec, w = round_operand(spec, compute_dtype), round_operand(w, compute_dtype)
     frames = torch.matmul(spec, w).transpose(0, 1)  # (B, OT, ft)
     wave = framing.overlap_add(frames, hop)
     return wave[:, ft : wave.shape[1] - ft]
 
 
 def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
-                                 dphs: torch.Tensor, ft: int, hop: int):
+                                 dphs: torch.Tensor, ft: int, hop: int,
+                                 compute_dtype: torch.dtype = torch.float32):
     """Plain version of kernel D, written out: (dxp, dw) from the saved
     (xp, w) and the cotangents of (mag, phs).
 
@@ -204,10 +253,12 @@ def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.
     1e-36 floor (the gradient of clamp_min passes where sq >= 1e-36); the
     phase term is the adjoint of atan2(im, re + 1e-7) with plain division;
     dframe = 0.5 * dspec @ w.T is overlap-added at t*hop; dw = frame.T @ dspec
-    over all (t, b) rows."""
-    ANALYSIS_BWD.plain_calls += 1
+    over all (t, b) rows. In bfloat16 the halved frame, w and dspec are
+    rounded."""
+    _counters(ANALYSIS_BWD, ANALYSIS_BWD_BF16, compute_dtype).plain_calls += 1
     half = w.shape[1] // 2
     frames = framing.frame_signal(xp, ft, hop, pad=0).transpose(0, 1) * 0.5  # (T, B, ft)
+    frames, w = round_operand(frames, compute_dtype), round_operand(w, compute_dtype)
     spec = torch.matmul(frames, w)
     re, im = spec[..., :half], spec[..., half:]
     sq = re * re + im * im
@@ -216,6 +267,7 @@ def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.
     rr = re + 1e-7
     den = rr * rr + im * im
     dspec = torch.cat([gm * re - dphs * im / den, gm * im + dphs * rr / den], dim=-1)
+    dspec = round_operand(dspec, compute_dtype)
     dframes = torch.matmul(dspec, w.t()) * 0.5  # (T, B, ft)
     dxp = framing.overlap_add(dframes.transpose(0, 1), hop)
     dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))  # samples past the last frame
@@ -224,7 +276,8 @@ def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.
 
 
 def fused_synthesis_bwd_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                                  dout: torch.Tensor, ft: int, hop: int):
+                                  dout: torch.Tensor, ft: int, hop: int,
+                                  compute_dtype: torch.dtype = torch.float32):
     """Plain version of kernel E, written out: (dmag, dphs, dw) from the saved
     (mag, phs, w) and the cotangent of the trimmed waveform.
 
@@ -232,13 +285,15 @@ def fused_synthesis_bwd_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch
     framed (the adjoint of the overlap-add); dspec = dframe @ w.T;
     dw = spec.T @ dframe with spec = (mag*cos, mag*sin) computed again;
     dmag = d_re*cos + d_im*sin, dphs = mag*(d_im*cos - d_re*sin). The first
-    and last frame lie wholly in the trimmed margin: exact zeros."""
-    SYNTHESIS_BWD.plain_calls += 1
+    and last frame lie wholly in the trimmed margin: exact zeros. In bfloat16
+    dframe, w and spec are rounded."""
+    _counters(SYNTHESIS_BWD, SYNTHESIS_BWD_BF16, compute_dtype).plain_calls += 1
     half = mag.shape[-1]
     dframes = framing.frame_signal(dout, ft, hop, pad=ft).transpose(0, 1)  # (OT, B, ft)
+    dframes, w = round_operand(dframes, compute_dtype), round_operand(w, compute_dtype)
     dspec = torch.matmul(dframes, w.t())
     c, s = torch.cos(phs), torch.sin(phs)
-    spec = torch.cat([mag * c, mag * s], dim=-1)
+    spec = round_operand(torch.cat([mag * c, mag * s], dim=-1), compute_dtype)
     dw = torch.matmul(spec.reshape(-1, 2 * half).t(), dframes.reshape(-1, ft))
     d_re, d_im = dspec[..., :half], dspec[..., half:]
     return d_re * c + d_im * s, mag * (d_im * c - d_re * s), dw
@@ -264,7 +319,7 @@ def _analysis_dims(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     t = (lp - ft) // hop + 1
     if b < 1 or t < 1 or lp < ft:
         raise ValueError(f"fused_analysis: no frame fits (B={b}, Lp={lp}, ft={ft})")
-    if max(b * lp, t * b * packed_width(half)) >= 2 ** 31:
+    if max(b * lp, t * b * packed_width(half, torch.bfloat16)) >= 2 ** 31:
         raise ValueError(f"fused_analysis: too large for 32-bit offsets (B={b}, Lp={lp}, T={t})")
     return b, lp, half, t
 
@@ -277,63 +332,74 @@ def _synthesis_dims(mag: torch.Tensor, ft: int, hop: int):
     if b < 1 or out_len < 1:
         raise ValueError(f"fused_synthesis: empty output (OT={ot}, B={b}, ft={ft}, hop={hop})")
     rows = max(0, ot - 2) * b
-    if max(b * (out_len + 2 * ft), rows * max(ft, packed_width(half))) >= 2 ** 31:
+    if max(b * (out_len + 2 * ft), rows * max(ft, packed_width(half, torch.bfloat16))) >= 2 ** 31:
         raise ValueError(f"fused_synthesis: too large for 32-bit offsets (OT={ot}, B={b}, ft={ft})")
     return ot, b, half, out_len
 
 
-def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
+def _empty(dev: torch.device, dtype: torch.dtype):
+    """torch.empty on dev in dtype, of the shape given as arguments."""
+    return lambda *shape: torch.empty(shape, device=dev, dtype=dtype)
+
+
+def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
+                  compute_dtype: torch.dtype):
+    count = _counters(ANALYSIS, ANALYSIS_BF16, compute_dtype)
     if _is_cpu(xp):
-        return fused_analysis_reference(xp, w, ft, hop)
+        return fused_analysis_reference(xp, w, ft, hop, compute_dtype)
     dev = xp.device
     b, lp, half, t = _analysis_dims(xp, w, ft, hop)
     _cuda.require(xp, "xp", (b, lp), dev)
     _cuda.require(w, "w", (ft, 2 * half), dev)
-    mag = torch.empty((t, b, half), device=dev, dtype=torch.float32)
-    phs = torch.empty((t, b, half), device=dev, dtype=torch.float32)
-    wp = torch.empty((ft, packed_width(half)), device=dev, dtype=torch.float32)
+    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    mag, phs = f32(t, b, half), f32(t, b, half)
+    wp = op(ft, packed_width(half, compute_dtype))
+    xq = op(b, lp) if bf16 else None  # the halved, rounded signal
+    vec = copy_width(ft, hop, lp, xp if xq is None else xq, wp, dtype=compute_dtype)
     f = _cuda.function("frontend", "st_analysis_fwd", _ANALYSIS_ARGS)
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(wp), _cuda.ptr(mag), _cuda.ptr(phs),
-                   b, lp, ft, hop, half, t, copy_width(ft, hop, lp, xp, wp), _cuda.stream(dev))
+        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(xq), _cuda.ptr(wp), _cuda.ptr(mag),
+                   _cuda.ptr(phs), b, lp, ft, hop, half, t, vec, int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
-    ANALYSIS.launches += 1
+    count.launches += 1
     return mag, phs
 
 
-def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                   ft: int, hop: int) -> torch.Tensor:
+def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
+                   compute_dtype: torch.dtype) -> torch.Tensor:
+    count = _counters(SYNTHESIS, SYNTHESIS_BF16, compute_dtype)
     if _is_cpu(mag):
-        return fused_synthesis_reference(mag, phs, w, ft, hop)
+        return fused_synthesis_reference(mag, phs, w, ft, hop, compute_dtype)
     dev = mag.device
     ot, b, half, out_len = _synthesis_dims(mag, ft, hop)
     _cuda.require(mag, "mag", (ot, b, half), dev)
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
-    ldc, rows = packed_width(half), max(0, ot - 2) * b  # the live frames 1 .. OT-2
+    ldc, rows = packed_width(half, compute_dtype), max(0, ot - 2) * b  # the live frames 1 .. OT-2
     nsplit = k_slices(rows, ft, ldc)
-
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
-
-    wp, spec, frames, out = empty(ft, ldc), empty(rows, ldc), empty(nsplit, rows, ft), empty(b, out_len)
+    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    wp, spec, frames, out = op(ft, ldc), op(rows, ldc), f32(nsplit, rows, ft), f32(b, out_len)
     f = _cuda.function("frontend", "st_synthesis_fwd", _SYNTHESIS_ARGS)
     with torch.cuda.device(dev):
         status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(wp), _cuda.ptr(spec),
                    _cuda.ptr(frames), _cuda.ptr(out), b, ot, ft, hop, half, out_len, nsplit,
-                   copy_width(0, 0, 0, wp, spec), _cuda.stream(dev))
+                   copy_width(0, 0, 0, wp, spec, dtype=compute_dtype),
+                   int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
     _cuda.check(f, status)
-    SYNTHESIS.launches += 1
+    count.launches += 1
     return out
 
 
 def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
                        dphs: torch.Tensor, ft: int, hop: int,
-                       need_dxp: bool = True, need_dw: bool = True):
+                       need_dxp: bool = True, need_dw: bool = True,
+                       compute_dtype: torch.dtype = torch.float32):
     """Kernel D on CUDA tensors, its plain version on CPU tensors:
     (dxp (B, Lp), dw (ft, 2*half)); a gradient that is not needed is None."""
+    count = _counters(ANALYSIS_BWD, ANALYSIS_BWD_BF16, compute_dtype)
     if _is_cpu(xp):
-        dxp, dw = fused_analysis_bwd_reference(xp, w, dmag, dphs, ft, hop)
+        dxp, dw = fused_analysis_bwd_reference(xp, w, dmag, dphs, ft, hop, compute_dtype)
         return (dxp if need_dxp else None), (dw if need_dw else None)
     dev = xp.device
     b, lp, half, t = _analysis_dims(xp, w, ft, hop)
@@ -341,34 +407,36 @@ def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
     _cuda.require(w, "w", (ft, 2 * half), dev)
     _cuda.require(dmag, "dmag", (t, b, half), dev)
     _cuda.require(dphs, "dphs", (t, b, half), dev)
-    ldc = packed_width(half)
+    ldc = packed_width(half, compute_dtype)
     nsplit = k_slices(ft, ldc, t * b)
-
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
-
-    wp, dspec = empty(ft, ldc), empty(t * b, ldc)
-    dxp = empty(b, lp) if need_dxp else None
-    dframes = empty(t * b, ft) if need_dxp else None
-    dw = empty(ft, 2 * half) if need_dw else None
-    partial = empty(nsplit, ft, ldc) if need_dw else None
+    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    wp, dspec = op(ft, ldc), op(t * b, ldc)
+    xq = op(b, lp) if bf16 else None  # the halved, rounded signal
+    dxp = f32(b, lp) if need_dxp else None
+    dframes = f32(t * b, ft) if need_dxp else None
+    dw = f32(ft, 2 * half) if need_dw else None
+    partial = f32(nsplit, ft, ldc) if need_dw else None
+    vec = copy_width(ft, hop, lp, xp if xq is None else xq, wp, dspec, dtype=compute_dtype)
     f = _cuda.function("frontend_bwd", "st_analysis_bwd", _ANALYSIS_BWD_ARGS)
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs),
+        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(xq),
                    _cuda.ptr(wp), _cuda.ptr(dspec), _cuda.ptr(partial), _cuda.ptr(dframes),
-                   _cuda.ptr(dxp), _cuda.ptr(dw), b, lp, ft, hop, half, t, nsplit, int(need_dxp), int(need_dw),
-                   copy_width(ft, hop, lp, xp, wp, dspec), _cuda.stream(dev))
+                   _cuda.ptr(dxp), _cuda.ptr(dw), b, lp, ft, hop, half, t, nsplit,
+                   int(need_dxp), int(need_dw), vec, int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
-    ANALYSIS_BWD.launches += 1
+    count.launches += 1
     return dxp, dw
 
 
 def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                        dout: torch.Tensor, ft: int, hop: int, need_dw: bool = True):
+                        dout: torch.Tensor, ft: int, hop: int, need_dw: bool = True,
+                        compute_dtype: torch.dtype = torch.float32):
     """Kernel E on CUDA tensors, its plain version on CPU tensors:
     (dmag, dphs (OT, B, half), dw (2*half, ft) or None)."""
+    count = _counters(SYNTHESIS_BWD, SYNTHESIS_BWD_BF16, compute_dtype)
     if _is_cpu(mag):
-        dmag, dphs, dw = fused_synthesis_bwd_reference(mag, phs, w, dout, ft, hop)
+        dmag, dphs, dw = fused_synthesis_bwd_reference(mag, phs, w, dout, ft, hop, compute_dtype)
         return dmag, dphs, (dw if need_dw else None)
     dev = mag.device
     ot, b, half, out_len = _synthesis_dims(mag, ft, hop)
@@ -376,26 +444,24 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
     _cuda.require(dout, "dout", (b, out_len), dev)
-    ldc, rows, lp = packed_width(half), max(0, ot - 2) * b, out_len + 2 * ft
+    ldc, rows, lp = packed_width(half, compute_dtype), max(0, ot - 2) * b, out_len + 2 * ft
     n_dspec, n_dw = k_slices(rows, ldc, ft), k_slices(ft, ldc, rows)
-
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
-
-    wp, doutp, dspec = empty(ft, ldc), empty(b, lp), empty(n_dspec, rows, ldc)
-    dmag, dphs = empty(ot, b, half), empty(ot, b, half)
-    spec = empty(rows, ldc) if need_dw else None
-    partial = empty(n_dw, ft, ldc) if need_dw else None
-    dw = empty(2 * half, ft) if need_dw else None
+    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    wp, doutp, dspec = op(ft, ldc), op(b, lp), f32(n_dspec, rows, ldc)
+    dmag, dphs = f32(ot, b, half), f32(ot, b, half)
+    spec = op(rows, ldc) if need_dw else None
+    partial = f32(n_dw, ft, ldc) if need_dw else None
+    dw = f32(2 * half, ft) if need_dw else None
     f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
     with torch.cuda.device(dev):
         status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout),
                    _cuda.ptr(wp), _cuda.ptr(doutp), _cuda.ptr(dspec), _cuda.ptr(spec),
                    _cuda.ptr(partial), _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(dw),
                    b, ot, ft, hop, half, out_len, n_dspec, n_dw, int(need_dw),
-                   copy_width(ft, hop, lp, doutp, wp, dspec), _cuda.stream(dev))
+                   copy_width(ft, hop, lp, doutp, wp, dspec, dtype=compute_dtype),
+                   int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
     _cuda.check(f, status)
-    SYNTHESIS_BWD.launches += 1
+    count.launches += 1
     return dmag, dphs, dw
 
 
@@ -403,56 +469,59 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
 
 class FusedAnalysis(torch.autograd.Function):
     """(xp, w) -> (mag, phs): kernel A forward, kernel D backward (their plain
-    versions on CPU tensors). Saves (xp, w) only; D computes the spectrum
-    again."""
+    versions on CPU tensors), in one compute dtype. Saves (xp, w) only; D
+    computes the spectrum again."""
 
     @staticmethod
-    def forward(ctx, xp, w, ft, hop):
+    def forward(ctx, xp, w, ft, hop, compute_dtype):
         ctx.save_for_backward(xp, w)
-        ctx.geometry = (ft, hop)
-        return _analysis_fwd(xp, w, ft, hop)
+        ctx.geometry = (ft, hop, compute_dtype)
+        return _analysis_fwd(xp, w, ft, hop, compute_dtype)
 
     @staticmethod
     def backward(ctx, dmag, dphs):
         xp, w = ctx.saved_tensors
-        ft, hop = ctx.geometry
+        ft, hop, compute_dtype = ctx.geometry
         # the cotangents may be expanded or strided views; the kernels take
         # raw pointers
         dxp, dw = fused_analysis_bwd(xp, w, dmag.contiguous(), dphs.contiguous(), ft, hop,
                                      need_dxp=ctx.needs_input_grad[0],
-                                     need_dw=ctx.needs_input_grad[1])
-        return dxp, dw, None, None
+                                     need_dw=ctx.needs_input_grad[1],
+                                     compute_dtype=compute_dtype)
+        return dxp, dw, None, None, None
 
 
 class FusedSynthesis(torch.autograd.Function):
     """(mag, phs, w) -> waveform: kernel B forward, kernel E backward (their
-    plain versions on CPU tensors). Saves (mag, phs, w); E computes the
-    spectrum again."""
+    plain versions on CPU tensors), in one compute dtype. Saves (mag, phs,
+    w); E computes the spectrum again."""
 
     @staticmethod
-    def forward(ctx, mag, phs, w, ft, hop):
+    def forward(ctx, mag, phs, w, ft, hop, compute_dtype):
         ctx.save_for_backward(mag, phs, w)
-        ctx.geometry = (ft, hop)
-        return _synthesis_fwd(mag, phs, w, ft, hop)
+        ctx.geometry = (ft, hop, compute_dtype)
+        return _synthesis_fwd(mag, phs, w, ft, hop, compute_dtype)
 
     @staticmethod
     def backward(ctx, dout):
         mag, phs, w = ctx.saved_tensors
-        ft, hop = ctx.geometry
+        ft, hop, compute_dtype = ctx.geometry
         dmag, dphs, dw = fused_synthesis_bwd(mag, phs, w, dout.contiguous(), ft, hop,
-                                             need_dw=ctx.needs_input_grad[2])
+                                             need_dw=ctx.needs_input_grad[2],
+                                             compute_dtype=compute_dtype)
         return (dmag if ctx.needs_input_grad[0] else None,
-                dphs if ctx.needs_input_grad[1] else None, dw, None, None)
+                dphs if ctx.needs_input_grad[1] else None, dw, None, None, None)
 
 
-def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
+def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
+                   compute_dtype: torch.dtype = torch.float32):
     """Kernel A (backward: kernel D) on CUDA tensors, the plain versions on
     CPU tensors."""
-    return FusedAnalysis.apply(xp, w, ft, hop)
+    return FusedAnalysis.apply(xp, w, ft, hop, compute_dtype)
 
 
 def fused_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                    ft: int, hop: int) -> torch.Tensor:
+                    ft: int, hop: int, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Kernel B (backward: kernel E) on CUDA tensors, the plain versions on
     CPU tensors."""
-    return FusedSynthesis.apply(mag, phs, w, ft, hop)
+    return FusedSynthesis.apply(mag, phs, w, ft, hop, compute_dtype)

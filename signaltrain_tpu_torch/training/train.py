@@ -7,9 +7,12 @@ forward (kernels A and B with ``frontend="fused"``), ``calc_loss``, backward
 1cycle schedule. The loop dispatches step by step; losses stay on the device
 and are fetched once per status line.
 
-Float32 only: the JAX package's bf16 operand policy is not ported, and
-neither are its plots, background writer, file datasets and multi-device
-paths. Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
+``train`` computes in ``compute_dtype``, bfloat16 by default as in the JAX
+package (its mixed precision: bf16 products with float32 accumulation in the
+front-end kernels and the autoencoders; parameters, Adam's state, the
+trigonometry and the loss in float32), or float32. Not ported: the JAX
+package's plots, background writer, file datasets and multi-device paths.
+Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
 ETA.
@@ -110,8 +113,11 @@ def train(
     seed: int = 218,
     status_every: int = 10,
     device: str | torch.device = "cuda",
+    compute_dtype: torch.dtype = torch.bfloat16,
 ):
-    """Main training routine on synthesized data, float32.
+    """Main training routine on synthesized data, computing in
+    ``compute_dtype`` (torch.bfloat16, the JAX package's default, or
+    torch.float32).
 
     Returns (model, history): the trained ``STModel`` and a dict of the
     per-step training losses (``train_loss``) and the per-epoch validation
@@ -126,7 +132,7 @@ def train(
     print(f"SignalTrain (PyTorch) training began at {time.ctime()}. Options:")
     print(f"    epochs = {epochs}, n_data_points = {n_data_points}, batch_size = {batch_size}")
     print(f"    scale_factor = {scale_factor}, shrink_factor = {shrink_factor}, "
-          f"dtype = float32, device = {dev}")
+          f"compute_dtype = {str(compute_dtype).removeprefix('torch.')}, device = {dev}")
     num_knobs = effect.num_knobs
     print(f"    num_knobs = {num_knobs}")
     effect.info()
@@ -138,7 +144,8 @@ def train(
         scale_factor, shrink_factor, sr = rv["scale_factor"], rv["shrink_factor"], rv["sr"]
 
     model = st_model(scale_factor=scale_factor, shrink_factor=shrink_factor, num_knobs=num_knobs,
-                     sr=sr, device=dev, generator=torch.Generator().manual_seed(seed))
+                     sr=sr, device=dev, generator=torch.Generator().manual_seed(seed),
+                     compute_dtype=compute_dtype)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
     model.train()

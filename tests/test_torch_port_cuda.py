@@ -339,3 +339,225 @@ def test_predict_long_card_matches_cpu(dev):
     ct_card = pl.calc_ct(clip, effects.Compressor_4c(device=dev), kw, 2048, 8192)
     ct_cpu = pl.calc_ct(clip, effects.Compressor_4c(device="cpu"), kw, 2048, 8192)
     np.testing.assert_allclose(ct_card, ct_cpu, atol=1e-5)
+
+
+# ---- the bfloat16 modes of A, B, D and E (compute_dtype=torch.bfloat16): each
+# against its plain bf16 version, which rounds the same operands and multiplies
+# in float32, so the two differ by the order of float32 sums only and the f32
+# tolerances hold for A, B and E. D rounds a result (dspec) before its
+# products, so its gradients are held against the float64 plain version of the
+# same bf16-rounded computation: the kernel's error within twice the plain f32
+# version's plus 1e-3 * max|g|, E's beside its element-by-element check.
+BF16 = torch.bfloat16
+BF16_GEOMS = BWD_GEOMS + [TRAIN_GEOM]
+
+
+def _f64_rule_ratio(got, plain, exact, floor=1e-3):
+    """The error of ``got`` against float64 over the limit: twice the plain
+    version's error plus floor * max|exact|."""
+    err = float((got.double() - exact).abs().max())
+    plain_err = float((plain.double() - exact).abs().max())
+    return err / (2 * plain_err + floor * float(exact.abs().max()))
+
+
+def _f64_rule(name, got, plain, exact, floor=1e-3):
+    ratio = _f64_rule_ratio(got, plain, exact, floor)
+    assert ratio <= 1, (name, ratio)
+
+
+def _rounding_shows(name, f32_result, plain_bf16, tol, factor):
+    """The control of an element-by-element bf16 check: the float32 kernel
+    is more than ``factor`` times over tol + tol*|plain| somewhere, so a mode
+    that did not round fails it."""
+    ratio = float(((f32_result - plain_bf16).abs() / (tol + tol * plain_bf16.abs())).max())
+    assert ratio > factor, (name, ratio)
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + [(1024, 384, 8192, 643)])
+def test_bf16_analysis_kernel_matches_plain(dev, ft, hop, chunk, b):
+    g = torch.Generator(device=dev).manual_seed(ft + b)
+    half = ft // 2 + 1
+    with torch.no_grad():
+        w = frontend.Analysis(ft, hop, device=dev).stacked_weights()
+        w = w + torch.randn(w.shape, generator=g, device=dev) * 0.01
+        xp = torch.nn.functional.pad(torch.randn(b, chunk, generator=g, device=dev) * 0.3, (ft, ft))
+        before, f32_before = cuda_frontend.ANALYSIS_BF16.launches, cuda_frontend.ANALYSIS.launches
+        mag, phs = cuda_frontend.fused_analysis(xp, w, ft, hop, BF16)
+        assert cuda_frontend.ANALYSIS_BF16.launches == before + 1
+        assert cuda_frontend.ANALYSIS.launches == f32_before
+        rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w, ft, hop, BF16)
+        fmag = cuda_frontend.fused_analysis(xp, w, ft, hop)[0]
+    torch.cuda.synchronize()
+    assert mag.shape == rmag.shape == ((chunk + ft) // hop + 1, b, half)
+    assert_analysis_close(mag, phs, rmag, rphs)
+    assert torch.all(mag[0] == np.float32(1e-18)) and torch.all(phs[0] == 0)
+    # the rounding happened: the f32 kernel is far further off than the tolerance
+    assert float((fmag - rmag).abs().max()) > 20 * float((mag - rmag).abs().max())
+    wide = 8 if ft % 8 == hop % 8 == 0 else 1
+    assert cuda_frontend.copy_width(ft, hop, xp.shape[1], xp, dtype=BF16) == wide
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + SYN_GEOMS + [(1024, 384, 8192, 643)])
+def test_bf16_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
+    g = torch.Generator(device=dev).manual_seed(ft + b + 1)
+    half, ot = ft // 2 + 1, 9
+    with torch.no_grad():
+        w = frontend.Synthesis(ft, hop, device=dev).stacked_weights()
+        mag = torch.nn.functional.softplus(torch.randn(ot, b, half, generator=g, device=dev))
+        phs = torch.randn(ot, b, half, generator=g, device=dev) * 2.0
+        before = cuda_frontend.SYNTHESIS_BF16.launches
+        wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16)
+        again = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16)
+        assert cuda_frontend.SYNTHESIS_BF16.launches == before + 2
+        ref = cuda_frontend.fused_synthesis_reference(mag, phs, w, ft, hop, BF16)
+        f32_wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop)
+    torch.cuda.synchronize()
+    assert wave.shape == ref.shape == (b, (ot - 1) * hop - ft)
+    assert torch.equal(wave, again)
+    torch.testing.assert_close(wave, ref, atol=3e-4, rtol=3e-4)
+    _rounding_shows("B", f32_wave, ref, 3e-4, 5)  # 15-36x on an H100
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b,cot",
+                         [(*g, cot) for g in BF16_GEOMS for cot in ("full", "regular")]
+                         + [(1024, 384, 8192, 643, "regular")])
+def test_bf16_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
+    inp = analysis_bwd_inputs(ft, hop, chunk, b)
+    if cot == "regular":
+        inp["c"] = regular_phase_cotangent(inp, ft, hop)
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
+    half = ft // 2 + 1
+    xp = torch.nn.functional.pad(inp["x"], (ft, ft))
+    w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
+    args = (xp, w, inp["a"], inp["c"], ft, hop)
+    before = cuda_frontend.ANALYSIS_BWD_BF16.launches
+    dxp, dw = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16)
+    dxp2, dw2 = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16)
+    assert cuda_frontend.ANALYSIS_BWD_BF16.launches == before + 2
+    rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(*args, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2) and torch.equal(dxp, dxp2)
+    # against float64 in both cases: dspec is rounded to bf16 before both
+    # products, and a float32-level difference in it (another order of sums
+    # in the spectrum) moves a rounding by one bf16 ulp, 2^-8 relative; on an
+    # H100 at batch 200 that moved 0.4% of the elements of dW by up to 0.016
+    # even with the well-conditioned cotangent. dx on the unpadded signal under the full
+    # cotangent (the padding's part carries the all-zero frames' adjoint)
+    xdxp, xdw = cuda_frontend.fused_analysis_bwd_reference(
+        xp.double(), w.double(), inp["a"].double(), inp["c"].double(), ft, hop, BF16)
+    sl = slice(None) if cot == "regular" else slice(ft, -ft)
+    _f64_rule("dx", dxp[:, sl], rdxp[:, sl], xdxp[:, sl])
+    _f64_rule("dW", dw, rdw, xdw)
+    if cot == "regular":  # the float32 kernel lands over the same limits (5.5-9.5x on an H100)
+        fdxp, fdw = cuda_frontend.fused_analysis_bwd(*args)
+        gap = max(_f64_rule_ratio(fdxp, rdxp, xdxp), _f64_rule_ratio(fdw, rdw, xdw))
+        assert gap > 2, gap
+    only_dw = cuda_frontend.fused_analysis_bwd(*args, need_dxp=False, compute_dtype=BF16)
+    assert only_dw[0] is None and torch.equal(only_dw[1], dw)
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + SYN_GEOMS)
+def test_bf16_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in synthesis_bwd_inputs(ft, hop, b).items()}
+    half = ft // 2 + 1
+    w = cuda_frontend.stack_synthesis_weights(
+        *frontend.fold_synthesis_weights(inp["wr"], inp["wi"], half))
+    args = (inp["mag"], inp["phs"], w, inp["a"], ft, hop)
+    before = cuda_frontend.SYNTHESIS_BWD_BF16.launches
+    got = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16)
+    again = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16)
+    assert cuda_frontend.SYNTHESIS_BWD_BF16.launches == before + 2
+    want = cuda_frontend.fused_synthesis_bwd_reference(*args, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    exact = cuda_frontend.fused_synthesis_bwd_reference(
+        *(a.double() for a in args[:4]), ft, hop, BF16)
+    f32_got = cuda_frontend.fused_synthesis_bwd(*args)
+    for g, g2, r, x, f, name in zip(got, again, want, exact, f32_got, ("dmag", "dphs", "dW")):
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
+        _f64_rule(name, g, r, x)
+        _rounding_shows("E " + name, f, r, 5e-4, 4)  # 11-375x on an H100
+    for g in got[:2]:
+        assert torch.all(g[0] == 0) and torch.all(g[-1] == 0)
+    only = cuda_frontend.fused_synthesis_bwd(*args, need_dw=False, compute_dtype=BF16)
+    assert only[2] is None and torch.equal(only[0], got[0]) and torch.equal(only[1], got[1])
+
+
+class _Bf16GemmFloat64(torch.autograd.Function):
+    """The bf16 gemm policy (operands and cotangent rounded to bf16) with
+    every product summed in float64: the float64 reference step's front-end."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ac, bc = a.to(BF16).double(), b.to(BF16).double()
+        ctx.save_for_backward(ac, bc)
+        return ac @ bc
+
+    @staticmethod
+    def backward(ctx, g):
+        ac, bc = ctx.saved_tensors
+        gc = g.to(BF16).double()
+        return gc @ bc.t(), ac.reshape(-1, ac.shape[-1]).t() @ gc.reshape(-1, gc.shape[-1])
+
+
+def test_bf16_train_step_through_the_kernels(dev, monkeypatch):
+    """One bf16 train step's loss and gradients through the kernels (fused)
+    and through the bf16 gemm policy, each against the same step with float64
+    parameters (the same bf16 autoencoders, the front-end's bf16 operands
+    summed in float64): the fused error within twice the gemm step's plus
+    2e-6 (loss, relative) and 2e-2 * max|g| of each leaf. Those floors sit
+    between the fused step's readings and a control's, the bf16 model on the
+    float32 kernels, which must fail both; flagship geometry, batch 8."""
+    import copy
+
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    spec = compute_spec()
+    fused = STModel(spec, frontend="fused", device=dev, generator=torch.Generator().manual_seed(1),
+                    compute_dtype=BF16)
+    gemm = STModel(spec, frontend="gemm", device=dev, generator=torch.Generator().manual_seed(1),
+                   compute_dtype=BF16)
+    gemm.load_state_dict(fused.state_dict())
+    control = copy.deepcopy(fused)
+    control.mpaec.dft_analysis.compute_dtype = control.mpaec.dft_synthesis.compute_dtype = torch.float32
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, spec.in_chunk_size, generator=g, device=dev) * 0.3
+    y = torch.randn(8, spec.out_chunk_size, generator=g, device=dev) * 0.3
+    knobs = torch.rand(8, 4, generator=g, device=dev) - 0.5
+    _cuda.reset_counts()
+    lf = train_mod.loss_and_grads(fused, x, y, knobs)
+    for c in ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd"):
+        assert _cuda.COUNTERS["bf16_" + c].launches == 1, c
+        assert _cuda.COUNTERS["bf16_" + c].plain_calls == 0 and _cuda.COUNTERS[c].launches == 0, c
+    exact = copy.deepcopy(gemm).double()
+    with monkeypatch.context() as m:
+        m.setattr(frontend, "Bf16Gemm", _Bf16GemmFloat64)
+        lx = train_mod.loss_and_grads(exact, x.double(), y.double(), knobs.double())
+    rel = lambda l: abs(float(l) - float(lx)) / abs(float(lx))
+    grads = lambda model: [p.grad.double() for p in model.parameters()]
+    gf = grads(fused)
+    lg = train_mod.loss_and_grads(gemm, x, y, knobs)
+    gg = grads(gemm)
+    lc = train_mod.loss_and_grads(control, x, y, knobs)
+    gc = grads(control)
+    loss_limit = 2 * rel(lg) + 2e-6
+    over, over_control = [], []
+    for f, gm, c, px in zip(gf, gg, gc, exact.parameters()):
+        limit = 2 * float((gm - px.grad).abs().max()) + 2e-2 * float(px.grad.abs().max())
+        over.append(float((f - px.grad).abs().max()) / limit)
+        over_control.append(float((c - px.grad).abs().max()) / limit)
+    print(f"bf16 step, batch 8, against float64: loss fused {rel(lf):.2e} gemm {rel(lg):.2e} "
+          f"control {rel(lc):.2e}; gradients over their limits: fused {max(over):.2f}x, control "
+          f"{max(over_control):.2f}x")
+    assert rel(lf) <= loss_limit and max(over) <= 1, (rel(lf), rel(lg), over)
+    assert rel(lc) > 2 * loss_limit and max(over_control) > 2, (rel(lc), over_control)
+
+
+def test_bf16_wrappers_refuse_other_dtypes(dev):
+    x = torch.zeros(2, 64 * 3, device=dev)
+    w = torch.zeros(64, 66, device=dev)
+    with pytest.raises(TypeError):
+        cuda_frontend.fused_analysis(x, w, 64, 24, torch.float16)
+    with pytest.raises(TypeError):  # the kernels' inputs are float32 in both modes
+        cuda_frontend.fused_analysis(x.bfloat16(), w, 64, 24, BF16)

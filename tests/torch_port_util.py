@@ -165,14 +165,15 @@ def tiny_spec():
     )
 
 
-def jax_params(spec, seed: int):
+def jax_params(spec, seed: int, compute_dtype=None):
     """(JAX STModel, its parameters) with the front-end matrices perturbed
-    off their DFT init, so a layout error cannot hide."""
+    off their DFT init, so a layout error cannot hide. The model computes in
+    ``compute_dtype`` (a JAX dtype; float32 when None)."""
     import jax
     import jax.numpy as jnp
     from signaltrain_tpu.models import st_model as jst
 
-    jm = jst.STModel(spec)
+    jm = jst.STModel(spec) if compute_dtype is None else jst.STModel(spec, compute_dtype)
     params = jax.device_get(jm.init(jax.random.PRNGKey(seed)))
     rng = np.random.default_rng(seed)
     p = params["params"]
