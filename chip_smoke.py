@@ -53,21 +53,27 @@ Phases (any failure raises and exits non-zero):
      each with the counters set to 0 just before and read just after:
      train() on the card (comp_4c, fused front-end, fresh seeded weights,
      batch 200, 3 epochs x 20 steps, lr_max 2e-4) in a temporary directory,
-     then its checkpoint through load_model (strict, in the same compute
-     dtype) and predict_long on a 2 s clip. The path's four front-end
-     kernels (A, B, D, E in its mode) and C must have launched, none of the
-     other mode, and no plain version run; every loss finite; the mean
-     validation MAE lower after the last epoch than after the first;
-     parameters float32; the served output finite and of the expected
-     length. In each dtype one more step on the same batch through
+     every step and validation batch but the first (the capture's warm-up)
+     a CUDA-graph replay (training/graphs.py; the counters add each graph's captured kernels
+     once a replay), then its checkpoint through load_model (strict, in the
+     same compute dtype) and predict_long on a 2 s clip. The path's four
+     front-end kernels (A, B, D, E in its mode) and C must have launched,
+     none of the other mode, and no plain version run; every loss finite;
+     the mean validation MAE lower after the last epoch than after the
+     first; parameters float32; the served output finite and of the
+     expected length. Then the same run dispatched op by op (the eager
+     loop, the same capturable Adam): all 60 losses, the 3 mean validation
+     MAEs and every weight bit-equal to train()'s. In each dtype one more
+     step on each of STEP_CHECK_BATCHES batches through
      frontend="fused" (the kernels) and "gemm" (plain autograd in float32,
      the bf16 gemm policy in bfloat16), each against the gemm step with
      float64 parameters (in bf16 the same roundings, the front-end's bf16
-     operands summed in float64): the fused loss within twice the gemm step's
-     relative error plus 1e-5, every fused gradient within twice the gemm
-     step's error plus 1e-3 * max|g| of its leaf (bf16: STEP_LOSS_FLOOR_BF16,
-     STEP_GRAD_FLOOR_BF16), and in bf16 a control, the bf16 model on the
-     float32 kernels, more than GAP_STEP times over both limits;
+     operands summed in float64): on every batch the fused loss within twice
+     the gemm step's relative error plus 1e-5, every fused gradient within
+     twice the gemm step's error plus 1e-3 * max|g| of its leaf (bf16:
+     STEP_LOSS_FLOOR_BF16, STEP_GRAD_FLOOR_BF16), and in bf16 a control, the
+     bf16 model on the float32 kernels, more than GAP_STEP times over each
+     limit on its worst batch;
   5. timing with CUDA events: each kernel, its plain version and the
      PyTorch library calls nearest to it, beside the bound computed from this
      run's shapes (HBM 3.35 TB/s; for A, B, D and E, whose products run as
@@ -84,6 +90,15 @@ Phases (any failure raises and exits non-zero):
      train step with either front-end in either dtype (host clock, least and
      most of two turns) and the data synthesis alone; one torch.profiler
      window over each for the card's busy time and the kernels launched; the
+     loop as train() runs it (data + step, blocks of 20, one fetch a block)
+     in f32 and bf16 under CUDA graphs and dispatched op by op, and under
+     graphs with a fetch after every step (as train() fetches when the
+     status cadence does not divide the epoch), in turns (graph, graph with
+     a fetch a step, eager, eager, graph with a fetch a step, graph), with
+     each way's card busy time, kernels
+     on the card and launch calls from the host a step, and the capture
+     time, after the graph's first 20 steps have shown the batches of steps
+     0, 1 and 19 bit-equal to batch_fn run eagerly; the
      bf16 modes of A, B, D and E at the training shapes (A and B also at the
      serving batch) beside their plain bf16 versions, cuDNN's bf16
      convolutions and the bound at the dense bf16 rate (989 TFLOP/s).
@@ -122,14 +137,19 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 BF16 = torch.bfloat16
 TRAIN_BATCH = 200
 TRAIN_EPOCHS, TRAIN_POINTS, TRAIN_LR = 3, 4000, 2e-4  # 3 epochs x 20 steps
+TRAIN_SEED = 218
+LOOP_BLOCK = 20  # steps a timed block, one fetch of the losses after it (as train() runs)
 SEEDS = (0, 1, 2)
 # the controls of the bf16 checks: how many times over a check's limit the
 # float32 kernel (or, for the train step, the bf16 model on the float32
 # kernels) must land
 GAP_B, GAP_D, GAP_E, GAP_STEP = 5.0, 2.0, 4.0, 2.0
 # the bf16 train step's floors, loss (relative) and gradients (of a leaf's
-# max|g|), each between the fused step's reading and its control's
-STEP_LOSS_FLOOR_BF16, STEP_GRAD_FLOOR_BF16 = 3e-5, 2e-2
+# max|g|), each near the geometric mean of the fused step's largest reading
+# and its control's smallest over the STEP_CHECK_BATCHES batches (loss 1.0e-6
+# and 3.6e-5, gradients 7.8e-3 and 4.7e-2 on the H100; PERF.md, section 6)
+STEP_LOSS_FLOOR_BF16, STEP_GRAD_FLOOR_BF16 = 6e-6, 2e-2
+STEP_CHECK_BATCHES = 3  # the step checks' batches: the steps after the 60 trained ones
 
 
 def fail(msg: str) -> None:
@@ -188,9 +208,16 @@ def elementwise_excess(got: torch.Tensor, want: torch.Tensor, tol: float) -> tup
     return float(err.max()), float((err - (tol + tol * want.abs())).max())
 
 
+# the host's calls that put work on the card, as torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
 def card_busy(fn, reps: int) -> dict:
     """One torch.profiler window over reps calls of fn(): the card's busy
-    milliseconds (all kernel and copy times summed) and the kernels launched,
+    milliseconds (all kernel and copy times summed), the kernels that ran on
+    the card and the host's launch calls that the profiler saw (LAUNCH_CALLS;
+    a kernel launched from the port's own libraries may not show there),
     per call. Raises if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,8 +233,11 @@ def card_busy(fn, reps: int) -> dict:
     kernels = [e for e in rows if e.device_type == on_card and e.key not in host_names]
     busy_us = sum(e.self_device_time_total for e in kernels)
     check(busy_us > 0, "torch.profiler reported no device time")
+    launch_calls = sum(e.count for e in rows if e.device_type != on_card
+                       and e.key.startswith(LAUNCH_CALLS))
     return {"card_busy_ms": busy_us / 1e3 / reps,
-            "kernels_launched": sum(e.count for e in kernels) / reps}
+            "kernels_launched": sum(e.count for e in kernels) / reps,
+            "host_launch_calls": launch_calls / reps}
 
 
 def phase_classes(phs: torch.Tensor, rphs: torch.Tensor, rmag: torch.Tensor) -> dict:
@@ -436,60 +466,75 @@ def step_errors(train_mod, model, ref, l_ref, bx, by, bk) -> tuple[float, list]:
                  for p, px in zip(model.parameters(), ref.parameters())]
 
 
-def step_against_float64(train_mod, fused, gemm, bx, by, bk, prefix: str, loss_floor: float,
+def step_against_float64(train_mod, fused, gemm, batches, prefix: str, loss_floor: float,
                          grad_floor: float, control=None) -> dict:
-    """One more step on the same batch through frontend="fused" (the kernels)
-    and "gemm", each against the gemm step with float64 parameters (in bf16
-    the same roundings: the bf16 autoencoders, and the front-end's bf16
-    operands summed in float64 by Bf16GemmFloat64): the fused loss within
-    twice the gemm step's relative error plus loss_floor, every fused
-    gradient within twice the gemm step's error plus grad_floor * max|g| of
-    its leaf. ``control``, a model that must fail both rules, is held to them
-    too: its loss and its worst leaf each more than GAP_STEP times over."""
+    """One more step on each of ``batches`` through frontend="fused" (the
+    kernels) and "gemm", each against the gemm step with float64 parameters
+    (in bf16 the same roundings: the bf16 autoencoders, and the front-end's
+    bf16 operands summed in float64 by Bf16GemmFloat64): on every batch the
+    fused loss within twice the gemm step's relative error plus loss_floor,
+    every fused gradient within twice the gemm step's error plus
+    grad_floor * max|g| of its leaf. ``control``, a model that must fail
+    these rules, is held to them too: on its worst batch its loss, and on its
+    worst batch its worst leaf, each more than GAP_STEP times over (the
+    control's reading varies several-fold from batch to batch: PERF.md,
+    section 6)."""
     from unittest import mock
 
     from signaltrain_tpu_torch.ops import _cuda, frontend
 
-    ref = copy.deepcopy(gemm).double()
-    with mock.patch.object(frontend, "Bf16Gemm", Bf16GemmFloat64):
-        l_ref = train_mod.loss_and_grads(ref, bx.double(), by.double(), bk.double())
-    _cuda.reset_counts()
-    rel, errs = step_errors(train_mod, fused, ref, l_ref, bx, by, bk)
-    check(all(_cuda.COUNTERS[prefix + c].launches == 1 for c in
-              ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")),
-          f"the fused step did not launch {prefix}A, B, D and E once each")
-    rel_gemm, errs_gemm = step_errors(train_mod, gemm, ref, l_ref, bx, by, bk)
-    names = [n for n, _ in ref.named_parameters()]
-    scales = [float(px.grad.abs().max()) for px in ref.parameters()]
-    check(min(scales) > 0, f"{prefix}a float64 gradient is all zero")
-    loss_limit = 2 * rel_gemm + loss_floor
-    limits = [2 * e + grad_floor * m for e, m in zip(errs_gemm, scales)]
-    over = max(e / lim for e, lim in zip(errs, limits))
-    worst, worst_gemm = (max(e / m for e, m in zip(es, scales)) for es in (errs, errs_gemm))
-    print(f"{prefix or 'f32 '}fused vs gemm step on the card: loss against float64: fused "
-          f"{rel:.2e}, gemm {rel_gemm:.2e} (limit 2 x gemm's + {loss_floor:g}); worst gradient "
-          f"error against float64 in units of the leaf's max|g|: fused {worst:.2e}, gemm "
-          f"{worst_gemm:.2e} (limit 2 x gemm's + {grad_floor:g}; the fused step at {over:.2f}x "
-          f"its worst leaf's limit); the leaves' max|g| run {min(scales):.2e} to {max(scales):.2e}")
-    out = {"loss_rel_vs_f64": rel, "gemm_loss_rel_vs_f64": rel_gemm,
-           "grad_err_vs_f64": worst, "gemm_grad_err_vs_f64": worst_gemm}
+    names = [n for n, _ in gemm.named_parameters()]
+    out = {key: [] for key in ("loss_rel_vs_f64", "gemm_loss_rel_vs_f64", "grad_err_vs_f64",
+                               "gemm_grad_err_vs_f64")}
     if control is not None:
-        rel_c, errs_c = step_errors(train_mod, control, ref, l_ref, bx, by, bk)
-        over_c = max(e / lim for e, lim in zip(errs_c, limits))
-        out.update(control_loss_rel_vs_f64=rel_c,
-                   control_grad_err_vs_f64=max(e / m for e, m in zip(errs_c, scales)))
-        print(f"{prefix}control (the bf16 model on the float32 kernels): loss against float64 "
-              f"{rel_c:.2e} ({rel_c / loss_limit:.2f}x the limit); worst gradient error "
-              f"{out['control_grad_err_vs_f64']:.2e} of its leaf's max|g| ({over_c:.2f}x its limit)")
-    # the loss takes the phase as an input of the autoencoder, so a bin at
-    # atan2's branch cut moves it: each loss is held against float64
-    check(rel <= loss_limit, f"the {prefix}fused loss is off the float64 one")
-    for name, e, lim, e_gemm, m in zip(names, errs, limits, errs_gemm, scales):
-        check(e <= lim, f"{prefix}fused gradient of {name} is off the float64 one by {e:.3e}, the "
-                        f"gemm step's by {e_gemm:.3e} (max|g| {m:.3e})")
+        out.update(control_loss_rel_vs_f64=[], control_grad_err_vs_f64=[],
+                   control_loss_over_limit=[], control_grad_over_limit=[])
+    for i, (bx, by, bk) in enumerate(batches):
+        ref = copy.deepcopy(gemm).double()
+        with mock.patch.object(frontend, "Bf16Gemm", Bf16GemmFloat64):
+            l_ref = train_mod.loss_and_grads(ref, bx.double(), by.double(), bk.double())
+        _cuda.reset_counts()
+        rel, errs = step_errors(train_mod, fused, ref, l_ref, bx, by, bk)
+        check(all(_cuda.COUNTERS[prefix + c].launches == 1 for c in
+                  ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")),
+              f"the fused step did not launch {prefix}A, B, D and E once each")
+        rel_gemm, errs_gemm = step_errors(train_mod, gemm, ref, l_ref, bx, by, bk)
+        scales = [float(px.grad.abs().max()) for px in ref.parameters()]
+        check(min(scales) > 0, f"{prefix}a float64 gradient is all zero")
+        loss_limit = 2 * rel_gemm + loss_floor
+        limits = [2 * e + grad_floor * m for e, m in zip(errs_gemm, scales)]
+        over = max(e / lim for e, lim in zip(errs, limits))
+        worst, worst_gemm = (max(e / m for e, m in zip(es, scales)) for es in (errs, errs_gemm))
+        print(f"{prefix or 'f32 '}fused vs gemm step on the card, batch {i}: loss against float64: "
+              f"fused {rel:.2e}, gemm {rel_gemm:.2e} (limit 2 x gemm's + {loss_floor:g}); worst "
+              f"gradient error against float64 in units of the leaf's max|g|: fused {worst:.2e}, "
+              f"gemm {worst_gemm:.2e} (limit 2 x gemm's + {grad_floor:g}; the fused step at "
+              f"{over:.2f}x its worst leaf's limit); the leaves' max|g| run {min(scales):.2e} to "
+              f"{max(scales):.2e}")
+        for key, v in (("loss_rel_vs_f64", rel), ("gemm_loss_rel_vs_f64", rel_gemm),
+                       ("grad_err_vs_f64", worst), ("gemm_grad_err_vs_f64", worst_gemm)):
+            out[key].append(v)
+        if control is not None:
+            rel_c, errs_c = step_errors(train_mod, control, ref, l_ref, bx, by, bk)
+            over_c = max(e / lim for e, lim in zip(errs_c, limits))
+            worst_c = max(e / m for e, m in zip(errs_c, scales))
+            for key, v in (("control_loss_rel_vs_f64", rel_c), ("control_grad_err_vs_f64", worst_c),
+                           ("control_loss_over_limit", rel_c / loss_limit),
+                           ("control_grad_over_limit", over_c)):
+                out[key].append(v)
+            print(f"{prefix}control (the bf16 model on the float32 kernels), batch {i}: loss "
+                  f"against float64 {rel_c:.2e} ({rel_c / loss_limit:.2f}x the limit); worst "
+                  f"gradient error {worst_c:.2e} of its leaf's max|g| ({over_c:.2f}x its limit)")
+        # the loss takes the phase as an input of the autoencoder, so a bin at
+        # atan2's branch cut moves it: each loss is held against float64
+        check(rel <= loss_limit, f"the {prefix}fused loss is off the float64 one on batch {i}")
+        for name, e, lim, e_gemm, m in zip(names, errs, limits, errs_gemm, scales):
+            check(e <= lim, f"{prefix}fused gradient of {name} is off the float64 one by {e:.3e} on "
+                            f"batch {i}, the gemm step's by {e_gemm:.3e} (max|g| {m:.3e})")
     if control is not None:
-        rounding_shows(f"{prefix}train step (loss)", rel_c / loss_limit, GAP_STEP)
-        rounding_shows(f"{prefix}train step (gradients)", over_c, GAP_STEP)
+        rounding_shows(f"{prefix}train step (loss)", max(out["control_loss_over_limit"]), GAP_STEP)
+        rounding_shows(f"{prefix}train step (gradients)", max(out["control_grad_over_limit"]),
+                       GAP_STEP)
     return out
 
 
@@ -504,7 +549,9 @@ def main() -> None:
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects, synths
     from signaltrain_tpu_torch.inference import predict_long as pl
+    from signaltrain_tpu_torch.models.st_model import st_model
     from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels
+    from signaltrain_tpu_torch.training import graphs
     from signaltrain_tpu_torch.training import train as train_mod
     from signaltrain_tpu_torch.utils.load_model import load_model
 
@@ -838,13 +885,41 @@ def main() -> None:
     f32_names = ["fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd"]
     bf16_names = ["bf16_" + name for name in f32_names]
 
+    steps_per_epoch, val_steps = TRAIN_POINTS // TRAIN_BATCH, (TRAIN_POINTS // 4) // TRAIN_BATCH
+    batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
+    val_batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=False)
+
+    def fresh(compute_dtype):
+        """The model and capturable Adam that train() starts from."""
+        m = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                     compute_dtype=compute_dtype).train()
+        return m, *train_mod.make_optimizer(m, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
+
+    def eager_train(compute_dtype):
+        """train()'s loop dispatched op by op on the card, from the same
+        weights and seeds: (model, per-step losses, mean validation MAE per
+        epoch)."""
+        m, opt, lr_fn = fresh(compute_dtype)
+        g = torch.Generator(device=dev)
+        losses, maes = [], []
+        for epoch in range(TRAIN_EPOCHS):
+            losses += train_mod.eager_steps(m, opt, lr_fn, batch_fn, TRAIN_BATCH, g, TRAIN_SEED,
+                                            epoch * steps_per_epoch, steps_per_epoch).cpu().tolist()
+            m.eval()
+            maes.append(float(train_mod.eager_validation(m, val_batch_fn, TRAIN_BATCH, g,
+                                                         val_steps)[1].cpu().numpy().mean()))
+            m.train()
+        return m, losses, maes
+
     def training_path(compute_dtype, names, others):
-        """train() on the card in compute_dtype in a temporary directory, its
-        checkpoint through load_model (strict) and predict_long, with every
-        counter set to 0 just before and read just after: the kernels in
-        names and C must have launched, none in others, and no plain version
-        run. Returns the served model, the mean validation MAEs and the
-        seconds the path took."""
+        """train() on the card in compute_dtype in a temporary directory (every
+        step and validation batch but the first a CUDA-graph replay), its checkpoint through
+        load_model (strict) and predict_long, with every counter set to 0
+        just before and read just after: the kernels in names and C must have
+        launched, none in others, and no plain version run. Then the same
+        run dispatched op by op: every loss, every mean validation MAE and
+        every weight bit-equal. Returns the served model, the mean validation
+        MAEs and the seconds the path took."""
         tag = str(compute_dtype).removeprefix("torch.")
         cwd = os.getcwd()
         _cuda.reset_counts()
@@ -855,7 +930,7 @@ def main() -> None:
                 trained, hist = train_mod.train(
                     effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS,
                     batch_size=TRAIN_BATCH, cp_every=TRAIN_EPOCHS, sr=sr, lr_max=TRAIN_LR,
-                    seed=218, device=dev, compute_dtype=compute_dtype)
+                    seed=TRAIN_SEED, device=dev, compute_dtype=compute_dtype)
                 val_lines = [ln.split() for ln in open("val_err_mae.dat").read().strip().splitlines()]
                 vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
                 served, served_rv = load_model("modelcheckpoint.tar", device=dev,  # strict inside
@@ -891,6 +966,15 @@ def main() -> None:
               "checkpoint: a parameter is not float32")
         check(y_served.shape == (len(short_clip) - lookback,) and bool(np.all(np.isfinite(y_served))),
               "predict_long on the trained checkpoint: wrong length or not finite")
+        eager, eager_losses, eager_maes = eager_train(compute_dtype)
+        check(eager_losses == hist["train_loss"],
+              f"{tag}: train() under CUDA graphs and eager dispatch differ in the losses")
+        check(eager_maes == hist["val_mae_mean"],
+              f"{tag}: train() under CUDA graphs and eager dispatch differ in validation MAE")
+        check(all(torch.equal(a, b) for a, b in zip(eager.parameters(), trained.parameters())),
+              f"{tag}: train() under CUDA graphs and eager dispatch differ in the weights")
+        print(f"train({tag}) under CUDA graphs = eager dispatch, bit for bit: {len(eager_losses)} "
+              f"losses, {len(eager_maes)} validation passes, every weight")
         return served, hist, mean_maes, t_path
 
     served, hist, mean_maes, t_path = training_path(torch.float32, f32_names, bf16_names)
@@ -898,16 +982,17 @@ def main() -> None:
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
-    # one more step on the same batch, in each dtype: the kernels against the
+    # one more step on each of a few batches, in each dtype: the kernels against the
     # gemm front-end (plain autograd in float32, the bf16 gemm policy in
     # bfloat16), both against the gemm step in float64. The front-end's
     # gradients carry the phase adjoint dphs / |spec|, which amplifies the
     # ~5e-7 by which the kernels' spectrum and cuBLAS's differ (and in bf16
     # moves roundings by an ulp), so the two steps are never compared with
     # each other, only each with float64.
-    batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
     data_gen = torch.Generator(device=dev)
-    bx, by, bk = batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, steps))
+    step_batches = [batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, TRAIN_SEED, s))
+                    for s in range(steps, steps + STEP_CHECK_BATCHES)]
+    bx, by, bk = step_batches[0]
     gemm = copy.deepcopy(served)
     gemm.mpaec.frontend = "gemm"
     gemm_b = copy.deepcopy(served_b)
@@ -924,9 +1009,9 @@ def main() -> None:
     # float32-level difference in the kernels' spectrum moves a bf16 rounding
     # downstream by an ulp (2^-8): the fused step is held to floors between
     # its own readings and the control's (PERF.md, Findings).
-    step_checks = {"float32": step_against_float64(train_mod, served, gemm, bx, by, bk, "", 1e-5,
+    step_checks = {"float32": step_against_float64(train_mod, served, gemm, step_batches, "", 1e-5,
                                                    1e-3),
-                   "bfloat16": step_against_float64(train_mod, served_b, gemm_b, bx, by, bk,
+                   "bfloat16": step_against_float64(train_mod, served_b, gemm_b, step_batches,
                                                     "bf16_", STEP_LOSS_FLOOR_BF16,
                                                     STEP_GRAD_FLOOR_BF16, control=control_b)}
 
@@ -1111,6 +1196,11 @@ def main() -> None:
         r["shape"] = f"xp {tuple(bxp.shape)}, w {tuple(w_an.shape)}"
         sxp = bf16_ins["xp", n_windows]
         r["serve_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(sxp, w_an, ft, hop, BF16), reps=20)
+        r["serve_plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_analysis_reference(sxp, w_an, ft, hop, BF16), reps=10)
+        sxp16 = sxp[:, None, :].to(BF16)
+        r["serve_library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.conv1d(sxp16, w_conv16, stride=hop), reps=10)
         r["serve_bound_ms"] = bound(a_flops, a_bytes, PEAK_BF16_FLOPS)[0]
         r["serve_shape"] = f"xp {tuple(sxp.shape)}"
 
@@ -1130,6 +1220,13 @@ def main() -> None:
         smag_b, sphs_b = bf16_ins["syn", n_windows]
         r["serve_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis(smag_b, sphs_b, w_syn, ft, hop, BF16), reps=20)
+        r["serve_plain_ms"] = cuda_ms(
+            lambda: cuda_frontend.fused_synthesis_reference(smag_b, sphs_b, w_syn, ft, hop, BF16),
+            reps=10)
+        sspec16 = torch.cat([smag_b * torch.cos(sphs_b), smag_b * torch.sin(sphs_b)], -1)
+        sspec16 = sspec16.permute(1, 2, 0).contiguous().to(BF16)  # (B, 2*half, OT)
+        r["serve_library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.conv_transpose1d(sspec16, w_tconv16, stride=hop), reps=10)
         r["serve_bound_ms"] = bound(b_flops, b_bytes, PEAK_BF16_FLOPS)[0]
         r["serve_shape"] = f"mag {tuple(smag_b.shape)}"
 
@@ -1194,44 +1291,85 @@ def main() -> None:
     training["forward_backward_ms_fused"] = host_ms(
         lambda: train_mod.loss_and_grads(served, bx, by, bk), reps=20)
     training["data_ms"] = host_ms(
-        lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=20)
-    opt, lr_fn = opts["fused"]
-    training["loop_step_ms"] = host_ms(
-        lambda: train_mod.train_step_from_arrays(
-            served, opt, lr_fn, 0, *batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 1))),
-        reps=20)
-    training["loop_examples_per_s"] = TRAIN_BATCH / training["loop_step_ms"] * 1e3
-    bopt, blr_fn = opts["fused_bf16"]
-    training["loop_step_ms_bf16"] = host_ms(
-        lambda: train_mod.train_step_from_arrays(
-            served_b, bopt, blr_fn, 0,
-            *batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 1))),
-        reps=20)
-    training["loop_examples_per_s_bf16"] = TRAIN_BATCH / training["loop_step_ms_bf16"] * 1e3
+        lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, TRAIN_SEED, 0)), reps=20)
     # the card's own share of each: host time that is not card time is launch work
     training["profile"] = {
         "data": card_busy(
-            lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, 218, 0)), reps=10)}
+            lambda: batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, TRAIN_SEED, 0)),
+            reps=10)}
     for name, m in models.items():
         mopt, mlr_fn = opts[name]
         training["profile"][f"step_{name}"] = card_busy(
             lambda: train_mod.train_step_from_arrays(m, mopt, mlr_fn, 0, bx, by, bk), reps=10)
+
+    # the loop as train() runs it (data synthesis and step, LOOP_BLOCK steps,
+    # then one fetch of their losses), fused, in each dtype: under CUDA graphs
+    # and dispatched op by op, and under graphs with a fetch after every step
+    # (train() with a status cadence that does not divide the epoch), in
+    # turns, from fresh seeded weights. The graph's first 20 steps, one replay a call,
+    # check the data stream: the batches of steps 0, 1 and 19 equal to
+    # batch_fn run eagerly on step_generator.
+    loops = {}
+    for tag, dtype in (("f32", torch.float32), ("bf16", BF16)):
+        gm, gopt, lr_fn = fresh(dtype)
+        em, eopt, _ = fresh(dtype)
+        graph = graphs.TrainGraph(gm, gopt, lr_fn, batch_fn, TRAIN_BATCH,
+                                  torch.Generator(device=dev), TRAIN_SEED, capacity=LOOP_BLOCK)
+        eg = torch.Generator(device=dev)
+        for step in range(20):
+            graph(step, 1)
+            if step in (0, 1, 19):
+                want = batch_fn(TRAIN_BATCH, synth_data.step_generator(eg, TRAIN_SEED, step))
+                check(all(torch.equal(a, b) for a, b in zip(graph.batch, want)),
+                      f"{tag}: the batch of step {step} under the graph differs from batch_fn's")
+        ways = {"graph": lambda: graph(20, LOOP_BLOCK).cpu(),
+                "graph_fetch_each_step": lambda: [graph(s, 1).cpu() for s in range(20, 20 + LOOP_BLOCK)],
+                "eager": lambda: train_mod.eager_steps(em, eopt, lr_fn, batch_fn, TRAIN_BATCH, eg,
+                                                       TRAIN_SEED, 20, LOOP_BLOCK).cpu()}
+        runs = {way: [] for way in ways}
+        for way in ("graph", "graph_fetch_each_step", "eager", "eager", "graph_fetch_each_step",
+                    "graph"):
+            runs[way].append(host_ms(ways[way], reps=3, warmup=1) / LOOP_BLOCK)
+        for way, fn in ways.items():
+            ms = sum(runs[way]) / len(runs[way])
+            prof = card_busy(fn, reps=1)
+            loops[f"{tag}_{way}"] = {
+                "loop_ms": ms, "loop_ms_min_max": [min(runs[way]), max(runs[way])],
+                "examples_per_s": TRAIN_BATCH / ms * 1e3,
+                "card_busy_ms": prof["card_busy_ms"] / LOOP_BLOCK,
+                "kernels_on_card": prof["kernels_launched"] / LOOP_BLOCK,
+                "host_launch_calls": prof["host_launch_calls"] / LOOP_BLOCK}
+        loops[f"{tag}_graph"]["capture_s"] = graph.graph.capture_s
+        loops[f"{tag}_graph"]["counted_per_replay"] = graph.graph.counts
+        gm.eval()
+        evals = graphs.EvalGraph(gm, val_batch_fn, TRAIN_BATCH, torch.Generator(device=dev),
+                                 val_steps)
+        evals()
+        gm.train()
+        loops[f"{tag}_graph"]["eval_capture_s"] = evals.graph.capture_s
+        loops[f"{tag}_graph"]["eval_counted_per_replay"] = evals.graph.counts
+    training["loop"] = loops
     print(f"train step at batch {TRAIN_BATCH}, host clock, mean [least, most] of two turns: fused "
           f"{training['step_ms_fused']:.3f} {training['step_ms_fused_min_max']} ms "
           f"({training['examples_per_s_fused']:.0f} examples/s), gemm {training['step_ms_gemm']:.3f} "
           f"{training['step_ms_gemm_min_max']} ms "
           f"({training['examples_per_s_gemm']:.0f} examples/s); fused forward "
           f"{training['forward_ms_fused']:.3f} ms, forward+backward "
-          f"{training['forward_backward_ms_fused']:.3f} ms; data synthesis {training['data_ms']:.3f} ms; "
-          f"data + step {training['loop_step_ms']:.3f} ms "
-          f"({training['loop_examples_per_s']:.0f} examples/s) on {smi}")
+          f"{training['forward_backward_ms_fused']:.3f} ms; data synthesis {training['data_ms']:.3f} ms "
+          f"on {smi}")
     print(f"bf16 train step at batch {TRAIN_BATCH}: fused {training['step_ms_fused_bf16']:.3f} "
           f"{training['step_ms_fused_bf16_min_max']} ms, gemm {training['step_ms_gemm_bf16']:.3f} "
-          f"{training['step_ms_gemm_bf16_min_max']} ms; data + step "
-          f"{training['loop_step_ms_bf16']:.3f} ms "
-          f"({training['loop_examples_per_s_bf16']:.0f} examples/s); card busy per step: " + ", ".join(
+          f"{training['step_ms_gemm_bf16_min_max']} ms; card busy per call: " + ", ".join(
               f"{k} {v['card_busy_ms']:.3f} ms ({v['kernels_launched']:.0f} kernels)"
               for k, v in training["profile"].items()))
+    for key, v in loops.items():
+        print(f"loop {key} (data + step, {LOOP_BLOCK} steps a block): {v['loop_ms']:.3f} ms a step "
+              f"[{v['loop_ms_min_max'][0]:.3f}, {v['loop_ms_min_max'][1]:.3f}], "
+              f"{v['examples_per_s']:.0f} examples/s; card busy {v['card_busy_ms']:.3f} ms, "
+              f"{v['kernels_on_card']:.1f} kernels on the card and {v['host_launch_calls']:.1f} "
+              f"launch calls from the host a step"
+              + (f"; capture {v['capture_s']:.3f} s, the eval graph's {v['eval_capture_s']:.3f} s"
+                 if "capture_s" in v else "") + f" on {smi}")
     print(json.dumps({"training": training}))
 
     sources = {
@@ -1259,7 +1397,8 @@ def main() -> None:
             "shape": r["shape"],
             **{k: r[k] for k in (
                 "launches_serving", "launches_training_float32", "launches_training_bfloat16",
-                "max_phase_err", "f32_kernel_gap", "serve_ms", "serve_bound_ms", "serve_shape",
+                "max_phase_err", "f32_kernel_gap", "serve_ms", "serve_plain_ms",
+                "serve_library_ms", "serve_bound_ms", "serve_shape",
                 "max_small_bin_phase_err", "max_err_vs_float64", "plain_max_err_vs_float64",
                 "max_dx_err", "max_regular_err", "ms_without_dxp", "bound_ms_cuda_cores", "tflops",
                 "tflops_without_dxp", "sm_clock_mhz", "chain_floor_ms", "rows_ms", "randn_ms",
@@ -1278,7 +1417,8 @@ def main() -> None:
             extra = f"; {r['tflops']:.1f} TFLOP/s of bf16 products (bound at 989 TFLOP/s dense)"
         if "serve_ms" in r:
             extra += (f"; at the serving shape {r['serve_shape']}: {r['serve_ms']:.4f} ms (bound "
-                      f"{r['serve_bound_ms']:.4f} ms)")
+                      f"{r['serve_bound_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, library "
+                      f"{r['serve_library_ms']:.4f} ms)")
         if "chain_floor_ms" in r:
             extra = (f"; the chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
                      f"{CHAIN_CYCLES} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "

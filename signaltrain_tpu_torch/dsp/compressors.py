@@ -3,7 +3,9 @@
 Counterparts of signaltrain_tpu/dsp/compressors.py. The static curve (dB
 detection, gain computer, make-up) is elementwise PyTorch; the attack/release
 envelope goes to kernel C (``ops/cuda_kernels.py``) for CUDA tensors and to
-its plain version for CPU tensors. Everything runs on the device of ``x``.
+its plain version for CPU tensors. Everything runs on the device of ``x`` and
+copies nothing from the host (a knob given as a number is filled in on the
+device), so the training step can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -13,12 +15,17 @@ import math
 import torch
 
 from ..ops import cuda_kernels
+from ..utils.device import as_device_tensor
+
+# ln 9 in float32 (correctly rounded; what torch.log gives for a float32 9.0)
+LN9 = 2.1972246170043945
 
 
 def _per_example(k, x: torch.Tensor) -> torch.Tensor:
     """A knob value as a float32 tensor on x's device that broadcasts against
-    x (..., N): scalars stay 0-d, per-example vectors get a trailing axis."""
-    k = torch.as_tensor(k, dtype=torch.float32, device=x.device)
+    x (..., N): scalars stay 0-d, per-example vectors get a trailing axis. A
+    number is filled in on the device (no copy from the host)."""
+    k = as_device_tensor(k, torch.float32, x.device)
     if k.dim() == 0:
         return k
     return k.reshape(x.shape[:-1] + (1,))
@@ -43,9 +50,10 @@ def gain_curve(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0.01,
     ratio = _per_example(ratio, x)
     attack_time = _per_example(attack_time, x)
     release_time = _per_example(release_time, x)
-    ln9 = torch.log(torch.tensor(9.0, dtype=torch.float32, device=x.device))
-    alpha_a = torch.exp(-ln9 / (sr * attack_time))
-    alpha_r = torch.exp(-ln9 / (sr * release_time))
+    # one float32 division by the tensor (``-LN9 / t`` would take t's
+    # reciprocal, then multiply)
+    alpha_a = torch.exp(torch.div(-LN9, sr * attack_time))
+    alpha_r = torch.exp(torch.div(-LN9, sr * release_time))
 
     x_db = 20.0 * torch.log10(torch.abs(x) + 1e-8)
     x_db = torch.clamp_min(x_db, -96.0)

@@ -30,6 +30,7 @@ class Effect:
         self.knob_ranges = np.array([[0.0, 1.0]], dtype=np.float32)
         self.sr = sr
         self.device = resolve_device(device)
+        self._ranges_on: dict = {}  # knob_ranges on each device (fixed after __init__)
 
     @property
     def num_knobs(self) -> int:
@@ -46,10 +47,20 @@ class Effect:
             return a.to(dtype=torch.float32, device=device or a.device)
         return torch.as_tensor(np.asarray(a, np.float32), device=device or self.device)
 
+    def knob_ranges_on(self, device: torch.device) -> torch.Tensor:
+        """``knob_ranges`` as a float32 (K, 2) tensor on ``device``, copied
+        there once: the training step, captured in a CUDA graph, scales its
+        knobs with no copy from the host."""
+        device = torch.device(device)
+        if device not in self._ranges_on:
+            self._ranges_on[device] = torch.as_tensor(np.asarray(self.knob_ranges, np.float32),
+                                                      device=device)
+        return self._ranges_on[device]
+
     def knobs_wc(self, knobs_nn) -> torch.Tensor:
         """Normalized [-0.5, 0.5] -> world coordinates; (K,) or (B, K)."""
         knobs_nn = self._tensor(knobs_nn)
-        kr = torch.as_tensor(self.knob_ranges, dtype=torch.float32, device=knobs_nn.device)
+        kr = self.knob_ranges_on(knobs_nn.device)
         return kr[:, 0] + (knobs_nn + 0.5) * (kr[:, 1] - kr[:, 0])
 
     def go_wc(self, x, knobs_wc):

@@ -35,6 +35,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.device import as_device_tensor
+
 # chooser set used when synthesizing compressor training data
 DEFAULT_CHOOSERS = (0, 1, 2, 4, 6, 7)
 N_SPIKES = 50
@@ -193,8 +195,8 @@ def sweep(t: torch.Tensor, d: Draws, f_low, f_high, amp_too) -> torch.Tensor:
     """Exponential frequency sweep from f_low to f_high (floats or (B,)
     tensors); amp_too ((B,) bool) makes the amplitude rise with it."""
     tmax = t[-1]
-    lnfr = torch.log(torch.as_tensor(f_high, dtype=t.dtype, device=t.device)
-                     / torch.as_tensor(f_low, dtype=t.dtype, device=t.device)).reshape(-1, 1)
+    lnfr = torch.log(as_device_tensor(f_high, t.dtype, t.device)
+                     / as_device_tensor(f_low, t.dtype, t.device)).reshape(-1, 1)
     amp = _col(0.9 * d["amp"])
     y = amp * torch.sin(20.0 * 2.0 * math.pi * tmax / lnfr * (torch.exp(t / tmax * lnfr) - 1.0))
     y = torch.where(_col(amp_too), y * torch.exp(lnfr * t / tmax), y)

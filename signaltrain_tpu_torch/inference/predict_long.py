@@ -13,6 +13,12 @@ The windows are a strided view of the signal on the model's device
 (``ops/framing.sliding_window``); they run
 exactly, with no bucketing (the JAX package rounds the count up only to bound
 XLA recompiles), in super-batches of at most 1024 windows to bound memory.
+
+A signal no longer than the lookback (chunk_size - out_chunk_size) has no
+full output window. For it the port returns what the JAX package returns:
+the model's output over ``MIN_BUCKET`` windows of the zero-padded signal (its
+smallest bucket), cut where a negative ``keep`` cuts it, counted from the end
+(1,964 samples for 300 at chunk 512 / out 128).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..dsp.compressors import mu_compand
 from ..ops import framing
 
 SUPER_BATCH = 1024  # windows per forward
+MIN_BUCKET = 16  # the JAX package's smallest window bucket
 
 
 def _num_windows(length: int, size: int, overlap: int) -> int:
@@ -54,14 +61,16 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     overlap = chunk_size - out_chunk_size
     length = int(signal.shape[-1])
     n_windows = _num_windows(length, chunk_size, overlap)
-    if n_windows < 1:
-        raise ValueError(f"predict_long: a signal of {length} samples is no longer than "
-                         f"the lookback ({overlap}): there is no output sample")
-    windows = framing.sliding_window(signal, chunk_size, overlap)  # (n_windows, chunk) view
+    n_run = n_windows
+    if n_windows < 1:  # no full output window: run the JAX package's bucket
+        n_run = MIN_BUCKET
+        signal = torch.nn.functional.pad(
+            signal, (0, chunk_size + (n_run - 1) * out_chunk_size - length))
+    windows = framing.sliding_window(signal, chunk_size, overlap)  # (n_run, chunk) view
 
     outs = []
     with torch.inference_mode():
-        for start in range(0, n_windows, SUPER_BATCH):
+        for start in range(0, n_run, SUPER_BATCH):
             x = windows[start : start + SUPER_BATCH]
             x = mu_compand(x) if compand else x.contiguous()
             kb = knobs[None, :].expand(x.shape[0], knobs.shape[-1])
@@ -70,7 +79,7 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
         y = torch.cat(outs)
         unique = chunk_size + (n_windows - 1) * out_chunk_size
         keep = n_windows * out_chunk_size - max(0, unique - length)
-        y = y[:keep]
+        y = y[:keep]  # keep <= 0 (no full window) counts from the end, as in JAX
         if out_dtype is not None:
             y = audio_io.to_pcm16(y)
     return y if return_device else y.cpu().numpy()

@@ -14,7 +14,11 @@ launches on the stream it is given and returns ``cudaGetLastError()``;
 Each kernel has a :class:`KernelCounter`: its wrapper adds one to
 ``launches`` where it launches the kernel, and the kernel's plain PyTorch
 version adds one to ``plain_calls`` where it runs. ``reset_counts()`` zeroes
-them all, so a run can show which path it went through.
+them all, so a run can show which path it went through. A CUDA graph's
+capture calls the wrappers without launching anything, and its replays
+launch without calling them: the graph takes back what its capture counted
+and adds it once a replay (``add_launches``), so ``launches`` stays the
+number of launches on the card.
 """
 
 from __future__ import annotations
@@ -64,6 +68,19 @@ def counter(name: str) -> KernelCounter:
 def reset_counts() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counter's ``launches`` as they stand."""
+    return {name: c.launches for name, c in COUNTERS.items()}
+
+
+def add_launches(counts: dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``counts[name]`` to each named counter's launches: a
+    CUDA graph's replay launches what its capture recorded, with no Python
+    call of the wrappers (``training/graphs.py``)."""
+    for name, k in counts.items():
+        counter(name).launches += times * k
 
 
 def _nvcc() -> str:

@@ -123,7 +123,9 @@ def optimizer_to_optax_leaves(model: torch.nn.Module, optimizer: torch.optim.Ada
 
 def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leaves: list,
                       step: int) -> None:
-    """Load ``optax_state`` leaves (module docstring) into Adam's state."""
+    """Load ``optax_state`` leaves (module docstring) into Adam's state. Every
+    tensor of it, the float32 ``step`` included, lies on its parameter's
+    device, where ``torch.optim.Adam(capturable=True)`` wants it."""
     template = state_dict_to_params(model.state_dict())
     n = len(_leaves(template))
     if len(leaves) != 2 * n + 2:
@@ -132,7 +134,7 @@ def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leave
     nu = params_to_state_dict(_unflatten(template, list(leaves[1 + n : 1 + 2 * n])))
     for name, p in model.named_parameters():
         optimizer.state[p] = {
-            "step": torch.tensor(float(step)),
+            "step": torch.tensor(float(step), dtype=torch.float32, device=p.device),
             "exp_avg": mu[name].to(p.device).reshape(p.shape).contiguous(),
             "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).contiguous(),
         }

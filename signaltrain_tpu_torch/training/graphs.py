@@ -1,0 +1,173 @@
+"""The training loop's steps as CUDA graphs, captured once and replayed.
+
+Counterpart of the JAX package's fused multi-step dispatch in
+signaltrain_tpu/training/train.py: ``make_train_multi_step`` (:264-383) runs
+a ``lax.scan`` over whole steps, data synthesis included, in one device call,
+and ``make_eval_scan`` (:486-588) the whole validation pass in one call. The
+PyTorch counterpart of a program built once and run many times is a CUDA
+graph:
+
+* ``TrainGraph`` captures one whole loop step: ``batch_fn`` (the stratified
+  synthesis, the effect with kernel C, the trim, the polarity flip), the
+  forward (kernels A and B, or the GEMM front-end), ``calc_loss``, the
+  backward (E, D), ``clip_frontend_grads`` and ``opt.step()``
+  (``train.optimizer_step``, the body of ``train_step_from_arrays``). It is
+  replayed once a step.
+* ``EvalGraph`` captures one validation batch (``val_batch_fn`` and
+  ``eval_step_from_arrays``) and is replayed once a batch.
+
+Between two replays the host reseeds the generator for the step
+(``synth_data.step_generator`` / ``val_step_generator``) and, for a train
+step, writes the step's learning rate into Adam's lr tensor; nothing else.
+The graph registers the generator, so each replay's prologue copies its seed
+and offset (0 after ``manual_seed``) to the card and the replay draws what
+the eager step draws for (seed, step), bit for bit: resume and the frozen
+validation stream hold as before. Each graph appends its losses (and MAEs)
+to a buffer on the card, fetched by the caller once a block of steps.
+
+The capture follows PyTorch's whole-network pattern: the first call runs
+the body for real on a side stream (the warm-up: it builds the kernels,
+cuFFT's plan, cuBLAS's workspace, ``loss.freq_scale``'s tensor, the effect's
+knob ranges on the card and Adam's state), then captures it on that stream
+into the graph's own memory pool, with ``zero_grad(set_to_none=True)``
+inside. So the first train step (and the first validation batch) of a graph
+is its warm-up, the same step dispatched op by op, and every later one a
+replay. Everything captured runs on the current stream and reads nothing
+back to the host; a capture that fails raises with the failing op's message,
+and nothing falls back to eager dispatch.
+
+A capture calls the kernels' wrappers, which count launches, but launches
+nothing; a replay launches every captured kernel without calling them. So
+each graph takes back what its capture counted and adds it once a replay
+(``ops/_cuda.add_launches``): the counters keep counting launches.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from ..data import synth_data
+from ..models.st_model import STModel
+from ..ops import _cuda
+from . import train as train_mod
+
+
+def _append(buffer: torch.Tensor, value: torch.Tensor) -> None:
+    """Shift ``buffer`` down by one and put ``value`` last, on the card: after
+    n replays its last n entries are theirs, oldest first."""
+    buffer.copy_(torch.cat([buffer[1:], value.reshape(1).float()]))
+
+
+class _Graph:
+    """``body()`` as one CUDA graph: the first call runs it on a side stream
+    (the warm-up) and captures it; every later call replays it and adds its
+    launch counts. ``generator`` is the one ``body`` draws from."""
+
+    def __init__(self, body, generator: torch.Generator):
+        dev = generator.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
+        self.body = body
+        self.generator = generator
+        self.device = dev
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.counts: dict[str, int] = {}
+        self.capture_s = 0.0
+        self.replays = 0
+
+    def __call__(self) -> None:
+        if self.graph is None:
+            self._capture()
+            return
+        self.graph.replay()
+        _cuda.add_launches(self.counts)
+        self.replays += 1
+
+    def _capture(self) -> None:
+        torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        _cuda.build()
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self.body()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        counted = _cuda.launch_counts()
+        with torch.cuda.graph(graph, stream=stream):
+            self.body()
+        now = _cuda.launch_counts()
+        self.counts = {k: v - counted.get(k, 0) for k, v in now.items() if v != counted.get(k, 0)}
+        _cuda.add_launches(self.counts, -1)  # the capture launched nothing
+        torch.cuda.synchronize(self.device)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+
+class TrainGraph:
+    """``model``'s train step as a CUDA graph: ``self(step0, n)`` runs steps
+    step0 .. step0 + n - 1 (n <= capacity), each on the batch of
+    ``synth_data.step_generator(generator, seed, step)`` at ``lr_fn(step)``,
+    and returns their (n,) losses on the card, bit-equal to
+    ``train.eager_steps`` with the same capturable optimizer. The first step
+    run is the capture's warm-up, every later one a replay. ``batch`` is the
+    last step's (x, y, knobs)."""
+
+    def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn,
+                 batch_size: int, generator: torch.Generator, seed: int, capacity: int):
+        self.model, self.opt, self.lr_fn = model, opt, lr_fn
+        self.batch_fn, self.batch_size = batch_fn, batch_size
+        self.generator, self.seed = generator, seed
+        self.losses = torch.zeros(capacity, dtype=torch.float32, device=generator.device)
+        self._batches = [None, None]  # the warm-up's batch, the captured one each replay fills
+        self.graph = _Graph(self._body, generator)
+
+    def _body(self) -> None:
+        batch = self.batch_fn(self.batch_size, self.generator)
+        _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *batch))
+        self._batches[torch.cuda.is_current_stream_capturing()] = batch
+
+    @property
+    def batch(self):
+        return self._batches[self.graph.replays > 0]
+
+    def __call__(self, step0: int, n: int) -> torch.Tensor:
+        if not 1 <= n <= self.losses.numel():
+            raise ValueError(f"TrainGraph: {n} steps, capacity {self.losses.numel()}")
+        for step in range(step0, step0 + n):
+            synth_data.step_generator(self.generator, self.seed, step)
+            train_mod.set_lr(self.opt, self.lr_fn(step))
+            self.graph()
+        return self.losses[-n:].clone()
+
+
+class EvalGraph:
+    """The validation pass as a CUDA graph of one batch: ``self()`` runs it
+    on the frozen batches 0 .. n_batches - 1
+    (``synth_data.val_step_generator``) and returns (losses, maes), each
+    (n_batches,) on the card, equal to ``train.eager_validation``'s. The
+    first batch run is the capture's warm-up, in the model's mode then,
+    every later one a replay."""
+
+    def __init__(self, model: STModel, val_batch_fn, batch_size: int,
+                 generator: torch.Generator, n_batches: int):
+        self.model, self.val_batch_fn, self.batch_size = model, val_batch_fn, batch_size
+        self.generator, self.n_batches = generator, n_batches
+        self.losses = torch.zeros(n_batches, dtype=torch.float32, device=generator.device)
+        self.maes = torch.zeros(n_batches, dtype=torch.float32, device=generator.device)
+        self.graph = _Graph(self._body, generator)
+
+    def _body(self) -> None:
+        x, y, knobs = self.val_batch_fn(self.batch_size, self.generator)
+        l, m, _ = train_mod.eval_step_from_arrays(self.model, x, y, knobs)
+        _append(self.losses, l)
+        _append(self.maes, m)
+
+    def __call__(self) -> tuple[torch.Tensor, torch.Tensor]:
+        for v in range(self.n_batches):
+            synth_data.val_step_generator(self.generator, v)
+            self.graph()
+        return self.losses.clone(), self.maes.clone()

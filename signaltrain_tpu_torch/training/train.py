@@ -4,8 +4,17 @@ Counterpart of signaltrain_tpu/training/train.py. One step is data synthesis
 on the device (``data/synth_data.py``, kernel C inside the effect), the model
 forward (kernels A and B with ``frontend="fused"``), ``calc_loss``, backward
 (kernels E and D), the L1 clip of the front-end gradients, and Adam under the
-1cycle schedule. The loop dispatches step by step; losses stay on the device
-and are fetched once per status line.
+1cycle schedule.
+
+On a CUDA device the loop runs the JAX package's fused multi-step dispatch as
+CUDA graphs (``training/graphs.py``): each step and each validation batch
+after the first (the capture's warm-up) is one replay of a captured graph,
+and Adam is ``capturable``, its learning rate a tensor on the card. There is
+no eager fallback: a capture that fails raises. On the CPU
+(``device="cpu"``) the same steps run eagerly. Either way the losses stay on
+the device and are fetched once every ``pick_n_inner`` steps (every step
+when the status cadence does not divide the epoch), and the validation
+figures once a pass.
 
 ``train`` computes in ``compute_dtype``, bfloat16 by default as in the JAX
 package (its mixed precision: bf16 products with float32 accumulation in the
@@ -20,6 +29,7 @@ ETA.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 
@@ -54,12 +64,45 @@ def clip_frontend_grads(model: torch.nn.Module, max_norm: float = 1.0) -> torch.
 def make_optimizer(model: torch.nn.Module, lr_max: float, n_data_points: int, epochs: int,
                    batch_size: int):
     """Adam (betas (0.9, 0.999), eps 1e-8, no weight decay) and the
-    closed-form 1cycle schedule: (optimizer, lr_fn)."""
+    closed-form 1cycle schedule: (optimizer, lr_fn).
+
+    For parameters on a CUDA device the optimizer is
+    ``Adam(capturable=True)`` with the learning rate a float32 tensor on the
+    card (``set_lr`` fills it), so that its step can be captured in a CUDA
+    graph; it takes its bias corrections on the card in float32, as optax
+    does. On the CPU, which refuses ``capturable``, it is the plain Adam with
+    a float learning rate."""
     lr_fn = schedule.one_cycle_fn(lr_max=lr_max, n_data_points=n_data_points, epochs=epochs,
                                   batch_size=batch_size)
-    opt = torch.optim.Adam(model.parameters(), lr=lr_fn(0), betas=(0.9, 0.999), eps=1e-8,
-                           weight_decay=0.0)
-    return opt, lr_fn
+    dev = next(model.parameters()).device
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    if dev.type == "cuda":
+        lr = torch.tensor(lr_fn(0), dtype=torch.float32, device=dev)
+        return torch.optim.Adam(model.parameters(), lr=lr, capturable=True, **kw), lr_fn
+    return torch.optim.Adam(model.parameters(), lr=lr_fn(0), **kw), lr_fn
+
+
+def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Write ``lr`` into every param group: into a capturable Adam's lr
+    tensor on the card (a fill, no copy from the host), else as the float."""
+    for group in opt.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def pick_n_inner(steps_per_epoch: int, status_every: int, cap: int = 50) -> int:
+    """Steps between two fetches of the losses: the largest k <= cap that
+    divides the epoch and is a multiple of the status cadence (1 if there is
+    none). The JAX package's rule for the steps of one fused device call
+    (signaltrain_tpu/training/train.py ``pick_n_inner``); here the host
+    dispatches k steps (k graph replays on the card) before it fetches."""
+    best = 1
+    for k in range(status_every, min(cap, steps_per_epoch) + 1, status_every):
+        if steps_per_epoch % k == 0:
+            best = k
+    return best
 
 
 def _model_loss(model: STModel, x, y, knobs):
@@ -77,18 +120,25 @@ def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor,
     return l.detach()
 
 
+def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
+                   y: torch.Tensor, knobs: torch.Tensor, clip_max_norm: float = 1.0) -> torch.Tensor:
+    """Loss and gradients on the batch (x, y, knobs), the front-end clip and
+    one optimizer step at the learning rate already set; returns the loss (a
+    device scalar). Runs no host work that reads the card: what a train
+    graph captures."""
+    l = loss_and_grads(model, x, y, knobs)
+    clip_frontend_grads(model, clip_max_norm)
+    opt.step()
+    return l
+
+
 def train_step_from_arrays(model: STModel, opt: torch.optim.Optimizer, lr_fn, step: int,
                            x: torch.Tensor, y: torch.Tensor, knobs: torch.Tensor,
                            clip_max_norm: float = 1.0) -> torch.Tensor:
     """One optimizer step on the batch (x, y, knobs) at schedule position
     ``step``; returns the loss (a device scalar)."""
-    l = loss_and_grads(model, x, y, knobs)
-    clip_frontend_grads(model, clip_max_norm)
-    lr = lr_fn(step)
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
-    return l
+    set_lr(opt, lr_fn(step))
+    return optimizer_step(model, opt, x, y, knobs, clip_max_norm)
 
 
 @torch.no_grad()
@@ -96,6 +146,31 @@ def eval_step_from_arrays(model: STModel, x: torch.Tensor, y: torch.Tensor, knob
     """(loss, mae, (x, y, knobs, y_hat, mag, mag_hat)) on one batch."""
     l, (y_hat, mag, mag_hat) = _model_loss(model, x, y, knobs)
     return l, loss_mod.mae(y.float(), y_hat.float()), (x, y, knobs, y_hat, mag, mag_hat)
+
+
+def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, batch_size: int,
+                generator: torch.Generator, seed: int, step0: int, n: int) -> torch.Tensor:
+    """Steps step0 .. step0 + n - 1, each on the batch of
+    ``synth_data.step_generator(generator, seed, step)``, dispatched one op
+    at a time: the (n,) losses on the device. The loop on the CPU, and the
+    reference that ``graphs.TrainGraph`` is bit-equal to on the card."""
+    return torch.stack([
+        train_step_from_arrays(model, opt, lr_fn, s,
+                               *batch_fn(batch_size, synth_data.step_generator(generator, seed, s)))
+        for s in range(step0, step0 + n)])
+
+
+def eager_validation(model: STModel, val_batch_fn, batch_size: int, generator: torch.Generator,
+                     n_batches: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The validation pass over the frozen batches 0 .. n_batches - 1, op by
+    op: (losses, maes), each (n_batches,) on the device."""
+    losses, maes = [], []
+    for v in range(n_batches):
+        x, y, knobs = val_batch_fn(batch_size, synth_data.val_step_generator(generator, v))
+        l, m, _ = eval_step_from_arrays(model, x, y, knobs)
+        losses.append(l)
+        maes.append(m)
+    return torch.stack(losses), torch.stack(maes)
 
 
 def train(
@@ -125,7 +200,8 @@ def train(
     ``val_mae_mean`` over the pass, ``step``). ``effect`` must live on
     ``device``. If ``in_checkpointname`` exists the run resumes from it: its
     geometry overrides the arguments, and its optimizer state and step are
-    restored when it has them."""
+    restored when it has them. On a CUDA device every step and validation
+    batch but the first is a CUDA-graph replay (``training/graphs.py``)."""
     dev = resolve_device(device)
     if effect.device != dev:
         raise ValueError(f"effect is on {effect.device}, train() was given device {dev}")
@@ -169,17 +245,29 @@ def train(
     generator = torch.Generator(device=dev)
     steps_per_epoch = max(1, n_data_points // batch_size)
     val_steps = max(1, (n_data_points // 4) // batch_size)
+    n_inner = pick_n_inner(steps_per_epoch, status_every)
+    if dev.type == "cuda":
+        from . import graphs  # it builds on this module's steps
+
+        run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
+                                      n_inner)
+        validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps)
+    else:
+        run_steps = functools.partial(eager_steps, model, opt, lr_fn, batch_fn, batch_size,
+                                      generator, seed)
+        validate = functools.partial(eager_validation, model, val_batch_fn, batch_size,
+                                     generator, val_steps)
 
     history = {"train_loss": [], "val_loss": [], "val_mae": [], "val_mae_mean": [], "step": step0}
     iter_count, batch_num = step0, 0
     avg_loss, vl_avg, beta = 0.0, 0.0, 0.98
     first_time = time.time()
 
-    def report(pending, epoch, iter0, data_point0):
-        """Fetch the pending device losses (one transfer) and print the
-        status line: per-batch EMA, bias-corrected."""
+    def report(losses, epoch, iter0, data_point0):
+        """Fetch a block's device losses (one transfer) and print the status
+        line: per-batch EMA, bias-corrected."""
         nonlocal avg_loss, batch_num
-        for i, lv in enumerate(torch.stack(pending).cpu().tolist()):
+        for i, lv in enumerate(losses.cpu().tolist()):
             batch_num += 1
             history["train_loss"].append(lv)
             avg_loss = beta * avg_loss + (1 - beta) * lv
@@ -195,27 +283,16 @@ def train(
 
     for epoch in range(epochs):
         print("")
-        pending, iter0, data_point0 = [], iter_count, 0
-        for s in range(steps_per_epoch):
-            x, y, knobs = batch_fn(batch_size, synth_data.step_generator(generator, seed, iter_count))
-            pending.append(train_step_from_arrays(model, opt, lr_fn, iter_count, x, y, knobs))
-            iter_count += 1
-            if len(pending) == status_every or s == steps_per_epoch - 1:
-                report(pending, epoch, iter0, data_point0)
-                iter0, data_point0 = iter_count, data_point0 + len(pending) * batch_size
-                pending = []
+        for block in range(steps_per_epoch // n_inner):
+            report(run_steps(iter_count, n_inner), epoch, iter_count, block * n_inner * batch_size)
+            iter_count += n_inner
 
         # ---- validation pass over the frozen batches, then the logs
         model.eval()
-        losses_val, maes_val = [], []
-        for v in range(val_steps):
-            xv, yv, kv = val_batch_fn(batch_size, synth_data.val_step_generator(generator, v))
-            lv, mv, _ = eval_step_from_arrays(model, xv, yv, kv)
-            losses_val.append(lv)
-            maes_val.append(mv)
+        losses_val, maes_val = validate()
         model.train()
-        maes = torch.stack(maes_val).cpu().numpy()
-        for lv in torch.stack(losses_val).cpu().tolist():
+        maes = maes_val.cpu().numpy()
+        for lv in losses_val.cpu().tolist():
             vl_avg = beta * vl_avg + (1 - beta) * lv
         val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
         with open("vl_avg_out.dat", "a") as f:

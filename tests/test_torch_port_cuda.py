@@ -561,3 +561,167 @@ def test_bf16_wrappers_refuse_other_dtypes(dev):
         cuda_frontend.fused_analysis(x, w, 64, 24, torch.float16)
     with pytest.raises(TypeError):  # the kernels' inputs are float32 in both modes
         cuda_frontend.fused_analysis(x.bfloat16(), w, 64, 24, BF16)
+
+
+# ---- the training loop's CUDA graphs (training/graphs.py)
+
+GRAPH_BATCH = 8  # flagship geometry, a small batch
+
+
+def _graph_setup(dev, frontend, compute_dtype, n_models=2, seed=1):
+    """Models with the same seeded weights, each with its capturable Adam, and
+    the comp_4c batch functions at the flagship geometry."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    spec = compute_spec()
+    models = [STModel(spec, frontend=frontend, device=dev, compute_dtype=compute_dtype,
+                      generator=torch.Generator().manual_seed(seed)).train()
+              for _ in range(n_models)]
+    opts = [train_mod.make_optimizer(m, 2e-4, 4000, 3, 200) for m in models]
+    effect = effects.Compressor_4c(device=dev)
+    batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size)
+    val_batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size,
+                                                  spec.out_chunk_size, augment=False)
+    return models, opts, batch_fn, val_batch_fn
+
+
+@pytest.mark.parametrize("frontend", ["fused", "gemm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_graph_is_bit_equal_to_eager_steps(dev, frontend, dtype):
+    """20 steps of the train graph (its warm-up, then 19 replays) against 20
+    eager steps of the same capturable Adam from the same weights and seeds:
+    every loss and every parameter bit-equal, the batches of steps 0, 1 and
+    19 equal to batch_fn run eagerly on step_generator, and the launch
+    counters counting each replay's kernels."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (gm, em), ((gopt, lr_fn), (eopt, _)), batch_fn, _ = _graph_setup(
+        dev, frontend, getattr(torch, dtype))
+    assert isinstance(gopt.param_groups[0]["lr"], torch.Tensor) and gopt.defaults["capturable"]
+    seed = 218
+    graph = graphs.TrainGraph(gm, gopt, lr_fn, batch_fn, GRAPH_BATCH,
+                              torch.Generator(device=dev), seed, capacity=10)
+    eg = torch.Generator(device=dev)
+    _cuda.reset_counts()
+    got = []
+    for step in range(20):
+        got.append(graph(step, 1))
+        if step in (0, 1, 19):
+            want = batch_fn(GRAPH_BATCH, synth_data.step_generator(eg, seed, step))
+            for a, b in zip(graph.batch, want):
+                assert torch.equal(a, b), step
+    got = torch.cat(got)
+    counts = dict(graph.graph.counts)
+    launched = _cuda.launch_counts()
+    want = train_mod.eager_steps(em, eopt, lr_fn, batch_fn, GRAPH_BATCH, eg, seed, 0, 20)
+    assert torch.equal(got, want), (got, want)
+    for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), name
+    assert graph.graph.replays == 19 and counts.get("switched_one_pole") == 1
+    names = ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd")
+    prefix = "bf16_" if dtype == "bfloat16" else ""
+    for name in names:
+        n = counts.get(prefix + name, 0)
+        assert n == (1 if frontend == "fused" else 0), (name, counts)
+        assert launched.get(prefix + name, 0) == 20 * n  # the warm-up step and 19 replays
+    assert launched["switched_one_pole"] == 20 + 3  # and the three eager batches above
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_graph_equals_eager_validation(dev, dtype):
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (m,), _, _, val_batch_fn = _graph_setup(dev, "fused", getattr(torch, dtype), n_models=1)
+    m.eval()
+    g = torch.Generator(device=dev)
+    evals = graphs.EvalGraph(m, val_batch_fn, GRAPH_BATCH, g, 5)
+    for _ in range(2):  # the warm-up and 4 replays, then a pass of replays alone
+        losses, maes = evals()
+        want_l, want_m = train_mod.eager_validation(m, val_batch_fn, GRAPH_BATCH, g, 5)
+        assert torch.equal(losses, want_l) and torch.equal(maes, want_m)
+    assert evals.graph.replays == 9
+
+
+def test_resume_under_graphs_from_a_step_10_checkpoint(dev, tmp_path):
+    """A run checkpointed at step 10 and resumed in a new model, optimizer
+    and graph reaches the weights of the uninterrupted run at step 20."""
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import STModel
+    from signaltrain_tpu_torch.training import checkpoint, graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (full, first), ((fopt, lr_fn), (opt1, _)), batch_fn, _ = _graph_setup(dev, "fused", BF16)
+
+    def graph(m, opt):
+        return graphs.TrainGraph(m, opt, lr_fn, batch_fn, GRAPH_BATCH,
+                                 torch.Generator(device=dev), 218, capacity=10)
+
+    run = graph(full, fopt)
+    want = torch.cat([run(0, 10), run(10, 10)])
+    losses1 = graph(first, opt1)(0, 10)
+    path = str(tmp_path / "step10.tar")
+    checkpoint.save_checkpoint(path, first, effects.Compressor_4c(device=dev), 0,
+                               optimizer=opt1, step=10)
+    state_dict, rv = checkpoint.load_checkpoint(path)
+    resumed = STModel(first.spec, frontend="fused", device=dev, compute_dtype=BF16)
+    resumed.load_state_dict(state_dict, strict=True)
+    resumed.train()
+    opt2, _ = train_mod.make_optimizer(resumed, 2e-4, 4000, 3, 200)
+    checkpoint.restore_optimizer(resumed, opt2, rv["optax_state"], int(rv["optax_step"]))
+    assert all(st["step"].device == dev for st in opt2.state.values())
+    losses2 = graph(resumed, opt2)(10, 10)
+    assert torch.equal(torch.cat([losses1, losses2]), want)
+    for (name, p), q in zip(full.named_parameters(), resumed.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_capturable_adam_stays_within_the_optax_tolerance_of_plain_adam(dev):
+    """Capturable Adam takes its bias corrections on the card in float32;
+    plain Adam in double. Over 5 steps of the same gradients under the 1cycle
+    schedule they stay within test_adam_matches_optax_under_one_cycle's rtol
+    1e-5 / atol 1e-8."""
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (cap, plain), ((copt, lr_fn), _), _, _ = _graph_setup(dev, "fused", torch.float32)
+    popt = torch.optim.Adam(plain.parameters(), lr=lr_fn(0), betas=(0.9, 0.999), eps=1e-8)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for step in range(5):
+        for p, q in zip(cap.parameters(), plain.parameters()):
+            p.grad = torch.randn(p.shape, generator=g, device=dev)
+            q.grad = p.grad.clone()
+        train_mod.set_lr(copt, lr_fn(step))
+        train_mod.set_lr(popt, lr_fn(step))
+        copt.step()
+        popt.step()
+    for (name, p), q in zip(cap.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-8, msg=name)
+
+
+def test_compressor_copies_nothing_and_matches_its_earlier_expressions_on_card(dev):
+    """The step's compressor fills its knobs in on the card: under a stream
+    capture it must not copy from the host, and it equals the expressions it
+    replaced (torch.as_tensor knobs, ln 9 from torch.log on the card)."""
+    from signaltrain_tpu_torch.dsp import compressors
+
+    assert compressors.LN9 == torch.log(torch.tensor(9.0, device=dev)).item()
+    x = torch.randn(4, 700, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    k = [-17.3, 3.1, 0.0071, 0.023]
+    ln9 = torch.log(torch.tensor(9.0, dtype=torch.float32, device=dev))
+    per = [torch.as_tensor(v, dtype=torch.float32, device=dev) for v in k]
+    alpha_a = torch.exp(-ln9 / (44100.0 * per[2]))
+    alpha_r = torch.exp(-ln9 / (44100.0 * per[3]))
+    gc, aa, ar = compressors.gain_curve(x, *k)
+    assert torch.equal(aa, alpha_a) and torch.equal(ar, alpha_r)
+    y = compressors.compressor_4controls(x, *k)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yg = compressors.compressor_4controls(x, *k)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(yg, y)
