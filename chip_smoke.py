@@ -40,6 +40,11 @@ Phases (any failure raises and exits non-zero):
      max|g|), E also so; B, D and E twice, bit-equal. Each check's control:
      the float32 kernel on the same inputs must land more than GAP_B, GAP_D,
      GAP_E times over its limit;
+  2c. kernel L (csrc/iir.cu, lfilter) against its plain version within
+     1e-5 + 1e-6 |y|, each case run twice and bit-equal: the Compressor's dB
+     envelope at (200, 8192), order 1 with its steady-state zi and per-row
+     cutoffs over the knob range; the LowPass at (200, 8192), order 3, with
+     rows at 10, 100 and 2000 Hz; the Compressor's envelope over one 30 s row;
   3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
@@ -74,6 +79,22 @@ Phases (any failure raises and exits non-zero):
      STEP_LOSS_FLOOR_BF16, STEP_GRAD_FLOOR_BF16), and in bf16 a control, the
      bf16 model on the float32 kernels, more than GAP_STEP times over each
      limit on its worst batch;
+  4b. every synthesized effect trained (the JAX package's registry but
+     comp_4c_large, comp_large's class, and files): train() on the card in
+     bfloat16, fused front-end, flagship geometry, batch 200, seeded weights,
+     1 epoch x 4 steps under CUDA graphs, the counters set to 0 just before
+     and read just after each: A, B, D, E (bf16) launched, C for the
+     compressors built on compressor_4controls (comp_4c, comp_large, comp_t,
+     comp_one, decomp_4c), L for comp and lowpass, no plain version, every
+     loss finite; for denoise, timealign and pitch the same run dispatched op
+     by op, bit-equal (losses, validation MAE, weights); each effect's data
+     synthesis alone, its card busy ms and kernels a batch;
+  4c. demo/modelcheckpoint_denoise.tar served, counted: loaded strict onto
+     the card, a seeded 3 s clip plus uniform noise of strength 0.25 through
+     predict_long at knob 0.25/0.5 - 0.5; A and B launched, no plain version;
+     MAE(prediction, clean) at most 0.3 x MAE(noisy, clean), the output
+     aligned 6,144 samples into the input; the card within 1e-3 of the plain
+     CPU path on a short clip;
   5. timing with CUDA events: each kernel, its plain version and the
      PyTorch library calls nearest to it, beside the bound computed from this
      run's shapes (HBM 3.35 TB/s; for A, B, D and E, whose products run as
@@ -101,7 +122,10 @@ Phases (any failure raises and exits non-zero):
      0, 1 and 19 bit-equal to batch_fn run eagerly; the
      bf16 modes of A, B, D and E at the training shapes (A and B also at the
      serving batch) beside their plain bf16 versions, cuDNN's bf16
-     convolutions and the bound at the dense bf16 rate (989 TFLOP/s).
+     convolutions and the bound at the dense bf16 rate (989 TFLOP/s); L on
+     its three cases beside its bound (8 B a sample at 3.35 TB/s) and its
+     chain floor (cli/time_lfilter.chain_cycles: order 1 is fma -> mul ->
+     fma, 12 cycles a step; order 3 about 9.3; at the SM clock).
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -129,11 +153,7 @@ CKPT = HERE / "demo" / "model_comp4c_demo.tar"
 KNOBS_WC = np.array([-25.0, 4.0, 0.005, 0.02], np.float32)
 CLIP_SECONDS = 30.0
 MIN_CORR = 0.98
-PEAK_F32_FLOPS = 67e12  # H100 SXM, CUDA cores, float32
-PEAK_SPLIT_TF32_FLOPS = 495e12 / 3  # tensor cores, dense TF32, three products per f32 product
-CHAIN_CYCLES = 8  # kernel C: one fma and one select per step, each ~4 cycles, dependent
-PEAK_BF16_FLOPS = 989e12  # tensor cores, dense bf16
-PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
+C_CHAIN_OPS = 2  # kernel C: one fma and one select a step, dependent
 BF16 = torch.bfloat16
 TRAIN_BATCH = 200
 TRAIN_EPOCHS, TRAIN_POINTS, TRAIN_LR = 3, 4000, 2e-4  # 3 epochs x 20 steps
@@ -175,11 +195,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
-    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
 def disagreement(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
@@ -538,6 +553,181 @@ def step_against_float64(train_mod, fused, gemm, batches, prefix: str, loss_floo
     return out
 
 
+# every synthesized effect of the port, trained in phase 4b: the JAX package's
+# registry but "comp_4c_large" (the class of "comp_large") and "files"
+EFFECT_NAMES = ("comp", "comp_4c", "comp_large", "comp_t", "comp_one", "echo", "pitch", "denoise",
+                "decomp_4c", "timealign", "lowpass")
+EFFECT_POINTS = 4 * TRAIN_BATCH  # one epoch of 4 steps and one validation batch
+RANDOM_EFFECTS = ("denoise", "timealign", "pitch")  # held bit for bit to eager dispatch
+DENOISE_CKPT = HERE / "demo" / "modelcheckpoint_denoise.tar"
+DENOISE_STRENGTH = 0.25
+DENOISE_MAX_MAE_RATIO = 0.3  # MAE(prediction, clean) over MAE(noisy, clean)
+
+
+def check_lfilter(dev) -> dict:
+    """Phase 2c: kernel L against its plain version on the cases of
+    cli/time_lfilter.py, each run twice and bit-equal."""
+    from signaltrain_tpu_torch.cli import time_lfilter
+
+    cases = {}
+    for case in time_lfilter.CASES:
+        r = time_lfilter.check(case, dev)
+        cases[case] = r
+        print(f"L lfilter {case} x {r['shape']} order {r['order']}: max|dy| {r['max_abs_err']:.3e} "
+              f"({r['elements_differing']} elements differ; tolerance 1e-5+1e-6|y|); two runs "
+              f"bit-equal; plain version {r['plain_s']:.2f} s")
+    return {"max_abs_err": max(r["max_abs_err"] for r in cases.values()),
+            "elements_differing": {c: r["elements_differing"] for c, r in cases.items()},
+            "plain_s_all_checks": sum(r["plain_s"] for r in cases.values()),
+            "plain_ms": cases["comp"]["plain_s"] * 1e3,
+            "lowpass_plain_ms": cases["lowpass"]["plain_s"] * 1e3,
+            "row_30s_plain_ms": cases["row_30s"]["plain_s"] * 1e3,
+            "tolerance": "1e-5 + 1e-6*|y| against the plain version (the same fma steps); two "
+                         "runs bit-equal"}
+
+
+def train_every_effect(dev, results: dict, chunk: int, out_chunk: int, sr: int) -> dict:
+    """Phase 4b: train() on the card for every effect of EFFECT_NAMES in
+    bfloat16 (fused front-end, flagship geometry, batch 200, seeded weights,
+    1 epoch x 4 steps, every step but the first a CUDA-graph replay), each
+    with the counters set to 0 just before and read just after: A, B, D, E
+    (bf16) launched and not their f32 modes, C for the compressors built on
+    compressor_4controls, L for comp and lowpass, no plain version; every
+    loss finite. For RANDOM_EFFECTS the same run dispatched op by op: losses,
+    validation MAE and weights bit-equal. Then each effect's data synthesis
+    alone: card busy ms and kernels a batch (torch.profiler), host ms."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    bf16_names = ["bf16_fused_analysis", "bf16_fused_synthesis", "bf16_fused_analysis_bwd",
+                  "bf16_fused_synthesis_bwd"]
+    report, cwd = {}, os.getcwd()
+    for name in EFFECT_NAMES:
+        effect = effects.make_effect(name, sr=sr, device=dev)
+        _cuda.reset_counts()
+        t_path = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                model, hist = train_mod.train(
+                    effect, epochs=1, n_data_points=EFFECT_POINTS, batch_size=TRAIN_BATCH,
+                    cp_every=1, sr=sr, lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev,
+                    compute_dtype=BF16)
+            finally:
+                os.chdir(cwd)
+        torch.cuda.synchronize()
+        t_path = time.perf_counter() - t_path
+        counts = {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+        uses_c = name != "comp" and "comp" in name
+        uses_l = name in ("comp", "lowpass")
+        for k in bf16_names:
+            check(counts[k][0] > 0, f"training {name}: kernel {k} never launched")
+        for k in bf16_names:
+            check(counts[k[5:]][0] == 0, f"training {name}: the float32 kernel {k[5:]} launched")
+        check((counts["switched_one_pole"][0] > 0) == uses_c,
+              f"training {name}: kernel C launched {counts['switched_one_pole'][0]} times")
+        check((counts["lfilter"][0] > 0) == uses_l,
+              f"training {name}: kernel L launched {counts['lfilter'][0]} times")
+        for k, (_, plain) in counts.items():
+            check(plain == 0, f"training {name} ran the plain version of {k}")
+        for k in bf16_names + ["switched_one_pole", "lfilter"]:
+            results[k]["launches_effects"] = results[k].get("launches_effects", 0) + counts[k][0]
+        losses = hist["train_loss"]
+        check(len(losses) == EFFECT_POINTS // TRAIN_BATCH and bool(np.all(np.isfinite(losses)))
+              and bool(np.all(np.isfinite(hist["val_mae_mean"]))),
+              f"training {name}: a loss is not finite or a step is missing: {losses}")
+        batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
+        entry = {"effect": effect.name, "num_knobs": effect.num_knobs, "train_s": t_path,
+                 "losses": losses, "val_mae_mean": hist["val_mae_mean"],
+                 "launches": {k: counts[k][0] for k in bf16_names + ["switched_one_pole", "lfilter"]}}
+        if name in RANDOM_EFFECTS:
+            m = st_model(device=dev, sr=sr, num_knobs=effect.num_knobs, compute_dtype=BF16,
+                         generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+            opt, lr_fn = train_mod.make_optimizer(m, TRAIN_LR, EFFECT_POINTS, 1, TRAIN_BATCH)
+            g = torch.Generator(device=dev)
+            eager = train_mod.eager_steps(m, opt, lr_fn, batch_fn, TRAIN_BATCH, g, TRAIN_SEED, 0,
+                                          len(losses)).cpu().tolist()
+            m.eval()
+            val_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=False)
+            maes = train_mod.eager_validation(m, val_fn, TRAIN_BATCH, g, 1)[1].cpu().numpy()
+            check(eager == losses and [float(maes.mean())] == hist["val_mae_mean"],
+                  f"training {name}: CUDA graphs and eager dispatch differ: {losses} {eager}")
+            check(all(torch.equal(a, b) for a, b in zip(m.parameters(), model.parameters())),
+                  f"training {name}: CUDA graphs and eager dispatch differ in the weights")
+            entry["graph_equals_eager"] = True
+        data_gen = torch.Generator(device=dev)
+
+        def data():
+            return batch_fn(TRAIN_BATCH, synth_data.step_generator(data_gen, TRAIN_SEED, 0))
+
+        prof = card_busy(data, reps=3)
+        entry.update(data_card_ms=prof["card_busy_ms"], data_kernels=prof["kernels_launched"],
+                     data_host_ms=host_ms(data, reps=3, warmup=1))
+        report[name] = entry
+        print(f"train({name}, bf16) {t_path:.2f} s: losses {[f'{v:.4e}' for v in losses]}, "
+              f"validation MAE {hist['val_mae_mean'][0]:.4e}; launches {json.dumps(entry['launches'])}"
+              + ("; bit-equal to eager dispatch" if name in RANDOM_EFFECTS else "")
+              + f"; data synthesis {entry['data_card_ms']:.3f} ms on the card in "
+              f"{entry['data_kernels']:.0f} kernels ({entry['data_host_ms']:.3f} ms host)")
+        del model
+    return report
+
+
+def serve_denoise(dev, results: dict, sr: int) -> dict:
+    """Phase 4c: demo/modelcheckpoint_denoise.tar (strict) on the card, a
+    seeded 3 s clip plus uniform noise of strength DENOISE_STRENGTH through
+    predict_long at knob s/0.5 - 0.5, counted: A and B launched, no plain
+    version; MAE(prediction, clean) at most DENOISE_MAX_MAE_RATIO x
+    MAE(noisy, clean); the card within 1e-3 of the plain CPU path on a short
+    clip."""
+    from signaltrain_tpu_torch.dsp import synths
+    from signaltrain_tpu_torch.inference import predict_long as pl
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.utils.load_model import load_model
+
+    clean = synths.music_like_clip(3.0, sr=sr, seed=0)
+    noise = DENOISE_STRENGTH * (2.0 * np.random.RandomState(0).rand(len(clean)) - 1.0)
+    noisy = (clean + noise).astype(np.float32)
+    knobs = np.array([DENOISE_STRENGTH / 0.5 - 0.5], np.float32)
+    _cuda.reset_counts()
+    model, rv = load_model(str(DENOISE_CKPT), device=dev)
+    y = pl.predict_long(noisy, knobs, model)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+    for k in ("fused_analysis", "fused_synthesis"):
+        check(counts[k][0] > 0, f"Denoise serving never launched kernel {k}")
+        results[k]["launches_denoise"] = counts[k][0]
+    for k, (_, plain) in counts.items():
+        check(plain == 0, f"Denoise serving ran the plain version of {k}")
+    check(rv["knob_names"] == ["strength"] and model.spec.num_knobs == 1, "Denoise: its knobs")
+    lookback = model.spec.in_chunk_size - model.spec.out_chunk_size
+    check(y.shape == (len(noisy) - lookback,) and bool(np.all(np.isfinite(y))),
+          "Denoise: prediction length or not finite")
+    aligned = slice(lookback, lookback + len(y))
+    mae_pred = float(np.abs(y - clean[aligned]).mean())
+    mae_noisy = float(np.abs(noisy - clean)[aligned].mean())
+    corr_pred = float(np.corrcoef(y, clean[aligned])[0, 1])
+    corr_noisy = float(np.corrcoef(noisy[aligned], clean[aligned])[0, 1])
+    short = noisy[: 8192 + 4 * 2048 + 300]
+    d_cpu = float(np.abs(pl.predict_long(short, knobs, model)
+                         - pl.predict_long(short, knobs, load_model(str(DENOISE_CKPT),
+                                                                    device="cpu")[0])).max())
+    out = {"strength": DENOISE_STRENGTH, "mae_pred": mae_pred, "mae_noisy": mae_noisy,
+           "mae_ratio": mae_pred / mae_noisy, "corr_pred": corr_pred, "corr_noisy": corr_noisy,
+           "card_vs_cpu_max_abs": d_cpu, "parameters": sum(p.numel() for p in model.parameters())}
+    print(f"Denoise served ({out['parameters']} parameters), 3 s clip + uniform noise of strength "
+          f"{DENOISE_STRENGTH}: MAE(prediction, clean) {mae_pred:.4f}, MAE(noisy, clean) "
+          f"{mae_noisy:.4f}, ratio {out['mae_ratio']:.3f} (limit {DENOISE_MAX_MAE_RATIO}); corr "
+          f"{corr_pred:.4f} against {corr_noisy:.4f}; card vs plain CPU path max|dy| {d_cpu:.3e} "
+          f"(tolerance 1e-3)")
+    check(out["mae_ratio"] <= DENOISE_MAX_MAE_RATIO, "Denoise: the prediction does not denoise")
+    check(d_cpu <= 1e-3, "Denoise: card and plain CPU path disagree")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
@@ -553,8 +743,12 @@ def main() -> None:
     from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels
     from signaltrain_tpu_torch.training import graphs
     from signaltrain_tpu_torch.training import train as train_mod
+    from signaltrain_tpu_torch.utils.card import (FMA_CYCLES, PEAK_BF16_FLOPS,
+                                                  PEAK_SPLIT_TF32_FLOPS, sm_clock_mhz)
+    from signaltrain_tpu_torch.utils.card import bound_ms as bound
     from signaltrain_tpu_torch.utils.load_model import load_model
 
+    c_chain_cycles = C_CHAIN_OPS * FMA_CYCLES
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -835,6 +1029,9 @@ def main() -> None:
                                                     out_frames, n_windows)
     results.update(bf16_results)
 
+    # ---- 2c. kernel L against its plain version
+    results["lfilter"] = check_lfilter(dev)
+
     # ---- 3. the serving path, counted
     kr = np.asarray(rv["knob_ranges"], np.float32)
     knobs_nn = (KNOBS_WC - kr[:, 0]) / (kr[:, 1] - kr[:, 0]) - 0.5
@@ -979,6 +1176,11 @@ def main() -> None:
 
     served, hist, mean_maes, t_path = training_path(torch.float32, f32_names, bf16_names)
     served_b, hist_b, mean_maes_b, t_path_b = training_path(BF16, bf16_names, f32_names)
+
+    # ---- 4b. every effect trained; 4c. the Denoise checkpoint served
+    effects_report = train_every_effect(dev, results, chunk, out_chunk, sr)
+    denoise = serve_denoise(dev, results, sr)
+    print(json.dumps({"effects": effects_report, "denoise": denoise}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -1076,11 +1278,9 @@ def main() -> None:
         r.update(zip(("bound_ms", "bound_by"), bound(4.0 * len(clip), 4.0 * (2 * len(clip) + 2))))
         # the chunked design's own floor: each virtual row's dependent chain of
         # W + L steps, at the SM clock the card reports while it is busy
-        sm_mhz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
+        sm_mhz = sm_clock_mhz()
         r["sm_clock_mhz"] = sm_mhz
-        r["chain_floor_ms"] = (r["warmup"] + r["chunk"]) * CHAIN_CYCLES / (sm_mhz * 1e3)
+        r["chain_floor_ms"] = (r["warmup"] + r["chunk"]) * c_chain_cycles / (sm_mhz * 1e3)
         r["shape"] = (f"g {(1, len(clip))} (go_wc on the whole clip, the serving gain curve; "
                       f"chunked schedule)")
         gb = torch.randn(ct_batch, chunk, generator=gen, device=dev)
@@ -1175,9 +1375,25 @@ def main() -> None:
         r["train_plain_ms"] = cuda_ms(
             lambda: cuda_kernels.switched_one_pole_reference(gt, at, rt), reps=1, warmup=0)
         r["train_bound_ms"] = bound(4.0 * gt.numel(), 4.0 * (2 * gt.numel() + 2 * tb))[0]
-        r["train_chain_floor_ms"] = chunk * CHAIN_CYCLES / (sm_mhz * 1e3)  # one thread a row
+        r["train_chain_floor_ms"] = chunk * c_chain_cycles / (sm_mhz * 1e3)  # one thread a row
         r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis; row schedule)"
         r["ct_batch_ms"] = batch_ms
+
+        # L at the Compressor's training shape (its main path), the LowPass's
+        # and the 30 s row, beside its bound and the floor of its chain
+        from signaltrain_tpu_torch.cli import time_lfilter
+
+        r = results["lfilter"]
+        for case, key in (("comp", ""), ("lowpass", "lowpass_"), ("row_30s", "row_30s_")):
+            x_l = time_lfilter.inputs(case, dev)[2]
+            order = 3 if case == "lowpass" else 1
+            r[f"{key}ms"] = time_lfilter.time_case(case, dev, reps=5 if case == "row_30s" else 20)
+            r[f"{key}bound_ms"], r[f"{key}bound_by"] = time_lfilter.bound_ms(x_l, order)
+            r[f"{key}chain_cycles"] = time_lfilter.chain_cycles(order)
+            r[f"{key}chain_floor_ms"] = time_lfilter.chain_floor_ms(x_l.shape[1], order, sm_mhz)
+            r[f"{key}shape"] = f"x {tuple(x_l.shape)}, order {order}"
+        r["library_ms"] = None
+        r["sm_clock_mhz"] = sm_mhz
 
         # the bf16 modes at the training shapes (A and B also at the serving
         # batch), on the inputs of their checks; the bound at the dense bf16
@@ -1383,6 +1599,8 @@ def main() -> None:
                                "signaltrain_tpu/ops/pallas_frontend.py:326"),
         "fused_synthesis_bwd": ("signaltrain_tpu_torch/csrc/frontend_bwd.cu",
                                 "signaltrain_tpu/ops/pallas_frontend.py:499"),
+        # no pallas_call: the JAX package's lfilter is a lax.scan
+        "lfilter": ("signaltrain_tpu_torch/csrc/iir.cu", "signaltrain_tpu/dsp/iir.py:102"),
     }
     for name in f32_names:  # the bf16 modes: the same sources and TPU kernels
         sources["bf16_" + name] = sources[name]
@@ -1397,6 +1615,11 @@ def main() -> None:
             "shape": r["shape"],
             **{k: r[k] for k in (
                 "launches_serving", "launches_training_float32", "launches_training_bfloat16",
+                "launches_effects", "launches_denoise", "elements_differing", "lowpass_ms",
+                "lowpass_bound_ms", "lowpass_chain_floor_ms", "lowpass_shape", "lowpass_plain_ms",
+                "chain_cycles", "lowpass_chain_cycles",
+                "row_30s_ms", "row_30s_bound_ms", "row_30s_chain_floor_ms", "row_30s_shape",
+                "row_30s_plain_ms",
                 "max_phase_err", "f32_kernel_gap", "serve_ms", "serve_plain_ms",
                 "serve_library_ms", "serve_bound_ms", "serve_shape",
                 "max_small_bin_phase_err", "max_err_vs_float64", "plain_max_err_vs_float64",
@@ -1419,9 +1642,18 @@ def main() -> None:
             extra += (f"; at the serving shape {r['serve_shape']}: {r['serve_ms']:.4f} ms (bound "
                       f"{r['serve_bound_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, library "
                       f"{r['serve_library_ms']:.4f} ms)")
-        if "chain_floor_ms" in r:
+        if name == "lfilter":
+            extra = (f"; at {r['shape']} its chain floor ({r['chain_cycles']:.2f} cycles a step at "
+                     f"{r['sm_clock_mhz']:.0f} MHz) {r['chain_floor_ms']:.4f} ms; LowPass "
+                     f"{r['lowpass_shape']}: {r['lowpass_ms']:.4f} ms (bound "
+                     f"{r['lowpass_bound_ms']:.4f}, chain floor {r['lowpass_chain_floor_ms']:.4f} at "
+                     f"{r['lowpass_chain_cycles']:.2f} cycles a step, "
+                     f"plain {r['lowpass_plain_ms']:.1f}); one row {r['row_30s_shape']}: "
+                     f"{r['row_30s_ms']:.4f} ms (bound {r['row_30s_bound_ms']:.4f}, chain floor "
+                     f"{r['row_30s_chain_floor_ms']:.4f}, plain {r['row_30s_plain_ms']:.1f})")
+        elif "chain_floor_ms" in r:
             extra = (f"; the chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
-                     f"{CHAIN_CYCLES} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "
+                     f"{c_chain_cycles} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "
                      f"ms; row schedule {r['rows_ms']:.4f} ms; randn input {r['randn_ms']:.4f} ms "
                      f"(row schedule {r['randn_rows_ms']:.4f}); never meeting {r['worst_ms']:.4f} "
                      f"ms (row schedule {r['worst_rows_ms']:.4f}); {r['rerun_steps']} steps re-run")

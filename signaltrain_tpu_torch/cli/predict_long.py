@@ -1,10 +1,12 @@
 """Long-audio inference CLI (the port of cli/predict_long.py).
 
 Loads a .tar checkpoint, runs windowed inference on a wav file on the chosen
-device, optionally builds the streamed and chunked effect targets for
-comparison, and writes pl_input / pl_pred / pl_st / pl_ct wavs tagged with
-the knob values into the working directory, the prediction zero-padded at
-the head so it aligns with the input.
+device, builds the streamed and chunked effect targets for comparison when
+the effect's name contains "comp" (the JAX CLI's rule: the compressors and
+decomp_4c; the random effects need a generator), and writes pl_input /
+pl_pred / pl_st / pl_ct wavs tagged with the knob values into the working
+directory, the prediction zero-padded at the head so it aligns with the
+input.
 
     python -m signaltrain_tpu_torch.cli.predict_long ckpt.tar clip.wav \
         -e comp_4c --knobs=-25,4,0.005,0.02 [--device cuda]
@@ -76,9 +78,10 @@ def main(argv=None):
         except ValueError:
             print("WARNING: That effect not implemented yet. Skipping target generation.")
         else:
-            y_st, _ = effect.go_wc(signal, knobs_wc)
-            y_st = y_st.cpu().numpy()
-            y_ct = pl.calc_ct(signal, effect, knobs_wc, out_chunk_size, chunk_size)
+            if "comp" in args.effect:
+                y_st, _ = effect.go_wc(signal, knobs_wc)
+                y_st = y_st.cpu().numpy()
+                y_ct = pl.calc_ct(signal, effect, knobs_wc, out_chunk_size, chunk_size)
 
     pull_int16 = args.pcm16 and not args.compand
     print("\nCalling predict_long()...")

@@ -5,9 +5,12 @@ Example:
     python -m signaltrain_tpu_torch.cli.run_train --epochs 10 -n 2000 -b 100 --effect comp_4c
 
 Runs on the CUDA card unless ``--device cpu`` is given, in bfloat16 unless
-``--dtype float32`` is given (the JAX CLI's default). Options that belong to
-parts not ported yet (file datasets, companding, model parallelism,
-profiling) exit with a message that says so.
+``--dtype float32`` is given (the JAX CLI's default). ``--effect`` takes
+every synthesized effect of the JAX package. ``-t/--target`` is checked as
+the JAX CLI checks it and matters only with a file dataset; ``--apex`` is
+accepted and ignored, as there. Options that belong to parts not ported yet
+(file datasets, companding, model parallelism, profiling) exit with a
+message that says so.
 """
 
 from __future__ import annotations
@@ -21,12 +24,14 @@ def build_parser() -> argparse.ArgumentParser:
         description="Trains neural network to reproduce input-output transformations.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
+    parser.add_argument("--apex", help="(compat) ignored; use --dtype", default="O0")
     parser.add_argument("-b", "--batch", type=int, help="batch size", default=200)
     parser.add_argument("--checkpoint", help="Name of model checkpoint .tar file",
                         default="modelcheckpoint.tar")
     parser.add_argument("-c", "--compand", action="store_true",
                         help="companded audio (file datasets; not ported yet)")
-    parser.add_argument("--effect", help="Name of effect to use", default="comp_4c")
+    parser.add_argument("--effect", help="Name of effect to use (any synthesized effect of "
+                        "dsp/effects.EFFECTS)", default="comp_4c")
     parser.add_argument("--epochs", type=int, help="Number of epochs to run", default=1000)
     parser.add_argument("--lrmax", type=float, help="max learning rate", default=1e-4)
     parser.add_argument("-n", "--num", type=int,
@@ -39,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Scale factor (of input size & whole model)", default=1.0)
     parser.add_argument("--shrink", type=int,
                         help="Shink output chunk relative to input by this divisor", default=4)
+    parser.add_argument("-t", "--target", help="type of target: chunk or stream (file "
+                        "datasets only)", default="stream")
     parser.add_argument("--dtype", default="bfloat16",
                         help="compute dtype: bfloat16 (bf16) or float32 (f32)")
     parser.add_argument("--nmodel", type=int, default=1,
@@ -80,6 +87,9 @@ def main(argv=None) -> None:
         sys.exit(1)
     if args.dtype not in DTYPES:
         print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
+        sys.exit(1)
+    if args.target not in ["chunk", "stream"]:
+        print(f"Error, invalid target type: {args.target}")
         sys.exit(1)
 
     import torch

@@ -3,9 +3,10 @@
 Counterpart of signaltrain_tpu/data/synth_data.py. The whole chain (chooser
 coverage, signal synthesis, Beta(0.8, 0.8) knob draw, effect, output trim,
 augmentation) runs batched on the effect's device from an explicit
-``torch.Generator``: no host dataloader. The effect's ``go_batch`` runs the
-envelope smoother (kernel C on a CUDA device) once over the whole (B, N)
-batch.
+``torch.Generator``: no host dataloader. The effect's ``go_batch`` runs once
+over the whole (B, N) batch (its envelope, filter or vocoder on the card) and
+draws what it needs (Denoise's noise, TimeAlign's chooser, shift and
+re-synthesis) from the same generator, the step's stream.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ def make_synth_batch_fn(effect, chunk_size: int, y_size: int, sr: float = 44100.
     float32 on the effect's device; ``generator`` must live there too.
 
     Stratified inputs over ``choosers``, knobs ~ Beta(0.8, 0.8) - 0.5, the
-    effect over the whole batch, y trimmed to its last y_size samples, then
+    effect over the whole batch (its draws from ``generator``), y trimmed to its last y_size samples, then
     (with ``augment``) a random polarity flip of x and y together."""
     dev = effect.device
     t = torch.arange(chunk_size, dtype=torch.float32, device=dev) / sr
@@ -40,7 +41,7 @@ def make_synth_batch_fn(effect, chunk_size: int, y_size: int, sr: float = 44100.
     def gen_batch(batch: int, generator: torch.Generator):
         xs = synths.stratified_synth_batch(generator, t, choosers, batch)
         knobs = synths.random_ends(generator, batch, nk) - 0.5
-        y, x = effect.go_batch(xs, knobs)
+        y, x = effect.go_batch(xs, knobs, generator)
         y = y[:, -y_size:]
         if augment:
             flip = torch.rand(batch, generator=generator, device=dev) < 0.5

@@ -1,11 +1,14 @@
-"""Dynamic-range compressor and mu-law companding, plain functions on tensors.
+"""Dynamic-range compressors, the echo and mu-law companding, plain
+functions on tensors.
 
-Counterparts of signaltrain_tpu/dsp/compressors.py. The static curve (dB
-detection, gain computer, make-up) is elementwise PyTorch; the attack/release
-envelope goes to kernel C (``ops/cuda_kernels.py``) for CUDA tensors and to
-its plain version for CPU tensors. Everything runs on the device of ``x`` and
-copies nothing from the host (a knob given as a number is filled in on the
-device), so the training step can be captured in a CUDA graph.
+Counterparts of signaltrain_tpu/dsp/compressors.py. The static curves (dB
+detection, gain computer, make-up) are elementwise PyTorch; the envelopes go
+to the card's kernels for CUDA tensors and to their plain versions for CPU
+tensors: the 4-knob compressor's switched smoother to kernel C, the 3-knob
+compressor's Butterworth envelope to kernel L (``dsp/iir.lfilter``).
+Everything runs on the device of ``x`` and copies nothing from the host (a
+knob given as a number is filled in on the device), so the training step can
+be captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 import torch
 
 from ..ops import cuda_kernels
+from . import iir
 from ..utils.device import as_device_tensor
 
 # ln 9 in float32 (correctly rounded; what torch.log gives for a float32 9.0)
@@ -77,6 +81,59 @@ def compressor_4controls(x: torch.Tensor, thresh=-24.0, ratio=2.0, attack_time=0
     """
     env = _smooth(*gain_curve(x, thresh, ratio, attack_time, release_time, sr))
     return torch.pow(10.0, env / 20.0) * x
+
+
+def compressor(x: torch.Tensor, thresh=-24.0, ratio=2.0, attackrel=0.045,
+               sr: float = 44100.0) -> torch.Tensor:
+    """3-knob compressor with a first-order Butterworth dB envelope: the
+    envelope filter's cutoff is 1/attack_samples (over Nyquist), and lfilter
+    starts from its steady state at the first sample, zi * dB[0].
+
+    x is (N,) or (B, N) float32; each knob is a scalar or a (B,) tensor."""
+    thresh = _per_example(thresh, x)
+    ratio = _per_example(ratio, x)
+    fc = 1.0 / (as_device_tensor(attackrel, torch.float32, x.device) * sr)
+    b, a = iir.butter_lowpass(1, fc)
+
+    db = 20.0 * torch.log10(torch.abs(x) + 1e-6)
+    # the order-1 steady state (scipy's lfilter_zi in closed form)
+    zi = (b[..., 1] - a[..., 1] * b[..., 0]) / (1.0 + a[..., 1])
+    in_env = iir.lfilter(b, a, db, zi=(zi * db[..., 0])[..., None])
+    out_env = torch.where(in_env > thresh, thresh + (in_env - thresh) / ratio, in_env)
+    gain = torch.pow(10.0, (out_env - in_env) / 20.0)
+    return x * gain
+
+
+def echo(x: torch.Tensor, delay_samples=1487.0, ratio=0.6, echoes=1.0,
+         max_echoes: int = 4) -> torch.Tensor:
+    """Delay/echo with fractional-delay blending: echo i (1-based) is x
+    delayed by i * delay_samples (linear between the two nearest whole
+    delays) times ratio**i, for i <= round(echoes) <= max_echoes.
+
+    x is (N,) or (B, N) float32; each knob a scalar or a (B,) tensor (each
+    row's delays are a gather)."""
+    x2 = x[None] if x.dim() == 1 else x
+    n = x2.shape[-1]
+    delay = _per_example(delay_samples, x2)
+    ratio = _per_example(ratio, x2)
+    n_echo = torch.round(_per_example(echoes, x2))
+    idx = torch.arange(n, device=x.device)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+
+    def shift(d):
+        src = idx - d
+        return torch.where(src >= 0, torch.gather(x2, 1, src.clamp(0, n - 1).expand_as(x2)), zero)
+
+    y = x2
+    for i in range(max_echoes):
+        ip1 = i + 1
+        delay_len = ip1 * delay
+        d_int = torch.floor(delay_len).to(torch.int64)
+        diff = delay_len - d_int
+        x_delayed = (1.0 - diff) * shift(d_int) + diff * shift(d_int + 1)
+        gain = torch.where(ip1 <= n_echo, torch.pow(ratio, 1.0 * ip1), zero)
+        y = y + gain * x_delayed
+    return y[0] if x.dim() == 1 else y
 
 
 def mu_compand(y: torch.Tensor, mu: float = 32.0) -> torch.Tensor:

@@ -16,8 +16,10 @@ the samplers are held to the distributions, not the streams.
 Quirks of the reference that show are kept: ``box`` leaves index i_up - 1 at
 the end level; the location arithmetic of ``spikes`` truncates toward zero
 twice; where two spikes land on one sample, which one stays is unspecified.
-The JAX package's ``t0_fac`` / ``freq`` / ``amp`` overrides (fixed values in
-place of draws, used by its dataset tool) have no counterpart yet.
+The JAX package's ``t0_fac`` override (a fixed onset, a fraction of the
+clip, in place of the drawn one; TimeAlign synthesizes with 0.5) is
+``branch(..., t0_fac=)``; its ``freq`` / ``amp`` overrides (used by its
+dataset tool) have no counterpart yet.
 
 ``pinknoise`` is ``torch.fft.irfft`` of the shaped spectrum. (The JAX package
 multiplies by a cosine matrix because its backend has no FFT.)
@@ -108,13 +110,13 @@ def draw_randsine(g: torch.Generator, batch: int, max_tones: int = 2) -> Draws:
 
 
 def randsine(t: torch.Tensor, d: Draws, amp_range=(0.2, 0.9),
-             freq_range=(5.0, 150.0)) -> torch.Tensor:
+             freq_range=(5.0, 150.0), t0_fac=None) -> torch.Tensor:
     """1-2 random cosines."""
     y = torch.zeros((d["norm"].shape[0], t.shape[0]), dtype=t.dtype, device=t.device)
     for i in range(d["amp"].shape[1]):
         amp = amp_range[0] + (amp_range[1] - amp_range[0]) * d["amp"][:, i]
         freq = freq_range[0] + (freq_range[1] - freq_range[0]) * d["freq"][:, i]
-        t0 = d["t0"][:, i] * t[-1]
+        t0 = d["t0"][:, i] * t[-1] if t0_fac is None else (t0_fac * t[-1]).expand(amp.shape)
         tone = _col(amp) * torch.cos(_col(freq) * (t - _col(t0)))
         y = y + torch.where(_col(i < d["n_tones"]), tone, torch.zeros_like(tone))
     return normish(y, d["norm"])
@@ -124,14 +126,17 @@ def draw_box(g: torch.Generator, batch: int) -> Draws:
     return {k: _u(g, batch) for k in ("bgn", "mid", "end", "up", "dn")}
 
 
-def box(t: torch.Tensor, d: Draws) -> torch.Tensor:
+def box(t: torch.Tensor, d: Draws, t0_fac=None) -> torch.Tensor:
     """Step-response box; index i_up - 1 keeps the end level, as in the
-    reference."""
+    reference. ``t0_fac`` puts the rise at int(t0_fac * N)."""
     h_bgn = 0.15 * d["bgn"]
     h_mid = 0.35 * d["mid"] + 0.6
     h_end = 0.2 * d["end"] + 0.1
     maxi = t.shape[0]
-    i_up = (0.3 * d["up"] * maxi).to(torch.int32)
+    if t0_fac is None:
+        i_up = (0.3 * d["up"] * maxi).to(torch.int32)
+    else:
+        i_up = torch.full_like(d["up"], int(t0_fac * maxi), dtype=torch.int32)
     i_dn = torch.clamp_max(i_up + ((0.3 + 0.35 * d["dn"]) * maxi).to(torch.int32), maxi - 1)
     n = torch.arange(maxi, device=t.device)
     x = _col(h_end).expand(-1, maxi).to(t.dtype)
@@ -143,9 +148,9 @@ def draw_expdecay(g: torch.Generator, batch: int) -> Draws:
     return {k: _u(g, batch) for k in ("t0", "high", "low", "decay")}
 
 
-def expdecay(t: torch.Tensor, d: Draws) -> torch.Tensor:
-    """Exponential decay envelope."""
-    t0 = _col(0.35 * d["t0"] * t[-1])
+def expdecay(t: torch.Tensor, d: Draws, t0_fac=None) -> torch.Tensor:
+    """Exponential decay envelope; ``t0_fac`` fixes its onset at t0_fac * t[-1]."""
+    t0 = _col(0.35 * d["t0"] * t[-1] if t0_fac is None else (t0_fac * t[-1]).expand(d["t0"].shape))
     h_high = _col(0.35 * d["high"] + 0.6)
     h_low = _col(0.1 * d["low"] + 0.1)
     decay = _col(12.0 * d["decay"])
@@ -160,16 +165,18 @@ def draw_pluck(g: torch.Generator, batch: int, max_tones: int = 3) -> Draws:
             "env": draw_expdecay(g, batch), "norm": _u(g, batch)}
 
 
-def pluck(t: torch.Tensor, d: Draws, freq_range=(50.0, 6400.0)) -> torch.Tensor:
-    """Plucked-string-ish decaying sines."""
+def pluck(t: torch.Tensor, d: Draws, freq_range=(50.0, 6400.0), t0_fac=None) -> torch.Tensor:
+    """Plucked-string-ish decaying sines; ``t0_fac`` fixes every tone's and
+    the envelope's onset at t0_fac * t[-1]."""
     y = torch.zeros((d["norm"].shape[0], t.shape[0]), dtype=t.dtype, device=t.device)
     for i in range(d["amp"].shape[1]):
         amp0 = (0.45 * d["amp"][:, i] + 0.5) * d["sign"][:, i]
-        t0 = (2.0 * d["t0"][:, i] - 1.0) * 0.3 * t[-1]
+        t0 = ((2.0 * d["t0"][:, i] - 1.0) * 0.3 * t[-1] if t0_fac is None
+              else (t0_fac * t[-1]).expand(amp0.shape))
         freq = freq_range[0] + (freq_range[1] - freq_range[0]) * d["freq"][:, i]
         tone = _col(amp0) * torch.sin(_col(freq) * (t - _col(t0)))
         y = y + torch.where(_col(i < d["n_tones"]), tone, torch.zeros_like(tone))
-    return normish(y * expdecay(t, d["env"]), d["norm"])
+    return normish(y * expdecay(t, d["env"], t0_fac), d["norm"])
 
 
 def draw_ampexpstepup(g: torch.Generator, batch: int) -> Draws:
@@ -227,11 +234,11 @@ def draw_triangle(g: torch.Generator, batch: int, n: int) -> Draws:
             "t0": _u(g, batch), "amp": _u(g, batch), "pink": draw_pinknoise(g, batch, n)}
 
 
-def triangle(t: torch.Tensor, d: Draws) -> torch.Tensor:
+def triangle(t: torch.Tensor, d: Draws, t0_fac=None) -> torch.Tensor:
     """Ramp up then down, plus pink noise."""
     height = _col((0.4 * d["height"] + 0.4) * d["sign"])
     width = _col(d["width"] / 4.0 * t[-1])
-    t0 = 2.0 * width + _col(0.4 * d["t0"] * t[-1])
+    t0 = 2.0 * width + _col(0.4 * d["t0"] * t[-1]) if t0_fac is None else t0_fac * t[-1]
     x = height * (1.0 - torch.abs(t - t0) / width)
     x = torch.where((t < t0 - width) | (t > t0 + width), torch.zeros_like(x), x)
     return x + _col(0.1 * d["amp"] + 0.02) * pinknoise(t.shape[0], d["pink"])
@@ -274,27 +281,31 @@ def draw_branch(chooser: int, g: torch.Generator, batch: int, n: int) -> Draws:
     raise ValueError(f"chooser must be in 0..11, got {chooser}")
 
 
-def branch(chooser: int, t: torch.Tensor, d: Draws) -> torch.Tensor:
-    """The body of synth branch ``chooser``: (B, N) from its draws."""
+def branch(chooser: int, t: torch.Tensor, d: Draws, t0_fac=None) -> torch.Tensor:
+    """The body of synth branch ``chooser``: (B, N) from its draws. With
+    ``t0_fac`` the onsets of the sines, plucks, triangle and boxes are fixed
+    (branch 10's box keeps its drawn one, as in the JAX package)."""
     n = t.shape[0]
     white = lambda: 2.0 * d["white"] - 1.0
     if chooser == 0:
-        return randsine(t, d["sine"])
+        return randsine(t, d["sine"], t0_fac=t0_fac)
     if chooser == 1:
-        return (randsine(t, d["sine"]) + _col(0.2 * d["pink_amp"]) * pinknoise(n, d["pink"])
+        return (randsine(t, d["sine"], t0_fac=t0_fac)
+                + _col(0.2 * d["pink_amp"]) * pinknoise(n, d["pink"])
                 + _col(0.2 * d["white_amp"]) * white())
     if chooser == 2:
-        return pluck(t, d["pluck"])
+        return pluck(t, d["pluck"], t0_fac=t0_fac)
     if chooser == 3:
-        return triangle(t, d["triangle"])
+        return triangle(t, d["triangle"], t0_fac)
     if chooser == 4:
-        return box(t, d["box"])
+        return box(t, d["box"], t0_fac)
     if chooser == 5:
         return spikes(t, d["spikes"])
     if chooser == 6:
-        return box(t, d["box"]) * white()
+        return box(t, d["box"], t0_fac) * white()
     if chooser == 7:
-        return pluck(t, d["pluck"]) + _col(0.3 * d["pink_amp"] + 0.1) * pinknoise(n, d["pink"])
+        return (pluck(t, d["pluck"], t0_fac=t0_fac)
+                + _col(0.3 * d["pink_amp"] + 0.1) * pinknoise(n, d["pink"]))
     if chooser == 8:
         return ampexpstepup(t, d["step"], start_db=-30.0)
     if chooser == 9:
@@ -313,10 +324,10 @@ def _finish(y: torch.Tensor, sign: torch.Tensor, eps_u: torch.Tensor) -> torch.T
 
 
 def synth_input_sample(g: torch.Generator, t: torch.Tensor, chooser: int,
-                       batch: int = 1) -> torch.Tensor:
+                       batch: int = 1, t0_fac=None) -> torch.Tensor:
     """``batch`` examples of synth branch ``chooser``, finished: (batch, N)."""
     n = t.shape[0]
-    y = branch(chooser, t, draw_branch(chooser, g, batch, n))
+    y = branch(chooser, t, draw_branch(chooser, g, batch, n), t0_fac)
     return _finish(y, _sign(g, batch), _u(g, batch, n))
 
 
@@ -344,6 +355,17 @@ def stratified_synth_batch(g: torch.Generator, t: torch.Tensor,
     if return_choosers:
         return x, torch.as_tensor(ids, device=perm.device)[perm]
     return x
+
+
+def choose_from(g: torch.Generator, choices: Sequence[int], batch: int) -> torch.Tensor:
+    """A chooser id drawn uniformly from ``choices`` for each of ``batch``
+    rows: (batch,) int64 on the generator's device, made there (a draw and
+    a select a choice, no copy from the host)."""
+    idx = torch.randint(0, len(choices), (batch,), generator=g, device=g.device)
+    ids = torch.full_like(idx, choices[0])
+    for k, c in enumerate(choices[1:], 1):
+        ids = torch.where(idx == k, c, ids)
+    return ids
 
 
 def music_like_clip(duration_s: float = 180.0, sr: int = 44100, seed: int = 0) -> np.ndarray:

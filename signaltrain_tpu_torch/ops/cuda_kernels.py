@@ -1,10 +1,13 @@
-"""The switched one-pole envelope smoother (kernel C).
+"""The switched one-pole envelope smoother (kernel C) and the IIR filter
+(kernel L).
 
-Counterpart of signaltrain_tpu/ops/pallas_kernels.py
+Kernel C is the counterpart of signaltrain_tpu/ops/pallas_kernels.py
 ``switched_one_pole_batched``. The kernel is hand-written CUDA C++ for
 Hopper in ``csrc/smoother.cu`` (its header says what bounds it on the card
 and how its design answers that); its plain version is
-``dsp/iir.switched_one_pole``.
+``dsp/iir.switched_one_pole``. Kernel L (``csrc/iir.cu``, ``lfilter_rows``)
+runs ``dsp/iir.lfilter`` on the card, the JAX package's ``lax.scan`` of the
+same name; its plain version is ``dsp/iir.lfilter_reference``.
 
 The wrapper dispatches on the device of ``g``: a CPU tensor goes to the
 plain version, a CUDA tensor launches the kernel or raises. On the card it
@@ -108,3 +111,36 @@ def switched_one_pole_batched(g: torch.Tensor, alpha_a: torch.Tensor,
     if uses_chunks(b, n):
         return smoother_chunked(g, alpha_a, alpha_r)[0]
     return smoother_rows(g, alpha_a, alpha_r)
+
+
+_LFILTER_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                         ctypes.c_void_p]
+LFILTER_ORDERS = (1, 3)  # the orders st_lfilter (csrc/iir.cu) is built for
+
+
+def lfilter_rows(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
+                 zi: torch.Tensor) -> torch.Tensor:
+    """Kernel L (``csrc/iir.cu``) on CUDA tensors: direct form II transposed
+    along the rows of x (B, N) float32, with per-row coefficients b, a
+    (B, order+1) and initial state zi (B, order), order 1 or 3. One thread
+    walks each row. Returns y (B, N)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"lfilter_rows: expected a CUDA tensor, got one on {x.device}")
+    if x.dim() != 2 or x.shape[0] < 1 or x.shape[1] < 1:
+        raise ValueError(f"lfilter_rows: x must be a non-empty (B, N), got {tuple(x.shape)}")
+    bsz, n = x.shape
+    order = b.shape[-1] - 1
+    if order not in LFILTER_ORDERS:
+        raise ValueError(f"lfilter_rows: order {order}, kernel L takes {LFILTER_ORDERS}")
+    _cuda.require(x, "x", (bsz, n), x.device)
+    _cuda.require(b, "b", (bsz, order + 1), x.device)
+    _cuda.require(a, "a", (bsz, order + 1), x.device)
+    _cuda.require(zi, "zi", (bsz, order), x.device)
+    out = torch.empty_like(x)
+    f = _cuda.function("iir", "st_lfilter", _LFILTER_ARGS)
+    with torch.cuda.device(x.device):
+        status = f(_cuda.ptr(x), _cuda.ptr(b), _cuda.ptr(a), _cuda.ptr(zi), _cuda.ptr(out),
+                   bsz, n, order, _cuda.stream(x.device))
+    _cuda.check(f, status)
+    iir.LFILTER.launches += 1
+    return out

@@ -196,5 +196,8 @@ def test_run_train_cli(tmp_path, monkeypatch, capsys):
         run_train.main(["--dtype", "float16", "--device", "cpu"])
     assert e.value.code == 1 and "--dtype float16" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        run_train.main(["--effect", "echo", "--device", "cpu"])
+        run_train.main(["--effect", "no_such_effect", "--device", "cpu"])
     assert "not yet added" in capsys.readouterr().out
+    with pytest.raises(SystemExit):  # file datasets
+        run_train.main(["--effect", "files", "--device", "cpu"])
+    assert "not ported yet" in capsys.readouterr().out

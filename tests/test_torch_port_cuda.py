@@ -568,20 +568,20 @@ def test_bf16_wrappers_refuse_other_dtypes(dev):
 GRAPH_BATCH = 8  # flagship geometry, a small batch
 
 
-def _graph_setup(dev, frontend, compute_dtype, n_models=2, seed=1):
+def _graph_setup(dev, frontend, compute_dtype, n_models=2, seed=1, effect_name="comp_4c"):
     """Models with the same seeded weights, each with its capturable Adam, and
-    the comp_4c batch functions at the flagship geometry."""
+    the effect's batch functions at the flagship geometry."""
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects
     from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
     from signaltrain_tpu_torch.training import train as train_mod
 
-    spec = compute_spec()
+    effect = effects.make_effect(effect_name, device=dev)
+    spec = compute_spec(num_knobs=effect.num_knobs)
     models = [STModel(spec, frontend=frontend, device=dev, compute_dtype=compute_dtype,
                       generator=torch.Generator().manual_seed(seed)).train()
               for _ in range(n_models)]
     opts = [train_mod.make_optimizer(m, 2e-4, 4000, 3, 200) for m in models]
-    effect = effects.Compressor_4c(device=dev)
     batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size)
     val_batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size,
                                                   spec.out_chunk_size, augment=False)
@@ -725,3 +725,122 @@ def test_compressor_copies_nothing_and_matches_its_earlier_expressions_on_card(d
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(yg, y)
+
+
+# ---- kernel L (csrc/iir.cu) and the synthesized effects on the card. L takes
+# the same fma steps as its plain version, which forms each in a Python float
+# (float64) and rounds it once: held to 1e-5 + 1e-6 |y| (lfilter's 1e-5 against the JAX
+# package, tests/test_dsp.py:31; the Compressor's envelope is in dB, ~1e2)
+
+@pytest.mark.parametrize("case", ["comp", "lowpass", "row_30s"])
+def test_lfilter_kernel_matches_plain(dev, case):
+    """chip_smoke.py's checks of L (cli/time_lfilter.py: the Compressor's
+    envelope at (200, 8192), the LowPass at (200, 8192) with cutoffs down to
+    10 Hz, a 30 s row)."""
+    from signaltrain_tpu_torch.cli import time_lfilter
+    from signaltrain_tpu_torch.dsp import iir
+
+    b, a, x, zi = time_lfilter.inputs(case, dev)
+    before, plain = iir.LFILTER.launches, iir.LFILTER.plain_calls
+    y = iir.lfilter(b, a, x, zi)
+    again = cuda_kernels.lfilter_rows(b.contiguous(), a.contiguous(), x, zi.contiguous())
+    assert iir.LFILTER.launches == before + 2 and iir.LFILTER.plain_calls == plain
+    ref = iir.lfilter_reference(b, a, x, zi)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    assert bool(torch.isfinite(y).all())
+    err = (y - ref).abs()
+    assert float((err - (1e-5 + 1e-6 * ref.abs())).max()) <= 0, float(err.max())
+
+
+def test_lfilter_wrapper_checks_its_inputs(dev):
+    from signaltrain_tpu_torch.dsp import iir
+
+    x = torch.zeros(2, 64, device=dev)
+    for order in (2, 4, 5):  # kernel L is built for orders 1 and 3
+        bo, ao = iir.butter_lowpass(order, torch.full((2,), 0.1, device=dev))
+        with pytest.raises(ValueError):
+            iir.lfilter(bo, ao, x)
+    b, a = iir.butter_lowpass(1, torch.full((2,), 0.1, device=dev))
+    with pytest.raises(ValueError):
+        cuda_kernels.lfilter_rows(b, a, x.cpu(), torch.zeros(2, 1))
+    with pytest.raises(ValueError):
+        cuda_kernels.lfilter_rows(b, a, x, torch.zeros(3, 1, device=dev))
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dev)
+
+
+@pytest.mark.parametrize("name", ["comp", "comp_4c", "comp_4c_large", "comp_large", "comp_t",
+                                  "comp_one", "echo", "pitch", "denoise", "decomp_4c",
+                                  "timealign", "lowpass"])
+def test_effect_on_card_matches_cpu(dev, name):
+    """Each effect's go_batch on the card against the CPU plain path at the
+    flagship chunk, per-row knobs, with its EFFECT_TOL; Denoise and TimeAlign
+    on the same draws (made on the CPU) through their deterministic parts.
+    On the card L and C launch, and no plain version runs."""
+    from signaltrain_tpu_torch.dsp import effects, iir, synths
+
+    from tests.torch_port_util import assert_effect_close
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    x = torch.from_numpy((rng.normal(size=(6, 8192)) * 0.3).astype(np.float32))
+    card_fx, cpu_fx = effects.make_effect(name, device=dev), effects.make_effect(name, device="cpu")
+    knobs = torch.from_numpy(rng.uniform(-0.5, 0.5, size=(6, card_fx.num_knobs)).astype(np.float32))
+    knobs[0], knobs[1] = -0.5, 0.5
+    _cuda.reset_counts()
+    if name == "denoise":
+        u = torch.rand(x.shape, generator=torch.Generator().manual_seed(0))
+        got = effects.denoise_pair(x.to(dev), card_fx.knobs_wc(knobs.to(dev))[:, 0], u.to(dev))
+        want = effects.denoise_pair(x, cpu_fx.knobs_wc(knobs)[:, 0], u)
+    elif name == "timealign":
+        g = torch.Generator().manual_seed(0)
+        tt = torch.arange(8192, dtype=torch.float32) / 44100.0
+        ins = (synths.choose_from(g, effects.TIMEALIGN_CHOOSERS, 6),
+               {c: synths.draw_branch(c, g, 6, 8192) for c in effects.TIMEALIGN_CHOOSERS},
+               synths._sign(g, 6), synths._u(g, 6, 8192), cpu_fx.knobs_wc(knobs)[:, 0],
+               synths._u(g, 6))
+        want = effects.timealign_pair(tt, *ins)
+        got = effects.timealign_pair(tt.to(dev), *(_to(v, dev) for v in ins))
+    else:
+        got = card_fx.go_batch(x.to(dev), knobs.to(dev))
+        want = cpu_fx.go_batch(x, knobs)
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+    if name in ("comp", "lowpass"):
+        assert iir.LFILTER.launches == 1 and iir.LFILTER.plain_calls == 1, counts
+    if "comp" in name:
+        assert cuda_kernels.SMOOTHER.launches == (0 if name == "comp" else 1), counts
+    for g_card, w_cpu in zip(got, want):
+        assert g_card.device.type == "cuda" and bool(torch.isfinite(g_card).all())
+        assert_effect_close(name, g_card, w_cpu)
+
+
+@pytest.mark.parametrize("name", ["denoise", "timealign"])
+def test_train_graph_of_a_random_effect_is_bit_equal_to_eager_steps(dev, name):
+    """An effect that draws inside the step (Denoise's noise, TimeAlign's
+    chooser, shift and re-synthesis) under the train graph: 6 steps (the
+    warm-up, then 5 replays) against 6 eager steps, losses, weights and the
+    batches of steps 0 and 5 bit-equal."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (gm, em), ((gopt, lr_fn), (eopt, _)), batch_fn, _ = _graph_setup(
+        dev, "fused", torch.bfloat16, effect_name=name)
+    graph = graphs.TrainGraph(gm, gopt, lr_fn, batch_fn, GRAPH_BATCH,
+                              torch.Generator(device=dev), 218, capacity=6)
+    eg = torch.Generator(device=dev)
+    got = []
+    for step in range(6):
+        got.append(graph(step, 1))
+        if step in (0, 5):
+            want = batch_fn(GRAPH_BATCH, synth_data.step_generator(eg, 218, step))
+            for a, b in zip(graph.batch, want):
+                assert torch.equal(a, b), step
+    want = train_mod.eager_steps(em, eopt, lr_fn, batch_fn, GRAPH_BATCH, eg, 218, 0, 6)
+    assert torch.equal(torch.cat(got), want)
+    for (pname, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), pname
+    assert graph.graph.replays == 5

@@ -136,9 +136,19 @@ def test_mu_law_matches_jax():
 
 
 def test_make_effect():
-    fx = effects.make_effect("comp_4c", sr=22050, device="cpu")
-    assert isinstance(fx, effects.Compressor_4c) and fx.sr == 22050 and len(fx.knob_names) == 4
-    for name in ("comp", "echo", "denoise", "no_such_effect"):
+    """Every name the JAX package registers but "files" builds the port's
+    counterpart, with the JAX effect's name, knobs, ranges and is_inverse;
+    "files" (file datasets) and an unknown name raise."""
+    names = set(jeffects.EFFECTS)
+    assert set(effects.EFFECTS) == names
+    for name in names:
+        fx = effects.make_effect(name, sr=22050, device="cpu")
+        jfx = jeffects.make_effect(name, sr=22050)
+        assert type(fx).__name__ == type(jfx).__name__ and fx.sr == 22050, name
+        assert fx.name == jfx.name and fx.knob_names == jfx.knob_names, name
+        np.testing.assert_array_equal(fx.knob_ranges, jfx.knob_ranges)
+        assert fx.knob_ranges.dtype == np.float32 and fx.is_inverse == jfx.is_inverse, name
+    for name in ("files", "no_such_effect"):
         with pytest.raises(ValueError):
             effects.make_effect(name, device="cpu")
 

@@ -103,6 +103,34 @@ def assert_close_where_conditioned(got, exact, slack, tol: float = 5e-4, name: s
     assert excess.flat[worst] <= 0, (name, got.flat[worst], exact.flat[worst], slack.flat[worst])
 
 
+# Each effect's tolerance (atol, rtol) against the JAX effect, and on the card
+# against the CPU (tests/test_torch_port_effects.py says where each comes
+# from): the 4-knob compressor 1e-5, 2e-4 where its release reaches 1 s
+# (comp_t, comp_large: alpha near 1); the 3-knob one 1e-4; echo and lowpass
+# (lfilter) 1e-5; pitch 1e-4 before the division by its window envelope;
+# Denoise's noisy input 1e-6;
+# TimeAlign 1e-4 (the pinknoise of its chooser 7).
+EFFECT_TOL = {"comp": (1e-4, 0.0), "comp_4c": (1e-5, 0.0), "comp_4c_large": (2e-4, 0.0),
+              "comp_large": (2e-4, 0.0), "comp_t": (2e-4, 0.0), "comp_one": (1e-5, 0.0),
+              "echo": (1e-5, 0.0), "pitch": (1e-4, 0.0), "denoise": (1e-6, 0.0),
+              "decomp_4c": (1e-5, 0.0), "timealign": (1e-4, 0.0), "lowpass": (1e-5, 0.0)}
+
+
+def assert_effect_close(name: str, got, want) -> None:
+    """``got`` within effect ``name``'s EFFECT_TOL of ``want``. For pitch the
+    difference is taken before the division by the window envelope
+    (``pitch.envelope``, near 0 at the edges, where the output is large): it
+    is multiplied by min(envelope, 1)."""
+    atol, rtol = EFFECT_TOL[name]
+    got, want = n(got), n(want)
+    if name == "pitch":
+        from signaltrain_tpu_torch.dsp import pitch
+
+        weight = np.minimum(n(pitch.envelope(got.shape[-1]))[: got.shape[-1]], 1.0)
+        got, want = got * weight, want * weight
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=name)
+
+
 def t(a) -> torch.Tensor:
     """numpy/JAX array -> float32 CPU tensor."""
     return torch.from_numpy(np.array(a, dtype=np.float32))
