@@ -126,6 +126,31 @@ Phases (any failure raises and exits non-zero):
      its three cases beside its bound (8 B a sample at 3.35 TB/s) and its
      chain floor (cli/time_lfilter.chain_cycles: order 1 is fma -> mul ->
      fma, 12 cycles a step; order 3 about 9.3; at the SM clock).
+  6. file datasets at the flagship geometry, batch 200, bf16, each part in a
+     temporary directory and counted: 6a cli.gen_dataset on the card, comp_4c
+     at --dur 5 --device-batch 64 --seed 1 with -n 250 (float32 wavs, 201
+     Train and 49 Val pairs of 221,184 samples) and -n 50 --pcm16, and -e
+     comp -n 16: C (row schedule) or L launched once a device batch of whole
+     files (64, 221,184), no plain version, the split's counts, the names,
+     effect_info.ini read back by FileEffect, two targets of each held to the
+     effect's plain version on the written input; files/s and card ms a
+     device batch; C and L timed at that shape beside their bounds, chain
+     floors and plain versions; 6b train(datapath=) on the resident f32 tier (-e files, 3 epochs
+     x 20 steps under CUDA graphs): A, B, D, E (bf16) launched, not C, the
+     validation MAE falling, and the same run dispatched op by op bit-equal
+     (losses, validation MAEs, every weight); 6c the int16 tier on the
+     --pcm16 set, forced by the budget argument: its batches for step
+     generators 0, 1, 19 bit-equal to the f32 tier's, 20 steps bit-equal to
+     eager; 6d the host tier, forced by a budget below the int16 size: 20
+     prefetched batches (pinned) bit-equal to host_batch replayed from
+     default_rng(seed), 20 steps of the arrays-fed graph bit-equal to
+     host_steps on the same batches; 6e -t chunk on the resident tier (comp_4c
+     re-run on each crop): C counted in every replay, bit-equal to eager; 6f
+     the 6b checkpoint served by cli.predict_long -e files on a Val input: A
+     and B launched, the output finite, corr(prediction, target) printed.
+     Then each tier's loop (synthetic comp_4c, f32, int16, host, chunk) under
+     CUDA graphs in turns: ms a step [least, most], examples/s, card busy ms
+     and the gap.
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -728,6 +753,421 @@ def serve_denoise(dev, results: dict, sr: int) -> dict:
     return out
 
 
+# ---- phase 6: file datasets (cli/gen_dataset.py, data/file_data.py, train(datapath=))
+GEN_ARGS = ["--dur", "5", "--device-batch", "64", "--seed", "1"]
+GEN_BATCH = 64
+# the three datasets of 6a: (arguments, effect, files); the f32 set's Train
+# corpus (201 files of 221,184 samples) is 356 MB on the card
+GEN_RUNS = {"f32": (["-n", "250"], "comp_4c", 250),
+            "pcm16": (["-n", "50", "--pcm16"], "comp_4c", 50),
+            "comp": (["-e", "comp", "-n", "16"], "comp", 16)}
+GEN_TOL = {"comp_4c": 1e-5, "comp": 1e-4}  # the card against the plain version (EFFECT_TOL)
+FILE_STEPS = TRAIN_POINTS // TRAIN_BATCH  # 20 steps an epoch, 5 validation batches
+BF16_NAMES = ["bf16_fused_analysis", "bf16_fused_synthesis", "bf16_fused_analysis_bwd",
+              "bf16_fused_synthesis_bwd"]
+
+
+def counted(fn):
+    """(fn(), {counter: (launches, plain calls)}), every counter set to 0 just
+    before fn() and read just after it (the card drained)."""
+    from signaltrain_tpu_torch.ops import _cuda
+
+    _cuda.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+
+
+def no_plain(counts: dict, what: str) -> None:
+    for k, (_, plain) in counts.items():
+        check(plain == 0, f"{what} ran the plain version of {k}")
+
+
+def in_dir(path, fn):
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(cwd)
+
+
+def gen_against_plain(name: str, kernel, plain) -> dict:
+    """A kernel at gen_dataset's shape against its plain version on the same
+    inputs: the kernel's mean ms over 5 calls (CUDA events) and the plain's
+    ms for one call; the outputs of the last timed kernel call and of the
+    plain call held bit for bit to each other on every row."""
+    kept = {}
+    ms = cuda_ms(lambda: kept.update(got=kernel()), reps=5)
+    plain_ms = cuda_ms(lambda: kept.update(want=plain()), reps=1, warmup=0)
+    got, want = kept["got"], kept["want"]
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and torch.equal(got, want),
+          disagreement(f"{name} at {tuple(got.shape)}", got, want))
+    return {"gen_ms": ms, "gen_plain_ms": plain_ms, "gen_max_abs_err": err,
+            "gen_tolerance": "bit-equal to the plain version on every row"}
+
+
+def gen_datasets(dev, root: str, results: dict) -> dict:
+    """Phase 6a: the three datasets of GEN_RUNS written by cli.gen_dataset on
+    the card, each counted: C (comp_4c; its row schedule) or L (comp) once a
+    device batch of whole files, no plain version; the file counts of the
+    80/20 split, the names, effect_info.ini read back by FileEffect; two
+    targets of each held to the effect's plain version on the written input
+    (the same knob arithmetic; rounded to 16 bits for --pcm16). Then C and L
+    at that shape, all 64 rows bit-equal to their plain versions, timed
+    beside their bounds, chain floors and plain versions."""
+    from signaltrain_tpu_torch.cli import gen_dataset, time_lfilter
+    from signaltrain_tpu_torch.data import audio_io, file_data
+    from signaltrain_tpu_torch.dsp import effects, iir
+    from signaltrain_tpu_torch.dsp import knobs as knobs_mod
+    from signaltrain_tpu_torch.ops import cuda_kernels
+    from signaltrain_tpu_torch.utils.card import FMA_CYCLES, sm_clock_mhz
+    from signaltrain_tpu_torch.utils.card import bound_ms as bound
+
+    report = {}
+    for tag, (extra, name, n_files) in GEN_RUNS.items():
+        argv = [tag] + GEN_ARGS + extra
+        stats, counts = counted(lambda: in_dir(root, lambda: gen_dataset.main(argv)))
+        path, batches = os.path.join(root, tag), math.ceil(n_files / GEN_BATCH)
+        kernel = "lfilter" if name == "comp" else "switched_one_pole"
+        check(counts[kernel][0] == batches,
+              f"gen_dataset {tag}: kernel {kernel} launched {counts[kernel][0]} times, not "
+              f"{batches}")
+        check(counts["switched_one_pole_chunked"][0] == 0, f"gen_dataset {tag}: C ran chunked")
+        check(name != "comp" or counts["switched_one_pole"][0] == 0, "gen_dataset comp launched C")
+        no_plain(counts, f"gen_dataset {tag}")
+        results[kernel]["launches_gen_dataset"] = (results[kernel].get("launches_gen_dataset", 0)
+                                                   + counts[kernel][0])
+        effect = effects.make_effect(name, device="cpu")
+        n_val = sum(1 for i in range(n_files) if i / n_files > 0.8)
+        listing = {sub: sorted(os.listdir(os.path.join(path, sub))) for sub in ("Train", "Val")}
+        for sub, want in (("Train", n_files - n_val), ("Val", n_val)):
+            targets = [f for f in listing[sub] if f.startswith("target_")]
+            check(len(targets) == want and len(listing[sub]) == 2 * want,
+                  f"gen_dataset {tag}: {len(listing[sub])} files in {sub}, wanted 2 x {want}")
+            for f in targets:
+                check(f.split("_")[2] == effect.name.split("_")[0] and f.count("__")
+                      == effect.num_knobs and f"input_{f.split('_')[1]}_.wav" in listing[sub],
+                      f"gen_dataset {tag}: a target's name {f}")
+        fx = effects.make_effect("files", path=path, device=dev)
+        check(fx.name == effect.name + "(files)" and fx.knob_names == effect.knob_names
+              and np.array_equal(fx.knob_ranges, effect.knob_ranges),
+              f"gen_dataset {tag}: effect_info.ini does not read back")
+        err = 0.0
+        for f in [f for f in listing["Train"] if f.startswith("target_")][:2]:
+            x, _ = audio_io.read_audio_file(
+                os.path.join(path, "Train", f"input_{f.split('_')[1]}_.wav"))
+            y, _ = audio_io.read_audio_file(os.path.join(path, "Train", f))
+            knobs_nn = knobs_mod.knobs_nn_from_wc(file_data.parse_knob_string(f)[None],
+                                                  effect.knob_ranges)
+            want = effect.go_batch(x[None], knobs_nn)[0][0].numpy()  # the plain versions
+            if tag == "pcm16":
+                want = audio_io.to_pcm16(want) / 32767.0
+            check(x.shape == y.shape == (stats["signal_length"],), f"gen_dataset {tag}: lengths")
+            err = max(err, float(np.abs(y - want).max()))
+        tol = GEN_TOL[name] + (1.0 / 32767 if tag == "pcm16" else 0.0)
+        check(err <= tol, f"gen_dataset {tag}: targets {err:.3e} off the plain version (tol {tol})")
+        report[tag] = {"files": n_files, "seconds": stats["seconds"],
+                       "files_per_s": stats["files_per_s"],
+                       "steady_files_per_s": stats["steady_files_per_s"],
+                       "batch_done_s": stats["batch_done_s"],
+                       "card_ms_per_batch": stats["card_ms_per_batch"],
+                       "card_ms_batches": stats["card_ms_batches"], "device_batches": batches,
+                       "signal_length": stats["signal_length"],
+                       "launches": counts[kernel][0], "kernel": kernel,
+                       "max_abs_err_vs_plain": err, "tolerance": tol}
+        steady = stats["steady_files_per_s"]
+        rate = (f"{steady:.1f} files/s after the first batch" if steady is not None else
+                "one device batch, a smoke reading, no steady rate")
+        print(f"gen_dataset {tag} ({name}, {n_files} files of {stats['signal_length']} samples): "
+              f"{stats['seconds']:.2f} s in all, {stats['files_per_s']:.1f} files/s ({rate}); card "
+              f"{stats['card_ms_per_batch']:.3f} ms a device batch of {GEN_BATCH} "
+              f"({[round(v, 3) for v in stats['card_ms_batches']]}); {kernel} launched "
+              f"{counts[kernel][0]} times; 2 targets within {err:.3e} of the plain version "
+              f"(tol {tol:.3e})")
+
+    # C and L at gen_dataset's shape: whole files, a device batch
+    n = report["f32"]["signal_length"]
+    sm_mhz = sm_clock_mhz()
+    g = torch.Generator(device=dev).manual_seed(GEN_BATCH)
+    gx = torch.randn(GEN_BATCH, n, generator=g, device=dev)
+    check(not cuda_kernels.uses_chunks(GEN_BATCH, n), "gen_dataset's C shape is not by rows")
+    r = results["switched_one_pole"]
+    aa, ar = torch.full((GEN_BATCH,), 0.99, device=dev), torch.full((GEN_BATCH,), 0.95, device=dev)
+    r.update(gen_against_plain(
+        "C", lambda: cuda_kernels.switched_one_pole_batched(gx, aa, ar),
+        lambda: cuda_kernels.switched_one_pole_reference(gx, aa, ar)))
+    r["gen_bound_ms"], r["gen_bound_by"] = bound(4.0 * gx.numel(),
+                                                 4.0 * (2 * gx.numel() + 2 * GEN_BATCH))
+    r["gen_chain_floor_ms"] = n * C_CHAIN_OPS * FMA_CYCLES / (sm_mhz * 1e3)
+    r["gen_shape"] = f"g {tuple(gx.shape)} (gen_dataset's device batch; row schedule)"
+    r = results["lfilter"]
+    attack = torch.empty(GEN_BATCH, device=dev).uniform_(1e-3, 4e-2, generator=g)
+    b, a = iir.butter_lowpass(1, 1.0 / (attack * 44100.0))
+    db = 20.0 * torch.log10(gx.abs() * 0.3 + 1e-6)
+    zi = ((b[:, 1] - a[:, 1] * b[:, 0]) / (1.0 + a[:, 1]) * db[:, 0])[:, None]
+    r.update(gen_against_plain("L", lambda: iir.lfilter(b, a, db, zi),
+                               lambda: iir.lfilter_reference(b, a, db, zi)))
+    r["gen_bound_ms"], r["gen_bound_by"] = time_lfilter.bound_ms(db, 1)
+    r["gen_chain_floor_ms"] = time_lfilter.chain_floor_ms(n, 1, sm_mhz)
+    r["gen_shape"] = f"x {tuple(db.shape)}, order 1 (gen_dataset -e comp's device batch)"
+    for k in ("switched_one_pole", "lfilter"):
+        r = results[k]
+        print(f"{k} at {r['gen_shape']}: {r['gen_ms']:.4f} ms (bound {r['gen_bound_ms']:.4f} ms "
+              f"by {r['gen_bound_by']}, chain floor {r['gen_chain_floor_ms']:.4f} ms at "
+              f"{sm_mhz:.0f} MHz, plain {r['gen_plain_ms']:.1f} ms); all {GEN_BATCH} rows "
+              f"bit-equal to the plain version (max|d| {r['gen_max_abs_err']:.1e})")
+    return report
+
+
+def train_and_replay(dev, tag: str, effect, datapath: str, epochs: int, limit: int,
+                     sr: int, target_type: str = "stream") -> dict:
+    """train(datapath=...) on the card in bf16 (batch 200, FILE_STEPS steps an
+    epoch, seeded weights) in a temporary directory, counted; then the same
+    run dispatched op by op on the same data (eager_steps on the dataset's
+    batch function, or host_steps on a prefetcher of the same rng for the
+    host tier): every loss, validation MAE and weight bit-equal. Returns the
+    trained model, its history, the counts, the checkpoint's bytes and the
+    tier."""
+    from signaltrain_tpu_torch.data import file_data
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    points = FILE_STEPS * TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (model, hist), counts = counted(lambda: in_dir(tmp, lambda: train_mod.train(
+            effect, epochs=epochs, n_data_points=points, batch_size=TRAIN_BATCH, cp_every=epochs,
+            sr=sr, lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16,
+            datapath=datapath, target_type=target_type, device_resident_limit_bytes=limit)))
+        seconds = time.perf_counter() - t0
+        ckpt = open(os.path.join(tmp, "modelcheckpoint.tar"), "rb").read()
+    for k in BF16_NAMES:
+        check(counts[k][0] > 0, f"file training {tag}: kernel {k} never launched")
+        check(counts[k[5:]][0] == 0, f"file training {tag}: the float32 kernel {k[5:]} launched")
+    no_plain(counts, f"file training {tag}")
+    check(len(hist["train_loss"]) == epochs * FILE_STEPS
+          and bool(np.all(np.isfinite(hist["train_loss"]))), f"file training {tag}: the losses")
+
+    kw = dict(sr=sr, rerun=target_type != "stream", device_resident_limit_bytes=limit)
+    spec = model.spec
+    tds = file_data.FileDataset(datapath + "/Train/", effect, spec.in_chunk_size,
+                                spec.out_chunk_size, augment=True, **kw)
+    host = not tds.device_resident
+    tier = "host" if host else ("int16" if tds.device_resident_int16 else "f32")
+    if host:
+        kw["device_resident_limit_bytes"] = 0
+    vds = file_data.FileDataset(datapath + "/Val/", effect, spec.in_chunk_size,
+                                spec.out_chunk_size, augment=False, **kw)
+    m = st_model(device=dev, sr=sr, num_knobs=effect.num_knobs, compute_dtype=BF16,
+                 generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+    opt, lr_fn = train_mod.make_optimizer(m, TRAIN_LR, points, epochs, TRAIN_BATCH)
+    g, losses, maes = torch.Generator(device=dev), [], []
+    val_steps = max(1, (points // 4) // TRAIN_BATCH)
+    pf = tds.prefetch_batches(TRAIN_BATCH, np.random.default_rng(TRAIN_SEED)) if host else None
+    try:
+        for epoch in range(epochs):
+            s0 = epoch * FILE_STEPS
+            if host:
+                part = train_mod.host_steps(m, opt, lr_fn, pf.next, s0, FILE_STEPS)
+            else:
+                part = train_mod.eager_steps(m, opt, lr_fn, tds.batch_fn, TRAIN_BATCH, g,
+                                             TRAIN_SEED, s0, FILE_STEPS)
+            losses += part.cpu().tolist()
+            m.eval()
+            if host:
+                vrng = np.random.default_rng(7)
+                mae = train_mod.host_validation(
+                    m, (vds.host_batch(TRAIN_BATCH, vrng) for _ in range(val_steps)))[1]
+            else:
+                mae = train_mod.eager_validation(m, vds.batch_fn, TRAIN_BATCH, g, val_steps)[1]
+            maes.append(float(mae.cpu().numpy().mean()))
+            m.train()
+    finally:
+        if pf is not None:
+            pf.close()
+    check(losses == hist["train_loss"] and maes == hist["val_mae_mean"],
+          f"file training {tag}: CUDA graphs and eager dispatch differ: {hist['train_loss']} "
+          f"{losses} {hist['val_mae_mean']} {maes}")
+    check(all(torch.equal(a, b) for a, b in zip(m.parameters(), model.parameters())),
+          f"file training {tag}: CUDA graphs and eager dispatch differ in the weights")
+    print(f"train(datapath, {tag}, {tier} tier) {seconds:.2f} s: losses first "
+          f"{hist['train_loss'][0]:.4e} last {hist['train_loss'][-1]:.4e}, mean validation MAE "
+          f"by epoch {hist['val_mae_mean']}; launches "
+          f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}; bit-equal to eager "
+          f"dispatch ({len(losses)} losses, {len(maes)} validation passes, every weight)")
+    return {"model": model, "hist": hist, "counts": counts, "ckpt": ckpt, "tier": tier,
+            "seconds": seconds, "train_ds": tds}
+
+
+def file_datasets(dev, results: dict, sr: int, smi: str) -> dict:
+    """Phase 6: file datasets at the flagship geometry, batch 200, bf16, each
+    part in a temporary directory: 6a gen_dataset on the card; 6b train() on
+    the resident f32 tier (3 x 20 steps, bit-equal to eager, the validation
+    MAE falling); 6c the int16 tier on the --pcm16 set (its batches for step
+    generators 0, 1, 19 equal to the f32 tier's; 20 steps bit-equal); 6d the
+    host tier (the prefetched batches equal to host_batch replayed from
+    default_rng(seed); 20 graph steps bit-equal to eager on the same
+    batches); 6e -t chunk (C counted inside the replays); 6f the 6b
+    checkpoint served by cli.predict_long -e files. Then each tier's loop
+    timed in turns with the synthetic comp_4c loop."""
+    from signaltrain_tpu_torch.cli import predict_long as pl_cli
+    from signaltrain_tpu_torch.data import audio_io, file_data, synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    report = {}
+    with tempfile.TemporaryDirectory() as root:
+        t_phase = time.perf_counter()
+        report["gen_dataset"] = gen_datasets(dev, root, results)
+        f32set, p16set = os.path.join(root, "f32"), os.path.join(root, "pcm16")
+        fx = effects.make_effect("files", path=f32set, device=dev)
+        fx16 = effects.make_effect("files", path=p16set, device=dev)
+        comp4c = effects.make_effect("comp_4c", sr=sr, device=dev)
+
+        # 6b: the resident f32 tier, 3 epochs
+        b = train_and_replay(dev, "6b", fx, f32set, TRAIN_EPOCHS, 4 << 30, sr)
+        maes = b["hist"]["val_mae_mean"]
+        check(b["tier"] == "f32", f"6b ran the {b['tier']} tier")
+        check(b["counts"]["switched_one_pole"][0] == 0, "6b launched C (the targets are files)")
+        check(maes[-1] < maes[0], f"6b: the validation MAE did not fall: {maes}")
+        chunk, out_chunk = b["model"].spec.in_chunk_size, b["model"].spec.out_chunk_size
+        f32_bytes = 2 * len(b["train_ds"].lengths) * int(b["train_ds"].lengths.max()) * 4
+
+        # 6c: the int16 tier on the 16-bit set, its batches against the f32 tier's
+        p32 = file_data.FileDataset(p16set + "/Train/", fx16, chunk, out_chunk)
+        limit16 = 2 * len(p32.lengths) * int(p32.lengths.max()) * 4 - 1
+        p16 = file_data.FileDataset(p16set + "/Train/", fx16, chunk, out_chunk,
+                                    device_resident_limit_bytes=limit16)
+        check(p16.device_resident_int16 and p16.x.dtype == torch.int16, "6c: not the int16 tier")
+        g1, g2 = torch.Generator(device=dev), torch.Generator(device=dev)
+        for step in (0, 1, 19):
+            u = p16.batch_fn(TRAIN_BATCH, synth_data.step_generator(g1, TRAIN_SEED, step))
+            v = p32.batch_fn(TRAIN_BATCH, synth_data.step_generator(g2, TRAIN_SEED, step))
+            check(all(torch.equal(a, b_) for a, b_ in zip(u, v)),
+                  f"6c: the int16 tier's batch of step {step} differs from the f32 tier's")
+        print("6c: the int16 tier's batches of steps 0, 1, 19 are the f32 tier's, bit for bit")
+        c = train_and_replay(dev, "6c", fx16, p16set, 1, limit16, sr)
+        check(c["tier"] == "int16", f"6c ran the {c['tier']} tier")
+
+        # 6d: the host tier, below the int16 size of the f32 set
+        limit_host = f32_bytes // 2 - 1
+        hds = file_data.FileDataset(f32set + "/Train/", fx, chunk, out_chunk,
+                                    device_resident_limit_bytes=limit_host)
+        check(not hds.device_resident, "6d: not the host tier")
+        pf, rng = hds.prefetch_batches(TRAIN_BATCH, np.random.default_rng(TRAIN_SEED)), \
+            np.random.default_rng(TRAIN_SEED)
+        try:
+            for _ in range(FILE_STEPS):
+                hb = pf.next()
+                want = hds.host_batch(TRAIN_BATCH, rng)
+                check(all(np.array_equal(t_.numpy(), w) for t_, w in zip(hb.tensors, want)),
+                      "6d: a prefetched batch differs from host_batch")
+                check(all(t_.is_pinned() for t_ in hb.tensors), "6d: a host buffer is not pinned")
+                hb.release()
+        finally:
+            pf.close()
+        print(f"6d: {FILE_STEPS} prefetched batches are host_batch's from default_rng(seed)")
+        d = train_and_replay(dev, "6d", fx, f32set, 1, limit_host, sr)
+        check(d["tier"] == "host", f"6d ran the {d['tier']} tier")
+
+        # 6e: -t chunk, C inside the captured step and validation batch
+        e = train_and_replay(dev, "6e", comp4c, f32set, 1, 4 << 30, sr, target_type="chunk")
+        c_launches = e["counts"]["switched_one_pole"][0]
+        check(c_launches == FILE_STEPS + (FILE_STEPS * TRAIN_BATCH // 4) // TRAIN_BATCH,
+              f"6e: C launched {c_launches} times")
+        results["switched_one_pole"]["launches_file_training"] = c_launches
+        for k in BF16_NAMES:
+            results[k]["launches_file_training"] = sum(r["counts"][k][0] for r in (b, c, d, e))
+
+        # 6f: the 6b checkpoint served by predict_long -e files on a Val input
+        with tempfile.TemporaryDirectory() as tmp:
+            open(os.path.join(tmp, "files.tar"), "wb").write(b["ckpt"])
+            val = sorted(f for f in os.listdir(f32set + "/Val") if f.startswith("target_"))[0]
+            idx = val.split("_")[1]
+            knobs = file_data.parse_knob_string(val)
+            argv = ["files.tar", os.path.join(f32set, "Val", f"input_{idx}_.wav"), "-e", "files",
+                    "--knobs=" + ",".join(str(float(v)) for v in knobs)]
+            _, counts = counted(lambda: in_dir(tmp, lambda: pl_cli.main(argv)))
+            preds = [f for f in os.listdir(tmp) if f.startswith("pl_pred")]
+            check(len(preds) == 1, f"6f: predict_long wrote {preds}")
+            pred, _ = audio_io.read_audio_file(os.path.join(tmp, preds[0]))
+        for k in ("fused_analysis", "fused_synthesis"):
+            check(counts[k][0] > 0, f"6f: serving never launched kernel {k}")
+            results[k]["launches_file_serving"] = counts[k][0]
+        no_plain(counts, "6f serving")
+        target, _ = audio_io.read_audio_file(os.path.join(f32set, "Val", val))
+        lookback = chunk - out_chunk
+        check(pred.shape == target.shape and bool(np.all(np.isfinite(pred))),
+              "6f: the prediction's length, or it is not finite")
+        corr = float(np.corrcoef(pred[lookback:], target[lookback:])[0, 1])
+        print(f"6f: predict_long -e files on Val input {idx} ({len(pred)} samples) with the 6b "
+              f"checkpoint: corr(prediction, target) {corr:.4f}; launches "
+              f"{json.dumps({k: v[0] for k, v in counts.items() if v[0]})}")
+        report["training"] = {
+            k: {"tier": r["tier"], "seconds": r["seconds"], "losses": r["hist"]["train_loss"],
+                "val_mae_mean": r["hist"]["val_mae_mean"], "graph_equals_eager": True,
+                "launches": {n_: v[0] for n_, v in r["counts"].items() if v[0]}}
+            for k, r in (("6b_f32", b), ("6c_int16", c), ("6d_host", d), ("6e_chunk", e))}
+        report["serving"] = {"corr": corr, "samples": len(pred)}
+
+        # each tier's loop in turns with the synthetic comp_4c loop: blocks of
+        # LOOP_BLOCK steps under CUDA graphs, one fetch a block, as train() runs
+        def fresh():
+            m = st_model(device=dev, sr=sr, num_knobs=4, compute_dtype=BF16,
+                         generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+            return m, *train_mod.make_optimizer(m, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS,
+                                                TRAIN_BATCH)
+
+        rerun = file_data.FileDataset(f32set + "/Train/", comp4c, chunk, out_chunk,
+                                      rerun=True)
+        sources = {"synthetic": synth_data.make_synth_batch_fn(comp4c, chunk, out_chunk, sr=sr),
+                   "f32": b["train_ds"].batch_fn, "int16": p16.batch_fn, "chunk": rerun.batch_fn}
+        loops, prefetchers = {}, []
+        try:
+            for way, batch_fn in sources.items():
+                m, opt, lr_fn = fresh()
+                loops[way] = graphs.TrainGraph(m, opt, lr_fn, batch_fn, TRAIN_BATCH,
+                                               torch.Generator(device=dev), TRAIN_SEED, LOOP_BLOCK)
+            m, opt, lr_fn = fresh()
+            prefetchers.append(hds.prefetch_batches(TRAIN_BATCH, np.random.default_rng(TRAIN_SEED)))
+            shapes = [(TRAIN_BATCH, chunk), (TRAIN_BATCH, out_chunk), (TRAIN_BATCH, 4)]
+            loops["host"] = graphs.ArraysTrainGraph(m, opt, lr_fn, prefetchers[0].next, shapes,
+                                                    LOOP_BLOCK)
+            for graph in loops.values():
+                graph(0, LOOP_BLOCK)  # the capture's warm-up and 19 replays
+            runs = {way: [] for way in loops}
+            order = ["synthetic", "f32", "int16", "host", "chunk"]
+            for way in order + order[::-1]:
+                runs[way].append(host_ms(lambda: loops[way](LOOP_BLOCK, LOOP_BLOCK).cpu(), reps=3,
+                                         warmup=1) / LOOP_BLOCK)
+            timing = {}
+            for way, graph in loops.items():
+                ms = sum(runs[way]) / len(runs[way])
+                prof = card_busy(lambda: graph(LOOP_BLOCK, LOOP_BLOCK).cpu(), reps=1)
+                busy = prof["card_busy_ms"] / LOOP_BLOCK
+                timing[way] = {"loop_ms": ms, "loop_ms_min_max": [min(runs[way]), max(runs[way])],
+                               "examples_per_s": TRAIN_BATCH / ms * 1e3, "card_busy_ms": busy,
+                               "gap_ms": ms - busy,
+                               "kernels_on_card": prof["kernels_launched"] / LOOP_BLOCK,
+                               "host_launch_calls": prof["host_launch_calls"] / LOOP_BLOCK}
+                print(f"file loop {way} (bf16, batch {TRAIN_BATCH}, data + step, {LOOP_BLOCK} "
+                      f"steps a block): {ms:.3f} ms a step [{min(runs[way]):.3f}, "
+                      f"{max(runs[way]):.3f}], {timing[way]['examples_per_s']:.0f} examples/s; "
+                      f"card busy {busy:.3f} ms, gap {ms - busy:.3f} ms, "
+                      f"{timing[way]['kernels_on_card']:.1f} kernels a step on {smi}")
+        finally:
+            for p in prefetchers:
+                p.close()
+        report["loop"] = timing
+        report["seconds"] = time.perf_counter() - t_phase
+    print(json.dumps({"file_datasets": report}))
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
@@ -1181,6 +1621,9 @@ def main() -> None:
     effects_report = train_every_effect(dev, results, chunk, out_chunk, sr)
     denoise = serve_denoise(dev, results, sr)
     print(json.dumps({"effects": effects_report, "denoise": denoise}))
+
+    # ---- 6. file datasets
+    file_datasets(dev, results, sr, smi)
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -1629,7 +2072,10 @@ def main() -> None:
                 "randn_warmup", "randn_rerun_steps", "worst_warmup", "worst_rerun_steps", "chunk",
                 "virtual_rows", "plain_s_all_checks", "ct_batch_ms", "train_ms",
                 "train_plain_ms", "train_library_ms", "train_bound_ms", "train_chain_floor_ms",
-                "train_bound_ms_cuda_cores", "train_tflops", "train_shape") if k in r},
+                "train_bound_ms_cuda_cores", "train_tflops", "train_shape", "gen_ms",
+                "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
+                "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training", "launches_file_serving")
+               if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         extra = ""

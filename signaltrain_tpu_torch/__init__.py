@@ -9,8 +9,10 @@ Every entry point takes an explicit `device` and defaults to ``"cuda"``; the
 plain PyTorch versions of the kernels run only for tensors on the CPU
 (``device="cpu"``), never as a fallback for a CUDA tensor.
 
-What is ported so far is the serving path: checkpoint loading, the model,
-long-audio inference (`inference.predict_long`) and the comp_4c target.
+What is ported: serving (checkpoint loading, the model, long-audio
+inference), training on synthesized data for every synthesized effect and on
+audio-file datasets (`data.file_data`, `cli.gen_dataset`), and the dataset
+tools; ROADMAP.md lists what is not.
 """
 
 __version__ = "0.1.0"

@@ -3,7 +3,9 @@
 Loads a .tar checkpoint, runs windowed inference on a wav file on the chosen
 device, builds the streamed and chunked effect targets for comparison when
 the effect's name contains "comp" (the JAX CLI's rule: the compressors and
-decomp_4c; the random effects need a generator), and writes pl_input /
+decomp_4c; the random effects need a generator) or reads it from a file
+dataset with ``-e files`` (the ``target_<i>_*`` file beside an
+``input_<i>_`` file, its knob values from its name), and writes pl_input /
 pl_pred / pl_st / pl_ct wavs tagged with the knob values into the working
 directory, the prediction zero-padded at the head so it aligns with the
 input.
@@ -15,6 +17,7 @@ input.
 from __future__ import annotations
 
 import argparse
+import glob
 
 import numpy as np
 
@@ -39,7 +42,9 @@ def main(argv=None):
     print("args =", args)
 
     from ..data import audio_io
+    from ..data.file_data import parse_knob_string
     from ..dsp import effects as fx
+    from ..dsp.knobs import knobs_nn_from_wc
     from ..dsp.compressors import mu_decompand
     from ..inference import predict_long as pl
     from ..utils.load_model import load_model
@@ -67,12 +72,22 @@ def main(argv=None):
         knobs_wc = np.array([(kr[i, 0] + kr[i, 1]) / 2 for i in range(num_knobs)])
     else:
         knobs_wc = np.array([float(v) for v in args.knobs.split(",")], np.float32)
-        knobs_nn = (knobs_wc - kr[:, 0]) / (kr[:, 1] - kr[:, 0]) - 0.5
+        knobs_nn = knobs_nn_from_wc(knobs_wc, kr)
     print("knobs_wc  =", knobs_wc)
     print("knobs_nn  =", knobs_nn)
 
     y_st = y_ct = None
-    if args.effect != "":
+    if args.effect == "files":
+        # the target beside the input (input_<i>_.wav -> target_<i>_*), its
+        # knobs read from its name; they only tag the output files, as in
+        # the JAX CLI (the prediction runs at --knobs)
+        target_file = infile.replace("input", "target").replace(".wav", "")
+        target_file = glob.glob(target_file + "*")[0]
+        print(" Reading target_file = ", target_file)
+        y_st, _ = audio_io.read_audio_file(target_file)
+        knobs_wc = parse_knob_string(target_file)
+        print("inferred knobs_wc = ", knobs_wc)
+    elif args.effect != "":
         try:
             effect = fx.make_effect(args.effect, sr=sr, device=model.device)
         except ValueError:

@@ -1,21 +1,28 @@
-"""Training CLI: the flag surface of the JAX package's cli/run_train.py, as
-far as the port reaches.
+"""Training CLI: the flag surface of the JAX package's cli/run_train.py.
 
-Example:
+Examples:
     python -m signaltrain_tpu_torch.cli.run_train --epochs 10 -n 2000 -b 100 --effect comp_4c
+    python -m signaltrain_tpu_torch.cli.run_train --path mydata -e files [-t chunk] [--compand]
 
 Runs on the CUDA card unless ``--device cpu`` is given, in bfloat16 unless
-``--dtype float32`` is given (the JAX CLI's default). ``--effect`` takes
-every synthesized effect of the JAX package. ``-t/--target`` is checked as
-the JAX CLI checks it and matters only with a file dataset; ``--apex`` is
-accepted and ignored, as there. Options that belong to parts not ported yet
-(file datasets, companding, model parallelism, profiling) exit with a
-message that says so.
+``--dtype float32`` is given (the JAX CLI's default), through
+``config.RunConfig`` and ``train_from_config``. ``--effect`` takes every
+effect of the JAX package; ``files`` reads the knob metadata of the dataset
+at ``--path``, which then holds ``Train/`` and ``Val/`` (any other effect
+with ``--path`` trains on that dataset with the effect's knob ranges, and
+with ``-t chunk`` re-runs it on each cropped input). The effect, the target
+type and the dataset's input files are checked as the JAX CLI checks them,
+and ``-t chunk`` with ``-e files`` is refused (a file effect has no signal
+to re-run);
+``--apex`` is accepted and ignored, as there. ``--nmodel`` (model
+parallelism) and ``--profile`` exit with a message that they are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import sys
 
 
@@ -29,23 +36,23 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint", help="Name of model checkpoint .tar file",
                         default="modelcheckpoint.tar")
     parser.add_argument("-c", "--compand", action="store_true",
-                        help="companded audio (file datasets; not ported yet)")
-    parser.add_argument("--effect", help="Name of effect to use (any synthesized effect of "
-                        "dsp/effects.EFFECTS)", default="comp_4c")
+                        help="Turn on to use companded/decompanded audio")
+    parser.add_argument("-e", "--effect", help='Name of effect to use. ("files" = search for '
+                        '"target_" and effect_info.ini files in path)', default="comp_4c")
     parser.add_argument("--epochs", type=int, help="Number of epochs to run", default=1000)
     parser.add_argument("--lrmax", type=float, help="max learning rate", default=1e-4)
     parser.add_argument("-n", "--num", type=int,
                         help='Number of "data points" (audio clips) per epoch', default=200000)
     parser.add_argument("--path", default=None,
-                        help="directory of a file dataset (not ported yet: only "
-                        "synthesized-on-the-fly data)")
+                        help="Directory to pull input (and maybe target) data from "
+                        "(default: None, means only synthesized-on-the-fly data)")
     parser.add_argument("--sr", type=int, help="Sampling rate", default=44100)
     parser.add_argument("--scale", type=float,
                         help="Scale factor (of input size & whole model)", default=1.0)
     parser.add_argument("--shrink", type=int,
                         help="Shink output chunk relative to input by this divisor", default=4)
-    parser.add_argument("-t", "--target", help="type of target: chunk or stream (file "
-                        "datasets only)", default="stream")
+    parser.add_argument("-t", "--target", help="type of target: chunk or stream (with "
+                        "--path)", default="stream")
     parser.add_argument("--dtype", default="bfloat16",
                         help="compute dtype: bfloat16 (bf16) or float32 (f32)")
     parser.add_argument("--nmodel", type=int, default=1,
@@ -61,16 +68,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-DTYPES = {"bfloat16": "bfloat16", "bf16": "bfloat16", "float32": "float32", "f32": "float32"}
-
-
 def unported(args) -> list[str]:
     """The options on this command line that need a part not ported yet."""
     found = []
-    if args.path is not None:
-        found.append("--path (file datasets)")
-    if args.compand:
-        found.append("--compand (file datasets)")
     if args.nmodel != 1:
         found.append("--nmodel (model parallelism)")
     if args.profile is not None:
@@ -79,6 +79,8 @@ def unported(args) -> list[str]:
 
 
 def main(argv=None) -> None:
+    from ..config import DTYPES
+
     args = build_parser().parse_args(argv)
     print("Command line: ", " ".join(sys.argv[:]))
     missing = unported(args)
@@ -88,37 +90,29 @@ def main(argv=None) -> None:
     if args.dtype not in DTYPES:
         print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
         sys.exit(1)
+
+    from ..config import RunConfig, train_from_config
+    from ..dsp import effects
+
+    try:
+        effect = effects.make_effect(args.effect, path=args.path, sr=args.sr, device=args.device)
+    except (ValueError, FileNotFoundError, RuntimeError) as e:
+        print(f"Error: {e}")
+        sys.exit(1)
     if args.target not in ["chunk", "stream"]:
         print(f"Error, invalid target type: {args.target}")
         sys.exit(1)
-
-    import torch
-
-    from ..dsp import effects
-    from ..training.train import train
-
-    try:
-        effect = effects.make_effect(args.effect, sr=args.sr, device=args.device)
-    except (ValueError, RuntimeError) as e:
-        print(f"Error: {e}")
+    if args.effect == "files" and args.target == "chunk":
+        print("Error: -t chunk re-runs the effect on each input chunk, and a file dataset's "
+              "effect (-e files) has no signal path; name the effect (e.g. --effect comp_4c)")
+        sys.exit(1)
+    if args.effect == "files" and (
+        not glob.glob(args.path + "/Train/input*") or not glob.glob(args.path + "/Val/input*")
+    ):
+        print(f"Error: no input files under {args.path}/Train and {args.path}/Val")
         sys.exit(1)
     print("Running with args =", args)
-    train(
-        effect,
-        epochs=args.epochs,
-        n_data_points=args.num,
-        batch_size=args.batch,
-        cp_every=args.cp_every,
-        sr=args.sr,
-        scale_factor=args.scale,
-        shrink_factor=args.shrink,
-        lr_max=args.lrmax,
-        in_checkpointname=args.checkpoint,
-        out_checkpointname=args.out_checkpoint or args.checkpoint,
-        seed=args.seed,
-        device=args.device,
-        compute_dtype=getattr(torch, DTYPES[args.dtype]),
-    )
+    train_from_config(RunConfig.from_args(args), effect=effect)
     print("run_train: Execution completed.")
 
 

@@ -1,0 +1,110 @@
+"""One typed, frozen configuration for a training run.
+
+Counterpart of signaltrain_tpu/config.py: the CLI parses into a
+``RunConfig``, ``train_from_config`` runs it, and its geometry fields are the
+ones ``compute_spec`` and the checkpoint keep. The port adds ``device`` (the
+card unless ``"cpu"`` is asked for). The JAX fields ``plot_every``,
+``make_plots`` and ``n_model`` are left out until plots and model
+parallelism are ported (``cli/run_train.py`` refuses ``--nmodel``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .models.st_model import ModelSpec, compute_spec
+
+DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32,
+          "f32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    # effect / data
+    effect_name: str = "comp_4c"
+    datapath: str | None = None
+    target_type: str = "stream"  # 'stream' or 'chunk'
+    compand: bool = False
+    # schedule / optimization
+    epochs: int = 1000
+    n_data_points: int = 200_000
+    batch_size: int = 200
+    lr_max: float = 1e-4
+    # geometry
+    sr: int = 44100
+    scale_factor: float = 1.0
+    shrink_factor: float = 4.0
+    # numerics / placement
+    dtype: str = "bfloat16"
+    seed: int = 218
+    device: str = "cuda"
+    # checkpoints / observability
+    in_checkpointname: str = "modelcheckpoint.tar"
+    out_checkpointname: str = "modelcheckpoint.tar"
+    cp_every: int = 25
+    status_every: int = 10
+
+    def model_spec(self, num_knobs: int) -> ModelSpec:
+        return compute_spec(scale_factor=self.scale_factor, shrink_factor=self.shrink_factor,
+                            num_knobs=num_knobs, sr=self.sr)
+
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    @classmethod
+    def from_args(cls, args) -> "RunConfig":
+        """argparse namespace (``cli/run_train.py``'s flag surface) -> RunConfig."""
+        return cls(
+            effect_name=args.effect,
+            datapath=args.path,
+            target_type=args.target,
+            compand=args.compand,
+            epochs=args.epochs,
+            n_data_points=args.num,
+            batch_size=args.batch,
+            lr_max=args.lrmax,
+            sr=args.sr,
+            scale_factor=args.scale,
+            shrink_factor=args.shrink,
+            dtype=args.dtype,
+            seed=args.seed,
+            device=getattr(args, "device", "cuda"),
+            in_checkpointname=args.checkpoint,
+            out_checkpointname=getattr(args, "out_checkpoint", None) or args.checkpoint,
+            cp_every=getattr(args, "cp_every", 25),
+        )
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def train_from_config(cfg: RunConfig, effect=None):
+    """Build the effect (on ``cfg.device``) and run ``train()`` from one
+    RunConfig; returns what ``train()`` returns."""
+    from .dsp import effects as fx
+    from .training import train as trainlib
+
+    if effect is None:
+        effect = fx.make_effect(cfg.effect_name, path=cfg.datapath, sr=cfg.sr, device=cfg.device)
+    return trainlib.train(
+        effect,
+        epochs=cfg.epochs,
+        n_data_points=cfg.n_data_points,
+        batch_size=cfg.batch_size,
+        cp_every=cfg.cp_every,
+        sr=cfg.sr,
+        scale_factor=cfg.scale_factor,
+        shrink_factor=cfg.shrink_factor,
+        lr_max=cfg.lr_max,
+        in_checkpointname=cfg.in_checkpointname,
+        out_checkpointname=cfg.out_checkpointname,
+        seed=cfg.seed,
+        status_every=cfg.status_every,
+        device=cfg.device,
+        compute_dtype=cfg.compute_dtype(),
+        datapath=cfg.datapath,
+        target_type=cfg.target_type,
+        compand=cfg.compand,
+    )

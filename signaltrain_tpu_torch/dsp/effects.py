@@ -25,12 +25,17 @@ masks its echoes against ``max_echoes = ceil(knob_ranges[2, 1])``.
 
 Tensors are processed on their own device; numpy input goes to the effect's
 ``device`` (default ``"cuda"``). ``make_effect`` builds every name the JAX
-package registers but ``files`` (file datasets are not ported yet).
+package registers; ``files`` is ``FileEffect``, the knob metadata of a
+dataset directory (``effect_info.ini``), whose audio comes from its files.
 """
 
 from __future__ import annotations
 
+import ast
+import configparser
+import glob
 import math
+import os
 
 import numpy as np
 import torch
@@ -321,7 +326,45 @@ class LowPass(Effect):
         return iir.lfilter(b, a, x), x
 
 
-# The effect names the CLIs accept: the JAX package's registry but "files"
+class FileEffect(Effect):
+    """The metadata of a pre-recorded file dataset: ``<path>/effect_info.ini``
+    (the effect's name, ``knob_names`` and ``knob_ranges`` as Python
+    literals, an optional ``inverse`` flag) beside ``Train/`` and ``Val/``
+    directories of ``target_*`` files. Its name is the ini's plus
+    "(files)", "De-" before it when ``inverse`` is set to any non-empty
+    value. It has no signal path: the targets are the files."""
+
+    def __init__(self, path: str, sr: float = 44100.0, device: str | torch.device = "cuda"):
+        super().__init__(sr, device)
+        print("  FileEffect: path = ", path)
+        if (
+            (path is None)
+            or (not glob.glob(os.path.join(path, "Train", "target*")))
+            or (not glob.glob(os.path.join(path, "Val", "target*")))
+            or (not glob.glob(os.path.join(path, "effect_info.ini")))
+        ):
+            raise FileNotFoundError(
+                f"can't find target output files or effect_info.ini in path = {path}"
+            )
+        config = configparser.ConfigParser()
+        config.read(os.path.join(path, "effect_info.ini"))
+        self.name = config["effect"]["name"] + "(files)"
+        self.knob_names = ast.literal_eval(config.get("effect", "knob_names"))
+        self.knob_ranges = np.array(ast.literal_eval(config.get("effect", "knob_ranges")),
+                                    dtype=np.float32)
+        try:
+            if bool(config["effect"]["inverse"]):
+                self.is_inverse = True
+                self.name = "De-" + self.name
+        except KeyError:
+            pass
+
+    def _apply(self, x, wc, generator):
+        raise NotImplementedError(
+            f"{self.name} has no signal path: a file dataset's targets are its files")
+
+
+# The effect names the CLIs accept ("files" is FileEffect, built from a path)
 EFFECTS = {
     "comp": Compressor,
     "comp_4c": Compressor_4c,
@@ -338,10 +381,12 @@ EFFECTS = {
 }
 
 
-def make_effect(name: str, sr: float = 44100.0, device: str | torch.device = "cuda") -> Effect:
-    """Construct an effect by CLI name."""
+def make_effect(name: str, path: str | None = None, sr: float = 44100.0,
+                device: str | torch.device = "cuda") -> Effect:
+    """Construct an effect by CLI name; ``files`` reads ``path``'s
+    ``effect_info.ini`` (``FileEffect``)."""
     if name == "files":
-        raise ValueError("Effect option 'files': file datasets are not ported yet")
+        return FileEffect(path, sr=sr, device=device)
     if name not in EFFECTS:
         raise ValueError(f"Effect option '{name}' is not yet added")
     return EFFECTS[name](sr=sr, device=device)

@@ -15,6 +15,12 @@ graph:
   replayed once a step.
 * ``EvalGraph`` captures one validation batch (``val_batch_fn`` and
   ``eval_step_from_arrays``) and is replayed once a batch.
+* ``ArraysTrainGraph`` and ``ArraysEvalGraph`` are the counterparts of
+  ``make_train_step_from_arrays`` / ``make_eval_step_from_arrays`` (one step
+  a device call), for a file corpus sampled on the host: the captured step
+  reads static (x, y, knobs) buffers on the card, and before each replay the
+  host copies the next batch into them on the same stream (a prefetched
+  batch asynchronously from pinned memory).
 
 Between two replays the host reseeds the generator for the step
 (``synth_data.step_generator`` / ``val_step_generator``) and, for a train
@@ -63,12 +69,15 @@ def _append(buffer: torch.Tensor, value: torch.Tensor) -> None:
 class _Graph:
     """``body()`` as one CUDA graph: the first call runs it on a side stream
     (the warm-up) and captures it; every later call replays it and adds its
-    launch counts. ``generator`` is the one ``body`` draws from."""
+    launch counts. ``generator`` is the one ``body`` draws from, if it draws;
+    else ``device`` names the card."""
 
-    def __init__(self, body, generator: torch.Generator):
-        dev = generator.device
+    def __init__(self, body, generator: torch.Generator | None = None,
+                 device: torch.device | None = None):
+        dev = generator.device if generator is not None else torch.device(device)
         if dev.type != "cuda":
-            raise ValueError(f"a CUDA graph needs a CUDA generator, got one on {dev}")
+            what = "generator" if generator is not None else "device"
+            raise ValueError(f"a CUDA graph needs a CUDA {what}, got one on {dev}")
         self.body = body
         self.generator = generator
         self.device = dev
@@ -95,7 +104,8 @@ class _Graph:
             self.body()
         torch.cuda.current_stream(self.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
         counted = _cuda.launch_counts()
         with torch.cuda.graph(graph, stream=stream):
             self.body()
@@ -170,4 +180,67 @@ class EvalGraph:
         for v in range(self.n_batches):
             synth_data.val_step_generator(self.generator, v)
             self.graph()
+        return self.losses.clone(), self.maes.clone()
+
+
+class ArraysTrainGraph:
+    """``model``'s train step on given batches as a CUDA graph (the
+    counterpart of ``make_train_step_from_arrays``): ``self(step0, n)`` runs
+    steps step0 .. step0 + n - 1 at ``lr_fn(step)``, each on the batch
+    ``next_batch()`` returns (a ``file_data.HostBatch``, copied into the
+    graph's static buffers on the current stream and its slot given back),
+    and returns their (n,) losses on the card, bit-equal to
+    ``train.host_steps`` on the same batches. ``shapes`` are those of (x, y,
+    knobs). The first step run is the capture's warm-up."""
+
+    def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, shapes,
+                 capacity: int):
+        dev = next(model.parameters()).device
+        self.model, self.opt, self.lr_fn, self.next_batch = model, opt, lr_fn, next_batch
+        self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
+        self.losses = torch.zeros(capacity, dtype=torch.float32, device=dev)
+        self.graph = _Graph(self._body, device=dev)
+
+    def _body(self) -> None:
+        _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *self.buffers))
+
+    def __call__(self, step0: int, n: int) -> torch.Tensor:
+        if not 1 <= n <= self.losses.numel():
+            raise ValueError(f"ArraysTrainGraph: {n} steps, capacity {self.losses.numel()}")
+        for step in range(step0, step0 + n):
+            self.next_batch().copy_into(self.buffers)
+            train_mod.set_lr(self.opt, self.lr_fn(step))
+            self.graph()
+        return self.losses[-n:].clone()
+
+
+class ArraysEvalGraph:
+    """One validation batch on given arrays as a CUDA graph (the counterpart
+    of ``make_eval_step_from_arrays``): ``self(batches)`` runs it on each
+    numpy (x, y, knobs) of ``batches`` (n_batches of them, copied into the
+    static buffers) and returns (losses, maes), each (n_batches,) on the
+    card, equal to ``train.host_validation``'s."""
+
+    def __init__(self, model: STModel, shapes, n_batches: int):
+        dev = next(model.parameters()).device
+        self.model, self.n_batches = model, n_batches
+        self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
+        self.losses = torch.zeros(n_batches, dtype=torch.float32, device=dev)
+        self.maes = torch.zeros(n_batches, dtype=torch.float32, device=dev)
+        self.graph = _Graph(self._body, device=dev)
+
+    def _body(self) -> None:
+        l, m, _ = train_mod.eval_step_from_arrays(self.model, *self.buffers)
+        _append(self.losses, l)
+        _append(self.maes, m)
+
+    def __call__(self, batches) -> tuple[torch.Tensor, torch.Tensor]:
+        count = 0
+        for arrays in batches:
+            for buf, a in zip(self.buffers, arrays):
+                buf.copy_(torch.from_numpy(a))
+            self.graph()
+            count += 1
+        if count != self.n_batches:
+            raise ValueError(f"ArraysEvalGraph: {count} batches, built for {self.n_batches}")
         return self.losses.clone(), self.maes.clone()

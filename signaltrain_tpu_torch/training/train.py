@@ -19,8 +19,17 @@ figures once a pass.
 ``train`` computes in ``compute_dtype``, bfloat16 by default as in the JAX
 package (its mixed precision: bf16 products with float32 accumulation in the
 front-end kernels and the autoencoders; parameters, Adam's state, the
-trigonometry and the loss in float32), or float32. Not ported: the JAX
-package's plots, background writer, file datasets and multi-device paths.
+trigonometry and the loss in float32), or float32.
+
+With ``datapath`` it trains on a file dataset (``data/file_data.py``) over
+``datapath/Train/`` and validates on ``datapath/Val/``. A corpus resident on
+the device (f32 or int16) goes through the same graphs as synthesized data,
+its batch function drawing from the step's generator. A host-resident
+corpus is sampled from ``numpy.random.default_rng(seed)`` on a prefetch
+thread and fed to ``graphs.ArraysTrainGraph`` (``host_steps`` on the CPU),
+and validated on batches from a fresh ``default_rng(7)`` each pass, as the
+JAX package does. Not ported: the JAX package's plots, background writer
+and multi-device paths.
 Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
@@ -33,6 +42,7 @@ import functools
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..data import synth_data
@@ -173,6 +183,29 @@ def eager_validation(model: STModel, val_batch_fn, batch_size: int, generator: t
     return torch.stack(losses), torch.stack(maes)
 
 
+def host_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, step0: int,
+               n: int) -> torch.Tensor:
+    """Steps step0 .. step0 + n - 1, each on the batch ``next_batch()`` gives
+    (a ``file_data.HostBatch``), dispatched one op at a time: the (n,)
+    losses on the device. The host tier's loop on the CPU, and the
+    reference ``graphs.ArraysTrainGraph`` is bit-equal to on the card."""
+    dev = next(model.parameters()).device
+    return torch.stack([train_step_from_arrays(model, opt, lr_fn, s, *next_batch().take(dev))
+                        for s in range(step0, step0 + n)])
+
+
+def host_validation(model: STModel, batches) -> tuple[torch.Tensor, torch.Tensor]:
+    """The validation pass over numpy (x, y, knobs) batches, op by op:
+    (losses, maes) on the device."""
+    dev = next(model.parameters()).device
+    losses, maes = [], []
+    for arrays in batches:
+        l, m, _ = eval_step_from_arrays(model, *(torch.from_numpy(a).to(dev) for a in arrays))
+        losses.append(l)
+        maes.append(m)
+    return torch.stack(losses), torch.stack(maes)
+
+
 def train(
     effect,
     epochs: int = 100,
@@ -189,10 +222,17 @@ def train(
     status_every: int = 10,
     device: str | torch.device = "cuda",
     compute_dtype: torch.dtype = torch.bfloat16,
+    datapath: str | None = None,
+    target_type: str = "stream",
+    compand: bool = False,
+    device_resident_limit_bytes: int = 4 << 30,
 ):
-    """Main training routine on synthesized data, computing in
-    ``compute_dtype`` (torch.bfloat16, the JAX package's default, or
-    torch.float32).
+    """Main training routine, computing in ``compute_dtype`` (torch.bfloat16,
+    the JAX package's default, or torch.float32), on data synthesized on the
+    device or, with ``datapath``, on the file dataset there (``target_type``
+    "chunk" re-runs ``effect`` on each cropped input; ``compand`` mu-law
+    companding; ``device_resident_limit_bytes`` the device budget that picks
+    the corpus's tier).
 
     Returns (model, history): the trained ``STModel`` and a dict of the
     per-step training losses (``train_loss``) and the per-epoch validation
@@ -238,17 +278,48 @@ def train(
         checkpoint.restore_optimizer(model, opt, rv["optax_state"], step0)
         print(f"Restored optimizer state at step {step0}.")
 
-    batch_fn = synth_data.make_synth_batch_fn(
-        effect, spec.in_chunk_size, spec.out_chunk_size, sr=sr, augment=True)
-    val_batch_fn = synth_data.make_synth_batch_fn(
-        effect, spec.in_chunk_size, spec.out_chunk_size, sr=sr, augment=False)
-    generator = torch.Generator(device=dev)
+    chunk, out_chunk = spec.in_chunk_size, spec.out_chunk_size
     steps_per_epoch = max(1, n_data_points // batch_size)
     val_steps = max(1, (n_data_points // 4) // batch_size)
     n_inner = pick_n_inner(steps_per_epoch, status_every)
+    host_data, prefetcher = False, None
+    if datapath is None:
+        batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
+        val_batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr,
+                                                      augment=False)
+    else:
+        from ..data import file_data
+
+        kw = dict(sr=sr, rerun=(target_type != "stream"), compand=compand,
+                  device_resident_limit_bytes=device_resident_limit_bytes)
+        train_ds = file_data.FileDataset(datapath + "/Train/", effect, chunk, out_chunk,
+                                         augment=True, **kw)
+        host_data = not train_ds.device_resident
+        if host_data:  # the validation set is sampled on the host too
+            kw["device_resident_limit_bytes"] = 0
+        val_ds = file_data.FileDataset(datapath + "/Val/", effect, chunk, out_chunk,
+                                       augment=False, **kw)
+        batch_fn, val_batch_fn = train_ds.batch_fn, val_ds.batch_fn
     if dev.type == "cuda":
         from . import graphs  # it builds on this module's steps
+    generator = torch.Generator(device=dev)
+    if host_data:
+        prefetcher = train_ds.prefetch_batches(batch_size, np.random.default_rng(seed))
+        shapes = [(batch_size, chunk), (batch_size, out_chunk), (batch_size, num_knobs)]
 
+        def val_batches():  # the frozen validation stream
+            vrng = np.random.default_rng(7)
+            return (val_ds.host_batch(batch_size, vrng) for _ in range(val_steps))
+
+        if dev.type == "cuda":
+            run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, prefetcher.next, shapes,
+                                                n_inner)
+            eval_graph = graphs.ArraysEvalGraph(model, shapes, val_steps)
+            validate = lambda: eval_graph(val_batches())
+        else:
+            run_steps = functools.partial(host_steps, model, opt, lr_fn, prefetcher.next)
+            validate = lambda: host_validation(model, val_batches())
+    elif dev.type == "cuda":
         run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
                                       n_inner)
         validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps)
@@ -281,39 +352,44 @@ def train(
                     end="",
                 )
 
-    for epoch in range(epochs):
-        print("")
-        for block in range(steps_per_epoch // n_inner):
-            report(run_steps(iter_count, n_inner), epoch, iter_count, block * n_inner * batch_size)
-            iter_count += n_inner
+    try:
+        for epoch in range(epochs):
+            print("")
+            for block in range(steps_per_epoch // n_inner):
+                report(run_steps(iter_count, n_inner), epoch, iter_count,
+                       block * n_inner * batch_size)
+                iter_count += n_inner
 
-        # ---- validation pass over the frozen batches, then the logs
-        model.eval()
-        losses_val, maes_val = validate()
-        model.train()
-        maes = maes_val.cpu().numpy()
-        for lv in losses_val.cpu().tolist():
-            vl_avg = beta * vl_avg + (1 - beta) * lv
-        val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
-        with open("vl_avg_out.dat", "a") as f:
-            f.write(f"{epoch + 1} {vl_avg:.3e}\n")
-        with open("val_err_mae.dat", "a") as f:
-            # col 2: last-batch MAE (the reference's format); col 3: the mean
-            # MAE over the whole validation pass
-            f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
-        history["val_loss"].append(vl_avg)
-        history["val_mae"].append(val_mae)
-        history["val_mae_mean"].append(val_mae_mean)
-        history["step"] = iter_count
+            # ---- validation pass over the frozen batches, then the logs
+            model.eval()
+            losses_val, maes_val = validate()
+            model.train()
+            maes = maes_val.cpu().numpy()
+            for lv in losses_val.cpu().tolist():
+                vl_avg = beta * vl_avg + (1 - beta) * lv
+            val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
+            with open("vl_avg_out.dat", "a") as f:
+                f.write(f"{epoch + 1} {vl_avg:.3e}\n")
+            with open("val_err_mae.dat", "a") as f:
+                # col 2: last-batch MAE (the reference's format); col 3: the
+                # mean MAE over the whole validation pass
+                f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
+            history["val_loss"].append(vl_avg)
+            history["val_mae"].append(val_mae)
+            history["val_mae_mean"].append(val_mae_mean)
+            history["step"] = iter_count
 
-        if ((epoch + 1) % cp_every == 0) or (epoch == epochs - 1):
-            checkpoint.save_checkpoint(out_checkpointname, model, effect, epoch,
-                                       optimizer=opt, step=iter_count)
+            if ((epoch + 1) % cp_every == 0) or (epoch == epochs - 1):
+                checkpoint.save_checkpoint(out_checkpointname, model, effect, epoch,
+                                           optimizer=opt, step=iter_count)
 
-        if epoch == 0:
-            secs_left = (time.time() - first_time) * (epochs - 1)
-            print(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
-                  f"on {time.ctime(time.time() + secs_left)}")
+            if epoch == 0:
+                secs_left = (time.time() - first_time) * (epochs - 1)
+                print(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
+                      f"on {time.ctime(time.time() + secs_left)}")
+    finally:
+        if prefetcher is not None:  # the producer thread ends with the run, or its error
+            prefetcher.close()
 
     print("\nTotal elapsed time for training loop =", time.time() - first_time)
     return model, history

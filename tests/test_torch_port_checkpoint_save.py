@@ -185,8 +185,7 @@ def test_run_train_cli(tmp_path, monkeypatch, capsys):
                     "--out-checkpoint", "out.tar"])
     assert os.path.exists("out.tar") and not os.path.exists("modelcheckpoint.tar")
     assert "Execution completed" in capsys.readouterr().out
-    for argv, word in ([["--path", "somewhere"], "--path"], [["--nmodel", "2"], "--nmodel"],
-                       [["-c"], "--compand"], [["--profile", "d"], "--profile"]):
+    for argv, word in ([["--nmodel", "2"], "--nmodel"], [["--profile", "d"], "--profile"]):
         with pytest.raises(SystemExit) as e:
             run_train.main(argv + ["--device", "cpu"])
         assert e.value.code == 1
@@ -198,6 +197,8 @@ def test_run_train_cli(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit):
         run_train.main(["--effect", "no_such_effect", "--device", "cpu"])
     assert "not yet added" in capsys.readouterr().out
-    with pytest.raises(SystemExit):  # file datasets
-        run_train.main(["--effect", "files", "--device", "cpu"])
-    assert "not ported yet" in capsys.readouterr().out
+    for path in ([], ["--path", str(tmp_path / "somewhere")]):  # no dataset there
+        with pytest.raises(SystemExit) as e:
+            run_train.main(["--effect", "files", "--device", "cpu"] + path)
+        assert e.value.code == 1
+        assert "can't find target output files" in capsys.readouterr().out

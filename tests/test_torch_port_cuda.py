@@ -844,3 +844,138 @@ def test_train_graph_of_a_random_effect_is_bit_equal_to_eager_steps(dev, name):
     for (pname, p), q in zip(gm.named_parameters(), em.parameters()):
         assert torch.equal(p, q), pname
     assert graph.graph.replays == 5
+
+
+# ---- file datasets (data/file_data.py, cli/gen_dataset.py) on the card
+
+def _file_dataset(root, pcm16=False, n_files=4, length=12000, seed=0):
+    """A small file dataset written with the port's audio_io: Train/ (and
+    Val/) pairs of ``length`` samples, comp_4c knobs in the target names."""
+    from signaltrain_tpu_torch.data import audio_io
+
+    rng = np.random.default_rng(seed)
+    knobs = ["__-10.5__3.25__0.005__0.02", "__-20.0__2.0__0.01__0.03"]
+    for sub in ("Train", "Val"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n_files):
+            x = (0.4 * rng.standard_normal(length)).astype(np.float32).clip(-1, 1)
+            y = np.tanh(2.0 * x).astype(np.float32)
+            if pcm16:
+                x, y = audio_io.to_pcm16(x), audio_io.to_pcm16(y)
+            audio_io.write_audio_file(os.path.join(root, sub, f"input_{i}_.wav"), x)
+            audio_io.write_audio_file(
+                os.path.join(root, sub, f"target_{i}_Compressor_4c{knobs[i % 2]}.wav"), y)
+    return str(root)
+
+
+@pytest.mark.parametrize("tier", ["f32", "int16", "f32_chunk"])
+def test_file_batch_graph_is_bit_equal_to_eager_steps(dev, tmp_path, tier):
+    """The file batch function captured in a TrainGraph (tiers f32 and int16,
+    and f32 under -t chunk, kernel C inside the step): 6 steps (the warm-up,
+    then 5 replays) against 6 eager steps, losses, weights and the batches of
+    steps 0 and 5 bit-equal; on 16-bit files the int16 tier's batches equal
+    the f32 tier's."""
+    from signaltrain_tpu_torch.data import file_data, synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    path = os.path.join(_file_dataset(tmp_path, pcm16=tier == "int16"), "Train")
+    (gm, em), ((gopt, lr_fn), (eopt, _)), _, _ = _graph_setup(dev, "fused", BF16)
+    effect = effects.Compressor_4c(device=dev)
+    ds = file_data.FileDataset(path, effect, 8192, 2048, rerun=tier == "f32_chunk")
+    if tier == "int16":
+        ds32 = ds
+        ds = file_data.FileDataset(path, effect, 8192, 2048,
+                                   device_resident_limit_bytes=2 * 4 * 12000 * 4 - 1)
+        assert ds.device_resident_int16 and ds.x.dtype == torch.int16
+        g1, g2 = torch.Generator(device=dev), torch.Generator(device=dev)
+        for step in (0, 1, 19):
+            for a, b in zip(ds.batch_fn(GRAPH_BATCH, synth_data.step_generator(g1, 218, step)),
+                            ds32.batch_fn(GRAPH_BATCH, synth_data.step_generator(g2, 218, step))):
+                assert torch.equal(a, b), step
+    graph = graphs.TrainGraph(gm, gopt, lr_fn, ds.batch_fn, GRAPH_BATCH,
+                              torch.Generator(device=dev), 218, capacity=6)
+    eg = torch.Generator(device=dev)
+    _cuda.reset_counts()
+    got = []
+    for step in range(6):
+        got.append(graph(step, 1))
+        if step in (0, 5):
+            want = ds.batch_fn(GRAPH_BATCH, synth_data.step_generator(eg, 218, step))
+            for a, b in zip(graph.batch, want):
+                assert torch.equal(a, b), step
+    assert (graph.graph.counts.get("switched_one_pole", 0) == 1) == (tier == "f32_chunk")
+    want = train_mod.eager_steps(em, eopt, lr_fn, ds.batch_fn, GRAPH_BATCH, eg, 218, 0, 6)
+    assert torch.equal(torch.cat(got), want)
+    for (pname, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), pname
+    assert graph.graph.replays == 5
+
+
+def test_arrays_graphs_on_prefetched_batches_equal_eager(dev, tmp_path):
+    """The host tier: ArraysTrainGraph fed by the prefetcher (pinned ring,
+    asynchronous copies) against host_steps on a second prefetcher of the
+    same rng, 8 steps (more than the ring's slots), losses and weights
+    bit-equal; ArraysEvalGraph against host_validation on the same batches."""
+    from signaltrain_tpu_torch.data import file_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    path = _file_dataset(tmp_path)
+    (gm, em), ((gopt, lr_fn), (eopt, _)), _, _ = _graph_setup(dev, "fused", BF16)
+    ds = file_data.FileDataset(path + "/Train", effects.Compressor_4c(device=dev), 8192, 2048,
+                               device_resident_limit_bytes=1)
+    assert not ds.device_resident
+    shapes = [(GRAPH_BATCH, 8192), (GRAPH_BATCH, 2048), (GRAPH_BATCH, 4)]
+    pg = ds.prefetch_batches(GRAPH_BATCH, np.random.default_rng(3))
+    pe = ds.prefetch_batches(GRAPH_BATCH, np.random.default_rng(3))
+    try:
+        graph = graphs.ArraysTrainGraph(gm, gopt, lr_fn, pg.next, shapes, capacity=4)
+        got = torch.cat([graph(0, 4), graph(4, 4)])
+        want = train_mod.host_steps(em, eopt, lr_fn, pe.next, 0, 8)
+    finally:
+        pg.close()
+        pe.close()
+    assert torch.equal(got, want) and graph.graph.replays == 7
+    for (pname, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), pname
+    gm.eval()
+    batches = [ds.host_batch(GRAPH_BATCH, np.random.default_rng(7)) for _ in range(3)]
+    evals = graphs.ArraysEvalGraph(gm, shapes, 3)
+    for _ in range(2):
+        losses, maes = evals(iter(batches))
+        want_l, want_m = train_mod.host_validation(gm, batches)
+        assert torch.equal(losses, want_l) and torch.equal(maes, want_m)
+
+
+@pytest.mark.parametrize("effect_name", ["comp_4c", "comp"])
+def test_gen_dataset_on_card_matches_cpu(dev, tmp_path, monkeypatch, effect_name):
+    """gen_dataset --device cuda against --device cpu on a tiny set: the same
+    names and .ini; each target the CPU effect (the plain versions) on the
+    card's own input within its EFFECT_TOL; kernel C (comp_4c) or L (comp)
+    launched on whole files and no plain version run."""
+    from signaltrain_tpu_torch.cli import gen_dataset
+    from signaltrain_tpu_torch.data import audio_io, file_data
+    from signaltrain_tpu_torch.dsp import effects
+    from tests.torch_port_util import assert_effect_close
+
+    monkeypatch.chdir(tmp_path)
+    args = ["--dur", "0.5", "-n", "10", "-e", effect_name, "--device-batch", "4"]
+    _cuda.reset_counts()
+    stats = gen_dataset.main(["card"] + args)
+    counts = {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+    gen_dataset.main(["cpu"] + args + ["--device", "cpu"])
+    kernel = "switched_one_pole" if effect_name == "comp_4c" else "lfilter"
+    assert counts[kernel][0] == 3 and all(p == 0 for _, p in counts.values()), counts
+    assert stats["card_ms_per_batch"] > 0 and len(stats["card_ms_batches"]) == 3
+    for sub in ("Train", "Val"):
+        assert sorted(os.listdir(f"card/{sub}")) == sorted(os.listdir(f"cpu/{sub}"))
+    assert open("card/effect_info.ini").read() == open("cpu/effect_info.ini").read()
+    cpu_fx = effects.make_effect(effect_name, device="cpu")
+    for f in [f for f in os.listdir("card/Train") if f.startswith("target_")]:
+        x, _ = audio_io.read_audio_file(f"card/Train/input_{f.split('_')[1]}_.wav")
+        y, _ = audio_io.read_audio_file(f"card/Train/{f}")
+        want, _ = cpu_fx.go_wc(x, file_data.parse_knob_string(f))
+        assert_effect_close(effect_name, y, want)

@@ -87,6 +87,21 @@ def test_training_entry_points_need_cuda_or_an_explicit_cpu(capsys):
     with pytest.raises(SystemExit) as e:  # the CLI's default device is the card too
         run_train.main(["--epochs", "1", "-n", "8", "-b", "8"])
     assert e.value.code == 1 and "device='cpu'" in capsys.readouterr().out
+    # the file datasets' entry points: the dataset tool, the file effect, the run config
+    from signaltrain_tpu_torch import config
+    from signaltrain_tpu_torch.cli import gen_dataset
+
+    with pytest.raises(SystemExit) as e:
+        gen_dataset.main([str(REPO / "build" / "never_written"), "-n", "1"])
+    assert e.value.code == 1 and "device='cpu'" in capsys.readouterr().out
+    assert not (REPO / "build" / "never_written").exists()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        effects.make_effect("files", path=str(REPO / "demo"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        config.train_from_config(config.RunConfig(epochs=1, n_data_points=8, batch_size=8))
+    with pytest.raises(SystemExit) as e:
+        run_train.main(["--path", str(REPO / "demo"), "-e", "files"])
+    assert e.value.code == 1 and "device='cpu'" in capsys.readouterr().out
 
 
 def test_every_port_directory_is_a_discovered_package():

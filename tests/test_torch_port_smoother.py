@@ -138,7 +138,9 @@ def test_mu_law_matches_jax():
 def test_make_effect():
     """Every name the JAX package registers but "files" builds the port's
     counterpart, with the JAX effect's name, knobs, ranges and is_inverse;
-    "files" (file datasets) and an unknown name raise."""
+    "files" without a dataset directory raises FileNotFoundError, as the JAX
+    package's does (tests/test_torch_port_file_data.py builds it on one), and
+    an unknown name raises ValueError."""
     names = set(jeffects.EFFECTS)
     assert set(effects.EFFECTS) == names
     for name in names:
@@ -148,9 +150,12 @@ def test_make_effect():
         assert fx.name == jfx.name and fx.knob_names == jfx.knob_names, name
         np.testing.assert_array_equal(fx.knob_ranges, jfx.knob_ranges)
         assert fx.knob_ranges.dtype == np.float32 and fx.is_inverse == jfx.is_inverse, name
-    for name in ("files", "no_such_effect"):
-        with pytest.raises(ValueError):
-            effects.make_effect(name, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        jeffects.make_effect("files")
+    with pytest.raises(FileNotFoundError):
+        effects.make_effect("files", device="cpu")
+    with pytest.raises(ValueError):
+        effects.make_effect("no_such_effect", device="cpu")
 
 
 KNOBS_WC = (-25.0, 4.0, 0.005, 0.02)  # the serving path's comp_4c knobs
