@@ -151,6 +151,30 @@ Phases (any failure raises and exits non-zero):
      Then each tier's loop (synthetic comp_4c, f32, int16, host, chunk) under
      CUDA graphs in turns: ms a step [least, most], examples/s, card busy ms
      and the gap.
+  7. train()'s whole surface at the flagship geometry, batch 200, bf16,
+     comp_4c, 3 epochs x 20 steps, lr_max 2e-4, phase 4's seed, each part in
+     a temporary directory: 7a train() with make_plots (plot_every 3) and a
+     checkpoint every epoch on the background writer, inside
+     utils/profiling.trace, counted: its losses, validation figures and
+     final weights bit-equal to phase 4's bf16 run, 50 val_data_*.png and
+     the six spectrogram and weight images, the checkpoint loaded strict and
+     equal to the final weights, both .dat logs equal to the history, A-E
+     (bf16) and C launched and no plain version run, the trace naming A-E;
+     7b from the trace's second train_block (20 replays) the card's ms a
+     step in five groups by each replay's kernel order (data synthesis, the
+     front-end kernels, the autoencoders, the loss, clip + Adam) and the ten
+     kernels of most time; 7c train() in turns, two turns each, 3 epochs of
+     60 steps and 15 validation batches: its defaults (status every 10
+     batches, 30 steps a fetch), a status cadence that does not divide the
+     epoch (a fetch a step, read one step behind), the 50 validation plots
+     every epoch, a checkpoint every epoch; epoch 2's wall time a step
+     (ST_TPU_TIMING), least and most, the gaps to the defaults, and phase
+     4's bf16 epoch 2 beside them; 7d cli.lr_finder -b 200 --npoints 8 --trials 2 on
+     the card, counted: 8 finite rows in lrfind.dat, lrfind.png, A-E and C
+     launched, no plain version; 7e a model with dropout_rate 0.2 (its
+     biases moved off zero) run twice with deterministic=False from one
+     generator seed: bit-equal, whole (example, bin) rows dropped, the kept
+     share within 3 sigma of 0.8.
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -640,7 +664,7 @@ def train_every_effect(dev, results: dict, chunk: int, out_chunk: int, sr: int) 
                 model, hist = train_mod.train(
                     effect, epochs=1, n_data_points=EFFECT_POINTS, batch_size=TRAIN_BATCH,
                     cp_every=1, sr=sr, lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev,
-                    compute_dtype=BF16)
+                    compute_dtype=BF16, make_plots=False)
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
@@ -940,7 +964,8 @@ def train_and_replay(dev, tag: str, effect, datapath: str, epochs: int, limit: i
         (model, hist), counts = counted(lambda: in_dir(tmp, lambda: train_mod.train(
             effect, epochs=epochs, n_data_points=points, batch_size=TRAIN_BATCH, cp_every=epochs,
             sr=sr, lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16,
-            datapath=datapath, target_type=target_type, device_resident_limit_bytes=limit)))
+            datapath=datapath, target_type=target_type, device_resident_limit_bytes=limit,
+            make_plots=False)))
         seconds = time.perf_counter() - t0
         ckpt = open(os.path.join(tmp, "modelcheckpoint.tar"), "rb").read()
     for k in BF16_NAMES:
@@ -1165,6 +1190,294 @@ def file_datasets(dev, results: dict, sr: int, smi: str) -> dict:
         report["loop"] = timing
         report["seconds"] = time.perf_counter() - t_phase
     print(json.dumps({"file_datasets": report}))
+    return report
+
+
+# ---- phase 7: train()'s whole surface (plots, the background writer,
+# --profile, the fetches one block and one epoch behind, lr_finder, dropout)
+SURFACE_POINTS = 3 * TRAIN_POINTS  # 7c: 60 steps an epoch, 15 validation batches
+SURFACE_STEPS = SURFACE_POINTS // TRAIN_BATCH
+# 7c's loops, each otherwise train()'s defaults (status every 10 batches: 30
+# steps a fetch; plots every 10 epochs; a checkpoint every 25): the defaults;
+# a status cadence that does not divide the epoch (a fetch a step); the 50
+# validation plots every epoch; a checkpoint every epoch
+SURFACE_LOOPS = {"default": {}, "ragged": dict(status_every=7), "plots": dict(plot_every=1),
+                 "checkpoints": dict(cp_every=1)}
+# the kernels of the front-end's libraries (csrc/frontend.cu, frontend_bwd.cu,
+# tc_product.cuh), by base name: a train step launches them in four runs, A, B, E, D
+FRONTEND_KERNELS = {"product", "spectrum_rows", "overlap_add", "halve_to_bf16", "pack_weights",
+                    "pack_transposed", "pad_dout", "synthesis_adjoint", "sum_analysis_partials",
+                    "sum_synthesis_partials"}
+# a name each of A-E launches and nothing else does (the template argument of
+# A's and D's and E's products, B's first pass, C's row schedule)
+KERNEL_MARKS = {"A": "AnalysisFwd", "B": "spectrum_rows", "C": "smoother_kernel",
+                "D": "AnalysisDspec", "E": "SynthesisDspec"}
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+DROPOUT_RATE = 0.2
+
+
+def timed(fn):
+    """(fn(), {epoch: {bucket: seconds}}, stdout): fn() with ST_TPU_TIMING=1,
+    its per-epoch timing lines (stderr) parsed and its stdout kept aside."""
+    import contextlib
+    import io
+    import re
+
+    err, out = io.StringIO(), io.StringIO()
+    os.environ["ST_TPU_TIMING"] = "1"
+    try:
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+            result = fn()
+    finally:
+        del os.environ["ST_TPU_TIMING"]
+    epochs = {}
+    for m in re.finditer(r"\[timing\] epoch (\d+): total=([\d.]+)s (.*)", err.getvalue()):
+        buckets = dict(kv.split("=") for kv in m.group(3).split())
+        epochs[int(m.group(1))] = {"total": float(m.group(2)),
+                                   **{k: float(v) for k, v in buckets.items()}}
+    return result, epochs, out.getvalue()
+
+
+def kernel_base(name: str) -> str:
+    """A kernel's function name without namespaces, template arguments or
+    parameters."""
+    import re
+
+    n = re.sub(r"^void\s+", "", name.replace("(anonymous namespace)::", ""))
+    return re.split(r"[<(]", n, 1)[0].split("::")[-1].strip()
+
+
+def block_split(trace_path: str, steps: int, block: int = 1) -> dict:
+    """The card's time a step in one ``train_block`` of a torch.profiler
+    trace of train() (the ``block``-th, all graph replays), in five groups
+    by each replay's kernel order: its device events grouped by the
+    correlation of their cudaGraphLaunch, the front-end's library kernels in
+    four runs (A, the autoencoders, B, the loss, E, the autoencoders' backward,
+    D), data synthesis before the first run, clip + Adam after the last. The
+    front-end's weight stacking and its backward (plain torch copies) fall in
+    the groups beside its runs. Returns ms a step by group, kernels a step by
+    group, and the ten kernels of most time."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    blocks = sorted((e for e in events if e.get("name") == "train_block"
+                     and e.get("cat") == "user_annotation"), key=lambda e: e["ts"])
+    check(len(blocks) > block, f"trace: {len(blocks)} train_block ranges")
+    t0, t1 = blocks[block]["ts"], blocks[block]["ts"] + blocks[block]["dur"]
+    launches = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e.get("name", "")
+                and t0 <= e["ts"] <= t1}
+    check(len(launches) == steps, f"trace: {len(launches)} graph launches in the block, not {steps}")
+    replays = {}
+    for e in events:
+        if e.get("cat") in DEVICE_EVENTS and e.get("args", {}).get("correlation") in launches:
+            replays.setdefault(e["args"]["correlation"], []).append(e)
+    check(len(replays) == steps, f"trace: device events of {len(replays)} replays, not {steps}")
+    groups = ("data_synthesis", "frontend_kernels", "autoencoders", "loss", "clip_adam")
+    ms = dict.fromkeys(groups, 0.0)
+    kernels = dict.fromkeys(groups, 0)
+    by_name = {}
+    for evs in replays.values():
+        evs.sort(key=lambda e: e["ts"])
+        lib = [kernel_base(e["name"]) in FRONTEND_KERNELS for e in evs]
+        starts = [i for i in range(len(evs)) if lib[i] and (i == 0 or not lib[i - 1])]
+        ends = [i for i in range(len(evs)) if lib[i] and (i + 1 == len(evs) or not lib[i + 1])]
+        check(len(starts) == 4, f"trace: a replay's front-end kernels in {len(starts)} runs, not 4: "
+              + ", ".join(kernel_base(e["name"]) for e in evs if kernel_base(e["name"])
+                          in FRONTEND_KERNELS))
+        for i, e in enumerate(evs):
+            if lib[i]:
+                g = "frontend_kernels"
+            elif i < starts[0]:
+                g = "data_synthesis"
+            elif i > ends[3]:
+                g = "clip_adam"
+            elif ends[1] < i < starts[2]:
+                g = "loss"
+            else:
+                g = "autoencoders"
+            ms[g] += e["dur"] / 1e3 / steps
+            kernels[g] += 1
+            key = kernel_base(e["name"]) or e["name"]
+            t, c = by_name.get(key, (0.0, 0))
+            by_name[key] = (t + e["dur"] / 1e3 / steps, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"ms_a_step": ms, "total_ms_a_step": sum(ms.values()),
+            "kernels_a_step": {g: c / steps for g, c in kernels.items()},
+            "top_kernels": [{"name": k, "ms_a_step": t, "launches_a_step": c / steps}
+                            for k, (t, c) in top]}
+
+
+def train_surface(dev, results: dict, sr: int, smi: str, phase4: dict) -> dict:
+    """Phase 7 (module docstring): 7a train() with plots, the writer and
+    --profile, bit-equal to phase 4's bf16 run; 7b the card's split of a step
+    from its trace; 7c the loop's ms a step by fetch cadence and with the
+    whole surface on; 7d lr_finder; 7e dropout."""
+    from signaltrain_tpu_torch.cli import lr_finder
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.training import train as train_mod
+    from signaltrain_tpu_torch.utils import profiling
+    from signaltrain_tpu_torch.utils.load_model import load_model
+
+    t_phase = time.perf_counter()
+    report = {}
+    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+    kw = dict(batch_size=TRAIN_BATCH, sr=sr, lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev,
+              compute_dtype=BF16)
+    kernel_names = BF16_NAMES + ["switched_one_pole"]
+
+    # ---- 7a: the default run (phase 4's bf16 one) with plots, a checkpoint
+    # an epoch on the writer, inside the profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            with profiling.trace(os.path.join(tmp, "trace")):
+                return train_mod.train(effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS,
+                                       cp_every=1, plot_every=3, make_plots=True, **kw)
+
+        t0 = time.perf_counter()
+        ((model, hist), epochs, _), counts = counted(lambda: in_dir(tmp, lambda: timed(run)))
+        report["7a_seconds"] = time.perf_counter() - t0
+        check(hist["train_loss"] == phase4["hist"]["train_loss"],
+              "7a: train() with its surface differs from phase 4's bf16 run in the losses")
+        for key in ("val_loss", "val_mae", "val_mae_mean", "step"):
+            check(hist[key] == phase4["hist"][key], f"7a: history {key} differs from phase 4's")
+        check(all(torch.equal(v, phase4["weights"][k]) for k, v in model.state_dict().items()),
+              "7a: the final weights differ from phase 4's bf16 run")
+        names = os.listdir(tmp)
+        check(sorted(n for n in names if n.startswith("val_data_"))
+              == sorted(f"val_data_{i}.png" for i in range(50)), "7a: not 50 val_data_*.png")
+        check({"mag.png", "mag_hat.png", "conv_anal_real.png", "conv_anal_imag.png",
+               "conv_synth_real.png", "conv_synth_imag.png"} <= set(names),
+              "7a: a spectrogram or weight image is missing")
+        served, rv = load_model(os.path.join(tmp, "modelcheckpoint.tar"), device=dev,
+                                compute_dtype=BF16)  # strict inside
+        check(rv["optax_step"] == len(hist["train_loss"]) and rv["epoch"] == TRAIN_EPOCHS,
+              "7a: the checkpoint's step or epoch")
+        check(all(torch.equal(a, b) for a, b in zip(served.state_dict().values(),
+                                                   model.state_dict().values())),
+              "7a: the checkpoint's weights are not the final ones")
+        vl = [ln.split() for ln in open(os.path.join(tmp, "vl_avg_out.dat")).read().splitlines()]
+        mae = [ln.split() for ln in open(os.path.join(tmp, "val_err_mae.dat")).read().splitlines()]
+        check(vl == [[str(e + 1), f"{v:.3e}"] for e, v in enumerate(hist["val_loss"])],
+              "7a: vl_avg_out.dat differs from history")
+        check(mae == [[str(e + 1), f"{a:.3e}", f"{b:.3e}"] for e, (a, b) in
+                      enumerate(zip(hist["val_mae"], hist["val_mae_mean"]))],
+              "7a: val_err_mae.dat differs from history")
+        for k in kernel_names:
+            check(counts[k][0] > 0, f"7a: kernel {k} never launched")
+            results[k]["launches_surface"] = counts[k][0]
+        no_plain(counts, "7a")
+        traces = sorted(os.listdir(os.path.join(tmp, "trace")))
+        check(len(traces) == 1, f"7a: trace files {traces}")
+        trace_path = os.path.join(tmp, "trace", traces[0])
+        text = open(trace_path).read()
+        missing = [k for k, mark in KERNEL_MARKS.items() if mark not in text]
+        check(not missing, f"7a: the trace names no kernel of {missing}")
+        report["7a_trace_mb"] = len(text) / 2**20
+        report["7a_epoch_ms_a_step"] = {e: v["total"] * 1e3 / (TRAIN_POINTS // TRAIN_BATCH)
+                                        for e, v in epochs.items()}
+        # ---- 7b: the card's time a step, split, from the second block
+        report["7b"] = block_split(trace_path, TRAIN_POINTS // TRAIN_BATCH)
+    b = report["7b"]
+    print(f"7a: train() with plots (plot_every 3), a checkpoint an epoch on the writer and the "
+          f"profiler: bit-equal to phase 4's bf16 run; 50 val_data plots and 6 images; the "
+          f"checkpoint strict; trace {report['7a_trace_mb']:.1f} MB naming A-E; "
+          f"{report['7a_seconds']:.2f} s")
+    print(f"7b: card ms a step (one block of {TRAIN_POINTS // TRAIN_BATCH} replays, bf16, batch "
+          f"{TRAIN_BATCH}): " + ", ".join(f"{g} {v:.4f} ({b['kernels_a_step'][g]:.0f} kernels)"
+                                          for g, v in b["ms_a_step"].items())
+          + f"; total {b['total_ms_a_step']:.4f} ms on {smi}")
+    print("7b: top kernels, ms a step: " + "; ".join(
+        f"{k['name'][:60]} {k['ms_a_step']:.4f} ({k['launches_a_step']:.0f})"
+        for k in b["top_kernels"]))
+
+    # ---- 7c: ms a step by cadence, in turns (each train() in its own
+    # directory; epoch 2's wall time over its 60 steps and 15 validation
+    # batches: the steady epoch, its graphs captured in epoch 1)
+    runs, buckets = {way: [] for way in SURFACE_LOOPS}, {}
+    for way in ("default", "ragged", "plots", "checkpoints", "checkpoints", "plots", "ragged",
+                "default"):
+        with tempfile.TemporaryDirectory() as tmp:
+            (_, h), epochs, _ = in_dir(tmp, lambda: timed(lambda: train_mod.train(
+                effect, epochs=3, n_data_points=SURFACE_POINTS, **{**kw, **SURFACE_LOOPS[way]})))
+            check(len(h["train_loss"]) == 3 * SURFACE_STEPS, f"7c {way}: step count")
+            runs[way].append(epochs[2]["total"] * 1e3 / SURFACE_STEPS)
+            buckets[way] = epochs[2]  # the last turn's epoch 2, seconds by bucket
+    loops = {way: {"ms_a_step": sum(v) / len(v), "min_max": [min(v), max(v)],
+                   "n_inner": train_mod.pick_n_inner(
+                       SURFACE_STEPS, SURFACE_LOOPS[way].get("status_every", 10)),
+                   "epoch2_seconds": buckets[way]}
+             for way, v in runs.items()}
+    base = loops["default"]["ms_a_step"]
+    for v in loops.values():
+        v["gap_vs_default"] = v["ms_a_step"] / base - 1
+    p4 = phase4["epochs"][2]["total"] * 1e3 / (TRAIN_POINTS // TRAIN_BATCH)
+    loops["phase4_bf16_epoch2_ms_a_step"] = p4
+    loops["default_vs_phase4"] = base / p4 - 1
+    report["7c"] = loops
+    for way in SURFACE_LOOPS:
+        v = loops[way]
+        print(f"7c: {way} (n_inner {v['n_inner']}, {SURFACE_LOOPS[way] or 'the defaults'}): "
+              f"{v['ms_a_step']:.4f} ms a step [{v['min_max'][0]:.4f}, {v['min_max'][1]:.4f}], "
+              f"{v['gap_vs_default']:+.2%} against the defaults; epoch 2 in s: "
+              + " ".join(f"{k} {t:.4f}" for k, t in v["epoch2_seconds"].items()) + f" on {smi}")
+    print(f"7c: phase 4's bf16 train() in its epoch 2: {p4:.4f} ms a step (20 steps, 5 validation "
+          f"batches); the defaults at 60 steps {loops['default_vs_phase4']:+.2%} against it")
+
+    # ---- 7d: lr_finder on the card, counted
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (_, _, _), counts = counted(lambda: in_dir(tmp, lambda: timed(lambda: lr_finder.main(
+            ["-b", str(TRAIN_BATCH), "--npoints", "8", "--trials", "2", "--sr", str(sr),
+             "--device", str(dev)]))))
+        seconds = time.perf_counter() - t0
+        found = np.loadtxt(os.path.join(tmp, "lrfind.dat"))
+        check(found.shape == (8, 2) and bool(np.all(np.isfinite(found))),
+              f"7d: lrfind.dat {found.shape}, finite {bool(np.all(np.isfinite(found)))}")
+        check(os.path.isfile(os.path.join(tmp, "lrfind.png")), "7d: no lrfind.png")
+    for k in kernel_names:
+        check(counts[k][0] > 0, f"7d: kernel {k} never launched")
+        results[k]["launches_lr_finder"] = counts[k][0]
+    no_plain(counts, "7d")
+    report["7d"] = {"seconds": seconds, "losses": found[:, 1].tolist()}
+    print(f"7d: lr_finder -b {TRAIN_BATCH} --npoints 8 --trials 2 on the card, {seconds:.2f} s: "
+          f"losses {[f'{v:.3e}' for v in found[:, 1]]}")
+
+    # ---- 7e: dropout on the card, twice from one generator seed
+    # float32: a bf16 product rounds to an exact zero now and then, as a drop does
+    m = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                 compute_dtype=torch.float32, dropout_rate=DROPOUT_RATE).train()
+    with torch.no_grad():  # biases off zero, as training leaves them: a row that an
+        # earlier dropout zeroed then reaches the output nonzero, and only the
+        # last dropout's rows come out zero
+        cpu_gen = torch.Generator().manual_seed(1)
+        for name, p in m.named_parameters():
+            if name.endswith("bias"):
+                p.add_(torch.randn(p.shape, generator=cpu_gen).to(dev) * 0.1)
+    spec = m.spec
+    batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size,
+                                              sr=sr)
+    x, _, knobs = batch_fn(TRAIN_BATCH, synth_data.step_generator(torch.Generator(device=dev),
+                                                                   TRAIN_SEED, 0))
+    with torch.no_grad():
+        outs = [m(x, knobs, deterministic=False, return_acts=True,
+                  generator=torch.Generator(device=dev).manual_seed(11)) for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(outs[0][:3] + tuple(outs[0][3]),
+                                               outs[1][:3] + tuple(outs[1][3]))),
+          "7e: two runs from one generator seed differ")
+    rows = outs[0][3][4 + 10 + 9]  # the phase autoencoder's output, (B, F, OT), after dropout
+    dropped = (rows == 0).all(-1)
+    check(torch.equal(dropped, (rows == 0).any(-1)), "7e: a row is dropped in part")
+    kept = 1.0 - float(dropped.float().mean())
+    sigma = (DROPOUT_RATE * (1 - DROPOUT_RATE) / dropped.numel()) ** 0.5
+    check(abs(kept - (1 - DROPOUT_RATE)) <= 3 * sigma,
+          f"7e: kept share {kept:.5f}, not within 3 sigma ({3 * sigma:.5f}) of 0.8")
+    report["7e"] = {"kept_share": kept, "three_sigma": 3 * sigma, "rows": dropped.numel()}
+    print(f"7e: dropout {DROPOUT_RATE} on the card: two runs bit-equal; whole rows; kept share "
+          f"{kept:.5f} of {dropped.numel()} rows (0.8 +- {3 * sigma:.5f})")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 7: {report['seconds']:.2f} s")
     return report
 
 
@@ -1564,10 +1877,10 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)
             try:
-                trained, hist = train_mod.train(
+                (trained, hist), epochs, _ = timed(lambda: train_mod.train(
                     effect, epochs=TRAIN_EPOCHS, n_data_points=TRAIN_POINTS,
                     batch_size=TRAIN_BATCH, cp_every=TRAIN_EPOCHS, sr=sr, lr_max=TRAIN_LR,
-                    seed=TRAIN_SEED, device=dev, compute_dtype=compute_dtype)
+                    seed=TRAIN_SEED, device=dev, compute_dtype=compute_dtype))
                 val_lines = [ln.split() for ln in open("val_err_mae.dat").read().strip().splitlines()]
                 vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
                 served, served_rv = load_model("modelcheckpoint.tar", device=dev,  # strict inside
@@ -1612,18 +1925,23 @@ def main() -> None:
               f"{tag}: train() under CUDA graphs and eager dispatch differ in the weights")
         print(f"train({tag}) under CUDA graphs = eager dispatch, bit for bit: {len(eager_losses)} "
               f"losses, {len(eager_maes)} validation passes, every weight")
-        return served, hist, mean_maes, t_path
+        phase4 = {"hist": hist, "epochs": epochs,
+                  "weights": {k: v.clone() for k, v in trained.state_dict().items()}}
+        return served, hist, mean_maes, t_path, phase4
 
-    served, hist, mean_maes, t_path = training_path(torch.float32, f32_names, bf16_names)
-    served_b, hist_b, mean_maes_b, t_path_b = training_path(BF16, bf16_names, f32_names)
+    served, hist, mean_maes, t_path, _ = training_path(torch.float32, f32_names, bf16_names)
+    served_b, hist_b, mean_maes_b, t_path_b, phase4_b = training_path(BF16, bf16_names,
+                                                                       f32_names)
 
     # ---- 4b. every effect trained; 4c. the Denoise checkpoint served
     effects_report = train_every_effect(dev, results, chunk, out_chunk, sr)
     denoise = serve_denoise(dev, results, sr)
     print(json.dumps({"effects": effects_report, "denoise": denoise}))
 
-    # ---- 6. file datasets
+    # ---- 6. file datasets; 7. train()'s whole surface
     file_datasets(dev, results, sr, smi)
+    surface = train_surface(dev, results, sr, smi, phase4_b)
+    print(json.dumps({"surface": surface}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -2074,7 +2392,8 @@ def main() -> None:
                 "train_plain_ms", "train_library_ms", "train_bound_ms", "train_chain_floor_ms",
                 "train_bound_ms_cuda_cores", "train_tflops", "train_shape", "gen_ms",
                 "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
-                "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training", "launches_file_serving")
+                "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
+                "launches_file_serving", "launches_surface", "launches_lr_finder")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

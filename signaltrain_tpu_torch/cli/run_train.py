@@ -14,14 +14,16 @@ with ``-t chunk`` re-runs it on each cropped input). The effect, the target
 type and the dataset's input files are checked as the JAX CLI checks them,
 and ``-t chunk`` with ``-e files`` is refused (a file effect has no signal
 to re-run);
-``--apex`` is accepted and ignored, as there. ``--nmodel`` (model
-parallelism) and ``--profile`` exit with a message that they are not
-ported yet.
+``--apex`` is accepted and ignored, as there. ``--profile DIR`` runs the
+training inside ``utils/profiling.trace(DIR)`` (a ``torch.profiler`` trace
+with the card's kernels, for TensorBoard or Perfetto). ``--nmodel`` (model
+parallelism) exits with a message that it is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import sys
 
@@ -59,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="model-axis size (model parallelism is not ported yet)")
     parser.add_argument("--seed", type=int, default=218)
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="profiler trace directory (not ported yet)")
+                        help="capture a torch.profiler trace of the run into DIR")
     parser.add_argument("--out-checkpoint", default=None, metavar="FILE",
                         help="where to save checkpoints (default: same as --checkpoint)")
     parser.add_argument("--cp-every", type=int, default=25, help="epochs between checkpoints")
@@ -73,8 +75,6 @@ def unported(args) -> list[str]:
     found = []
     if args.nmodel != 1:
         found.append("--nmodel (model parallelism)")
-    if args.profile is not None:
-        found.append("--profile")
     return found
 
 
@@ -112,7 +112,14 @@ def main(argv=None) -> None:
         print(f"Error: no input files under {args.path}/Train and {args.path}/Val")
         sys.exit(1)
     print("Running with args =", args)
-    train_from_config(RunConfig.from_args(args), effect=effect)
+    import torch
+
+    from ..utils import profiling
+
+    cuda = torch.device(args.device).type == "cuda"
+    ctx = profiling.trace(args.profile, cuda=cuda) if args.profile else contextlib.nullcontext()
+    with ctx:
+        train_from_config(RunConfig.from_args(args), effect=effect)
     print("run_train: Execution completed.")
 
 

@@ -3,9 +3,9 @@
 Counterpart of signaltrain_tpu/config.py: the CLI parses into a
 ``RunConfig``, ``train_from_config`` runs it, and its geometry fields are the
 ones ``compute_spec`` and the checkpoint keep. The port adds ``device`` (the
-card unless ``"cpu"`` is asked for). The JAX fields ``plot_every``,
-``make_plots`` and ``n_model`` are left out until plots and model
-parallelism are ported (``cli/run_train.py`` refuses ``--nmodel``).
+card unless ``"cpu"`` is asked for). The JAX field ``n_model`` is left out
+until model parallelism is ported (``cli/run_train.py`` refuses
+``--nmodel``).
 """
 
 from __future__ import annotations
@@ -43,8 +43,10 @@ class RunConfig:
     # checkpoints / observability
     in_checkpointname: str = "modelcheckpoint.tar"
     out_checkpointname: str = "modelcheckpoint.tar"
+    plot_every: int = 10
     cp_every: int = 25
     status_every: int = 10
+    make_plots: bool = True
 
     def model_spec(self, num_knobs: int) -> ModelSpec:
         return compute_spec(scale_factor=self.scale_factor, shrink_factor=self.shrink_factor,
@@ -93,6 +95,7 @@ def train_from_config(cfg: RunConfig, effect=None):
         epochs=cfg.epochs,
         n_data_points=cfg.n_data_points,
         batch_size=cfg.batch_size,
+        plot_every=cfg.plot_every,
         cp_every=cfg.cp_every,
         sr=cfg.sr,
         scale_factor=cfg.scale_factor,
@@ -102,6 +105,7 @@ def train_from_config(cfg: RunConfig, effect=None):
         out_checkpointname=cfg.out_checkpointname,
         seed=cfg.seed,
         status_every=cfg.status_every,
+        make_plots=cfg.make_plots,
         device=cfg.device,
         compute_dtype=cfg.compute_dtype(),
         datapath=cfg.datapath,

@@ -45,7 +45,10 @@ from . import compressors, iir, pitch, synths
 
 
 class Effect:
-    """Generic effect super-class."""
+    """Generic effect super-class. ``draws``: whether ``_apply`` draws from
+    its generator."""
+
+    draws = False
 
     def __init__(self, sr: float = 44100.0, device: str | torch.device = "cuda"):
         self.name = "Generic Effect"
@@ -234,6 +237,8 @@ class Denoise(Effect):
     """Adds uniform noise of the knob's strength to the input; the target is
     the clean signal."""
 
+    draws = True
+
     def __init__(self, sr: float = 44100.0, device: str | torch.device = "cuda"):
         super().__init__(sr, device)
         self.name = "Denoise"
@@ -292,6 +297,8 @@ def timealign_pair(t: torch.Tensor, choosers: torch.Tensor, draws: dict, sign: t
 class TimeAlign(Effect):
     """Ignores x: re-synthesizes a signal with its onset at the middle and
     gives a randomly shifted copy as the input."""
+
+    draws = True
 
     def __init__(self, sr: float = 44100.0, device: str | torch.device = "cuda"):
         super().__init__(sr, device)

@@ -173,22 +173,28 @@ def lfilter_zi(b: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------- lfilter
 
 def _rows(b, a, x, zi):
-    """(b, a, x, zi) as float32 (B, order+1), (B, order+1), (B, N), (B, order)
-    on x's device, x given as (N,) or (B, N); zi None gives zeros."""
-    if x.dim() not in (1, 2):
-        raise ValueError(f"lfilter: x must be (N,) or (B, N), got {tuple(x.shape)}")
-    x2 = x[None] if x.dim() == 1 else x
-    rows, order = x2.shape[0], b.shape[-1] - 1
+    """(b, a, x, zi) as float32 (R, order+1), (R, order+1), (R, N), (R, order)
+    on x's device, and the leading shape L the R rows fold: x is (..., N), and
+    b, a (..., order+1) and zi (..., order) broadcast with x's leading axes
+    into L, as in the JAX package's ``lfilter``; zi None gives zeros."""
+    if x.dim() < 1:
+        raise ValueError(f"lfilter: x must be (..., N), got {tuple(x.shape)}")
+    order = b.shape[-1] - 1
     if order < 1 or a.shape[-1] != order + 1:
         raise ValueError(f"lfilter: b {tuple(b.shape)} and a {tuple(a.shape)} "
                          "need the same length >= 2")
-    b2 = b.to(torch.float32).reshape(-1, order + 1).expand(rows, -1)
-    a2 = a.to(torch.float32).reshape(-1, order + 1).expand(rows, -1)
+    leads = [x.shape[:-1], b.shape[:-1], a.shape[:-1]] + ([] if zi is None else [zi.shape[:-1]])
+    lead = torch.broadcast_shapes(*leads)
+    rows = math.prod(lead)
+
+    def fold(t, width):
+        return t.to(torch.float32).broadcast_to(lead + (width,)).reshape(rows, width).contiguous()
+
     if zi is None:
         zi2 = torch.zeros(rows, order, dtype=torch.float32, device=x.device)
     else:
-        zi2 = zi.to(torch.float32).reshape(-1, order).expand(rows, -1)
-    return b2.contiguous(), a2.contiguous(), x2.contiguous(), zi2.contiguous()
+        zi2 = fold(zi, order)
+    return fold(b, order + 1), fold(a, order + 1), fold(x, x.shape[-1]), zi2, lead
 
 
 def _lfilter_row(x: list, bn: list, neg_a: list, z: list) -> list:
@@ -213,31 +219,34 @@ def _lfilter_row(x: list, bn: list, neg_a: list, z: list) -> list:
 def lfilter_reference(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
                       zi: torch.Tensor | None = None) -> torch.Tensor:
     """The plain version of kernel L: direct form II transposed over the last
-    axis of x ((N,) or (B, N) float32), with coefficients b, a of shape
-    (order+1,) or (B, order+1) and an initial state zi of shape (order,) or
-    (B, order) (zeros when None). Walks each row on Python floats on the
-    CPU, as the smoother's plain version does (a loop of tensor operations
-    costs ~30x more a step on one row); returns y with x's shape, on x's
-    device."""
+    axis of x ((..., N) float32), with coefficients b, a of shape
+    (..., order+1) and an initial state zi of shape (..., order) (zeros when
+    None), broadcast over x's leading axes. Walks each row on Python floats
+    on the CPU, as the smoother's plain version does (a loop of tensor
+    operations costs ~30x more a step on one row); returns y of the
+    broadcast leading shape and N samples, on x's device."""
     LFILTER.plain_calls += 1
-    b2, a2, x2, zi2 = (t.detach().cpu() for t in _rows(b, a, x, zi))
+    *folded, lead = _rows(b, a, x, zi)
+    b2, a2, x2, zi2 = (t.detach().cpu() for t in folded)
     bn = (b2 / a2[:, :1]).tolist()
     neg_a = (-(a2 / a2[:, :1])).tolist()
     rows, z = x2.tolist(), zi2.tolist()
     out = [_lfilter_row(rows[r], bn[r], neg_a[r], z[r]) for r in range(len(rows))]
-    return torch.tensor(out, dtype=torch.float32).reshape(x.shape).to(x.device)
+    return torch.tensor(out, dtype=torch.float32).reshape(lead + x.shape[-1:]).to(x.device)
 
 
 def lfilter(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
             zi: torch.Tensor | None = None) -> torch.Tensor:
     """Apply an IIR filter along the last axis of x (direct form II
-    transposed; the JAX package's ``lfilter``). x: (N,) or (B, N) float32;
-    b, a: (order+1,) or (B, order+1); zi: (order,) or (B, order), or None for
-    a zero initial state. Returns y with x's shape. A CPU tensor runs the
-    plain version, a CUDA tensor kernel L (``ops/cuda_kernels.lfilter_rows``);
-    any other device raises."""
+    transposed; the JAX package's ``lfilter``). x: (..., N) float32; b, a:
+    (..., order+1); zi: (..., order), or None for a zero initial state; the
+    leading axes broadcast, and fold into the rows of one call. Returns y of
+    the broadcast leading shape and N samples. A CPU tensor runs the plain
+    version, a CUDA tensor kernel L (``ops/cuda_kernels.lfilter_rows``, built
+    for orders 1 and 3; another order raises); any other device raises."""
     if x.device.type == "cpu":
         return lfilter_reference(b, a, x, zi)
     from ..ops import cuda_kernels  # it imports this module
 
-    return cuda_kernels.lfilter_rows(*_rows(b, a, x, zi)).reshape(x.shape)
+    *folded, lead = _rows(b, a, x, zi)
+    return cuda_kernels.lfilter_rows(*folded).reshape(lead + x.shape[-1:])

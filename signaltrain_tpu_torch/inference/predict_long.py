@@ -85,14 +85,26 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     return y if return_device else y.cpu().numpy()
 
 
-def calc_ct(signal, effect, knobs_wc, out_chunk_size: int, chunk_size: int):
+def calc_ct(signal, effect, knobs_wc, out_chunk_size: int, chunk_size: int, sr: int = 44100,
+            generator: torch.Generator | None = None):
     """The chunked target: the effect applied window by window, keeping each
-    window's last out_chunk_size samples, as the model sees it. The
-    full-length windows run through the effect as one batch on the effect's
-    device; the shorter windows at the end run one by one. Returns numpy."""
+    window's last out_chunk_size samples, as the model sees it. Every window
+    draws from ``generator``'s state at entry (on the effect's device; None
+    gives one seeded with 0), as the JAX function passes its one key to every
+    window: a drawing effect (``effect.draws``: Denoise, TimeAlign) runs its
+    windows one by one from that state, so all full-length windows get the
+    same draws; any other runs its full-length windows as one batch on the
+    effect's device. The shorter windows at the end run one by one. ``sr`` is
+    unused, kept so that calls written for the JAX function's signature
+    ``(signal, effect, knobs_wc, out_chunk_size, chunk_size, sr, key)`` run
+    unchanged. Returns numpy."""
+    del sr
     lookback_size = chunk_size - out_chunk_size
     if lookback_size < 0:
         return None
+    if generator is None:
+        generator = torch.Generator(device=effect.device).manual_seed(0)
+    state = generator.get_state()
     signal = np.asarray(signal, np.float32)
     padded_sig = np.concatenate((np.zeros(lookback_size, dtype=np.float32), signal))
     y_ct = np.zeros(len(padded_sig), dtype=np.float32)
@@ -106,14 +118,16 @@ def calc_ct(signal, effect, knobs_wc, out_chunk_size: int, chunk_size: int):
             out_chunk = out_chunk[-out_chunk_size:]
         y_ct[iend - len(out_chunk) : iend] = out_chunk
 
-    if full:
+    if full and not effect.draws:
         sig_dev = torch.as_tensor(padded_sig).to(effect.device)
         batch = sig_dev.unfold(0, chunk_size, out_chunk_size)[: len(full)].contiguous()
-        out, _ = effect.go_wc(batch, knobs_wc)
+        out, _ = effect.go_wc(batch, knobs_wc, generator)
         out = out.cpu().numpy()
         for row, i in enumerate(full):
             place(i, out[row])
-    for i in rest:
-        out, _ = effect.go_wc(padded_sig[i : i + chunk_size], knobs_wc)
+        full = []
+    for i in full + rest:
+        generator.set_state(state)
+        out, _ = effect.go_wc(padded_sig[i : i + chunk_size], knobs_wc, generator)
         place(i, out.cpu().numpy())
     return y_ct[lookback_size:]

@@ -22,6 +22,14 @@ Two paths over the same parameters, chosen by ``frontend``:
   (T, B, F) / (OT, B, F); 2*(wave + x_tail/2) is expanded to
   2*wave + x_tail, and the x/2 happens inside kernel A only.
 
+As in the JAX package, ``return_acts`` or an active dropout
+(``dropout_rate`` > 0 and ``deterministic=False``) takes the batch-major
+gemm path whatever ``frontend`` says; ``return_acts`` adds the 30
+activations: the analysis' re and im, mag, phs (batch-major), the ten of
+each autoencoder (``autoencoder.AsymAutoEncoder.forward``), then mag_hat,
+phs_hat (after its residual), the synthesis' two inputs, its wave and y_hat
+before the final doubling.
+
 ``compute_dtype`` (float32 or bfloat16, JAX's mixed precision): the
 front-end products and the autoencoders run in it; the parameters, the
 magnitude / phase, the trig and the outputs stay float32.
@@ -45,7 +53,7 @@ class AsymMPAEC(nn.Module):
                  decomposition_rank: int = 64, n_knobs: int = 4, output_tf: int | None = None,
                  frontend: str = "fused", device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0):
         super().__init__()
         if frontend not in FRONTENDS:
             raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
@@ -56,22 +64,35 @@ class AsymMPAEC(nn.Module):
         self.dft_analysis = Analysis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
         self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
         self.aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
-                                    out_tf, device=dev, generator=gen, compute_dtype=compute_dtype)
+                                    out_tf, device=dev, generator=gen, compute_dtype=compute_dtype,
+                                    dropout_rate=dropout_rate)
         self.phs_aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
                                         out_tf, device=dev, generator=gen,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype, dropout_rate=dropout_rate)
 
-    def forward(self, x: torch.Tensor, knobs: torch.Tensor):
-        """x: (B, in_chunk) waveform; knobs: (B, K) normalized to [-0.5, 0.5]."""
-        if self.frontend == "fused":
+    def forward(self, x: torch.Tensor, knobs: torch.Tensor, deterministic: bool = True,
+                return_acts: bool = False, generator: torch.Generator | None = None):
+        """x: (B, in_chunk) waveform; knobs: (B, K) normalized to [-0.5, 0.5].
+        Returns (y_hat, mag, mag_hat), and with ``return_acts`` the list of
+        activations fourth; ``generator`` feeds an active dropout."""
+        dropping = self.aenc.dropout_rate > 0.0 and not deterministic
+        if self.frontend == "fused" and not return_acts and not dropping:
             return self._fused(x, knobs)
+        kw = dict(deterministic=deterministic, return_acts=return_acts, generator=generator)
         re, im = self.dft_analysis(x / 2)
         mag, phs = mag_phs(re, im)
-        mag_hat = self.aenc(mag, knobs, skip_connections="sf")
-        phs_hat = self.phs_aenc(phs, knobs, skip_connections="")
+        mag_hat = self.aenc(mag, knobs, skip_connections="sf", **kw)
+        phs_hat = self.phs_aenc(phs, knobs, skip_connections="", **kw)
+        if return_acts:
+            (mag_hat, m_acts), (phs_hat, p_acts) = mag_hat, phs_hat
         phs_hat = phs_hat + phs[:, -phs_hat.shape[1] :, :]  # residual phase skip
-        wave = self.dft_synthesis(mag_hat * torch.cos(phs_hat), mag_hat * torch.sin(phs_hat))
+        an_real, an_imag = mag_hat * torch.cos(phs_hat), mag_hat * torch.sin(phs_hat)
+        wave = self.dft_synthesis(an_real, an_imag)
         y_hat = wave + x[:, -wave.shape[-1] :] / 2
+        if return_acts:
+            acts = [re, im, mag, phs, *m_acts, *p_acts, mag_hat, phs_hat, an_real, an_imag, wave,
+                    y_hat]
+            return 2 * y_hat, mag, mag_hat, acts
         return 2 * y_hat, mag, mag_hat
 
     def _fused(self, x: torch.Tensor, knobs: torch.Tensor):

@@ -13,7 +13,7 @@ nn_proc.py:344-385):
 
 At defaults: 8192 -> 2048 samples, T=25, OT=9, 513 bins, ~4.2M params. The
 model computes in ``compute_dtype`` (float32 or bfloat16; parameters are
-float32 either way).
+float32 either way); ``dropout_rate`` goes to both autoencoders.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ class STModel(nn.Module):
     def __init__(self, spec: ModelSpec, frontend: str = "fused",
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
@@ -100,20 +100,25 @@ class STModel(nn.Module):
             device=resolve_device(device),
             generator=generator,
             compute_dtype=compute_dtype,
+            dropout_rate=dropout_rate,
         )
 
     @property
     def device(self) -> torch.device:
         return self.mpaec.dft_analysis.conv_analysis_real.weight.device
 
-    def forward(self, x: torch.Tensor, knobs: torch.Tensor):
-        return self.mpaec(x, knobs)
+    def forward(self, x: torch.Tensor, knobs: torch.Tensor, deterministic: bool = True,
+                return_acts: bool = False, generator: torch.Generator | None = None):
+        """``AsymMPAEC.forward``: (y_hat, mag, mag_hat[, acts])."""
+        return self.mpaec(x, knobs, deterministic=deterministic, return_acts=return_acts,
+                          generator=generator)
 
 
 def st_model(scale_factor: float = 1.0, shrink_factor: float = 4.0, num_knobs: int = 4,
              sr: int = 44100, scale_scheme: str = "lean", device: str | torch.device = "cuda",
              generator: torch.Generator | None = None,
-             compute_dtype: torch.dtype = torch.float32) -> STModel:
+             compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0) -> STModel:
     """The model with the geometry ``compute_spec`` derives, fused front-end."""
     spec = compute_spec(scale_factor, shrink_factor, num_knobs, sr, scale_scheme)
-    return STModel(spec, device=device, generator=generator, compute_dtype=compute_dtype)
+    return STModel(spec, device=device, generator=generator, compute_dtype=compute_dtype,
+                   dropout_rate=dropout_rate)

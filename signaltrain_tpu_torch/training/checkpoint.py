@@ -105,20 +105,46 @@ def _unflatten(template, leaves: list):
     return leaves.pop(0)
 
 
-def optimizer_to_optax_leaves(model: torch.nn.Module, optimizer: torch.optim.Adam,
-                              step: int) -> list[np.ndarray]:
-    """Adam's state in the JAX package's ``optax_state`` form (module
-    docstring). A parameter that has not been stepped yet has zero moments."""
-    names = {id(p): n for n, p in model.named_parameters()}
-    moments = {"exp_avg": {}, "exp_avg_sq": {}}
-    for group in optimizer.param_groups:
-        for p in group["params"]:
-            st = optimizer.state.get(p, {})
-            for key, sd in moments.items():
-                sd[names[id(p)]] = st[key] if key in st else torch.zeros_like(p)
+def training_tensors(model: torch.nn.Module,
+                     optimizer: torch.optim.Adam | None = None) -> dict[str, dict]:
+    """The live tensors a checkpoint holds: {"state_dict": the model's state
+    dict} and, with ``optimizer``, Adam's moments by parameter name,
+    {"exp_avg": ..., "exp_avg_sq": ...} (zeros for a parameter not stepped
+    yet). ``async_io.snapshot`` copies them on the device for a background
+    write (``save_checkpoint``)."""
+    out = {"state_dict": dict(model.state_dict())}
+    if optimizer is not None:
+        names = {id(p): n for n, p in model.named_parameters()}
+        moments = {"exp_avg": {}, "exp_avg_sq": {}}
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                st = optimizer.state.get(p, {})
+                for key, sd in moments.items():
+                    sd[names[id(p)]] = st[key] if key in st else torch.zeros_like(p)
+        out.update(moments)
+    return out
+
+
+class _NumpyLeaf:
+    """A numpy array that ``torch.save`` writes as a tensor record, its
+    bytes copied into the file as they are, and ``torch.load`` rebuilds as
+    the same numpy array (through ``numpy.asarray``). Pickled inline, the
+    arrays' bytes go through the pickler under protocol 2, which holds the
+    interpreter lock all the while and so stalls the training loop's thread
+    while the background writer saves."""
+
+    def __init__(self, a: np.ndarray):
+        self.t = torch.from_numpy(a)
+
+    def __reduce__(self):
+        return np.asarray, (self.t,)
+
+
+def _optax_leaves(exp_avg: dict, exp_avg_sq: dict, step: int) -> list:
     count = np.asarray(step, dtype=np.int32)
-    return [count, *_leaves(state_dict_to_params(moments["exp_avg"])),
-            *_leaves(state_dict_to_params(moments["exp_avg_sq"])), count.copy()]
+    leaves = [count, *_leaves(state_dict_to_params(exp_avg)),
+              *_leaves(state_dict_to_params(exp_avg_sq)), count.copy()]
+    return [_NumpyLeaf(a) for a in leaves]
 
 
 def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leaves: list,
@@ -140,15 +166,16 @@ def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leave
         }
 
 
-def save_checkpoint(checkpointname: str, model: torch.nn.Module, effect, epoch: int,
-                    optimizer: torch.optim.Adam | None = None, step: int = 0) -> None:
-    """Write a reference-schema .tar checkpoint of ``model`` (an ``STModel``);
-    with ``optimizer`` also its state, as ``optax_state`` / ``optax_step``."""
+def save_checkpoint(checkpointname: str, spec, effect, epoch: int, tensors: dict,
+                    step: int = 0) -> None:
+    """Write a reference-schema .tar checkpoint from ``training_tensors``'
+    dict (the live tensors, or ``async_io.snapshot``'s host copies of them)
+    and the model's ``ModelSpec``; with the moments also the optimizer state,
+    as ``optax_state`` (numpy leaves once loaded) / ``optax_step``."""
     print(f"\nsaving model to {checkpointname}", end="")
-    spec = model.spec
     state = {
         "epoch": epoch + 1,
-        "state_dict": {k: v.detach().cpu().clone() for k, v in model.state_dict().items()},
+        "state_dict": {k: v.detach().cpu().clone() for k, v in tensors["state_dict"].items()},
         "optimizer": {},  # schema slot; the reference never restores it either
         "effect_name": effect.name,
         "knob_names": effect.knob_names,
@@ -159,8 +186,8 @@ def save_checkpoint(checkpointname: str, model: torch.nn.Module, effect, epoch: 
         "out_chunk_size": spec.out_chunk_size,
         "sr": spec.sr,
     }
-    if optimizer is not None:
-        state["optax_state"] = optimizer_to_optax_leaves(model, optimizer, step)
+    if "exp_avg" in tensors:
+        state["optax_state"] = _optax_leaves(tensors["exp_avg"], tensors["exp_avg_sq"], step)
         state["optax_step"] = step
     torch.save(state, checkpointname)
 

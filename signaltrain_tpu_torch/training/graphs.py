@@ -29,7 +29,10 @@ The graph registers the generator, so each replay's prologue copies its seed
 and offset (0 after ``manual_seed``) to the card and the replay draws what
 the eager step draws for (seed, step), bit for bit: resume and the frozen
 validation stream hold as before. Each graph appends its losses (and MAEs)
-to a buffer on the card, fetched by the caller once a block of steps.
+to a buffer on the card, fetched by the caller once a block of steps. An
+evaluation graph also keeps the last batch's (x, y, knobs, y_hat, mag,
+mag_hat) as its outputs (``last``): the next replay overwrites them, so a
+caller that reads them later copies them first (``utils/async_io.snapshot``).
 
 The capture follows PyTorch's whole-network pattern: the first call runs
 the body for real on a side stream (the warm-up: it builds the kernels,
@@ -154,33 +157,52 @@ class TrainGraph:
         return self.losses[-n:].clone()
 
 
-class EvalGraph:
+class _EvalOutputs:
+    """The losses and MAEs buffers of an evaluation graph (``self.graph``),
+    and its last batch's outputs: the warm-up's, then the captured ones each
+    replay fills."""
+
+    def __init__(self, n_batches: int, device: torch.device):
+        self.losses = torch.zeros(n_batches, dtype=torch.float32, device=device)
+        self.maes = torch.zeros(n_batches, dtype=torch.float32, device=device)
+        self._last = [None, None]
+
+    def record(self, l, m, last) -> None:
+        _append(self.losses, l)
+        _append(self.maes, m)
+        self._last[torch.cuda.is_current_stream_capturing()] = last
+
+    @property
+    def last(self):
+        return self._last[self.graph.replays > 0]
+
+
+class EvalGraph(_EvalOutputs):
     """The validation pass as a CUDA graph of one batch: ``self()`` runs it
     on the frozen batches 0 .. n_batches - 1
-    (``synth_data.val_step_generator``) and returns (losses, maes), each
-    (n_batches,) on the card, equal to ``train.eager_validation``'s. The
-    first batch run is the capture's warm-up, in the model's mode then,
-    every later one a replay."""
+    (``synth_data.val_step_generator``) and returns (losses, maes, last):
+    the losses and MAEs, each (n_batches,) on the card, equal to
+    ``train.eager_validation``'s, and ``last``, the last batch's (x, y,
+    knobs, y_hat, mag, mag_hat), the graph's own outputs (the next replay
+    overwrites them). The first batch run is the capture's warm-up, in the
+    model's mode then, every later one a replay."""
 
     def __init__(self, model: STModel, val_batch_fn, batch_size: int,
                  generator: torch.Generator, n_batches: int):
+        super().__init__(n_batches, generator.device)
         self.model, self.val_batch_fn, self.batch_size = model, val_batch_fn, batch_size
         self.generator, self.n_batches = generator, n_batches
-        self.losses = torch.zeros(n_batches, dtype=torch.float32, device=generator.device)
-        self.maes = torch.zeros(n_batches, dtype=torch.float32, device=generator.device)
         self.graph = _Graph(self._body, generator)
 
     def _body(self) -> None:
         x, y, knobs = self.val_batch_fn(self.batch_size, self.generator)
-        l, m, _ = train_mod.eval_step_from_arrays(self.model, x, y, knobs)
-        _append(self.losses, l)
-        _append(self.maes, m)
+        self.record(*train_mod.eval_step_from_arrays(self.model, x, y, knobs))
 
-    def __call__(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def __call__(self) -> tuple[torch.Tensor, torch.Tensor, tuple]:
         for v in range(self.n_batches):
             synth_data.val_step_generator(self.generator, v)
             self.graph()
-        return self.losses.clone(), self.maes.clone()
+        return self.losses.clone(), self.maes.clone(), self.last
 
 
 class ArraysTrainGraph:
@@ -214,27 +236,24 @@ class ArraysTrainGraph:
         return self.losses[-n:].clone()
 
 
-class ArraysEvalGraph:
+class ArraysEvalGraph(_EvalOutputs):
     """One validation batch on given arrays as a CUDA graph (the counterpart
     of ``make_eval_step_from_arrays``): ``self(batches)`` runs it on each
     numpy (x, y, knobs) of ``batches`` (n_batches of them, copied into the
-    static buffers) and returns (losses, maes), each (n_batches,) on the
-    card, equal to ``train.host_validation``'s."""
+    static buffers) and returns (losses, maes, last) as ``EvalGraph`` does,
+    equal to ``train.host_validation``'s."""
 
     def __init__(self, model: STModel, shapes, n_batches: int):
         dev = next(model.parameters()).device
+        super().__init__(n_batches, dev)
         self.model, self.n_batches = model, n_batches
         self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
-        self.losses = torch.zeros(n_batches, dtype=torch.float32, device=dev)
-        self.maes = torch.zeros(n_batches, dtype=torch.float32, device=dev)
         self.graph = _Graph(self._body, device=dev)
 
     def _body(self) -> None:
-        l, m, _ = train_mod.eval_step_from_arrays(self.model, *self.buffers)
-        _append(self.losses, l)
-        _append(self.maes, m)
+        self.record(*train_mod.eval_step_from_arrays(self.model, *self.buffers))
 
-    def __call__(self, batches) -> tuple[torch.Tensor, torch.Tensor]:
+    def __call__(self, batches) -> tuple[torch.Tensor, torch.Tensor, tuple]:
         count = 0
         for arrays in batches:
             for buf, a in zip(self.buffers, arrays):
@@ -243,4 +262,4 @@ class ArraysEvalGraph:
             count += 1
         if count != self.n_batches:
             raise ValueError(f"ArraysEvalGraph: {count} batches, built for {self.n_batches}")
-        return self.losses.clone(), self.maes.clone()
+        return self.losses.clone(), self.maes.clone(), self.last

@@ -11,10 +11,29 @@ CUDA graphs (``training/graphs.py``): each step and each validation batch
 after the first (the capture's warm-up) is one replay of a captured graph,
 and Adam is ``capturable``, its learning rate a tensor on the card. There is
 no eager fallback: a capture that fails raises. On the CPU
-(``device="cpu"``) the same steps run eagerly. Either way the losses stay on
-the device and are fetched once every ``pick_n_inner`` steps (every step
-when the status cadence does not divide the epoch), and the validation
-figures once a pass.
+(``device="cpu"``) the same steps run eagerly.
+
+The host never waits on the card for what it only reports, as in the JAX
+loop:
+
+* the losses of a block of ``pick_n_inner`` steps (one step when the status
+  cadence does not divide the epoch) are copied to pinned host memory behind
+  the block, with an event, and read after the next block has been
+  dispatched (``process_pending``);
+* an epoch's validation figures (and, when a plot is due, its last batch and
+  the weights, snapshotted on the card) are read after the next epoch's
+  validation has been dispatched (``process_eval``): ``vl_avg_out.dat``,
+  ``val_err_mae.dat`` and ``history`` get the same lines and values, one
+  epoch later;
+* checkpoints (``async_io.snapshot`` of the weights and Adam's state, then
+  ``checkpoint.save_checkpoint``) and plots (``utils/plots.py``:
+  ``val_data_*.png`` every ``plot_every`` epochs, the spectrogram and weight
+  images every 20 epochs and at the last) are written by one background
+  thread (``utils/async_io.AsyncWriter``). A failed write fails the run.
+
+``ST_TPU_TIMING=1`` prints each epoch's wall time to stderr, split into the
+loop's buckets: dispatch, pending, eval, evproc, cp and fetch (the host
+tier's waits on its prefetcher), and the rest.
 
 ``train`` computes in ``compute_dtype``, bfloat16 by default as in the JAX
 package (its mixed precision: bf16 products with float32 accumulation in the
@@ -28,8 +47,7 @@ its batch function drawing from the step's generator. A host-resident
 corpus is sampled from ``numpy.random.default_rng(seed)`` on a prefetch
 thread and fed to ``graphs.ArraysTrainGraph`` (``host_steps`` on the CPU),
 and validated on batches from a fresh ``default_rng(7)`` each pass, as the
-JAX package does. Not ported: the JAX package's plots, background writer
-and multi-device paths.
+JAX package does. Not ported: the JAX package's multi-device paths.
 Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
@@ -40,13 +58,16 @@ from __future__ import annotations
 
 import functools
 import os
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
 
 from ..data import synth_data
 from ..models.st_model import STModel, st_model
+from ..utils import async_io
 from ..utils.device import resolve_device
 from . import checkpoint, loss as loss_mod, schedule
 
@@ -84,12 +105,19 @@ def make_optimizer(model: torch.nn.Module, lr_max: float, n_data_points: int, ep
     a float learning rate."""
     lr_fn = schedule.one_cycle_fn(lr_max=lr_max, n_data_points=n_data_points, epochs=epochs,
                                   batch_size=batch_size)
+    return adam(model, lr_fn(0)), lr_fn
+
+
+def adam(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
+    """``make_optimizer``'s Adam at learning rate ``lr`` (``set_lr`` moves
+    it): capturable with the rate a tensor on the card, or the plain Adam on
+    the CPU."""
     dev = next(model.parameters()).device
     kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
     if dev.type == "cuda":
-        lr = torch.tensor(lr_fn(0), dtype=torch.float32, device=dev)
-        return torch.optim.Adam(model.parameters(), lr=lr, capturable=True, **kw), lr_fn
-    return torch.optim.Adam(model.parameters(), lr=lr_fn(0), **kw), lr_fn
+        lr_t = torch.tensor(lr, dtype=torch.float32, device=dev)
+        return torch.optim.Adam(model.parameters(), lr=lr_t, capturable=True, **kw)
+    return torch.optim.Adam(model.parameters(), lr=lr, **kw)
 
 
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
@@ -171,16 +199,17 @@ def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, bat
 
 
 def eager_validation(model: STModel, val_batch_fn, batch_size: int, generator: torch.Generator,
-                     n_batches: int) -> tuple[torch.Tensor, torch.Tensor]:
+                     n_batches: int) -> tuple[torch.Tensor, torch.Tensor, tuple]:
     """The validation pass over the frozen batches 0 .. n_batches - 1, op by
-    op: (losses, maes), each (n_batches,) on the device."""
+    op: (losses, maes, last), the losses and MAEs each (n_batches,) on the
+    device, ``last`` the last batch's (x, y, knobs, y_hat, mag, mag_hat)."""
     losses, maes = [], []
     for v in range(n_batches):
         x, y, knobs = val_batch_fn(batch_size, synth_data.val_step_generator(generator, v))
-        l, m, _ = eval_step_from_arrays(model, x, y, knobs)
+        l, m, last = eval_step_from_arrays(model, x, y, knobs)
         losses.append(l)
         maes.append(m)
-    return torch.stack(losses), torch.stack(maes)
+    return torch.stack(losses), torch.stack(maes), last
 
 
 def host_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, step0: int,
@@ -194,16 +223,71 @@ def host_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, st
                         for s in range(step0, step0 + n)])
 
 
-def host_validation(model: STModel, batches) -> tuple[torch.Tensor, torch.Tensor]:
+def host_validation(model: STModel, batches) -> tuple[torch.Tensor, torch.Tensor, tuple]:
     """The validation pass over numpy (x, y, knobs) batches, op by op:
-    (losses, maes) on the device."""
+    (losses, maes, last) on the device, as ``eager_validation``."""
     dev = next(model.parameters()).device
     losses, maes = [], []
     for arrays in batches:
-        l, m, _ = eval_step_from_arrays(model, *(torch.from_numpy(a).to(dev) for a in arrays))
+        l, m, last = eval_step_from_arrays(model, *(torch.from_numpy(a).to(dev) for a in arrays))
         losses.append(l)
         maes.append(m)
-    return torch.stack(losses), torch.stack(maes)
+    return torch.stack(losses), torch.stack(maes), last
+
+
+class HostCopy:
+    """A device tensor's copy to the host, started now (into pinned memory,
+    with an event behind it on the card) and read later (``get`` waits for
+    the event only). On the CPU it is the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self.event = None
+        if t.device.type != "cuda":
+            self.host = t
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record(torch.cuda.current_stream(t.device))
+
+    def get(self) -> torch.Tensor:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host
+
+
+class _Timing:
+    """``ST_TPU_TIMING=1``: each epoch's wall time split into the loop's
+    buckets, printed to stderr. A bucket's time excludes the buckets timed
+    inside it."""
+
+    BUCKETS = ("dispatch", "pending", "eval", "evproc", "cp", "fetch")
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.acc = dict.fromkeys(self.BUCKETS, 0.0)
+        self.t_epoch = 0.0
+
+    def clock(self, bucket: str, fn, *args, **kwargs):
+        if not self.on:
+            return fn(*args, **kwargs)
+        inner = sum(self.acc.values())
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self.acc[bucket] += time.perf_counter() - t0 - (sum(self.acc.values()) - inner)
+        return out
+
+    def start_epoch(self) -> None:
+        self.acc = dict.fromkeys(self.BUCKETS, 0.0)
+        self.t_epoch = time.perf_counter()
+
+    def report(self, epoch: int) -> None:
+        if not self.on:
+            return
+        total = time.perf_counter() - self.t_epoch
+        print(f"\n[timing] epoch {epoch + 1}: total={total:.4f}s "
+              + " ".join(f"{k}={v:.4f}" for k, v in self.acc.items())
+              + f" other={total - sum(self.acc.values()):.4f}", file=sys.stderr)
 
 
 def train(
@@ -211,6 +295,7 @@ def train(
     epochs: int = 100,
     n_data_points: int = 200000,
     batch_size: int = 20,
+    plot_every: int = 10,
     cp_every: int = 25,
     sr: int = 44100,
     scale_factor: float = 1,
@@ -220,6 +305,7 @@ def train(
     out_checkpointname: str = "modelcheckpoint.tar",
     seed: int = 218,
     status_every: int = 10,
+    make_plots: bool = True,
     device: str | torch.device = "cuda",
     compute_dtype: torch.dtype = torch.bfloat16,
     datapath: str | None = None,
@@ -232,7 +318,9 @@ def train(
     device or, with ``datapath``, on the file dataset there (``target_type``
     "chunk" re-runs ``effect`` on each cropped input; ``compand`` mu-law
     companding; ``device_resident_limit_bytes`` the device budget that picks
-    the corpus's tier).
+    the corpus's tier). With ``make_plots`` the validation triptychs are
+    drawn every ``plot_every`` epochs, the spectrogram and weight images
+    every 20 epochs and at the last, on the background writer.
 
     Returns (model, history): the trained ``STModel`` and a dict of the
     per-step training losses (``train_loss``) and the per-epoch validation
@@ -283,6 +371,7 @@ def train(
     val_steps = max(1, (n_data_points // 4) // batch_size)
     n_inner = pick_n_inner(steps_per_epoch, status_every)
     host_data, prefetcher = False, None
+    timing = _Timing(os.environ.get("ST_TPU_TIMING", "0") == "1")
     if datapath is None:
         batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
         val_batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr,
@@ -305,6 +394,7 @@ def train(
     generator = torch.Generator(device=dev)
     if host_data:
         prefetcher = train_ds.prefetch_batches(batch_size, np.random.default_rng(seed))
+        next_batch = functools.partial(timing.clock, "fetch", prefetcher.next)
         shapes = [(batch_size, chunk), (batch_size, out_chunk), (batch_size, num_knobs)]
 
         def val_batches():  # the frozen validation stream
@@ -312,12 +402,11 @@ def train(
             return (val_ds.host_batch(batch_size, vrng) for _ in range(val_steps))
 
         if dev.type == "cuda":
-            run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, prefetcher.next, shapes,
-                                                n_inner)
+            run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, next_batch, shapes, n_inner)
             eval_graph = graphs.ArraysEvalGraph(model, shapes, val_steps)
             validate = lambda: eval_graph(val_batches())
         else:
-            run_steps = functools.partial(host_steps, model, opt, lr_fn, prefetcher.next)
+            run_steps = functools.partial(host_steps, model, opt, lr_fn, next_batch)
             validate = lambda: host_validation(model, val_batches())
     elif dev.type == "cuda":
         run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
@@ -332,13 +421,18 @@ def train(
     history = {"train_loss": [], "val_loss": [], "val_mae": [], "val_mae_mean": [], "step": step0}
     iter_count, batch_num = step0, 0
     avg_loss, vl_avg, beta = 0.0, 0.0, 0.98
+    pending = None  # (a block's losses on their way to the host, epoch, iter0, data_point0)
+    pending_eval = None  # an epoch's validation results in flight
+    frame_major = model.mpaec.frontend == "fused"  # mag / mag_hat come back (T, B, F)
+    writer = async_io.AsyncWriter()
     first_time = time.time()
 
-    def report(losses, epoch, iter0, data_point0):
-        """Fetch a block's device losses (one transfer) and print the status
-        line: per-batch EMA, bias-corrected."""
+    def process_pending(pend):
+        """A block's losses, read one block late: the per-batch EMA and the
+        status line every ``status_every`` batches (bias-corrected)."""
         nonlocal avg_loss, batch_num
-        for i, lv in enumerate(losses.cpu().tolist()):
+        losses, epoch, iter0, data_point0 = pend
+        for i, lv in enumerate(losses.get().tolist()):
             batch_num += 1
             history["train_loss"].append(lv)
             avg_loss = beta * avg_loss + (1 - beta) * lv
@@ -352,44 +446,119 @@ def train(
                     end="",
                 )
 
+    def process_eval(ev):
+        """An epoch's validation, read one epoch late: the logs, ``history``
+        and the plots, handed to the writer."""
+        nonlocal vl_avg
+        epoch, step, losses_val, maes_val, last, weights, do_val_plot = ev
+        losses = losses_val.get().tolist()
+        maes = maes_val.get().numpy()
+        for lv in losses:
+            vl_avg = beta * vl_avg + (1 - beta) * lv
+        val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
+        with open("vl_avg_out.dat", "a") as f:
+            f.write(f"{epoch + 1} {vl_avg:.3e}\n")
+        with open("val_err_mae.dat", "a") as f:
+            # col 2: last-batch MAE (the reference's format); col 3: the
+            # mean MAE over the whole validation pass
+            f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
+        history["val_loss"].append(vl_avg)
+        history["val_mae"].append(val_mae)
+        history["val_mae_mean"].append(val_mae_mean)
+        history["step"] = step
+        if do_val_plot:
+            def render_valdata(last=last, epoch=epoch, loss_val=losses[-1]):
+                from ..utils import plots
+
+                x, y, knobs, y_hat = (t.numpy() for t in last.to_host()[:4])
+                plots.plot_valdata(x, knobs, y, y_hat, effect, epoch, loss_val,
+                                   target_size=spec.out_chunk_size)
+
+            print("\nSaving sample data plots", end="")
+            writer.submit(render_valdata)
+        if weights is not None:
+            def render_spectrograms(last=last, weights=weights):
+                from ..utils import plots
+
+                mag, mag_hat = last.to_host()[4:]
+                if frame_major:  # (T, B, F) -> (B, T, F)
+                    mag, mag_hat = mag.transpose(0, 1), mag_hat.transpose(0, 1)
+                plots.plot_spectrograms(weights.to_host(), mag.numpy(), mag_hat.numpy())
+
+            writer.submit(render_spectrograms)
+
+    def save(snap, epoch, step):
+        checkpoint.save_checkpoint(out_checkpointname, spec, effect, epoch, snap.to_host(), step)
+
     try:
         for epoch in range(epochs):
             print("")
+            timing.start_epoch()
             for block in range(steps_per_epoch // n_inner):
-                report(run_steps(iter_count, n_inner), epoch, iter_count,
-                       block * n_inner * batch_size)
+                with torch.profiler.record_function("train_block"):
+                    losses = timing.clock("dispatch", run_steps, iter_count, n_inner)
+                # each item leaves ``pending`` before it is processed, so the
+                # error path never processes it twice
+                pend, pending = pending, (HostCopy(losses), epoch, iter_count,
+                                          block * n_inner * batch_size)
                 iter_count += n_inner
+                if pend is not None:
+                    timing.clock("pending", process_pending, pend)
 
-            # ---- validation pass over the frozen batches, then the logs
+            # ---- validation over the frozen batches, dispatched; read next epoch
+            do_val_plot = make_plots and (epoch + 1) % plot_every == 0
+            do_spec_plot = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
             model.eval()
-            losses_val, maes_val = validate()
+            losses_val, maes_val, last = timing.clock("eval", validate)
             model.train()
-            maes = maes_val.cpu().numpy()
-            for lv in losses_val.cpu().tolist():
-                vl_avg = beta * vl_avg + (1 - beta) * lv
-            val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
-            with open("vl_avg_out.dat", "a") as f:
-                f.write(f"{epoch + 1} {vl_avg:.3e}\n")
-            with open("val_err_mae.dat", "a") as f:
-                # col 2: last-batch MAE (the reference's format); col 3: the
-                # mean MAE over the whole validation pass
-                f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
-            history["val_loss"].append(vl_avg)
-            history["val_mae"].append(val_mae)
-            history["val_mae_mean"].append(val_mae_mean)
-            history["step"] = iter_count
+            new_eval = (epoch, iter_count, HostCopy(losses_val), HostCopy(maes_val),
+                        async_io.snapshot(last) if do_val_plot or do_spec_plot else None,
+                        async_io.snapshot(model.state_dict()) if do_spec_plot else None,
+                        do_val_plot)
+            pend, pending = pending, None
+            timing.clock("pending", process_pending, pend)
+            ev, pending_eval = pending_eval, new_eval
+            if ev is not None:
+                timing.clock("evproc", process_eval, ev)
 
             if ((epoch + 1) % cp_every == 0) or (epoch == epochs - 1):
-                checkpoint.save_checkpoint(out_checkpointname, model, effect, epoch,
-                                           optimizer=opt, step=iter_count)
+                snap = timing.clock("cp", async_io.snapshot,
+                                    checkpoint.training_tensors(model, opt))
+                writer.submit(functools.partial(save, snap, epoch, iter_count))
 
+            timing.report(epoch)
             if epoch == 0:
                 secs_left = (time.time() - first_time) * (epochs - 1)
                 print(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
                       f"on {time.ctime(time.time() + secs_left)}")
+
+        # drain the pipelines: the last epoch's validation
+        ev, pending_eval = pending_eval, None
+        if ev is not None:
+            process_eval(ev)
+    except BaseException:
+        # keep what already ran: the losses and the validation in flight are
+        # written to the logs (a flush that fails must not hide the error)
+        try:
+            if pending is not None:
+                process_pending(pending)
+            if pending_eval is not None:
+                process_eval(pending_eval)
+        except Exception:
+            traceback.print_exc()
+        raise
     finally:
-        if prefetcher is not None:  # the producer thread ends with the run, or its error
+        # the producer thread ends with the run, or its error; the writer
+        # drains, and re-raises a failed write unless another error is in flight
+        in_flight = sys.exc_info()[0] is not None
+        if prefetcher is not None:
             prefetcher.close()
+        try:
+            writer.close()
+        except Exception:
+            if not in_flight:
+                raise
+            traceback.print_exc()
 
     print("\nTotal elapsed time for training loop =", time.time() - first_time)
     return model, history

@@ -345,7 +345,7 @@ def test_train_bf16_checkpoint_round_trip(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     effect = effects.Compressor_4c(device="cpu")
     model, hist = train_mod.train(effect, epochs=1, n_data_points=16, batch_size=8, lr_max=1e-3,
-                                  scale_factor=512 / 8192.0, device="cpu")
+                                  scale_factor=512 / 8192.0, device="cpu", make_plots=False)
     assert "compute_dtype = bfloat16" in capsys.readouterr().out
     assert model.compute_dtype == BF16 and np.all(np.isfinite(hist["train_loss"]))
     assert all(p.dtype == torch.float32 for p in model.parameters())

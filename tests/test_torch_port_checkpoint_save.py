@@ -84,8 +84,8 @@ def test_round_trip_jax_port_jax_is_bit_equal(tmp_path):
     np.testing.assert_array_equal(  # (in, out) kernel moments arrive transposed
         n(opt.state[p]["exp_avg"]), np.asarray(opt_state[0].mu["params"]["aenc"]["fnn_enc"]["kernel"]).T)
     assert float(opt.state[p]["step"]) == 3.0
-    checkpoint.save_checkpoint(second, model, effects.Compressor_4c(device="cpu"), 4,
-                               optimizer=opt, step=rv["optax_step"])
+    checkpoint.save_checkpoint(second, model.spec, effects.Compressor_4c(device="cpu"), 4,
+                               checkpoint.training_tensors(model, opt), step=rv["optax_step"])
 
     params2, rv2 = jcheckpoint.load_checkpoint(second)
     _tree_equal(params2, params)
@@ -111,8 +111,8 @@ def test_port_checkpoint_after_real_steps_resumes_in_jax(tmp_path):
         y = x[:, -spec.out_chunk_size :] * 0.5
         train_mod.train_step_from_arrays(model, opt, lr_fn, step, t(x), t(y), t(knobs))
     path = str(tmp_path / "port.tar")
-    checkpoint.save_checkpoint(path, model, effects.Compressor_4c(device="cpu"), 0,
-                               optimizer=opt, step=2)
+    checkpoint.save_checkpoint(path, model.spec, effects.Compressor_4c(device="cpu"), 0,
+                               checkpoint.training_tensors(model, opt), step=2)
     jparams, rv = jcheckpoint.load_checkpoint(path)
     tx = optax.adam(learning_rate=jschedule.one_cycle_fn(2e-4, 40, 1, 8))
     state = jcheckpoint.restore_optax_state(tx.init(jparams), rv["optax_state"])
@@ -132,7 +132,7 @@ def test_train_two_epochs_writes_logs_and_resumes(tmp_path, monkeypatch, capsys)
     monkeypatch.chdir(tmp_path)
     effect = effects.Compressor_4c(device="cpu")
     kw = dict(n_data_points=80, batch_size=8, lr_max=1e-3, scale_factor=512 / 8192.0,
-              device="cpu", compute_dtype=torch.float32)
+              device="cpu", compute_dtype=torch.float32, make_plots=False)
     model, hist = train_mod.train(effect, epochs=2, cp_every=2, **kw)
     out = capsys.readouterr().out
     assert "\repoch 2/2" in out and "lr=" in out and "mom=" in out and "loss:" in out
@@ -182,15 +182,19 @@ def test_train_refuses_an_effect_on_another_device():
 def test_run_train_cli(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     run_train.main(["--epochs", "1", "-n", "16", "-b", "8", "--scale", "0.0625", "--device", "cpu",
-                    "--out-checkpoint", "out.tar"])
+                    "--out-checkpoint", "out.tar", "--profile", "prof"])
     assert os.path.exists("out.tar") and not os.path.exists("modelcheckpoint.tar")
-    assert "Execution completed" in capsys.readouterr().out
-    for argv, word in ([["--nmodel", "2"], "--nmodel"], [["--profile", "d"], "--profile"]):
-        with pytest.raises(SystemExit) as e:
-            run_train.main(argv + ["--device", "cpu"])
-        assert e.value.code == 1
-        out = capsys.readouterr().out
-        assert "not yet ported" in out and word in out
+    out = capsys.readouterr().out
+    assert "Execution completed" in out and "profiler trace written to prof" in out
+    traces = os.listdir("prof")
+    assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
+    with open(os.path.join("prof", traces[0])) as f:
+        assert "train_block" in f.read()  # the loop's blocks are named in the trace
+    with pytest.raises(SystemExit) as e:
+        run_train.main(["--nmodel", "2", "--device", "cpu"])
+    assert e.value.code == 1
+    out = capsys.readouterr().out
+    assert "not yet ported" in out and "--nmodel" in out
     with pytest.raises(SystemExit) as e:  # bfloat16 and float32 run; nothing else does
         run_train.main(["--dtype", "float16", "--device", "cpu"])
     assert e.value.code == 1 and "--dtype float16" in capsys.readouterr().out

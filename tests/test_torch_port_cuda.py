@@ -642,9 +642,10 @@ def test_eval_graph_equals_eager_validation(dev, dtype):
     g = torch.Generator(device=dev)
     evals = graphs.EvalGraph(m, val_batch_fn, GRAPH_BATCH, g, 5)
     for _ in range(2):  # the warm-up and 4 replays, then a pass of replays alone
-        losses, maes = evals()
-        want_l, want_m = train_mod.eager_validation(m, val_batch_fn, GRAPH_BATCH, g, 5)
+        losses, maes, last = evals()
+        want_l, want_m, want_last = train_mod.eager_validation(m, val_batch_fn, GRAPH_BATCH, g, 5)
         assert torch.equal(losses, want_l) and torch.equal(maes, want_m)
+        assert all(torch.equal(a, b) for a, b in zip(last, want_last))
     assert evals.graph.replays == 9
 
 
@@ -666,8 +667,8 @@ def test_resume_under_graphs_from_a_step_10_checkpoint(dev, tmp_path):
     want = torch.cat([run(0, 10), run(10, 10)])
     losses1 = graph(first, opt1)(0, 10)
     path = str(tmp_path / "step10.tar")
-    checkpoint.save_checkpoint(path, first, effects.Compressor_4c(device=dev), 0,
-                               optimizer=opt1, step=10)
+    checkpoint.save_checkpoint(path, first.spec, effects.Compressor_4c(device=dev), 0,
+                               checkpoint.training_tensors(first, opt1), step=10)
     state_dict, rv = checkpoint.load_checkpoint(path)
     resumed = STModel(first.spec, frontend="fused", device=dev, compute_dtype=BF16)
     resumed.load_state_dict(state_dict, strict=True)
@@ -945,9 +946,10 @@ def test_arrays_graphs_on_prefetched_batches_equal_eager(dev, tmp_path):
     batches = [ds.host_batch(GRAPH_BATCH, np.random.default_rng(7)) for _ in range(3)]
     evals = graphs.ArraysEvalGraph(gm, shapes, 3)
     for _ in range(2):
-        losses, maes = evals(iter(batches))
-        want_l, want_m = train_mod.host_validation(gm, batches)
+        losses, maes, last = evals(iter(batches))
+        want_l, want_m, want_last = train_mod.host_validation(gm, batches)
         assert torch.equal(losses, want_l) and torch.equal(maes, want_m)
+        assert all(torch.equal(a, b) for a, b in zip(last, want_last))
 
 
 @pytest.mark.parametrize("effect_name", ["comp_4c", "comp"])
@@ -979,3 +981,151 @@ def test_gen_dataset_on_card_matches_cpu(dev, tmp_path, monkeypatch, effect_name
         y, _ = audio_io.read_audio_file(f"card/Train/{f}")
         want, _ = cpu_fx.go_wc(x, file_data.parse_knob_string(f))
         assert_effect_close(effect_name, y, want)
+
+
+# ---- train()'s surface on the card: the fetches one block and one epoch
+# behind, the background writer's snapshots, dropout under a graph, lfilter
+# over leading axes
+
+@pytest.mark.parametrize("status_every", [2, 3])  # n_inner 4 and 1
+def test_train_with_late_fetches_equals_synchronous_fetches(dev, tmp_path, monkeypatch,
+                                                            status_every):
+    """train() under graphs (losses read one block late, validation one epoch
+    late, checkpoints and plots on the writer) against the same graphs read
+    synchronously after every block: every loss, log line and weight
+    bit-equal."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    monkeypatch.chdir(tmp_path)
+    seed, steps, epochs = 6, 4, 3
+    kw = dict(n_data_points=steps * GRAPH_BATCH, batch_size=GRAPH_BATCH, lr_max=1e-3, seed=seed,
+              device=dev)
+    effect = effects.Compressor_4c(device=dev)
+    model, hist = train_mod.train(effect, epochs=epochs, cp_every=1, plot_every=2,
+                                  status_every=status_every, **kw)
+    n_inner = train_mod.pick_n_inner(steps, status_every)
+    ref = st_model(device=dev, generator=torch.Generator().manual_seed(seed),
+                   compute_dtype=BF16).train()
+    opt, lr_fn = train_mod.make_optimizer(ref, 1e-3, steps * GRAPH_BATCH, epochs, GRAPH_BATCH)
+    spec = ref.spec
+    batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size)
+    val_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size,
+                                            augment=False)
+    g = torch.Generator(device=dev)
+    run = graphs.TrainGraph(ref, opt, lr_fn, batch_fn, GRAPH_BATCH, g, seed, n_inner)
+    evals = graphs.EvalGraph(ref, val_fn, GRAPH_BATCH, g, 1)
+    losses, maes = [], []
+    for epoch in range(epochs):
+        for block in range(steps // n_inner):
+            losses += run(epoch * steps + block * n_inner, n_inner).cpu().tolist()
+        ref.eval()
+        maes.append(float(evals()[1].cpu()[0]))
+        ref.train()
+    assert hist["train_loss"] == losses and hist["val_mae_mean"] == maes
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), ref.parameters()))
+    lines = open("val_err_mae.dat").read().split("\n")
+    assert [float(ln.split()[2]) for ln in lines if ln] == [float(f"{m:.3e}") for m in maes]
+    assert os.path.isfile("val_data_0.png") and os.path.isfile("conv_synth_imag.png")
+
+
+def test_snapshot_read_by_the_writer_after_a_replay_holds_the_old_values(dev):
+    """The writer reads a snapshot of the weights and Adam's state after the
+    graph has replayed three more steps over the live tensors: it gets the
+    values of the moment the snapshot was taken."""
+    import threading
+
+    from signaltrain_tpu_torch.training import checkpoint, graphs
+    from signaltrain_tpu_torch.utils import async_io
+
+    (m,), ((opt, lr_fn),), batch_fn, _ = _graph_setup(dev, "fused", BF16, n_models=1)
+    graph = graphs.TrainGraph(m, opt, lr_fn, batch_fn, GRAPH_BATCH, torch.Generator(device=dev),
+                              218, capacity=1)
+    for step in range(2):  # the warm-up and a replay
+        graph(step, 1)
+    live = checkpoint.training_tensors(m, opt)
+    want = {k: {n: v.cpu() for n, v in d.items()} for k, d in live.items()}
+    snap = async_io.snapshot(live)
+    gate, got = threading.Event(), {}
+    writer = async_io.AsyncWriter()
+    writer.submit(gate.wait)
+    writer.submit(lambda: got.update(snap.to_host()))
+    for step in range(2, 5):  # in place over the live tensors
+        graph(step, 1)
+    gate.set()
+    writer.close(timeout=60)
+    for key, d in want.items():
+        for name, v in d.items():
+            assert torch.equal(got[key][name], v), (key, name)
+    assert not torch.equal(live["exp_avg"]["mpaec.aenc.fnn_dec.bias"].cpu(),
+                           want["exp_avg"]["mpaec.aenc.fnn_dec.bias"])
+
+
+def test_dropout_under_a_train_graph_equals_eager(dev):
+    """A step with dropout (rate 0.2, the step's generator) captured as a
+    CUDA graph and replayed: every loss and weight bit-equal to the same
+    steps dispatched op by op."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.training import graphs, loss as loss_mod
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    effect = effects.Compressor_4c(device=dev)
+    models = [st_model(device=dev, generator=torch.Generator().manual_seed(2), compute_dtype=BF16,
+                       dropout_rate=0.2).train() for _ in range(2)]
+    opts = [train_mod.make_optimizer(m, 1e-3, 4000, 3, GRAPH_BATCH) for m in models]
+    spec = models[0].spec
+    batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size)
+    scale = loss_mod.freq_scale(spec.ft_size // 2 + 1, str(dev))
+
+    def stepper(m, opt, g, out):
+        def body():
+            x, y, knobs = batch_fn(GRAPH_BATCH, g)
+            m.zero_grad(set_to_none=True)
+            y_hat, _, mag_hat = m(x, knobs, deterministic=False, generator=g)
+            loss = loss_mod.calc_loss(y_hat, y, mag_hat, scale_by_freq=scale)
+            loss.backward()
+            train_mod.clip_frontend_grads(m)
+            opt.step()
+            graphs._append(out, loss.detach())
+        return body
+
+    losses = [torch.zeros(1, device=dev) for _ in range(2)]
+    gens = [torch.Generator(device=dev) for _ in range(2)]
+    graph = graphs._Graph(stepper(models[0], opts[0][0], gens[0], losses[0]), gens[0])
+    eager = stepper(models[1], opts[1][0], gens[1], losses[1])
+    got, want = [], []
+    for step in range(6):
+        for g, opt, lr_fn in ((gens[0], *opts[0]), (gens[1], *opts[1])):
+            synth_data.step_generator(g, 218, step)
+            train_mod.set_lr(opt, lr_fn(step))
+        graph()
+        eager()
+        got.append(float(losses[0]))
+        want.append(float(losses[1]))
+    assert graph.replays == 5 and got == want
+    for p, q in zip(*(m.parameters() for m in models)):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+def test_lfilter_folds_leading_axes_on_card(dev, order):
+    from signaltrain_tpu_torch.dsp import iir
+
+    g = torch.Generator(device=dev).manual_seed(order)
+    x = torch.randn(2, 3, 4096, generator=g, device=dev) * 4.0
+    b, a = iir.butter_lowpass(order, torch.full((2, 3), 0.05, device=dev))
+    zi = torch.randn(2, 3, order, generator=g, device=dev)
+    before, plain = iir.LFILTER.launches, iir.LFILTER.plain_calls
+    y = iir.lfilter(b, a, x, zi)
+    assert iir.LFILTER.launches == before + 1 and iir.LFILTER.plain_calls == plain
+    ref = iir.lfilter_reference(b, a, x, zi)
+    assert y.shape == ref.shape == (2, 3, 4096)
+    err = (y - ref).abs()
+    assert float((err - (1e-5 + 1e-6 * ref.abs())).max()) <= 0, float(err.max())
+    with pytest.raises(ValueError, match="order 2"):  # kernel L is built for orders 1 and 3
+        iir.lfilter(*iir.butter_lowpass(2, torch.full((2, 3), 0.05, device=dev)), x)

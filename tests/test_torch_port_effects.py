@@ -357,7 +357,7 @@ def test_one_train_step_per_effect(name, tmp_path, monkeypatch):
     fx = effects.make_effect(name, device="cpu")
     model, hist = train_mod.train(fx, epochs=1, n_data_points=8, batch_size=8,
                                   scale_factor=512 / 8192.0, device="cpu",
-                                  compute_dtype=torch.float32)
+                                  compute_dtype=torch.float32, make_plots=False)
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0]), name
     assert np.isfinite(hist["val_mae_mean"][0])
     _, rv = load_model("modelcheckpoint.tar", device="cpu")

@@ -452,7 +452,7 @@ def test_run_config_from_args_round_trip():
     args = run_train.build_parser().parse_args(argv)
     cfg, jcfg = config.RunConfig.from_args(args), jconfig.RunConfig.from_args(args)
     port_only = {"device"}
-    not_ported = {"plot_every", "make_plots", "n_model"}  # plots, model parallelism
+    not_ported = {"n_model"}  # model parallelism
     fields = set(jconfig.RunConfig.__dataclass_fields__) - not_ported
     assert set(config.RunConfig.__dataclass_fields__) == fields | port_only
     for field in fields - {"cp_every"}:  # the JAX CLI has no --cp-every
@@ -496,7 +496,7 @@ def test_train_step_on_a_file_batch_matches_jax(tmp_path):
 
 
 TRAIN_KW = dict(n_data_points=16, batch_size=8, lr_max=1e-3, scale_factor=512 / 8192.0,
-                device="cpu", compute_dtype=torch.float32, seed=4, cp_every=2)
+                device="cpu", compute_dtype=torch.float32, seed=4, cp_every=2, make_plots=False)
 
 
 def _by_hand(path, tier_limit, epochs):
