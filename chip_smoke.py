@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port on one NVIDIA GPU (serving, training, the tools) and check its kernels.
 
 Run from the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit:
@@ -175,6 +175,28 @@ Phases (any failure raises and exits non-zero):
      biases moved off zero) run twice with deterministic=False from one
      generator seed: bit-equal, whole (example, bin) rows dropped, the kept
      share within 3 sigma of 0.8.
+  8. the rest of the single-card surface, each part counted, in at most
+     PHASE8_LIMIT_S (60 s): 8a cli.gen_dataset comp_4c --dur 5 -n 64
+     --device-batch 8 with --backend host (8 spawned workers, the C++
+     compressor; no kernel touched) and with --backend device (C once a
+     batch), files/s of each; every host target against kernel C on its
+     input read back from its file, within HOST_HEAD_TOL over the first 8192
+     samples and HOST_WHOLE_TOL over the whole file; --backend auto on the
+     card prints its pull rate and picks device; 8b the DCT front-end (ft
+     1024, w 2048, hop 1024) on (200, 8192) and the FNN front-end on (200,
+     25, 1024) frames, TF32 off, in float32 and in bfloat16, each module
+     against float64 on the same parameters (in bf16 the same bf16-rounded
+     operands) within 1e-4, the round trips (DCT correlation > 0.95, FNN
+     within 1e-4), finite gradients, their times; 8c cli.viz on the demo
+     checkpoint: no kernel and no plain version run (return_acts takes the
+     gemm front-end), the activations within 1e-3 of the CPU model's on the
+     same input, the PNG's size; 8d cli.knob_sweep --frames 8 and
+     DemoState.run: A, B and C once a frame and once a run, no plain
+     version, frame 0 within 1e-3 of the CPU model's, 8 PNGs, ms a frame; 8e
+     the facades: SynthAudioDataSet(...).batches(200, steps=3) launches C 3
+     times with the right shapes, st.nn_proc.st_model() has the JAX
+     package's 4,211,090 parameters, st.train.make_train_multi_step's graph
+     replays a step (A, B, D, E, C launched).
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -1481,6 +1503,293 @@ def train_surface(dev, results: dict, sr: int, smi: str, phase4: dict) -> dict:
     return report
 
 
+# ---- phase 8: the rest of the single-card surface: gen_dataset's host
+# backend, the DCT and FNN front-ends, cli.viz, cli.knob_sweep, DemoState and
+# the reference-API facades
+HOST_ARGS = ["--dur", "5", "-n", "64", "--device-batch", "8", "--seed", "1", "-e", "comp_4c"]
+HOST_FILES, HOST_WORKERS = 64, 8
+# the C++ compressor (float64) against kernel C (float32) over a file's first
+# 8192 samples: the JAX package's tolerance for them at that length
+# (tests/test_native_oracle.py:10-18)
+HOST_HEAD, HOST_HEAD_TOL = 8192, 2e-5
+# Over whole 5 s files (221,184 steps) the two recursions part further, but
+# not without bound: kernel C's float32 rounding of the dB envelope is carried
+# only over the smoother's memory, 1/(1 - alpha) <= 800 steps at comp_4c's
+# slowest setting (0.04 s), about 1e-3 dB on a 30 dB envelope, 1.6e-4 of a
+# sample at the very worst. Its plain version (bit-equal to C) showed 5.1e-6
+# on 64 such files on the CPU; the limit is ten times that reading.
+HOST_WHOLE_TOL = 5e-5
+DCT_GEOM = (1024, 2048, 1024)  # ft, w, hop
+FE_BATCH, FE_TOL = 200, 1e-4  # the DCT and FNN front-ends against float64
+SWEEP_FRAMES = 8
+SERVE_TOL = 1e-3  # the card against the CPU path (the model-output tolerance)
+ST_MODEL_PARAMS = 4211090  # the JAX package's st_model() at its defaults
+PHASE8_LIMIT_S = 60.0
+SERVING_KERNELS = ("fused_analysis", "fused_synthesis", "switched_one_pole")
+
+
+def host_backend(dev, root: str) -> dict:
+    """8a: gen_dataset's host backend beside its device backend on one
+    corpus size; the host targets against kernel C on the inputs read back;
+    --backend auto on the card."""
+    import contextlib
+    import io
+    import re
+
+    from signaltrain_tpu_torch.cli import gen_dataset
+    from signaltrain_tpu_torch.data import audio_io
+    from signaltrain_tpu_torch.data.file_data import parse_knob_string
+    from signaltrain_tpu_torch.dsp import effects
+
+    host, counts = counted(lambda: in_dir(root, lambda: gen_dataset.main(
+        ["host", *HOST_ARGS, "--backend", "host", "--workers", str(HOST_WORKERS)])))
+    check(all(v == (0, 0) for v in counts.values()),
+          f"8a: the host backend used the card: {counts}")
+    check(host["backend"] == "host" and host["files"] == HOST_FILES
+          and host["workers"] == HOST_WORKERS, f"8a: host backend {host}")
+    device, counts = counted(lambda: in_dir(root, lambda: gen_dataset.main(
+        ["device", *HOST_ARGS, "--backend", "device", "--device", str(dev)])))
+    check(counts["switched_one_pole"][0] == HOST_FILES // 8,
+          f"8a: the device backend launched C {counts['switched_one_pole'][0]} times")
+    no_plain(counts, "8a (device backend)")
+    launches = counts["switched_one_pole"][0]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        auto = in_dir(root, lambda: gen_dataset.main(
+            ["auto", "--dur", "5", "-n", "8", "--device-batch", "8", "--backend", "auto",
+             "--device", str(dev)]))
+    said = re.search(r"device->host pull (\d+) MB/s -> (\w+)", out.getvalue())
+    check(said is not None and said.group(2) == "device" and auto["backend"] == "device",
+          f"8a: --backend auto on the card: {said and said.group(0)}, {auto['backend']}")
+
+    xs, ys, kws = [], [], []
+    for sub in ("Train", "Val"):
+        d = os.path.join(root, "host", sub)
+        for name in sorted(f for f in os.listdir(d) if f.startswith("target_")):
+            xs.append(audio_io.read_audio_file(os.path.join(d, f"input_{name.split('_')[1]}_.wav"),
+                                               warn=False)[0])
+            ys.append(audio_io.read_audio_file(os.path.join(d, name), warn=False)[0])
+            kws.append(parse_knob_string(name))
+    check(len(xs) == HOST_FILES, f"8a: {len(xs)} host targets")
+    fx = effects.Compressor_4c(device=dev)
+    x = torch.from_numpy(np.stack(xs)).to(dev)
+    (yd, _), counts = counted(lambda: fx.go_wc(x, torch.from_numpy(np.stack(kws)).to(dev)))
+    check(counts["switched_one_pole"][0] > 0, "8a: the comparison did not launch C")
+    no_plain(counts, "8a (the card's targets)")
+    launches += counts["switched_one_pole"][0]
+    err = np.abs(yd.cpu().numpy() - np.stack(ys))
+    head, whole = float(err[:, :HOST_HEAD].max()), float(err.max())
+    check(head <= HOST_HEAD_TOL, f"8a: host targets against kernel C over the first {HOST_HEAD} "
+          f"samples: {head:.3e} > {HOST_HEAD_TOL}")
+    check(whole <= HOST_WHOLE_TOL, f"8a: host targets against kernel C over whole files: "
+          f"{whole:.3e} > {HOST_WHOLE_TOL}")
+    return {"host_files_per_s": host["files_per_s"], "host_seconds": host["seconds"],
+            "device_files_per_s": device["files_per_s"],
+            "device_steady_files_per_s": device["steady_files_per_s"],
+            "device_seconds": device["seconds"], "device_card_ms_per_batch":
+            device["card_ms_per_batch"], "auto_pull_mb_s": float(said.group(1)),
+            "head_max_abs_err": head, "whole_max_abs_err": whole,
+            "signal_length": host["signal_length"], "c_launches": launches}
+
+
+def frontend_variants(dev) -> dict:
+    """8b: the DCT front-end on (200, 8192) and the FNN front-end on (200,
+    25, 1024) frames, each against float64 on the same parameters (in bf16
+    the same operands rounded to bf16), the round trips, finite gradients,
+    and their times."""
+    from signaltrain_tpu_torch.ops import dct_frontend, framing, frontend
+
+    ft, w, hop = DCT_GEOM
+    half = ft // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = 0.3 * torch.randn(FE_BATCH, 8192, generator=g, device=dev)
+    frames = torch.randn(FE_BATCH, 25, ft, generator=g, device=dev)
+    report = {}
+    for dtype in (torch.float32, BF16):
+        tag = "float32" if dtype == torch.float32 else "bfloat16"
+        rnd = (lambda a: a.detach().to(BF16).double()) if dtype == BF16 else (
+            lambda a: a.detach().double())
+        ana = dct_frontend.DCTAnalysis(ft, w, hop, device=dev, compute_dtype=dtype)
+        syn = dct_frontend.DCTSynthesis(ft, w, hop, device=dev, compute_dtype=dtype)
+        fa = frontend.FNNAnalysis(ft, device=dev, compute_dtype=dtype)
+        fs = frontend.FNNSynthesis(ft, device=dev, compute_dtype=dtype)
+        with torch.no_grad():
+            ana.bias.copy_(0.01 * torch.randn(ft, generator=g, device=dev))
+        spec = ana(x)
+        wave = syn(spec)
+        tied = dct_frontend.tied_transform(ana.weight, spec, hop, ft, dtype)
+        re, im = fa(frames)
+        rec = fs(re, im)
+
+        def trim(a):
+            return a[:, ft : a.shape[1] - ft]
+
+        wr, wi = frontend.fold_synthesis_weights(fs.w_real, fs.w_imag, half)
+        want = {
+            "dct_analysis": (spec, framing.frame_signal(rnd(x), w, hop, pad=ft)
+                             @ rnd(ana.weight).t() + ana.bias.detach().double()),
+            "dct_synthesis": (wave, trim(framing.overlap_add(rnd(spec) @ rnd(syn.weight), hop))),
+            "tied": (tied, trim(framing.overlap_add(rnd(spec) @ rnd(ana.weight), hop))),
+            "fnn_analysis": (torch.cat([re, im], -1), rnd(frames) @ rnd(
+                torch.cat([fa.w_real[:half], fa.w_imag[:half]]).t())),
+            "fnn_synthesis": (rec, rnd(torch.cat([re, im], -1)) @ rnd(torch.cat([wr, wi]))),
+        }
+        errs = {}
+        for name, (got, ref) in want.items():
+            check(tuple(got.shape) == tuple(ref.shape) and bool(torch.isfinite(got).all()),
+                  f"8b {tag} {name}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
+            errs[name] = float((got.detach().double() - ref).abs().max())
+            check(errs[name] <= FE_TOL, f"8b {tag} {name}: {errs[name]:.3e} > {FE_TOL} "
+                  "against float64")
+        cot = torch.randn(wave.shape, generator=g, device=dev)
+        ((wave * cot).sum() + (rec * torch.randn(rec.shape, generator=g, device=dev)).sum()
+         ).backward()
+        grads = [p.grad for m in (ana, syn, fa, fs) for p in m.parameters()]
+        check(all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads),
+              f"8b {tag}: a gradient is missing or not finite")
+        r = {"max_abs_err_vs_float64": errs}
+        if dtype == torch.float32:
+            a = wave.detach()[:, 2048:-2048].double()
+            b = x[:, 2048 : 2048 + wave.shape[1] - 4096].double()
+            corr = float(((a - a.mean(1, keepdim=True)) * (b - b.mean(1, keepdim=True))).sum()
+                         / (a.std(1) * b.std(1) * (a.shape[1] - 1)).sum())
+            check(corr > 0.95, f"8b: the DCT round trip's correlation {corr:.4f} <= 0.95")
+            rt = float((rec.detach() - frames).abs().max())
+            check(rt <= FE_TOL, f"8b: the FNN round trip is off by {rt:.3e}")
+            r.update(dct_round_trip_corr=corr, fnn_round_trip_err=rt)
+        with torch.no_grad():
+            r["ms"] = {"dct_analysis": cuda_ms(lambda: ana(x), reps=20),
+                       "dct_synthesis": cuda_ms(lambda: syn(spec), reps=20),
+                       "fnn_analysis": cuda_ms(lambda: fa(frames), reps=20),
+                       "fnn_synthesis": cuda_ms(lambda: fs(re, im), reps=20)}
+        report[tag] = r
+    return report
+
+
+def tools(dev, root: str) -> dict:
+    """8c cli.viz on the card against the CPU path; 8d cli.knob_sweep and
+    DemoState.run, counted, against the CPU path."""
+    from signaltrain_tpu_torch.cli import bokeh_sliders, knob_sweep, viz
+    from signaltrain_tpu_torch.utils.load_model import load_model
+
+    cpu_model, _ = load_model(str(CKPT), device="cpu")
+    report, launches = {}, dict.fromkeys(SERVING_KERNELS, 0)
+    png = os.path.join(root, "viz.png")
+    card, counts = counted(lambda: viz.main([str(CKPT), "--device", str(dev), "--out", png]))
+    no_plain(counts, "8c")
+    check(all(c == (0, 0) for c in counts.values()),
+          f"8c: viz launched a kernel (return_acts runs the gemm front-end): {counts}")
+    ref = viz.forward_acts(cpu_model, card["x"].cpu(), card["knobs"])
+    worst = max(float((a.float().cpu() - b).abs().max()) for a, b in zip(card["acts"], ref))
+    check(worst <= SERVE_TOL, f"8c: viz activations {worst:.3e} from the CPU path")
+    report["viz"] = {"max_abs_err_vs_cpu": worst, "png_bytes": os.path.getsize(png),
+                     "png_shape": list(card["image"].shape), "tiles": card["tiles"]}
+    print(f"8c: viz {card['image'].shape[1]}x{card['image'].shape[0]}, {card['tiles']} tiles, "
+          f"{os.path.getsize(png)} bytes; activations within {worst:.3e} of the CPU path")
+
+    sweep, counts = counted(lambda: in_dir(root, lambda: knob_sweep.main(
+        [str(CKPT), "--frames", str(SWEEP_FRAMES), "--device", str(dev)])))
+    for k in SERVING_KERNELS:
+        check(counts[k][0] == SWEEP_FRAMES, f"8d: knob_sweep launched {k} {counts[k][0]} times")
+        launches[k] += counts[k][0]
+    no_plain(counts, "8d (knob_sweep)")
+    f0 = sweep["frames"][0]
+    with torch.no_grad():
+        want = cpu_model(torch.from_numpy(f0["x_in"])[None],
+                         torch.from_numpy(f0["knobs_nn"])[None])[0][0].numpy()
+    err = float(np.abs(f0["pred"] - want).max())
+    check(err <= SERVE_TOL, f"8d: knob_sweep frame 0 is {err:.3e} from the CPU path")
+    pngs = sorted(os.listdir(os.path.join(root, "knob_sweep")))
+    check(pngs == [f"sweep_{i:04d}.png" for i in range(SWEEP_FRAMES)], f"8d: frames {pngs}")
+    bokeh_sliders.EFFECT_CHECKPOINTS["comp_4c"] = str(CKPT)
+    state = bokeh_sliders.DemoState("comp_4c", device=dev)
+    (xi, yt, yp), counts = counted(lambda: state.run([-30.0, 5.0, 0.002, 0.002]))
+    for k in SERVING_KERNELS:
+        check(counts[k][0] == 1, f"8d: DemoState.run launched {k} {counts[k][0]} times")
+        launches[k] += counts[k][0]
+    no_plain(counts, "8d (DemoState)")
+    check(bool(np.isfinite(yp).all()) and yp.shape == (state.out_chunk,), "8d: DemoState output")
+    report["knob_sweep"] = {"frames": SWEEP_FRAMES, "ms_a_frame": sweep["ms_a_frame"],
+                            "frame0_max_abs_err_vs_cpu": err}
+    report["launches"] = launches
+    return report
+
+
+def facades(dev) -> dict:
+    """8e: the reference-API facades on the card."""
+    import signaltrain_tpu_torch as st
+    from signaltrain_tpu_torch.data import synth_data
+
+    effect = st.audio.Compressor_4c(device=dev)
+    ds = st.datasets.SynthAudioDataSet(8192, effect, y_size=2048)
+    shapes, counts = counted(lambda: [tuple(a.shape) for b in ds.batches(TRAIN_BATCH, steps=3)
+                                      for a in b])
+    check(shapes == [(TRAIN_BATCH, 8192), (TRAIN_BATCH, 2048), (TRAIN_BATCH, 4)] * 3,
+          f"8e: SynthAudioDataSet.batches shapes {shapes}")
+    check(counts["switched_one_pole"][0] == 3, "8e: the dataset's batches did not launch C")
+    no_plain(counts, "8e (datasets)")
+    launches = {"switched_one_pole": counts["switched_one_pole"][0]}
+    model = st.nn_proc.st_model(device=dev, generator=torch.Generator().manual_seed(TRAIN_SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == ST_MODEL_PARAMS, f"8e: st_model() has {n_params} parameters")
+    tx = st.train.make_optimizer(model, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
+    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048)
+    graph = st.train.make_train_multi_step(model, tx, batch_fn, TRAIN_BATCH, 2, seed=TRAIN_SEED)
+    losses, counts = counted(lambda: graph(0, 2))
+    check(graph.graph.replays == 1 and bool(torch.isfinite(losses).all()),
+          f"8e: make_train_multi_step: {graph.graph.replays} replays, losses {losses.tolist()}")
+    for k in ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd",
+              "switched_one_pole"):
+        check(counts[k][0] > 0, f"8e: the train graph never launched {k}")
+        launches[k] = launches.get(k, 0) + counts[k][0]
+    no_plain(counts, "8e (train graph)")
+    return {"batches": 3, "st_model_params": n_params, "losses": losses.tolist(),
+            "launches": launches}
+
+
+def single_card_surface(dev, results: dict, smi: str) -> dict:
+    """Phase 8; its failures raise, and it must end within PHASE8_LIMIT_S."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = {"8a": host_backend(dev, tmp)}
+        a = report["8a"]
+        print(f"8a: gen_dataset comp_4c, {HOST_FILES} files of {a['signal_length']} samples: host "
+              f"backend ({HOST_WORKERS} workers) {a['host_files_per_s']:.2f} files/s "
+              f"({a['host_seconds']:.2f} s), device backend {a['device_files_per_s']:.2f} files/s "
+              f"({a['device_seconds']:.2f} s; {a['device_steady_files_per_s']:.2f} after the "
+              f"first batch; {a['device_card_ms_per_batch']:.3f} card ms a batch of 8); host "
+              f"targets against kernel C: {a['head_max_abs_err']:.3e} over the first {HOST_HEAD} "
+              f"samples (limit {HOST_HEAD_TOL}), {a['whole_max_abs_err']:.3e} over whole files "
+              f"(limit {HOST_WHOLE_TOL}); auto: pull {a['auto_pull_mb_s']:.0f} MB/s -> device; "
+              f"on {smi}")
+        report["8b"] = frontend_variants(dev)
+        for tag, r in report["8b"].items():
+            errs = {k: float(f"{v:.3e}") for k, v in r["max_abs_err_vs_float64"].items()}
+            print(f"8b {tag}: DCT (ft {DCT_GEOM[0]}, w {DCT_GEOM[1]}, hop {DCT_GEOM[2]}) on "
+                  f"({FE_BATCH}, 8192), FNN (ft {DCT_GEOM[0]}) on ({FE_BATCH}, 25, {DCT_GEOM[0]}): "
+                  f"against float64 {json.dumps(errs)}; "
+                  f"ms {json.dumps({k: round(v, 4) for k, v in r['ms'].items()})} on {smi}")
+        report["8cd"] = tools(dev, tmp)
+    d = report["8cd"]["knob_sweep"]
+    print(f"8d: knob_sweep {d['frames']} frames, {d['ms_a_frame']:.3f} ms a frame (effect, model "
+          f"and copies to the host, host clock), frame 0 within "
+          f"{d['frame0_max_abs_err_vs_cpu']:.3e} of the CPU path; DemoState.run: A, B, C once "
+          f"each; on {smi}")
+    report["8e"] = facades(dev)
+    print(f"8e: SynthAudioDataSet.batches(200, steps=3) launched C 3 times; st_model() "
+          f"{report['8e']['st_model_params']} parameters; make_train_multi_step: warm-up + 1 "
+          f"replay, losses {report['8e']['losses']}")
+    for k in SERVING_KERNELS + ("fused_analysis_bwd", "fused_synthesis_bwd"):
+        n_launch = (report["8cd"]["launches"].get(k, 0) + report["8e"]["launches"].get(k, 0)
+                    + (report["8a"]["c_launches"] if k == "switched_one_pole" else 0))
+        results[k]["launches_tools"] = n_launch
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 8: {report['seconds']:.2f} s (limit {PHASE8_LIMIT_S:.0f} s)")
+    check(report["seconds"] <= PHASE8_LIMIT_S,
+          f"phase 8 took {report['seconds']:.2f} s > {PHASE8_LIMIT_S:.0f} s")
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
@@ -1942,6 +2251,8 @@ def main() -> None:
     file_datasets(dev, results, sr, smi)
     surface = train_surface(dev, results, sr, smi, phase4_b)
     print(json.dumps({"surface": surface}))
+    # ---- 8. the rest of the single-card surface
+    print(json.dumps({"single_card_surface": single_card_surface(dev, results, smi)}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -2393,7 +2704,7 @@ def main() -> None:
                 "train_bound_ms_cuda_cores", "train_tflops", "train_shape", "gen_ms",
                 "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
                 "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
-                "launches_file_serving", "launches_surface", "launches_lr_finder")
+                "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

@@ -11,8 +11,31 @@ plain PyTorch versions of the kernels run only for tensors on the CPU
 
 What is ported: serving (checkpoint loading, the model, long-audio
 inference), training on synthesized data for every synthesized effect and on
-audio-file datasets (`data.file_data`, `cli.gen_dataset`), and the dataset
-tools; ROADMAP.md lists what is not.
+audio-file datasets (`data.file_data`, `cli.gen_dataset` with its device and
+host backends), the dataset tools, the DCT and FNN front-ends, and the
+visualization and demo tools; ROADMAP.md lists what is not.
+
+The reference's package surface (`import signaltrain as st; st.audio...`)
+is mirrored as the JAX package mirrors it: st.audio, st.datasets,
+st.io_methods, st.learningrate, st.loss_functions, st.nn_proc, st.misc and
+st.train resolve lazily (PEP 562), so a bare import stays light.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_SUBMODULES = (
+    "audio", "datasets", "io_methods", "learningrate", "loss_functions",
+    "nn_proc", "misc", "train",
+)
+
+
+def __getattr__(name):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_SUBMODULES))

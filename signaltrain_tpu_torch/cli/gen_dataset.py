@@ -2,7 +2,8 @@
 cli/gen_dataset.py.
 
     python -m signaltrain_tpu_torch.cli.gen_dataset NAME [--dur 5] [-n 20000 | --sp S]
-        [-e comp_4c] [--inpath DIR] [--device-batch 64] [--seed 1] [--pcm16] [--device cuda]
+        [-e comp_4c] [--inpath DIR] [--device-batch 64] [--seed 1] [--pcm16]
+        [--backend auto|device|host] [--workers N] [--device cuda]
 
 Writes ``NAME/Train`` and ``NAME/Val`` pairs ``input_<i>_.wav`` /
 ``target_<i>_<Effect>__k1__k2....wav`` (the knob values in world coordinates,
@@ -10,10 +11,11 @@ Writes ``NAME/Train`` and ``NAME/Val`` pairs ``input_<i>_.wav`` /
 with ``--sp`` (``dsp.knobs.int2knobs``), random knobs otherwise from
 ``np.random.seed(seed)``, and ``NAME/effect_info.ini``; numbering continues
 after the pairs already there. For the same arguments the names and the
-``.ini`` are the JAX tool's.
+``.ini`` are the JAX tool's, whatever the backend: the knobs are drawn before
+it is chosen.
 
-Runs on the CUDA card unless ``--device cpu`` is given. A batch of
-``--device-batch`` whole files is synthesized there from a
+``--backend device`` runs on the CUDA card unless ``--device cpu`` is given.
+A batch of ``--device-batch`` whole files is synthesized there from a
 ``torch.Generator`` seeded from (seed, first file): each clip of 4,096
 samples from a synth branch drawn uniformly from (0, 1, 2, 4, 6, 7, 8, 9),
 normalized where its peak exceeds 1, then the effect's ``go_batch`` over the
@@ -21,9 +23,19 @@ whole files (kernel C for the comp_4c family, L for comp) and, with
 ``--pcm16``, the rounding to int16, on the card. Batch i + 1 is dispatched
 (its copy to pinned host memory included) before batch i is written.
 ``--inpath`` crops real audio on the host and applies the effect on the
-device. ``--backend host`` and ``--workers`` (the JAX package's pool of host
-processes) are not ported yet; ``auto`` and ``device`` both run on
-``--device``.
+device.
+
+``--backend host`` never touches the card: batches of ``--device-batch``
+files go to ``--workers`` spawned host processes (0: one a CPU core; 1: this
+process, no pool), each with one intra-op thread. A worker synthesizes a
+batch on the CPU from a generator seeded from (seed, first file), with
+exactly even chooser coverage over the batch's clips and a random
+permutation (``synths.stratified_synth_batch``, as the JAX host path), and
+applies the C++ compressor (``utils/native.py``) to each file; ``--inpath``
+crops with ``numpy.random.default_rng(seed + first file)``. The output does
+not depend on the number of workers. ``--backend auto`` picks ``device``
+when ``--device`` is the CPU; on the card it times a fresh 4 MB pull to the
+host and picks ``host`` below 100 MB/s, printing the rate and the choice.
 """
 
 from __future__ import annotations
@@ -68,27 +80,27 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pcm16", action="store_true",
                         help="write 16-bit PCM wavs (half the bytes; default float32)")
     parser.add_argument("--backend", choices=("auto", "device", "host"), default="auto",
-                        help="'auto' and 'device' run on --device; 'host' (a pool of host "
-                        "processes) is not ported yet")
+                        help="'device' synthesizes and applies the effect in batches on "
+                        "--device; 'host' runs the synthesis and the C++ compressors in a pool "
+                        "of host processes; 'auto' times a pull from the device and picks")
     parser.add_argument("--workers", type=int, default=0,
-                        help="host-backend worker processes (not ported yet)")
+                        help="host-backend worker processes (0 = cpu count)")
     parser.add_argument("--device", default="cuda",
-                        help="torch device; 'cpu' runs the plain PyTorch path")
+                        help="torch device; 'cpu' runs the plain PyTorch path (the host "
+                        "backend uses none)")
     return parser
 
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.backend == "host" or args.workers:
-        print("Error: not yet ported: --backend host / --workers (the host process pool)")
-        sys.exit(1)
     from ..utils.device import resolve_device
 
-    try:
-        resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"Error: {e}")
-        sys.exit(1)
+    if args.backend != "host":
+        try:
+            resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"Error: {e}")
+            sys.exit(1)
     if args.sp is None:
         print("Warning: Defaults will generate approximately",
               33.7 * args.num / 20000 * args.dur / 5,
@@ -135,7 +147,7 @@ def gen_synth_data(args) -> dict:
     from ..utils.device import resolve_device
 
     np.random.seed(args.seed)
-    dev = resolve_device(args.device)
+    dev = torch.device("cpu") if args.backend == "host" else resolve_device(args.device)
     name, sr, settings_per, inpath = args.name, args.sr, args.sp, args.inpath
     num_outfiles = args.num
 
@@ -202,6 +214,9 @@ def gen_synth_data(args) -> dict:
         all_knobs_wc.append([float("%s" % float("%.4g" % v)) for v in kw])
 
     db = args.device_batch
+    if resolve_backend(args.backend, dev) == "host":
+        return gen_host_data(args, name, all_outpaths, all_knobs_wc, all_inputs_from_file,
+                             start_output_i, num_clips, signal_length, num_outfiles)
     batch_starts = list(range(0, num_outfiles, db))
     on_card = dev.type == "cuda"
     out_dtype = torch.int16 if args.pcm16 else torch.float32
@@ -280,7 +295,7 @@ def gen_synth_data(args) -> dict:
             "files_per_s": num_outfiles / max(seconds, 1e-9), "steady_files_per_s": steady,
             "batch_done_s": done_s,
             "card_ms_per_batch": float(np.mean(card_ms)) if card_ms else None,
-            "card_ms_batches": card_ms, "signal_length": signal_length}
+            "card_ms_batches": card_ms, "signal_length": signal_length, "backend": "device"}
 
 
 def _write_pairs(effect, name, all_outpaths, all_knobs_wc, start_output_i, x, y, b0, bend,
@@ -301,6 +316,154 @@ def _write_pairs(effect, name, all_outpaths, all_knobs_wc, start_output_i, x, y,
         else:
             audio_io.write_audio_file(fin, x[j].astype(np.float32), sr)
             audio_io.write_audio_file(ftg, y[j].astype(np.float32), sr)
+
+
+# ---- the host backend: synthesis and the C++ compressors in host processes
+
+def resolve_backend(backend: str, dev: torch.device) -> str:
+    """``auto``: ``device`` on the CPU; on the card ``host`` when a fresh
+    4 MB pull to the host runs below 100 MB/s, else ``device``."""
+    if backend != "auto":
+        return backend
+    if dev.type == "cpu":
+        return "device"
+    a = torch.zeros(1 << 20, dtype=torch.float32, device=dev)  # 4 MB
+    (a + 0.0).cpu()  # warm
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    (a + 1.0).cpu()  # a fresh buffer: a real pull
+    rate = a.numel() * 4 / max(1e-9, time.perf_counter() - t0)
+    picked = "host" if rate < 100e6 else "device"
+    print(f"gen_dataset auto backend: device->host pull {rate / 1e6:.0f} MB/s -> {picked}")
+    return picked
+
+
+def host_effect_fn(effect, sr: int):
+    """fn(x, knobs_wc) -> y, the C++ compressor of ``effect`` on one file
+    (None for an effect without one)."""
+    from ..utils import native
+
+    name = effect.name
+    if name == "Compressor":
+        return lambda x, kw: native.compressor_3knob(x, float(kw[0]), float(kw[1]), float(kw[2]),
+                                                     sr=sr)
+    if name in ("Compressor_4c", "Compressor_4c_Large", "Compressor_4c_OneSetting"):
+        return lambda x, kw: native.compressor_4controls(
+            x, float(kw[0]), float(kw[1]), float(kw[2]), float(kw[3]), sr=sr)
+    if name == "Comp_Just_Thresh":
+        return lambda x, kw: native.compressor_4controls(
+            x, float(kw[0]), effect.ratio, effect.attack, effect.release, sr=sr)
+    return None
+
+
+class HostGen:
+    """One process's generator: CPU synthesis and the C++ effect, writing
+    the pairs of a range of files (``run_range``)."""
+
+    def __init__(self, payload: dict):
+        from ..dsp import effects as fx
+
+        self.p = payload
+        self.effect = fx.make_effect(payload["effect_cli"], sr=payload["sr"], device="cpu")
+        self.effect_fn = host_effect_fn(self.effect, payload["sr"])
+        if self.effect_fn is None:
+            raise ValueError(f"{self.effect.name} has no host compressor")
+        self.t = torch.arange(CLIP_LENGTH, dtype=torch.float32) / payload["sr"]
+        self.g = torch.Generator()
+
+    def synth(self, b0: int) -> np.ndarray:
+        """(device_batch, signal_length) inputs of the batch that starts at
+        file b0: the clips of the whole batch with exactly even chooser
+        coverage and a random permutation, each divided by its peak where
+        that exceeds 1."""
+        from ..data import synth_data
+        from ..dsp import synths
+
+        p = self.p
+        synth_data.step_generator(self.g, p["seed"], b0)
+        x = synths.stratified_synth_batch(self.g, self.t, CHOOSERS, p["db"] * p["num_clips"])
+        m = torch.amax(torch.abs(x), dim=1, keepdim=True)
+        x = torch.where(m > 1.0, x / m, x)
+        return x.reshape(p["db"], p["signal_length"]).numpy()
+
+    def crop(self, b0: int, bend: int) -> np.ndarray:
+        """The input files of b0 .. bend - 1, each cropped at a start drawn
+        from ``default_rng(seed + b0)`` (zero-padded where shorter)."""
+        p = self.p
+        rng = np.random.default_rng(p["seed"] + b0)
+        x = np.zeros((bend - b0, p["signal_length"]), np.float32)
+        for j, i in enumerate(range(b0, bend)):
+            sig, _ = audio_io.read_audio_file(p["infiles"][i], sr=p["sr"], warn=False)
+            if p["signal_length"] >= len(sig):
+                x[j, : len(sig)] = sig
+            else:
+                ri = int(rng.integers(0, len(sig) - p["signal_length"]))
+                x[j] = sig[ri : ri + p["signal_length"]]
+        return x
+
+    def run_range(self, task: tuple[int, int]) -> int:
+        b0, bend = task
+        p = self.p
+        x = self.synth(b0)[: bend - b0] if p["synth"] else self.crop(b0, bend)
+        y = np.stack([self.effect_fn(x[j], p["knobs_wc"][b0 + j]) for j in range(bend - b0)])
+        if p["pcm16"]:
+            x, y = audio_io.to_pcm16(x), audio_io.to_pcm16(y)
+        _write_pairs(self.effect, p["name"], p["outpaths"], p["knobs_wc"], p["start_output_i"],
+                     x, y, b0, bend, p["num_outfiles"], LOG_EVERY, p["sr"])
+        return bend - b0
+
+
+_HOST_GEN: HostGen | None = None
+
+
+def _worker_init(payload: dict) -> None:
+    # one intra-op thread a worker: N workers with every core's threads each
+    # would oversubscribe the host
+    global _HOST_GEN
+    torch.set_num_threads(1)
+    _HOST_GEN = HostGen(payload)
+
+
+def _worker_run(task: tuple[int, int]) -> int:
+    return _HOST_GEN.run_range(task)
+
+
+def gen_host_data(args, name, all_outpaths, all_knobs_wc, all_inputs_from_file, start_output_i,
+                  num_clips, signal_length, num_outfiles) -> dict:
+    """Write the pairs with the host backend; returns the run's counts and
+    times, as ``gen_synth_data`` does (no card times)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from ..utils import native
+
+    native.build()  # once, here: the workers then only load it
+    payload = dict(effect_cli=args.effect, sr=args.sr, seed=args.seed, pcm16=args.pcm16,
+                   num_clips=num_clips, signal_length=signal_length, db=args.device_batch,
+                   synth=all_inputs_from_file[0] is None if all_inputs_from_file else True,
+                   name=name, outpaths=all_outpaths, knobs_wc=all_knobs_wc,
+                   infiles=all_inputs_from_file, start_output_i=start_output_i,
+                   num_outfiles=num_outfiles)
+    tasks = [(b0, min(b0 + args.device_batch, num_outfiles))
+             for b0 in range(0, num_outfiles, args.device_batch)]
+    workers = args.workers or os.cpu_count() or 1
+    t0 = time.perf_counter()
+    if workers <= 1:
+        gen = HostGen(payload)
+        done = sum(gen.run_range(task) for task in tasks)
+    else:
+        # a worker that fails, or dies, fails the run (BrokenProcessPool
+        # where it dies before its first task) instead of being replaced
+        with ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
+                                 initializer=_worker_init, initargs=(payload,)) as pool:
+            done = sum(pool.map(_worker_run, tasks))
+    seconds = time.perf_counter() - t0
+    print(f"host backend: {done} file pairs in {seconds:.1f} s "
+          f"({done / max(seconds, 1e-9):.1f} files/s, {workers} worker(s))")
+    return {"files": done, "seconds": seconds, "files_per_s": done / max(seconds, 1e-9),
+            "steady_files_per_s": None, "batch_done_s": [], "card_ms_per_batch": None,
+            "card_ms_batches": [], "signal_length": signal_length, "backend": "host",
+            "workers": workers}
 
 
 if __name__ == "__main__":

@@ -18,8 +18,8 @@ the end level; the location arithmetic of ``spikes`` truncates toward zero
 twice; where two spikes land on one sample, which one stays is unspecified.
 The JAX package's ``t0_fac`` override (a fixed onset, a fraction of the
 clip, in place of the drawn one; TimeAlign synthesizes with 0.5) is
-``branch(..., t0_fac=)``; its ``freq`` / ``amp`` overrides (used by its
-dataset tool) have no counterpart yet.
+``branch(..., t0_fac=)``; its ``freq`` and ``amp`` overrides are those of
+``ampexpstepup`` and ``sweep``.
 
 ``pinknoise`` is ``torch.fft.irfft`` of the shaped spectrum. (The JAX package
 multiplies by a cosine matrix because its backend has no FFT.)
@@ -183,14 +183,23 @@ def draw_ampexpstepup(g: torch.Generator, batch: int) -> Draws:
     return {"freq": _u(g, batch), "norm": _u(g, batch)}
 
 
+def _per_row(v, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or (B,) override as a (B,) tensor shaped and placed as ``like``."""
+    return as_device_tensor(v, like.dtype, like.device).expand(like.shape)
+
+
 def ampexpstepup(t: torch.Tensor, d: Draws, freq_range=(400.0, 5000.0),
-                 start_db: float = -40.0) -> torch.Tensor:
+                 start_db: float = -40.0, freq=None) -> torch.Tensor:
     """Sine under a 1 dB-stepped amplitude staircase (the AES-6849
-    compressor test signal)."""
+    compressor test signal). ``freq`` (a number or (B,) tensor) is a fixed
+    angular frequency in place of the drawn one."""
     n = t.shape[0]
     env_db = torch.floor(torch.linspace(start_db, 0.0, n, dtype=t.dtype, device=t.device))
     env = torch.pow(10.0, env_db / 10.0)
-    freq = freq_range[0] + (freq_range[1] - freq_range[0]) * d["freq"]
+    if freq is None:
+        freq = freq_range[0] + (freq_range[1] - freq_range[0]) * d["freq"]
+    else:
+        freq = _per_row(freq, d["freq"])
     return normish(env * torch.sin(_col(freq) * t), d["norm"])
 
 
@@ -198,13 +207,14 @@ def draw_sweep(g: torch.Generator, batch: int) -> Draws:
     return {"amp": _u(g, batch), "norm": _u(g, batch)}
 
 
-def sweep(t: torch.Tensor, d: Draws, f_low, f_high, amp_too) -> torch.Tensor:
+def sweep(t: torch.Tensor, d: Draws, f_low, f_high, amp_too, amp=None) -> torch.Tensor:
     """Exponential frequency sweep from f_low to f_high (floats or (B,)
-    tensors); amp_too ((B,) bool) makes the amplitude rise with it."""
+    tensors); amp_too ((B,) bool) makes the amplitude rise with it. ``amp``
+    (a number or (B,) tensor) is a fixed amplitude in place of the drawn one."""
     tmax = t[-1]
     lnfr = torch.log(as_device_tensor(f_high, t.dtype, t.device)
                      / as_device_tensor(f_low, t.dtype, t.device)).reshape(-1, 1)
-    amp = _col(0.9 * d["amp"])
+    amp = _col(0.9 * d["amp"] if amp is None else _per_row(amp, d["amp"]))
     y = amp * torch.sin(20.0 * 2.0 * math.pi * tmax / lnfr * (torch.exp(t / tmax * lnfr) - 1.0))
     y = torch.where(_col(amp_too), y * torch.exp(lnfr * t / tmax), y)
     return normish(y, d["norm"])

@@ -59,3 +59,13 @@ def sliding_window(x: torch.Tensor, size: int, overlap: int = 0) -> torch.Tensor
     if remainder != 0:
         x = F.pad(x, (0, step - remainder))
     return x.unfold(0, size, step)
+
+
+def undo_sliding_window(x: torch.Tensor, overlap: int, flatsize: int | None = None) -> torch.Tensor:
+    """The inverse of ``sliding_window`` (n_windows, size) -> 1-D signal:
+    the first window's overlap, then every window without its overlap, cut
+    to ``flatsize`` if given. With no overlap ``x`` comes back as it is."""
+    if overlap != 0:
+        xnew = torch.cat((x[0, 0:overlap], x[:, overlap:].reshape(-1)))
+        return xnew[0:flatsize] if flatsize is not None else xnew
+    return x

@@ -177,3 +177,61 @@ class Synthesis(nn.Module):
         return cuda_frontend.fused_synthesis(
             mag, phs, self.stacked_weights(), self.ft_size, self.hop_size, self.compute_dtype
         )
+
+
+def glorot_uniform(shape: tuple[int, int], generator: torch.Generator) -> torch.Tensor:
+    """U(-l, l), l = sqrt(6 / (fan_in + fan_out)), drawn on the CPU from
+    ``generator``: the distribution of flax's ``glorot_uniform``."""
+    limit = (6.0 / (shape[0] + shape[1])) ** 0.5
+    return (torch.rand(shape, generator=generator, dtype=torch.float64) * 2 - 1).mul_(limit).float()
+
+
+class FNNAnalysis(nn.Module):
+    """Frame-wise linear analysis (cls_fe_dft.py:166-205, a variant the
+    reference's main path does not use): a dense DFT of each frame, with no
+    window or striding. (B, T, ft) -> (re, im), each (B, T, half). The
+    trainable matrices ``w_real`` / ``w_imag`` (ft, ft) start at the
+    orthonormal DFT basis; the product is ``gemm`` in ``compute_dtype``."""
+
+    def __init__(self, ft_size: int = 1024, device: str | torch.device = "cuda",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ft_size, self.half = ft_size, ft_size // 2 + 1
+        self.compute_dtype = compute_dtype
+        re0, im0 = windows.dft_basis(ft_size)
+        self.w_real = nn.Parameter(torch.as_tensor(re0, dtype=torch.float32).to(dev))
+        self.w_imag = nn.Parameter(torch.as_tensor(im0, dtype=torch.float32).to(dev))
+
+    def forward(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        w = torch.cat([self.w_real[: self.half], self.w_imag[: self.half]]).t()
+        spec = gemm(frames, w, self.compute_dtype)
+        return spec[..., : self.half], spec[..., self.half :]
+
+
+class FNNSynthesis(nn.Module):
+    """Frame-wise linear synthesis (cls_fe_dft.py:208-262): full-spectrum
+    frames rebuilt with the conjugate mirror folded into the weights.
+    (re, im), each (B, T, half) -> (B, T, ft). ``w_real`` / ``w_imag`` start
+    at the DFT basis, or with ``random_init`` glorot-uniform from
+    ``generator`` (seed 0 when none is given)."""
+
+    def __init__(self, ft_size: int = 1024, random_init: bool = False,
+                 device: str | torch.device = "cuda", compute_dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.ft_size, self.half = ft_size, ft_size // 2 + 1
+        self.compute_dtype = compute_dtype
+        if random_init:
+            gen = generator if generator is not None else torch.Generator().manual_seed(0)
+            re0 = glorot_uniform((ft_size, ft_size), gen)
+            im0 = glorot_uniform((ft_size, ft_size), gen)
+        else:
+            re0, im0 = (torch.as_tensor(m, dtype=torch.float32) for m in windows.dft_basis(ft_size))
+        self.w_real = nn.Parameter(re0.to(dev))
+        self.w_imag = nn.Parameter(im0.to(dev))
+
+    def forward(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+        wr, wi = fold_synthesis_weights(self.w_real, self.w_imag, self.half)
+        return gemm(torch.cat([re, im], dim=-1), torch.cat([wr, wi]), self.compute_dtype)

@@ -91,6 +91,15 @@ def state_dict_to_params(sd) -> dict:
     return {"params": p}
 
 
+def frontend_params_to_state_dict(params) -> dict[str, torch.Tensor]:
+    """The JAX parameter tree of a front-end variant ({"params": {...}} of
+    ``DCTAnalysis``, ``DCTSynthesis``, ``FNNAnalysis`` or ``FNNSynthesis``)
+    -> the state_dict of the port's module of that name. The leaves keep
+    their names (``weight``, ``bias``, ``w_real``, ``w_imag``) and layouts."""
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+            for k, v in params["params"].items()}
+
+
 def _leaves(tree) -> list:
     """Leaves of a nested dict in sorted-key order (how JAX flattens one)."""
     if isinstance(tree, dict):

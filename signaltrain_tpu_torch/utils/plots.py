@@ -27,17 +27,20 @@ from ..training import checkpoint
 # viridis at 0, 1/8, ..., 1, interpolated linearly between
 _VIRIDIS = np.array([(68, 1, 84), (71, 45, 123), (59, 82, 139), (44, 114, 142), (33, 145, 140),
                      (40, 174, 128), (94, 201, 98), (173, 220, 48), (253, 231, 37)], np.float64)
+# magma at the same nine points
+_MAGMA = np.array([(0, 0, 4), (29, 17, 71), (81, 18, 124), (131, 38, 129), (183, 55, 121),
+                   (231, 82, 99), (252, 137, 97), (254, 196, 136), (252, 253, 191)], np.float64)
 _BLUE, _RED, _GREEN = (0, 0, 255), (255, 0, 0), (0, 128, 0)  # "b", "r", (0, 0.5, 0)
 _LEFT, _RIGHT, _BOTTOM, _TOP, _HSPACE = 0.125, 0.9, 0.11, 0.88, 0.2  # matplotlib's subplot box
 
 
-def _lut() -> np.ndarray:
-    """(256, 3) uint8: the anchors of _VIRIDIS interpolated, as matplotlib's
-    256-colour map."""
-    pos = np.linspace(0.0, len(_VIRIDIS) - 1, 256)
-    i = np.minimum(pos.astype(np.int64), len(_VIRIDIS) - 2)
+def _lut(anchors: np.ndarray = _VIRIDIS) -> np.ndarray:
+    """(256, 3) uint8: a colormap's anchors (_VIRIDIS, _MAGMA) interpolated,
+    as matplotlib's 256-colour map."""
+    pos = np.linspace(0.0, len(anchors) - 1, 256)
+    i = np.minimum(pos.astype(np.int64), len(anchors) - 2)
     f = (pos - i)[:, None]
-    return np.round(_VIRIDIS[i] * (1 - f) + _VIRIDIS[i + 1] * f).astype(np.uint8)
+    return np.round(anchors[i] * (1 - f) + anchors[i + 1] * f).astype(np.uint8)
 
 
 def _viridis(m: np.ndarray, rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
@@ -268,4 +271,20 @@ def plot_curve(x, y, filename: str, title: str, xlabel: str, ylabel: str,
               (lo - pad, hi + pad), xlog=xlog)
     ax.line(x, y, _BLUE)
     ax.finish(xlabel, ylabel)
+    fig.save(filename)
+
+
+def plot_sweep_frame(x_in, y_target, y_pred, title: str, filename: str) -> None:
+    """One frame of a knob sweep: input, target and the prediction (over the
+    input's last len(y_pred) samples) in one 900 x 500 axes, y from -1 to 1."""
+    x_in, y_target, y_pred = (np.asarray(a, np.float64) for a in (x_in, y_target, y_pred))
+    n = len(x_in)
+    fig = _Figure(900, 500)
+    fig.title(title, 0.05 * fig.height)
+    ax = fig.axes(_LEFT, 1 - _TOP, _RIGHT, 1 - _BOTTOM)
+    ax.limits((0, n), (-1, 1))
+    ax.line(np.arange(n), x_in, _BLUE, label="Input")
+    ax.line(np.arange(len(y_target)), y_target, _RED, label="Target")
+    ax.line(np.arange(n - len(y_pred), n), y_pred, _GREEN, label="Predicted")
+    ax.finish()
     fig.save(filename)

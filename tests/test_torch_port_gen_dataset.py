@@ -114,11 +114,17 @@ def test_pcm16_numbering_and_refusals(tmp_path, monkeypatch, capsys):
         want = np.asarray(jfx.go_wc(jnp.asarray(x), jnp.asarray(file_data.parse_knob_string(f)))[0])
         # the target was rounded to 16 bits after the effect ran on the float input
         np.testing.assert_allclose(y, np.clip(want, -1, 1), atol=EFFECT_TOL["comp"][0] + 1 / 32767)
-    for argv, said in ((["--backend", "host"], "not yet ported"), (["--workers", "2"],
-                       "not yet ported"), (["-e", "echo"], "not set up")):
-        with pytest.raises(SystemExit) as e:
-            gen_dataset.main(["e", "-n", "2", "--dur", "0.1", "--device", "cpu"] + argv)
-        assert e.value.code == 1 and said in capsys.readouterr().out
+    # the host backend and --workers run (auto picks the device backend on
+    # the CPU, where --workers has no pool to size); an effect outside the
+    # compressor family is refused
+    for name, argv, backend in (("h", ["--backend", "host", "--workers", "1"], "host"),
+                                ("w", ["--workers", "2"], "device")):
+        stats = gen_dataset.main([name, "-n", "2", "--dur", "0.1", "--device", "cpu"] + argv)
+        assert stats["backend"] == backend and stats["files"] == 2
+        assert len(os.listdir(f"{name}/Train")) + len(os.listdir(f"{name}/Val")) == 4
+    with pytest.raises(SystemExit) as e:
+        gen_dataset.main(["e", "-n", "2", "--dur", "0.1", "--device", "cpu", "-e", "echo"])
+    assert e.value.code == 1 and "not set up" in capsys.readouterr().out
 
 
 def test_inpath_crops_real_audio(tmp_path, monkeypatch):

@@ -56,7 +56,46 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 31
+    assert int(out.stdout.strip()) >= 67
+
+
+def test_facades_resolve_lazily_with_jax_blocked():
+    """``import signaltrain_tpu_torch as st`` imports no torch; ``st.audio``
+    and ``st.train`` resolve on first use, with JAX blocked."""
+    code = (
+        "import sys\n"
+        f"for m in {sorted(FORBIDDEN)!r}: sys.modules[m] = None\n"
+        "import signaltrain_tpu_torch as st\n"
+        "assert 'torch' not in sys.modules, 'a bare import loads torch'\n"
+        "st.audio, st.train\n"
+        "print(sorted(m for m in st._SUBMODULES if f'signaltrain_tpu_torch.{m}' in sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['audio', 'train']"
+
+
+@pytest.mark.parametrize("cli", ["gen_dataset", "viz", "knob_sweep", "predict_long", "run_train",
+                                 "lr_finder", "ptsd2full"])
+def test_cli_device_defaults_to_cuda(cli, monkeypatch):
+    """Each CLI with a --device flag defaults it to the card."""
+    import argparse
+    import importlib
+
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def spy(self, args=None, namespace=None):
+        seen["device"] = self.get_default("device")
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", spy)
+    mod = importlib.import_module(f"signaltrain_tpu_torch.cli.{cli}")
+    with pytest.raises(SystemExit):
+        mod.main(["x"])
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", real)
+    assert seen["device"] == "cuda"
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():
@@ -102,6 +141,26 @@ def test_training_entry_points_need_cuda_or_an_explicit_cpu(capsys):
     with pytest.raises(SystemExit) as e:
         run_train.main(["--path", str(REPO / "demo"), "-e", "files"])
     assert e.value.code == 1 and "device='cpu'" in capsys.readouterr().out
+
+
+def test_new_surface_needs_cuda_or_an_explicit_cpu(capsys):
+    """The front-end variants, the facades, the tools and the demo state."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-CUDA error cannot be shown here")
+    import signaltrain_tpu_torch as st
+    from signaltrain_tpu_torch.cli import bokeh_sliders, knob_sweep, viz
+    from signaltrain_tpu_torch.ops import dct_frontend, frontend
+
+    ckpt = str(REPO / "demo" / "model_comp4c_demo.tar")
+    for call in (lambda: dct_frontend.DCTAnalysis(64, 128, 64),
+                 lambda: dct_frontend.DCTSynthesis(64, 128, 64),
+                 lambda: frontend.FNNAnalysis(64), lambda: frontend.FNNSynthesis(64),
+                 lambda: st.nn_proc.st_model(), lambda: st.audio.random_ends(3),
+                 lambda: st.audio.sliding_window([0.0] * 8, 4),
+                 lambda: bokeh_sliders.DemoState("denoise"),
+                 lambda: viz.main([ckpt]), lambda: knob_sweep.main([ckpt, "--frames", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_every_port_directory_is_a_discovered_package():
