@@ -197,6 +197,23 @@ Phases (any failure raises and exits non-zero):
      times with the right shapes, st.nn_proc.st_model() has the JAX
      package's 4,211,090 parameters, st.train.make_train_multi_step's graph
      replays a step (A, B, D, E, C launched).
+  9. data parallelism (parallel/, training/oracle.py, predict_long(mesh=)),
+     each part in spawned ranks (parallel/launch.spawn) with a deadline, in
+     at most PHASE9_LIMIT_S (60 s); every rank counts its own launches and
+     returns them, none may run a plain version: 9a a world of one under
+     NCCL: train() bf16, comp_4c, batch 200, 1 epoch x 20 steps, its
+     losses, validation figures and every weight bit-equal to the same
+     run without a mesh (A, B, D, E bf16 and C launched), and the train
+     graph with and without the mesh (two graphs around the all-reduce, or
+     one) bit-equal over 60 steps, their ms a step in turns; 9b two gloo
+     ranks on the one card, float32, global batch 200, DP_STEPS steps
+     through the split graphs against training/oracle.oracle_steps in this
+     process within atol 2e-6 / rtol 2e-5 (losses rtol 1e-5), the oracle
+     with reduce="sum" more than DP_CONTROL_GAP times over, the gloo
+     ranks' ms a step; 9c predict_long(mesh=) on the two ranks over phase
+     3's 30 s clip within 2e-5 of phase 3's output; 9d rank 0's checkpoint
+     after 9b resumed by train() at world 1 (4 steps) against the oracle
+     run on.
 The last two lines are the kernels JSON line and the result line.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
@@ -1790,6 +1807,248 @@ def single_card_surface(dev, results: dict, smi: str) -> dict:
     return report
 
 
+# ---- phase 9: data parallelism (parallel/, training/oracle.py, predict_long(mesh=)).
+# The ranks are spawned processes (parallel/launch.spawn): one card takes a
+# world of one under NCCL (NCCL refuses two ranks on one device) and two
+# ranks under gloo, on the same split graphs that run on several cards.
+PHASE9_LIMIT_S = 60.0
+DP_STEPS = 3  # 9b: steps of the 2 ranks against the oracle
+DP_OPT = (TRAIN_LR, 4 * TRAIN_BATCH, 1, TRAIN_BATCH)  # 9b's schedule, and 9d's resume: 4 steps
+DP_CONTROL_GAP = 10.0  # how many times over the limit the sum-not-mean oracle must land
+DP_PREDICT_TOL = 2e-5  # tests/test_predict_long_parity.py:88
+DP_TIMED_STEPS = 20
+F32_NAMES = [name.removeprefix("bf16_") for name in BF16_NAMES]
+
+
+def _rank_counts() -> dict:
+    from signaltrain_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    return {k: (c.launches, c.plain_calls) for k, c in _cuda.COUNTERS.items()}
+
+
+def _weights(model) -> dict:
+    return {k: v.detach().float().clone() for k, v in model.state_dict().items()}
+
+
+def _graph_ms(graph, step0: int, steps: int) -> float:
+    """Host milliseconds a step of ``steps`` replays of a train graph, one
+    fetch of the losses at the end (as train() runs a block)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph(step0, steps).cpu()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def dp_world_one(mesh, workdir: str, sr: int) -> dict:
+    """9a, in a rank of a world of one under NCCL: train() in bf16 (counted),
+    then the train graph with and without the mesh from the same weights in
+    turns: their losses and weights bit-equal, and their ms a step."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    dev = mesh.device
+    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+    _cuda.reset_counts()
+    model, hist = in_dir(workdir, lambda: train_mod.train(
+        effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
+        lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16, make_plots=False))
+    counts = _rank_counts()
+    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+    loops = {}
+    for way, m in (("single", None), ("mesh", mesh)):
+        net = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                       compute_dtype=BF16).train()
+        opt, lr_fn = train_mod.make_optimizer(net, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
+        g = graphs.TrainGraph(net, opt, lr_fn, batch_fn, TRAIN_BATCH, torch.Generator(device=dev),
+                              TRAIN_SEED, capacity=DP_TIMED_STEPS, mesh=m)
+        loops[way] = {"net": net, "graph": g, "losses": g(0, DP_TIMED_STEPS).cpu(), "ms": []}
+    for turn, way in enumerate(("single", "mesh", "mesh", "single")):
+        loops[way]["ms"].append(_graph_ms(loops[way]["graph"], DP_TIMED_STEPS * (1 + turn // 2),
+                                          DP_TIMED_STEPS))
+    graph_equal = torch.equal(loops["single"]["losses"], loops["mesh"]["losses"]) and all(
+        torch.equal(a, b) for a, b in zip(loops["single"]["net"].parameters(),
+                                          loops["mesh"]["net"].parameters()))
+    return {"hist": hist, "weights": _weights(model), "counts": counts,
+            "graphs_bit_equal": graph_equal,
+            "ms": {way: v["ms"] for way, v in loops.items()}}
+
+
+def dp_two_ranks(mesh, ckpt: str, sr: int, clip, knobs_nn) -> dict:
+    """9b and 9c, in one of two gloo ranks on one card: DP_STEPS train steps
+    in float32 through the split graphs at global batch TRAIN_BATCH (rank 0
+    saves the checkpoint after them), predict_long(mesh=) on the demo
+    checkpoint over phase 3's clip, then the ms a step of more replays."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.inference import predict_long as pl
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.training import checkpoint, graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+    from signaltrain_tpu_torch.utils.load_model import load_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+    model = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+    opt, lr_fn = train_mod.make_optimizer(model, *DP_OPT)
+    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+    graph = graphs.TrainGraph(model, opt, lr_fn, batch_fn, TRAIN_BATCH, torch.Generator(device=dev),
+                              TRAIN_SEED, capacity=DP_TIMED_STEPS, mesh=mesh)
+    _cuda.reset_counts()
+    losses = graph(0, DP_STEPS).cpu()
+    counts = _rank_counts()
+    weights = _weights(model)
+    if mesh.rank == 0:
+        checkpoint.save_checkpoint(ckpt, model.spec, effect, 0,
+                                   checkpoint.training_tensors(model, opt), DP_STEPS)
+    served, _ = load_model(str(CKPT), device=dev)
+    _cuda.reset_counts()
+    y = pl.predict_long(clip, knobs_nn, served, mesh=mesh)
+    predict_counts = _rank_counts()
+    ms = [_graph_ms(graph, DP_STEPS + i * DP_TIMED_STEPS, DP_TIMED_STEPS) for i in range(2)]
+    return {"losses": losses, "weights": weights, "counts": counts, "predict": y,
+            "predict_counts": predict_counts, "ms": ms, "replays": graph.graph.replays,
+            "memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred) -> dict:
+    """Phase 9 (module docstring); its failures raise, and it must end
+    within PHASE9_LIMIT_S."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.parallel import launch
+    from signaltrain_tpu_torch.training import checkpoint, oracle
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    t_phase = time.perf_counter()
+    report = {}
+    launches: dict[str, int] = {}
+
+    def add(counts: dict, what: str) -> None:
+        for k, (n_launch, plain) in counts.items():
+            check(plain == 0, f"{what} ran the plain version of {k}")
+            launches[k] = launches.get(k, 0) + n_launch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 9a: a world of one under NCCL against the same run without a mesh
+        (a,) = launch.spawn(dp_world_one, [str(dev)], "nccl", args=(tmp, sr), timeout_s=120)
+        effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+        with tempfile.TemporaryDirectory() as single:
+            model, hist = in_dir(single, lambda: train_mod.train(
+                effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
+                lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16,
+                make_plots=False))
+        for key in ("train_loss", "val_loss", "val_mae", "val_mae_mean", "step"):
+            check(a["hist"][key] == hist[key], f"9a: train() at world 1 differs in {key}")
+        check(all(torch.equal(torch.as_tensor(a["weights"][k]), v.detach().float().cpu())
+                  for k, v in model.state_dict().items()),
+              "9a: train() at world 1 differs from the run without a mesh in the weights")
+        check(a["graphs_bit_equal"], "9a: the split graphs differ from the single graph")
+        for k in BF16_NAMES + ["switched_one_pole"]:
+            check(a["counts"][k][0] > 0, f"9a: train() at world 1 never launched {k}")
+        add(a["counts"], "9a")
+        report["9a"] = {"steps": len(hist["train_loss"]), "ms_a_step": a["ms"]}
+        print(f"9a: train() bf16 at world 1 under NCCL, {len(hist['train_loss'])} steps: losses, "
+              f"validation and every weight bit-equal to the run without a mesh; the split graphs "
+              f"bit-equal to the single graph; ms a step (host clock, blocks of {DP_TIMED_STEPS}, "
+              f"in turns) single {a['ms']['single']}, mesh {a['ms']['mesh']} on {smi}")
+
+        # ---- 9b, 9c: two gloo ranks on this card against the oracle
+        ckpt = os.path.join(tmp, "world2.tar")
+        ranks = launch.spawn(dp_two_ranks, [str(dev)] * 2, "gloo",
+                             args=(ckpt, sr, clip, knobs_nn), timeout_s=120)
+        batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+
+        def fresh():
+            m = st_model(device=dev, sr=sr,
+                         generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+            return m, *train_mod.make_optimizer(m, *DP_OPT)
+
+        om, oopt, lr_fn = fresh()
+        o_losses = oracle.oracle_steps(om, oopt, lr_fn, batch_fn, TRAIN_BATCH, 2,
+                                       torch.Generator(device=dev), TRAIN_SEED, 0, DP_STEPS)
+        want = _weights(om)
+        bm, bopt, _ = fresh()  # the control: the shards' gradients summed, not averaged
+        oracle.oracle_steps(bm, bopt, lr_fn, batch_fn, TRAIN_BATCH, 2, torch.Generator(device=dev),
+                            TRAIN_SEED, 0, DP_STEPS, reduce="sum")
+        control = oracle.excess(_weights(bm), want)
+        excess = [oracle.excess(r["weights"], want) for r in ranks]
+        delta = max(oracle.max_param_delta(r["weights"], om) for r in ranks)
+        loss_err = max(float(np.abs(r["losses"] / o_losses.cpu().numpy() - 1).max()) for r in ranks)
+        check(max(excess) <= 1.0, f"9b: the 2 ranks are off the oracle: {excess} x the limit")
+        check(loss_err <= 1e-5, f"9b: the losses are off the oracle by {loss_err:.3e} (rtol 1e-5)")
+        check(control > DP_CONTROL_GAP, f"9b: the sum-not-mean control is only {control:.2f} x over")
+        for r in ranks:
+            check(r["replays"] == DP_STEPS - 1 + 2 * DP_TIMED_STEPS, "9b: replay count")
+            for k in F32_NAMES + ["switched_one_pole"]:
+                check(r["counts"][k][0] > 0, f"9b: a rank never launched {k}")
+            add(r["counts"], "9b")
+        report["9b"] = {"max_param_delta": delta, "excess": excess, "loss_rel_err": loss_err,
+                        "bit_equal": delta == 0.0, "control_excess": control,
+                        "ms_a_step": ranks[0]["ms"], "memory_gb": [r["memory_gb"] for r in ranks]}
+        print(f"9b: 2 gloo ranks on one card, f32, global batch {TRAIN_BATCH}, {DP_STEPS} steps "
+              f"through the split graphs against the oracle: max |dW| {delta:.3e} "
+              f"({'bit-equal' if delta == 0.0 else 'not bit-equal'}), {max(excess):.3f} x the "
+              f"limit (atol {oracle.ATOL}, rtol {oracle.RTOL}), losses within {loss_err:.2e}; "
+              f"sum-not-mean control {control:.1f} x over (must be > {DP_CONTROL_GAP}); "
+              f"{ranks[0]['ms']} ms a step (host clock, blocks of {DP_TIMED_STEPS}); peak memory "
+              f"{report['9b']['memory_gb']} GB a rank on {smi}")
+
+        # ---- 9c: predict_long split over the two ranks against phase 3's output
+        p_err = max(float(np.abs(r["predict"] - y_pred).max()) for r in ranks)
+        check(all(r["predict"].shape == y_pred.shape for r in ranks), "9c: prediction length")
+        check(p_err <= DP_PREDICT_TOL, f"9c: predict_long(mesh=) off phase 3's by {p_err:.3e}")
+        for r in ranks:
+            for k in ("fused_analysis", "fused_synthesis"):
+                check(r["predict_counts"][k][0] > 0, f"9c: a rank never launched {k}")
+            add(r["predict_counts"], "9c")
+        report["9c"] = {"max_abs_err": p_err, "samples": int(y_pred.shape[0])}
+        print(f"9c: predict_long(mesh=) on 2 ranks over the {CLIP_SECONDS:.0f} s clip: within "
+              f"{p_err:.3e} of phase 3's (limit {DP_PREDICT_TOL})")
+
+        # ---- 9d: the world-2 checkpoint resumed at world 1 against the oracle run on
+        state, rv = checkpoint.load_checkpoint(ckpt)
+        check(rv["optax_step"] == DP_STEPS, "9d: the checkpoint's step")
+        check(all(torch.equal(v, torch.as_tensor(ranks[0]["weights"][k]))
+                  for k, v in state.items()), "9d: the checkpoint is not rank 0's weights")
+        resume_dir = os.path.join(tmp, "resume")
+        os.makedirs(resume_dir)
+        resumed, r_hist = in_dir(resume_dir, lambda: train_mod.train(
+            effect, epochs=DP_OPT[2], n_data_points=DP_OPT[1], batch_size=TRAIN_BATCH, sr=sr,
+            lr_max=DP_OPT[0], seed=TRAIN_SEED, device=dev, compute_dtype=torch.float32,
+            make_plots=False, in_checkpointname=ckpt))
+        n_more = DP_OPT[1] // TRAIN_BATCH
+        o_more = oracle.oracle_steps(om, oopt, lr_fn, batch_fn, TRAIN_BATCH, 1,
+                                     torch.Generator(device=dev), TRAIN_SEED, DP_STEPS, n_more)
+        r_excess = oracle.excess(_weights(resumed), _weights(om))
+        r_loss_err = float(np.abs(np.asarray(r_hist["train_loss"]) / o_more.cpu().numpy() - 1).max())
+        check(r_hist["step"] == DP_STEPS + n_more, "9d: the resumed run's step")
+        check(r_excess <= 1.0 and r_loss_err <= 1e-5,
+              f"9d: the resumed run is off the oracle: {r_excess:.3f} x the limit, losses "
+              f"{r_loss_err:.3e}")
+        report["9d"] = {"excess": r_excess, "loss_rel_err": r_loss_err, "steps": n_more}
+        print(f"9d: the world-2 checkpoint (step {DP_STEPS}) resumed by train() at world 1 for "
+              f"{n_more} steps: {r_excess:.3f} x the limit against the oracle run on, losses within "
+              f"{r_loss_err:.2e}")
+    for k, v in launches.items():
+        if k in results and v:
+            results[k]["launches_parallel"] = v
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 9: {report['seconds']:.2f} s (limit {PHASE9_LIMIT_S:.0f} s)")
+    check(report["seconds"] <= PHASE9_LIMIT_S,
+          f"phase 9 took {report['seconds']:.2f} s > {PHASE9_LIMIT_S:.0f} s")
+    return report
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
@@ -2253,6 +2512,9 @@ def main() -> None:
     print(json.dumps({"surface": surface}))
     # ---- 8. the rest of the single-card surface
     print(json.dumps({"single_card_surface": single_card_surface(dev, results, smi)}))
+    # ---- 9. data parallelism
+    print(json.dumps({"data_parallel": data_parallel(dev, results, smi, sr, clip, knobs_nn,
+                                                     y_pred)}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -2704,7 +2966,8 @@ def main() -> None:
                 "train_bound_ms_cuda_cores", "train_tflops", "train_shape", "gen_ms",
                 "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
                 "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
-                "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools")
+                "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools",
+                "launches_parallel")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

@@ -18,6 +18,16 @@ to re-run);
 training inside ``utils/profiling.trace(DIR)`` (a ``torch.profiler`` trace
 with the card's kernels, for TensorBoard or Perfetto). ``--nmodel`` (model
 parallelism) exits with a message that it is not ported yet.
+
+Data parallelism: ``--nproc N`` spawns N ranks (``parallel/launch.py``), on
+the cards ``cuda:0 .. N-1`` under NCCL, or N CPU processes under gloo with
+``--device cpu``; each runs ``train_from_config`` on its shard of every
+batch of ``-b`` examples, and only rank 0 prints and writes. Started by
+torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT`` set), this process joins that world as its rank instead, on
+``cuda:LOCAL_RANK``. Without either it trains in this one process on
+``--device``: unlike the JAX ``train()``, which takes every local device,
+the port takes one card unless told otherwise.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import glob
+import os
 import sys
 
 
@@ -67,7 +78,25 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cp-every", type=int, default=25, help="epochs between checkpoints")
     parser.add_argument("--device", default="cuda",
                         help="torch device; 'cpu' runs the plain PyTorch path")
+    parser.add_argument("--nproc", type=int, default=1,
+                        help="data-parallel ranks to spawn, one a card (CPU processes with "
+                        "--device cpu)")
     return parser
+
+
+TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+
+
+def torchrun_rank(env) -> dict | None:
+    """The world a torchrun launch put in ``env`` (``TORCHRUN_VARS``), as
+    ``distributed.initialize``'s arguments but the backend and device; None
+    when they are not all set. The store is ``env://``: torchrun's agent
+    already serves it at MASTER_ADDR:MASTER_PORT, and ``env://`` joins it
+    as a client where a ``tcp://`` rank 0 would try to serve it again."""
+    if not all(k in env for k in TORCHRUN_VARS):
+        return None
+    return dict(init_method="env://", world_size=int(env["WORLD_SIZE"]), rank=int(env["RANK"]),
+                local_rank=int(env["LOCAL_RANK"]))
 
 
 def unported(args) -> list[str]:
@@ -91,11 +120,24 @@ def main(argv=None) -> None:
         print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
         sys.exit(1)
 
+    import torch
+
     from ..config import RunConfig, train_from_config
     from ..dsp import effects
+    from ..parallel import distributed, launch
+    from ..utils import profiling
 
-    try:
-        effect = effects.make_effect(args.effect, path=args.path, sr=args.sr, device=args.device)
+    world = torchrun_rank(os.environ)
+    if args.nproc > 1 and (world is not None or args.profile):
+        print("Error: --nproc spawns its own ranks: not under torchrun, and not with "
+              "--profile (which traces this process)")
+        sys.exit(1)
+    device = args.device
+    if world is not None and torch.device(device).type == "cuda":
+        device = f"cuda:{world['local_rank']}"
+    try:  # with --nproc the ranks build their own; this one only checks the arguments
+        effect = effects.make_effect(args.effect, path=args.path, sr=args.sr,
+                                     device="cpu" if args.nproc > 1 else device)
     except (ValueError, FileNotFoundError, RuntimeError) as e:
         print(f"Error: {e}")
         sys.exit(1)
@@ -112,15 +154,26 @@ def main(argv=None) -> None:
         print(f"Error: no input files under {args.path}/Train and {args.path}/Val")
         sys.exit(1)
     print("Running with args =", args)
-    import torch
-
-    from ..utils import profiling
-
-    cuda = torch.device(args.device).type == "cuda"
+    cfg = RunConfig.from_args(args).replace(device=device)
+    if cfg.nproc > 1:
+        devices = launch.rank_devices(cfg.device, cfg.nproc)
+        launch.spawn(launch.train_rank, devices, launch.backend_for(cfg.device), args=(cfg,),
+                     timeout_s=None)
+        print("run_train: Execution completed.")
+        return
+    if world is not None:
+        distributed.initialize(world["init_method"], world["world_size"], world["rank"],
+                               launch.backend_for(device), device)
+    cuda = torch.device(cfg.device).type == "cuda"
     ctx = profiling.trace(args.profile, cuda=cuda) if args.profile else contextlib.nullcontext()
-    with ctx:
-        train_from_config(RunConfig.from_args(args), effect=effect)
-    print("run_train: Execution completed.")
+    primary = distributed.is_primary()
+    try:
+        with ctx:
+            train_from_config(cfg, effect=effect)
+    finally:
+        distributed.shutdown()
+    if primary:
+        print("run_train: Execution completed.")
 
 
 if __name__ == "__main__":

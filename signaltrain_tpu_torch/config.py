@@ -3,9 +3,10 @@
 Counterpart of signaltrain_tpu/config.py: the CLI parses into a
 ``RunConfig``, ``train_from_config`` runs it, and its geometry fields are the
 ones ``compute_spec`` and the checkpoint keep. The port adds ``device`` (the
-card unless ``"cpu"`` is asked for). The JAX field ``n_model`` is left out
-until model parallelism is ported (``cli/run_train.py`` refuses
-``--nmodel``).
+card unless ``"cpu"`` is asked for) and ``nproc``, the data-parallel ranks
+``cli.run_train`` spawns (one process a rank, on ``device``'s card and the
+next ones; 1 trains in this process). ``n_model`` must be 1: tensor
+parallelism is not ported (``cli/run_train.py`` refuses ``--nmodel``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ class RunConfig:
     dtype: str = "bfloat16"
     seed: int = 218
     device: str = "cuda"
+    # parallelism
+    n_model: int = 1
+    nproc: int = 1
     # checkpoints / observability
     in_checkpointname: str = "modelcheckpoint.tar"
     out_checkpointname: str = "modelcheckpoint.tar"
@@ -73,6 +77,8 @@ class RunConfig:
             dtype=args.dtype,
             seed=args.seed,
             device=getattr(args, "device", "cuda"),
+            n_model=getattr(args, "nmodel", 1),
+            nproc=getattr(args, "nproc", 1),
             in_checkpointname=args.checkpoint,
             out_checkpointname=getattr(args, "out_checkpoint", None) or args.checkpoint,
             cp_every=getattr(args, "cp_every", 25),
@@ -81,10 +87,19 @@ class RunConfig:
     def replace(self, **kw) -> "RunConfig":
         return dataclasses.replace(self, **kw)
 
+    def __post_init__(self):
+        if self.n_model != 1:
+            raise NotImplementedError("n_model: tensor parallelism (the 'model' axis) is not "
+                                      "ported yet")
+        if self.nproc < 1:
+            raise ValueError(f"nproc {self.nproc}: at least one rank")
+
 
 def train_from_config(cfg: RunConfig, effect=None):
     """Build the effect (on ``cfg.device``) and run ``train()`` from one
-    RunConfig; returns what ``train()`` returns."""
+    RunConfig, in this process (one rank of a data-parallel run when a
+    process group is up); returns what ``train()`` returns. ``cfg.nproc`` is
+    the launcher's (``cli.run_train``), not read here."""
     from .dsp import effects as fx
     from .training import train as trainlib
 

@@ -28,8 +28,9 @@ import warnings
 
 import numpy as np
 import torch
-from scipy import signal as ssig
-from scipy.io import wavfile
+
+# scipy is imported in the functions that use it: it takes seconds to import,
+# and every spawned data-parallel rank imports this module
 
 
 def _float80(b: bytes) -> float:
@@ -142,6 +143,8 @@ def resample(signal: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase Kaiser-windowed resampling."""
     g = math.gcd(int(orig_sr), int(target_sr))
     up, down = int(target_sr) // g, int(orig_sr) // g
+    from scipy import signal as ssig
+
     return ssig.resample_poly(signal, up, down, window=("kaiser", 5.0))
 
 
@@ -162,6 +165,8 @@ def read_audio_file(filename: str, sr: int = 44100, mono: bool = True, norm: boo
     might_overwrite = False
     ext = os.path.splitext(filename)[1].lower()
     if ext in (".wav", ".wave", ""):
+        from scipy.io import wavfile
+
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             read_sr, signal = wavfile.read(filename)
@@ -208,6 +213,8 @@ def read_audio_file(filename: str, sr: int = 44100, mono: bool = True, norm: boo
 
 def write_audio_file(filename: str, data, sr: int = 44100):
     """scipy wavfile write."""
+    from scipy.io import wavfile
+
     wavfile.write(filename, sr, np.asarray(data))
 
 

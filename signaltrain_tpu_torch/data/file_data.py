@@ -322,35 +322,43 @@ class FileDataset:
 
     # ----------------------------------------------------- host-resident tier
 
-    def host_batch(self, batch_size: int, rng: np.random.Generator):
+    def host_batch(self, batch_size: int, rng: np.random.Generator, rows: slice | None = None):
         """numpy (x, y, knobs) sampled on the host from ``rng`` (the
-        host-resident tier)."""
+        host-resident tier). With ``rows`` (a data-parallel rank's
+        ``mesh.local_rows``) every draw of the global batch of ``batch_size``
+        is taken from ``rng`` as without it, and only those rows are
+        cropped: the ranks' rows together are the global batch, bit for
+        bit."""
         idx = rng.integers(0, len(self.lengths), size=batch_size)
-        x = np.empty((batch_size, self.chunk_size), np.float32)
-        y = np.empty((batch_size, self.chunk_size), np.float32)
-        for j, i in enumerate(idx):
-            start = rng.integers(0, self.lengths[i] - self.chunk_size)
+        starts = [rng.integers(0, self.lengths[i] - self.chunk_size) for i in idx]
+        keep = range(batch_size)[rows] if rows is not None else range(batch_size)
+        x = np.empty((len(keep), self.chunk_size), np.float32)
+        y = np.empty((len(keep), self.chunk_size), np.float32)
+        for j, b in enumerate(keep):
+            i, start = idx[b], starts[b]
             x[j] = self.x[i, start : start + self.chunk_size]
             y[j] = self.y[i, start : start + self.chunk_size]
-        knobs = self.knobs_nn[idx]
+        knobs = self.knobs_nn[idx[keep.start : keep.stop]]
         yb = y[:, -self.y_size :]
         if self.augment:
             sign = np.where(rng.random(batch_size) < 0.5, -1.0, 1.0).astype(np.float32)
+            sign = sign[keep.start : keep.stop]
             x, yb = x * sign[:, None], yb * sign[:, None]
         return x, yb, knobs.astype(np.float32)
 
     def prefetch_batches(self, batch_size: int, rng: np.random.Generator,
-                         n_slots: int = 2) -> _Prefetcher:
-        """A producer thread running ``host_batch(batch_size, rng)`` into a
-        ring of n_slots + 2 host buffers (pinned for a CUDA device), n_slots
-        batches ahead: ``next()`` gives a ``HostBatch`` in the order that
-        synchronous sampling from ``rng`` gives. Close it when done."""
-        shapes = [(batch_size, self.chunk_size), (batch_size, self.y_size),
-                  (batch_size, self.knobs_nn.shape[1])]
+                         n_slots: int = 2, rows: slice | None = None) -> _Prefetcher:
+        """A producer thread running ``host_batch(batch_size, rng, rows)``
+        into a ring of n_slots + 2 host buffers (pinned for a CUDA device),
+        n_slots batches ahead: ``next()`` gives a ``HostBatch`` in the order
+        that synchronous sampling from ``rng`` gives. Close it when done."""
+        local = len(range(batch_size)[rows]) if rows is not None else batch_size
+        shapes = [(local, self.chunk_size), (local, self.y_size),
+                  (local, self.knobs_nn.shape[1])]
         ring = _PinnedRing(shapes, n_slots + 2, pin=self.device.type == "cuda")
 
         def close():
             ring.closed = True
 
-        return _Prefetcher(lambda: ring.fill(self.host_batch(batch_size, rng)), n_slots=n_slots,
-                           on_close=close)
+        return _Prefetcher(lambda: ring.fill(self.host_batch(batch_size, rng, rows)),
+                           n_slots=n_slots, on_close=close)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..dsp import synths
@@ -51,11 +52,23 @@ def make_synth_batch_fn(effect, chunk_size: int, y_size: int, sr: float = 44100.
     return gen_batch
 
 
-def step_generator(generator: torch.Generator, seed: int, step: int) -> torch.Generator:
-    """Reseed ``generator`` for one step: the same (seed, step) always gives
-    the same batch, whatever was drawn before, so a resumed run continues the
-    stream and the validation batches are frozen."""
-    generator.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) + int(step))
+def step_generator(generator: torch.Generator, seed: int, step: int,
+                   shard: int = 0) -> torch.Generator:
+    """Reseed ``generator`` for one step of one data shard: the same (seed,
+    step, shard) always gives the same batch, whatever was drawn before, so a
+    resumed run continues the stream and the validation batches are frozen.
+
+    Shard 0, the whole batch of a single-process run, is seeded
+    ``(seed & 0x7FFFFFFF) << 32 | step``, which never sets bit 63 for a step
+    below 2**32. Shard s > 0 (rank s's rows, as each JAX device folds its
+    shard into the step's key) is seeded from ``numpy.random.SeedSequence
+    ([seed, step, s])`` with bit 63 set, so its stream is neither a shard-0
+    stream nor another shard's."""
+    if shard == 0:
+        generator.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) + int(step))
+    else:
+        ss = np.random.SeedSequence([int(seed) & 0xFFFFFFFFFFFFFFFF, int(step), int(shard)])
+        generator.manual_seed(int(ss.generate_state(1, np.uint64)[0]) | (1 << 63))
     return generator
 
 

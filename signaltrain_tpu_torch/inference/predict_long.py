@@ -14,6 +14,14 @@ The windows are a strided view of the signal on the model's device
 exactly, with no bucketing (the JAX package rounds the count up only to bound
 XLA recompiles), in super-batches of at most 1024 windows to bound memory.
 
+With ``mesh`` (``parallel/mesh.py``) the window axis is split over the data
+ranks, as the JAX package shards it over ``'data'``: the window count is
+rounded up to a multiple of ``n_data`` (the pad windows are zeros, and are
+trimmed), each rank runs its contiguous share in super-batches, and the
+shares are combined by one all-reduce (sum) of a zero-filled output of every
+window (gloo has no ``all_gather`` of CUDA tensors; adding zeros is exact).
+Every rank returns the whole signal.
+
 A signal no longer than the lookback (chunk_size - out_chunk_size) has no
 full output window. For it the port returns what the JAX package returns:
 the model's output over ``MIN_BUCKET`` windows of the zero-padded signal (its
@@ -43,8 +51,9 @@ def _num_windows(length: int, size: int, overlap: int) -> int:
 
 def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
                  out_chunk_size: int | None = None, compand: bool = False,
-                 return_device: bool = False, out_dtype=None):
-    """Process a 1-D signal on the model's device.
+                 return_device: bool = False, out_dtype=None, mesh=None):
+    """Process a 1-D signal on the model's device (with ``mesh``, its windows
+    split over the ranks; module docstring).
 
     ``signal`` and ``knobs_nn`` may be numpy arrays or tensors.
     ``return_device=True`` returns the tensor on the model's device instead of
@@ -61,27 +70,39 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     overlap = chunk_size - out_chunk_size
     length = int(signal.shape[-1])
     n_windows = _num_windows(length, chunk_size, overlap)
-    n_run = n_windows
+    n_real = n_windows
     if n_windows < 1:  # no full output window: run the JAX package's bucket
-        n_run = MIN_BUCKET
+        n_real = MIN_BUCKET
         signal = torch.nn.functional.pad(
-            signal, (0, chunk_size + (n_run - 1) * out_chunk_size - length))
-    windows = framing.sliding_window(signal, chunk_size, overlap)  # (n_run, chunk) view
+            signal, (0, chunk_size + (n_real - 1) * out_chunk_size - length))
+    windows = framing.sliding_window(signal, chunk_size, overlap)  # (n_real, chunk) view
+    n_data = 1 if mesh is None else mesh.n_data
+    n_run = -(-n_real // n_data) * n_data
+    if n_run > n_real:  # pad windows of zeros, so that the ranks' shares are equal
+        windows = torch.cat([windows, windows.new_zeros(n_run - n_real, chunk_size)])
+    share = n_run // n_data
+    first = 0 if mesh is None else mesh.rank * share
 
     outs = []
     with torch.inference_mode():
-        for start in range(0, n_run, SUPER_BATCH):
-            x = windows[start : start + SUPER_BATCH]
+        for start in range(first, first + share, SUPER_BATCH):
+            x = windows[start : min(start + SUPER_BATCH, first + share)]
             x = mu_compand(x) if compand else x.contiguous()
             kb = knobs[None, :].expand(x.shape[0], knobs.shape[-1])
             y_hat, _, _ = model(x, kb)
             outs.append(y_hat.reshape(-1))
         y = torch.cat(outs)
-        unique = chunk_size + (n_windows - 1) * out_chunk_size
-        keep = n_windows * out_chunk_size - max(0, unique - length)
-        y = y[:keep]  # keep <= 0 (no full window) counts from the end, as in JAX
-        if out_dtype is not None:
-            y = audio_io.to_pcm16(y)
+    if mesh is not None:
+        # every window's output, zeros but for this rank's share; summed out of
+        # inference mode, as the collective writes into it from its own thread
+        full = torch.zeros(n_run * out_chunk_size, dtype=y.dtype, device=y.device)
+        full[first * out_chunk_size : (first + share) * out_chunk_size] = y
+        y = mesh.all_reduce(full)
+    unique = chunk_size + (n_windows - 1) * out_chunk_size
+    keep = n_windows * out_chunk_size - max(0, unique - length)
+    y = y[:keep]  # keep <= 0 (no full window) counts from the end, as in JAX
+    if out_dtype is not None:
+        y = audio_io.to_pcm16(y)
     return y if return_device else y.cpu().numpy()
 
 

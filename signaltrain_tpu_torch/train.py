@@ -17,6 +17,11 @@ and the JAX package's step builders, mapped onto the port's counterparts.
 * ``make_eval_scan(model, val_batch_fn, batch_size, n_val_steps)`` ->
   ``graphs.EvalGraph``: the whole validation pass, a replay a batch.
 
+The four take ``mesh=`` (``parallel/mesh.py``), as the JAX package's do: a
+train step then draws this rank's rows from its shard's stream and takes
+the mean gradient over the ranks, an evaluation this rank's rows of the
+global batch with the figures averaged over the ranks.
+
 The graphs need a CUDA device; the two single-step callables run anywhere.
 ``batch_fn`` / ``val_batch_fn`` are ``fn(batch, generator)``, as
 ``data.synth_data.make_synth_batch_fn`` makes them. Each builder draws from
@@ -38,36 +43,41 @@ def _generator(model, generator):
 
 
 def make_train_step(model, tx, batch_fn, batch_size, generator=None, seed: int = 0,
-                    clip_max_norm: float = 1.0):
+                    clip_max_norm: float = 1.0, mesh=None):
     opt, lr_fn = tx
     g = _generator(model, generator)
+    local, shard = (batch_size, 0) if mesh is None else (mesh.local_batch(batch_size), mesh.rank)
 
     def step(s: int) -> torch.Tensor:
-        x, y, knobs = batch_fn(batch_size, synth_data.step_generator(g, seed, s))
-        return _train.train_step_from_arrays(model, opt, lr_fn, s, x, y, knobs, clip_max_norm)
+        x, y, knobs = batch_fn(local, synth_data.step_generator(g, seed, s, shard))
+        return _train.train_step_from_arrays(model, opt, lr_fn, s, x, y, knobs, clip_max_norm,
+                                             mesh)
 
     return step
 
 
 def make_eval_step(model, val_batch_fn, batch_size, val_seed: int = synth_data.VAL_SEED,
-                   generator=None):
+                   generator=None, mesh=None):
     g = _generator(model, generator)
+    rows = slice(None) if mesh is None else mesh.local_rows(batch_size)
 
     def evaluate(v: int):
         x, y, knobs = val_batch_fn(batch_size, synth_data.val_step_generator(g, v, val_seed))
-        return _train.eval_step_from_arrays(model, x, y, knobs)
+        l, m, outputs = _train.eval_step_from_arrays(model, x[rows], y[rows], knobs[rows])
+        l, m = _train.pmean_validation(mesh, l, m)
+        return l, m, outputs
 
     return evaluate
 
 
 def make_train_multi_step(model, tx, batch_fn, batch_size, n_inner: int, generator=None,
-                          seed: int = 0) -> graphs.TrainGraph:
+                          seed: int = 0, mesh=None) -> graphs.TrainGraph:
     opt, lr_fn = tx
     return graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size,
-                             _generator(model, generator), seed, capacity=n_inner)
+                             _generator(model, generator), seed, capacity=n_inner, mesh=mesh)
 
 
 def make_eval_scan(model, val_batch_fn, batch_size, n_val_steps: int,
-                   generator=None) -> graphs.EvalGraph:
+                   generator=None, mesh=None) -> graphs.EvalGraph:
     return graphs.EvalGraph(model, val_batch_fn, batch_size, _generator(model, generator),
-                            n_val_steps)
+                            n_val_steps, mesh=mesh)

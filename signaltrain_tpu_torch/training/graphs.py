@@ -49,6 +49,22 @@ A capture calls the kernels' wrappers, which count launches, but launches
 nothing; a replay launches every captured kernel without calling them. So
 each graph takes back what its capture counted and adds it once a replay
 (``ops/_cuda.add_launches``): the counters keep counting launches.
+
+With a data mesh (``parallel/mesh.py``, one process a rank) a train step is
+two captured graphs around one collective that the host calls between their
+replays (no collective is captured): graph 1 draws this rank's rows from its
+shard's stream (the host reseeds the generator with ``shard=rank``), runs
+the forward, the loss and the backward into the graph's own
+``train.GradBucket`` (every ``.grad`` a view into one flat buffer, zeroed
+inside the graph) and puts the loss in it; the host all-reduces the bucket
+(NCCL on its stream, or gloo on the CUDA tensor); graph 2 divides it by
+``n_data``, clips and steps Adam. The same two graphs run under NCCL on
+several cards and under gloo on one, and at world 1 they are bit-equal to
+the single graph. A mesh's graphs are captured in the ``thread_local``
+capture mode, so that the process group's own threads may query their
+events while a capture is open. An evaluation graph with a mesh evaluates
+this rank's rows of the global batch; the mean over the ranks is taken
+after the pass (``train.pmean_validation``), outside it.
 """
 
 from __future__ import annotations
@@ -76,13 +92,14 @@ class _Graph:
     else ``device`` names the card."""
 
     def __init__(self, body, generator: torch.Generator | None = None,
-                 device: torch.device | None = None):
+                 device: torch.device | None = None, capture_error_mode: str = "global"):
         dev = generator.device if generator is not None else torch.device(device)
         if dev.type != "cuda":
             what = "generator" if generator is not None else "device"
             raise ValueError(f"a CUDA graph needs a CUDA {what}, got one on {dev}")
         self.body = body
         self.generator = generator
+        self.capture_error_mode = capture_error_mode
         self.device = dev
         self.graph: torch.cuda.CUDAGraph | None = None
         self.counts: dict[str, int] = {}
@@ -110,7 +127,7 @@ class _Graph:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         counted = _cuda.launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
+        with torch.cuda.graph(graph, stream=stream, capture_error_mode=self.capture_error_mode):
             self.body()
         now = _cuda.launch_counts()
         self.counts = {k: v - counted.get(k, 0) for k, v in now.items() if v != counted.get(k, 0)}
@@ -120,6 +137,27 @@ class _Graph:
         self.capture_s = time.perf_counter() - t0
 
 
+class _MeanUpdate:
+    """Graph 2 of a data-parallel step (module docstring): the mean of the
+    all-reduced bucket, its loss appended to ``losses``, the clip and Adam's
+    step, as a graph of its own."""
+
+    def __init__(self, model: STModel, opt: torch.optim.Optimizer, mesh, losses: torch.Tensor,
+                 bucket: train_mod.GradBucket):
+        self.model, self.opt, self.mesh, self.losses = model, opt, mesh, losses
+        self.bucket = bucket
+        self.graph = _Graph(self._body, device=losses.device, capture_error_mode="thread_local")
+
+    def _body(self) -> None:
+        _append(self.losses, self.bucket.mean(self.mesh.n_data))
+        train_mod.clip_frontend_grads(self.model)
+        self.opt.step()
+
+    def __call__(self) -> None:
+        self.mesh.all_reduce(self.bucket.flat)
+        self.graph()
+
+
 class TrainGraph:
     """``model``'s train step as a CUDA graph: ``self(step0, n)`` runs steps
     step0 .. step0 + n - 1 (n <= capacity), each on the batch of
@@ -127,20 +165,36 @@ class TrainGraph:
     and returns their (n,) losses on the card, bit-equal to
     ``train.eager_steps`` with the same capturable optimizer. The first step
     run is the capture's warm-up, every later one a replay. ``batch`` is the
-    last step's (x, y, knobs)."""
+    last step's (x, y, knobs). With ``mesh`` each step is this rank's
+    ``batch_size // n_data`` rows from ``step_generator(..., shard=rank)``
+    and two graphs around the all-reduce (module docstring); the losses are
+    the means over the ranks."""
 
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn,
-                 batch_size: int, generator: torch.Generator, seed: int, capacity: int):
+                 batch_size: int, generator: torch.Generator, seed: int, capacity: int,
+                 mesh=None):
         self.model, self.opt, self.lr_fn = model, opt, lr_fn
         self.batch_fn, self.batch_size = batch_fn, batch_size
         self.generator, self.seed = generator, seed
         self.losses = torch.zeros(capacity, dtype=torch.float32, device=generator.device)
         self._batches = [None, None]  # the warm-up's batch, the captured one each replay fills
-        self.graph = _Graph(self._body, generator)
+        self.shard, self.update = 0, None
+        if mesh is None:
+            self.graph = _Graph(self._body, generator)
+        else:
+            self.batch_size, self.shard = mesh.local_batch(batch_size), mesh.rank
+            self.bucket = train_mod.GradBucket(model)
+            self.graph = _Graph(self._grads, generator, capture_error_mode="thread_local")
+            self.update = _MeanUpdate(model, opt, mesh, self.losses, self.bucket)
 
     def _body(self) -> None:
         batch = self.batch_fn(self.batch_size, self.generator)
         _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *batch))
+        self._batches[torch.cuda.is_current_stream_capturing()] = batch
+
+    def _grads(self) -> None:
+        batch = self.batch_fn(self.batch_size, self.generator)
+        self.bucket.put_loss(train_mod.loss_and_grads(self.model, *batch, self.bucket))
         self._batches[torch.cuda.is_current_stream_capturing()] = batch
 
     @property
@@ -151,9 +205,11 @@ class TrainGraph:
         if not 1 <= n <= self.losses.numel():
             raise ValueError(f"TrainGraph: {n} steps, capacity {self.losses.numel()}")
         for step in range(step0, step0 + n):
-            synth_data.step_generator(self.generator, self.seed, step)
+            synth_data.step_generator(self.generator, self.seed, step, self.shard)
             train_mod.set_lr(self.opt, self.lr_fn(step))
             self.graph()
+            if self.update is not None:
+                self.update()
         return self.losses[-n:].clone()
 
 
@@ -188,21 +244,25 @@ class EvalGraph(_EvalOutputs):
     model's mode then, every later one a replay."""
 
     def __init__(self, model: STModel, val_batch_fn, batch_size: int,
-                 generator: torch.Generator, n_batches: int):
+                 generator: torch.Generator, n_batches: int, mesh=None):
         super().__init__(n_batches, generator.device)
         self.model, self.val_batch_fn, self.batch_size = model, val_batch_fn, batch_size
-        self.generator, self.n_batches = generator, n_batches
-        self.graph = _Graph(self._body, generator)
+        self.generator, self.n_batches, self.mesh = generator, n_batches, mesh
+        self.rows = slice(None) if mesh is None else mesh.local_rows(batch_size)
+        self.graph = _Graph(self._body, generator,
+                            capture_error_mode="global" if mesh is None else "thread_local")
 
     def _body(self) -> None:
         x, y, knobs = self.val_batch_fn(self.batch_size, self.generator)
-        self.record(*train_mod.eval_step_from_arrays(self.model, x, y, knobs))
+        r = self.rows
+        self.record(*train_mod.eval_step_from_arrays(self.model, x[r], y[r], knobs[r]))
 
     def __call__(self) -> tuple[torch.Tensor, torch.Tensor, tuple]:
         for v in range(self.n_batches):
             synth_data.val_step_generator(self.generator, v)
             self.graph()
-        return self.losses.clone(), self.maes.clone(), self.last
+        return *train_mod.pmean_validation(self.mesh, self.losses.clone(), self.maes.clone()), \
+            self.last
 
 
 class ArraysTrainGraph:
@@ -213,18 +273,29 @@ class ArraysTrainGraph:
     graph's static buffers on the current stream and its slot given back),
     and returns their (n,) losses on the card, bit-equal to
     ``train.host_steps`` on the same batches. ``shapes`` are those of (x, y,
-    knobs). The first step run is the capture's warm-up."""
+    knobs). The first step run is the capture's warm-up. With ``mesh`` the
+    batches are this rank's rows (``shapes`` are theirs) and each step is two
+    graphs around the all-reduce, as ``TrainGraph``'s."""
 
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, shapes,
-                 capacity: int):
+                 capacity: int, mesh=None):
         dev = next(model.parameters()).device
         self.model, self.opt, self.lr_fn, self.next_batch = model, opt, lr_fn, next_batch
         self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
         self.losses = torch.zeros(capacity, dtype=torch.float32, device=dev)
-        self.graph = _Graph(self._body, device=dev)
+        self.update = None
+        if mesh is None:
+            self.graph = _Graph(self._body, device=dev)
+        else:
+            self.bucket = train_mod.GradBucket(model)
+            self.graph = _Graph(self._grads, device=dev, capture_error_mode="thread_local")
+            self.update = _MeanUpdate(model, opt, mesh, self.losses, self.bucket)
 
     def _body(self) -> None:
         _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *self.buffers))
+
+    def _grads(self) -> None:
+        self.bucket.put_loss(train_mod.loss_and_grads(self.model, *self.buffers, self.bucket))
 
     def __call__(self, step0: int, n: int) -> torch.Tensor:
         if not 1 <= n <= self.losses.numel():
@@ -233,6 +304,8 @@ class ArraysTrainGraph:
             self.next_batch().copy_into(self.buffers)
             train_mod.set_lr(self.opt, self.lr_fn(step))
             self.graph()
+            if self.update is not None:
+                self.update()
         return self.losses[-n:].clone()
 
 
@@ -241,14 +314,16 @@ class ArraysEvalGraph(_EvalOutputs):
     of ``make_eval_step_from_arrays``): ``self(batches)`` runs it on each
     numpy (x, y, knobs) of ``batches`` (n_batches of them, copied into the
     static buffers) and returns (losses, maes, last) as ``EvalGraph`` does,
-    equal to ``train.host_validation``'s."""
+    equal to ``train.host_validation``'s. With ``mesh`` the batches are this
+    rank's rows and the figures are averaged over the ranks after the pass."""
 
-    def __init__(self, model: STModel, shapes, n_batches: int):
+    def __init__(self, model: STModel, shapes, n_batches: int, mesh=None):
         dev = next(model.parameters()).device
         super().__init__(n_batches, dev)
-        self.model, self.n_batches = model, n_batches
+        self.model, self.n_batches, self.mesh = model, n_batches, mesh
         self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
-        self.graph = _Graph(self._body, device=dev)
+        self.graph = _Graph(self._body, device=dev,
+                            capture_error_mode="global" if mesh is None else "thread_local")
 
     def _body(self) -> None:
         self.record(*train_mod.eval_step_from_arrays(self.model, *self.buffers))
@@ -262,4 +337,5 @@ class ArraysEvalGraph(_EvalOutputs):
             count += 1
         if count != self.n_batches:
             raise ValueError(f"ArraysEvalGraph: {count} batches, built for {self.n_batches}")
-        return self.losses.clone(), self.maes.clone(), self.last
+        return *train_mod.pmean_validation(self.mesh, self.losses.clone(), self.maes.clone()), \
+            self.last

@@ -47,7 +47,23 @@ its batch function drawing from the step's generator. A host-resident
 corpus is sampled from ``numpy.random.default_rng(seed)`` on a prefetch
 thread and fed to ``graphs.ArraysTrainGraph`` (``host_steps`` on the CPU),
 and validated on batches from a fresh ``default_rng(7)`` each pass, as the
-JAX package does. Not ported: the JAX package's multi-device paths.
+JAX package does.
+
+Inside a process group (``parallel/distributed.py``; ``cli.run_train --nproc``
+or torchrun) ``train`` is one rank of a data-parallel run over the group's
+world, the JAX package's ``shard_map`` over its ``"data"`` axis: each rank
+takes ``batch_size // n_data`` rows a step from its own shard's stream
+(``synth_data.step_generator(..., shard=rank)``, or its rows of the host
+tier's global batch), the loss and the gradients are averaged over the ranks
+(``reduce_grads``) before the front-end clip, and every rank takes the same
+Adam step from the same weights (rank 0's, broadcast once after the build or
+the resume). Validation draws the global frozen batches on every rank, each
+evaluates its own rows and the figures are averaged (``pmean_validation``),
+so they are the single-process ones up to float32 reassociation. Only the
+primary (rank 0) prints, writes the logs, the checkpoints and the plots (its
+plots draw its own rows; example 0 of the global batch is among them), and
+the returned ``history`` is the same on every rank. Tensor parallelism (the
+JAX ``"model"`` axis) is not ported.
 Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
@@ -67,6 +83,8 @@ import torch
 
 from ..data import synth_data
 from ..models.st_model import STModel, st_model
+from ..parallel import distributed
+from ..parallel import mesh as meshlib
 from ..utils import async_io
 from ..utils.device import resolve_device
 from . import checkpoint, loss as loss_mod, schedule
@@ -149,22 +167,81 @@ def _model_loss(model: STModel, x, y, knobs):
     return loss_mod.calc_loss(y_hat, y, mag_hat, scale_by_freq=scale), (y_hat, mag, mag_hat)
 
 
-def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor,
-                   knobs: torch.Tensor) -> torch.Tensor:
-    """The training loss on one batch; leaves its gradients in ``.grad``."""
-    model.zero_grad(set_to_none=True)
+class GradBucket:
+    """Every parameter's ``.grad`` as a view into one flat float32 buffer on
+    the parameters' device, and one slot for the loss after them: what a
+    data-parallel step sums over the ranks in one collective
+    (``reduce_grads``). Each view starts at a multiple of ``ALIGN`` elements,
+    the alignment of a fresh allocation, so that a reduction over a gradient
+    adds up in the order it does over a gradient of its own (a world-1 run
+    stays bit-equal to the run without a mesh). Its owner passes it to
+    ``loss_and_grads``, which zeroes it and backward accumulates into the
+    views in place, where the single-process step makes fresh gradients."""
+
+    ALIGN = 128
+
+    def __init__(self, model: torch.nn.Module):
+        self.params = list(model.parameters())
+        offsets, end = [], 0
+        for p in self.params:
+            offsets.append(end)
+            end += -(-p.numel() // self.ALIGN) * self.ALIGN
+        self.flat = torch.zeros(end + 1, dtype=torch.float32, device=self.params[0].device)
+        self.views = [self.flat[o : o + p.numel()].view_as(p) for p, o in zip(self.params, offsets)]
+        self.loss = self.flat[end:]
+
+    def zero(self) -> None:
+        """Clear the bucket (the padding too) and make each ``.grad`` its view."""
+        self.flat.zero_()
+        for p, v in zip(self.params, self.views):
+            p.grad = v
+
+    def put_loss(self, loss: torch.Tensor) -> None:
+        self.loss.copy_(loss.reshape(1))
+
+    def mean(self, n_data: int) -> torch.Tensor:
+        """Divide the summed gradients and loss by ``n_data``; the mean loss."""
+        self.flat.div_(n_data)
+        return self.loss[0]
+
+
+def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor, knobs: torch.Tensor,
+                   bucket: GradBucket | None = None) -> torch.Tensor:
+    """The training loss on one batch; leaves its gradients in ``.grad``:
+    fresh tensors, or with ``bucket`` its views, zeroed first."""
+    if bucket is None:
+        model.zero_grad(set_to_none=True)
+    else:
+        bucket.zero()
     l, _ = _model_loss(model, x, y, knobs)
     l.backward()
     return l.detach()
 
 
+def reduce_grads(bucket: GradBucket, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """The JAX ``pmean`` of the loss and the gradients over ``mesh``'s data
+    ranks: the loss put in the ``GradBucket`` that ``loss_and_grads`` filled,
+    one all-reduce (sum) of it, then a division by ``n_data`` (gloo has no
+    average; at world 1 the division is exact). Returns the mean loss (a
+    device scalar)."""
+    bucket.put_loss(loss)
+    mesh.all_reduce(bucket.flat)
+    return bucket.mean(mesh.n_data).clone()
+
+
 def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
-                   y: torch.Tensor, knobs: torch.Tensor, clip_max_norm: float = 1.0) -> torch.Tensor:
-    """Loss and gradients on the batch (x, y, knobs), the front-end clip and
-    one optimizer step at the learning rate already set; returns the loss (a
-    device scalar). Runs no host work that reads the card: what a train
-    graph captures."""
-    l = loss_and_grads(model, x, y, knobs)
+                   y: torch.Tensor, knobs: torch.Tensor, clip_max_norm: float = 1.0,
+                   mesh=None) -> torch.Tensor:
+    """Loss and gradients on the batch (x, y, knobs), with ``mesh`` their
+    mean over the data ranks (``reduce_grads``), the front-end clip and one
+    optimizer step at the learning rate already set; returns the loss (a
+    device scalar). Without a mesh it runs no host work that reads the card:
+    what a train graph captures."""
+    if mesh is None:
+        l = loss_and_grads(model, x, y, knobs)
+    else:
+        bucket = GradBucket(model)
+        l = reduce_grads(bucket, loss_and_grads(model, x, y, knobs, bucket), mesh)
     clip_frontend_grads(model, clip_max_norm)
     opt.step()
     return l
@@ -172,11 +249,12 @@ def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
 
 def train_step_from_arrays(model: STModel, opt: torch.optim.Optimizer, lr_fn, step: int,
                            x: torch.Tensor, y: torch.Tensor, knobs: torch.Tensor,
-                           clip_max_norm: float = 1.0) -> torch.Tensor:
+                           clip_max_norm: float = 1.0, mesh=None) -> torch.Tensor:
     """One optimizer step on the batch (x, y, knobs) at schedule position
-    ``step``; returns the loss (a device scalar)."""
+    ``step``; returns the loss (a device scalar). With ``mesh`` the batch is
+    this rank's rows and the step takes the mean gradient over the ranks."""
     set_lr(opt, lr_fn(step))
-    return optimizer_step(model, opt, x, y, knobs, clip_max_norm)
+    return optimizer_step(model, opt, x, y, knobs, clip_max_norm, mesh)
 
 
 @torch.no_grad()
@@ -187,52 +265,76 @@ def eval_step_from_arrays(model: STModel, x: torch.Tensor, y: torch.Tensor, knob
 
 
 def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, batch_size: int,
-                generator: torch.Generator, seed: int, step0: int, n: int) -> torch.Tensor:
+                generator: torch.Generator, seed: int, step0: int, n: int,
+                mesh=None) -> torch.Tensor:
     """Steps step0 .. step0 + n - 1, each on the batch of
     ``synth_data.step_generator(generator, seed, step)``, dispatched one op
     at a time: the (n,) losses on the device. The loop on the CPU, and the
-    reference that ``graphs.TrainGraph`` is bit-equal to on the card."""
+    reference that ``graphs.TrainGraph`` is bit-equal to on the card. With
+    ``mesh`` each rank draws its ``batch_size // n_data`` rows from its
+    shard's stream (``shard=mesh.rank``) and the step takes the mean over
+    the ranks (``reduce_grads``)."""
+    local, shard = (batch_size, 0) if mesh is None else (mesh.local_batch(batch_size), mesh.rank)
     return torch.stack([
-        train_step_from_arrays(model, opt, lr_fn, s,
-                               *batch_fn(batch_size, synth_data.step_generator(generator, seed, s)))
+        train_step_from_arrays(
+            model, opt, lr_fn, s,
+            *batch_fn(local, synth_data.step_generator(generator, seed, s, shard)), mesh=mesh)
         for s in range(step0, step0 + n)])
 
 
+def pmean_validation(mesh, losses: torch.Tensor, maes: torch.Tensor):
+    """A validation pass's (losses, maes) over this rank's rows -> their
+    means over the ranks, the global batches' figures up to float32
+    reassociation (the shards are of one size). One all-reduce; nothing
+    without a mesh."""
+    if mesh is None:
+        return losses, maes
+    both = mesh.pmean(torch.stack([losses, maes]))
+    return both[0], both[1]
+
+
 def eager_validation(model: STModel, val_batch_fn, batch_size: int, generator: torch.Generator,
-                     n_batches: int) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+                     n_batches: int, mesh=None) -> tuple[torch.Tensor, torch.Tensor, tuple]:
     """The validation pass over the frozen batches 0 .. n_batches - 1, op by
     op: (losses, maes, last), the losses and MAEs each (n_batches,) on the
-    device, ``last`` the last batch's (x, y, knobs, y_hat, mag, mag_hat)."""
+    device, ``last`` the last batch's (x, y, knobs, y_hat, mag, mag_hat).
+    With ``mesh`` every rank draws the global batch, evaluates its own rows
+    (``mesh.local_rows``; ``last`` holds them) and the figures are averaged
+    over the ranks (``pmean_validation``)."""
+    rows = slice(None) if mesh is None else mesh.local_rows(batch_size)
     losses, maes = [], []
     for v in range(n_batches):
         x, y, knobs = val_batch_fn(batch_size, synth_data.val_step_generator(generator, v))
-        l, m, last = eval_step_from_arrays(model, x, y, knobs)
+        l, m, last = eval_step_from_arrays(model, x[rows], y[rows], knobs[rows])
         losses.append(l)
         maes.append(m)
-    return torch.stack(losses), torch.stack(maes), last
+    return *pmean_validation(mesh, torch.stack(losses), torch.stack(maes)), last
 
 
 def host_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, step0: int,
-               n: int) -> torch.Tensor:
+               n: int, mesh=None) -> torch.Tensor:
     """Steps step0 .. step0 + n - 1, each on the batch ``next_batch()`` gives
-    (a ``file_data.HostBatch``), dispatched one op at a time: the (n,)
-    losses on the device. The host tier's loop on the CPU, and the
-    reference ``graphs.ArraysTrainGraph`` is bit-equal to on the card."""
+    (a ``file_data.HostBatch``; with ``mesh``, this rank's rows of it),
+    dispatched one op at a time: the (n,) losses on the device. The host
+    tier's loop on the CPU, and the reference ``graphs.ArraysTrainGraph`` is
+    bit-equal to on the card."""
     dev = next(model.parameters()).device
-    return torch.stack([train_step_from_arrays(model, opt, lr_fn, s, *next_batch().take(dev))
+    return torch.stack([train_step_from_arrays(model, opt, lr_fn, s, *next_batch().take(dev),
+                                               mesh=mesh)
                         for s in range(step0, step0 + n)])
 
 
-def host_validation(model: STModel, batches) -> tuple[torch.Tensor, torch.Tensor, tuple]:
-    """The validation pass over numpy (x, y, knobs) batches, op by op:
-    (losses, maes, last) on the device, as ``eager_validation``."""
+def host_validation(model: STModel, batches, mesh=None) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """The validation pass over numpy (x, y, knobs) batches (with ``mesh``,
+    this rank's rows of each), op by op: (losses, maes, last) on the device,
+    as ``eager_validation``."""
     dev = next(model.parameters()).device
     losses, maes = [], []
     for arrays in batches:
         l, m, last = eval_step_from_arrays(model, *(torch.from_numpy(a).to(dev) for a in arrays))
         losses.append(l)
         maes.append(m)
-    return torch.stack(losses), torch.stack(maes), last
+    return *pmean_validation(mesh, torch.stack(losses), torch.stack(maes)), last
 
 
 class HostCopy:
@@ -333,13 +435,20 @@ def train(
     dev = resolve_device(device)
     if effect.device != dev:
         raise ValueError(f"effect is on {effect.device}, train() was given device {dev}")
-    print(f"SignalTrain (PyTorch) training began at {time.ctime()}. Options:")
-    print(f"    epochs = {epochs}, n_data_points = {n_data_points}, batch_size = {batch_size}")
-    print(f"    scale_factor = {scale_factor}, shrink_factor = {shrink_factor}, "
-          f"compute_dtype = {str(compute_dtype).removeprefix('torch.')}, device = {dev}")
+    mesh = meshlib.make_mesh(device=dev) if distributed.is_initialized() else None
+    local_batch = batch_size if mesh is None else mesh.local_batch(batch_size)
+    primary = distributed.is_primary()
+    say = print if primary else (lambda *a, **k: None)
+    say(f"SignalTrain (PyTorch) training began at {time.ctime()}. Options:")
+    say(f"    epochs = {epochs}, n_data_points = {n_data_points}, batch_size = {batch_size}")
+    say(f"    scale_factor = {scale_factor}, shrink_factor = {shrink_factor}, "
+        f"compute_dtype = {str(compute_dtype).removeprefix('torch.')}, device = {dev}")
+    if mesh is not None:
+        say(f"    data parallel over {mesh.n_data} ranks, {local_batch} rows each a step")
     num_knobs = effect.num_knobs
-    print(f"    num_knobs = {num_knobs}")
-    effect.info()
+    say(f"    num_knobs = {num_knobs}")
+    if primary:
+        effect.info()
 
     # checkpoint resume: its metadata overrides the geometry arguments
     state_dict, rv = None, {}
@@ -354,9 +463,9 @@ def train(
         model.load_state_dict(state_dict, strict=True)
     model.train()
     spec = model.spec
-    print("Model defined.  Number of trainable parameters:",
-          sum(p.numel() for p in model.parameters()))
-    print("      in_chunk_size, out_chunk_size = ", spec.in_chunk_size, spec.out_chunk_size)
+    say("Model defined.  Number of trainable parameters:",
+        sum(p.numel() for p in model.parameters()))
+    say("      in_chunk_size, out_chunk_size = ", spec.in_chunk_size, spec.out_chunk_size)
 
     opt, lr_fn = make_optimizer(model, lr_max, n_data_points, epochs, batch_size)
     mom_fn = schedule.momentum_fn(n_data_points, epochs, batch_size)
@@ -364,7 +473,9 @@ def train(
     if "optax_state" in rv:
         step0 = int(rv.get("optax_step", 0))
         checkpoint.restore_optimizer(model, opt, rv["optax_state"], step0)
-        print(f"Restored optimizer state at step {step0}.")
+        say(f"Restored optimizer state at step {step0}.")
+    if mesh is not None:  # every rank starts from rank 0's weights
+        mesh.broadcast([*model.parameters(), *model.buffers()])
 
     chunk, out_chunk = spec.in_chunk_size, spec.out_chunk_size
     steps_per_epoch = max(1, n_data_points // batch_size)
@@ -393,30 +504,34 @@ def train(
         from . import graphs  # it builds on this module's steps
     generator = torch.Generator(device=dev)
     if host_data:
-        prefetcher = train_ds.prefetch_batches(batch_size, np.random.default_rng(seed))
+        # every rank draws the global batch from the one stream and crops its rows
+        rows = None if mesh is None else mesh.local_rows(batch_size)
+        prefetcher = train_ds.prefetch_batches(batch_size, np.random.default_rng(seed), rows=rows)
         next_batch = functools.partial(timing.clock, "fetch", prefetcher.next)
-        shapes = [(batch_size, chunk), (batch_size, out_chunk), (batch_size, num_knobs)]
+        shapes = [(local_batch, chunk), (local_batch, out_chunk), (local_batch, num_knobs)]
 
         def val_batches():  # the frozen validation stream
             vrng = np.random.default_rng(7)
-            return (val_ds.host_batch(batch_size, vrng) for _ in range(val_steps))
+            return (val_ds.host_batch(batch_size, vrng, rows=rows) for _ in range(val_steps))
 
         if dev.type == "cuda":
-            run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, next_batch, shapes, n_inner)
-            eval_graph = graphs.ArraysEvalGraph(model, shapes, val_steps)
+            run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, next_batch, shapes, n_inner,
+                                                mesh=mesh)
+            eval_graph = graphs.ArraysEvalGraph(model, shapes, val_steps, mesh=mesh)
             validate = lambda: eval_graph(val_batches())
         else:
-            run_steps = functools.partial(host_steps, model, opt, lr_fn, next_batch)
-            validate = lambda: host_validation(model, val_batches())
+            run_steps = functools.partial(host_steps, model, opt, lr_fn, next_batch, mesh=mesh)
+            validate = lambda: host_validation(model, val_batches(), mesh=mesh)
     elif dev.type == "cuda":
         run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
-                                      n_inner)
-        validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps)
+                                      n_inner, mesh=mesh)
+        validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps,
+                                    mesh=mesh)
     else:
         run_steps = functools.partial(eager_steps, model, opt, lr_fn, batch_fn, batch_size,
-                                      generator, seed)
+                                      generator, seed, mesh=mesh)
         validate = functools.partial(eager_validation, model, val_batch_fn, batch_size,
-                                     generator, val_steps)
+                                     generator, val_steps, mesh=mesh)
 
     history = {"train_loss": [], "val_loss": [], "val_mae": [], "val_mae_mean": [], "step": step0}
     iter_count, batch_num = step0, 0
@@ -424,7 +539,7 @@ def train(
     pending = None  # (a block's losses on their way to the host, epoch, iter0, data_point0)
     pending_eval = None  # an epoch's validation results in flight
     frame_major = model.mpaec.frontend == "fused"  # mag / mag_hat come back (T, B, F)
-    writer = async_io.AsyncWriter()
+    writer = async_io.AsyncWriter() if primary else None
     first_time = time.time()
 
     def process_pending(pend):
@@ -438,7 +553,7 @@ def train(
             avg_loss = beta * avg_loss + (1 - beta) * lv
             if 0 == batch_num % status_every:
                 smoothed = avg_loss / (1 - beta**batch_num)
-                print(
+                say(
                     f"\repoch {epoch + 1}/{epochs}, time: {time.time() - first_time:.2f}: "
                     f"lr={lr_fn(iter0 + i):.2e},mom={mom_fn(iter0 + i):.3f}, "
                     f"data_point {data_point0 + (i + 1) * batch_size}: "
@@ -456,12 +571,13 @@ def train(
         for lv in losses:
             vl_avg = beta * vl_avg + (1 - beta) * lv
         val_mae, val_mae_mean = float(maes[-1]), float(maes.mean())
-        with open("vl_avg_out.dat", "a") as f:
-            f.write(f"{epoch + 1} {vl_avg:.3e}\n")
-        with open("val_err_mae.dat", "a") as f:
-            # col 2: last-batch MAE (the reference's format); col 3: the
-            # mean MAE over the whole validation pass
-            f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
+        if primary:
+            with open("vl_avg_out.dat", "a") as f:
+                f.write(f"{epoch + 1} {vl_avg:.3e}\n")
+            with open("val_err_mae.dat", "a") as f:
+                # col 2: last-batch MAE (the reference's format); col 3: the
+                # mean MAE over the whole validation pass
+                f.write(f"{epoch + 1} {val_mae:.3e} {val_mae_mean:.3e}\n")
         history["val_loss"].append(vl_avg)
         history["val_mae"].append(val_mae)
         history["val_mae_mean"].append(val_mae_mean)
@@ -492,7 +608,7 @@ def train(
 
     try:
         for epoch in range(epochs):
-            print("")
+            say("")
             timing.start_epoch()
             for block in range(steps_per_epoch // n_inner):
                 with torch.profiler.record_function("train_block"):
@@ -506,8 +622,8 @@ def train(
                     timing.clock("pending", process_pending, pend)
 
             # ---- validation over the frozen batches, dispatched; read next epoch
-            do_val_plot = make_plots and (epoch + 1) % plot_every == 0
-            do_spec_plot = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
+            do_val_plot = primary and make_plots and (epoch + 1) % plot_every == 0
+            do_spec_plot = primary and make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
             model.eval()
             losses_val, maes_val, last = timing.clock("eval", validate)
             model.train()
@@ -521,7 +637,7 @@ def train(
             if ev is not None:
                 timing.clock("evproc", process_eval, ev)
 
-            if ((epoch + 1) % cp_every == 0) or (epoch == epochs - 1):
+            if primary and (((epoch + 1) % cp_every == 0) or (epoch == epochs - 1)):
                 snap = timing.clock("cp", async_io.snapshot,
                                     checkpoint.training_tensors(model, opt))
                 writer.submit(functools.partial(save, snap, epoch, iter_count))
@@ -529,8 +645,8 @@ def train(
             timing.report(epoch)
             if epoch == 0:
                 secs_left = (time.time() - first_time) * (epochs - 1)
-                print(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
-                      f"on {time.ctime(time.time() + secs_left)}")
+                say(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
+                    f"on {time.ctime(time.time() + secs_left)}")
 
         # drain the pipelines: the last epoch's validation
         ev, pending_eval = pending_eval, None
@@ -554,11 +670,12 @@ def train(
         if prefetcher is not None:
             prefetcher.close()
         try:
-            writer.close()
+            if writer is not None:
+                writer.close()
         except Exception:
             if not in_flight:
                 raise
             traceback.print_exc()
 
-    print("\nTotal elapsed time for training loop =", time.time() - first_time)
+    say("\nTotal elapsed time for training loop =", time.time() - first_time)
     return model, history

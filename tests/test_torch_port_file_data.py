@@ -451,9 +451,8 @@ def test_run_config_from_args_round_trip():
             "--cp-every", "2", "--device", "cpu"]
     args = run_train.build_parser().parse_args(argv)
     cfg, jcfg = config.RunConfig.from_args(args), jconfig.RunConfig.from_args(args)
-    port_only = {"device"}
-    not_ported = {"n_model"}  # model parallelism
-    fields = set(jconfig.RunConfig.__dataclass_fields__) - not_ported
+    port_only = {"device", "nproc"}  # nproc: the data-parallel ranks run_train spawns
+    fields = set(jconfig.RunConfig.__dataclass_fields__)
     assert set(config.RunConfig.__dataclass_fields__) == fields | port_only
     for field in fields - {"cp_every"}:  # the JAX CLI has no --cp-every
         assert getattr(cfg, field) == getattr(jcfg, field), field

@@ -107,10 +107,10 @@ def test_an_error_in_epoch_2_keeps_epoch_1_and_raises_it(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     steps = train_mod.eager_steps
 
-    def failing(*args):
+    def failing(*args, **kwargs):
         if args[-2] >= STEPS:  # step0 of epoch 2's block
             raise Boom("epoch 2")
-        return steps(*args)
+        return steps(*args, **kwargs)
 
     monkeypatch.setattr(train_mod, "eager_steps", failing)
     with pytest.raises(Boom, match="epoch 2"):
