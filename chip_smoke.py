@@ -198,23 +198,51 @@ Phases (any failure raises and exits non-zero):
      package's 4,211,090 parameters, st.train.make_train_multi_step's graph
      replays a step (A, B, D, E, C launched).
   9. data parallelism (parallel/, training/oracle.py, predict_long(mesh=)),
-     each part in spawned ranks (parallel/launch.spawn) with a deadline, in
-     at most PHASE9_LIMIT_S (60 s); every rank counts its own launches and
-     returns them, none may run a plain version: 9a a world of one under
-     NCCL: train() bf16, comp_4c, batch 200, 1 epoch x 20 steps, its
-     losses, validation figures and every weight bit-equal to the same
-     run without a mesh (A, B, D, E bf16 and C launched), and the train
-     graph with and without the mesh (two graphs around the all-reduce, or
-     one) bit-equal over 60 steps, their ms a step in turns; 9b two gloo
-     ranks on the one card, float32, global batch 200, DP_STEPS steps
-     through the split graphs against training/oracle.oracle_steps in this
-     process within atol 2e-6 / rtol 2e-5 (losses rtol 1e-5), the oracle
-     with reduce="sum" more than DP_CONTROL_GAP times over, the gloo
-     ranks' ms a step; 9c predict_long(mesh=) on the two ranks over phase
-     3's 30 s clip within 2e-5 of phase 3's output; 9d rank 0's checkpoint
-     after 9b resumed by train() at world 1 (4 steps) against the oracle
-     run on.
-The last two lines are the kernels JSON line and the result line.
+     in at most PHASE9_LIMIT_S (60 s); every rank counts its own launches
+     and returns them, none may run a plain version: 9b's two gloo ranks
+     are spawned first (parallel/launch.spawn, with a deadline), and this
+     process runs 9a and the oracles meanwhile; 9a, in this process, a world
+     of one under NCCL: train() bf16, comp_4c, batch 200, 1 epoch x 20
+     steps, its losses, validation figures and every weight bit-equal to
+     the same run without a mesh (A, B, D, E bf16 and C launched), and the
+     train graph with and without the mesh (two graphs around the
+     all-reduce, or one) bit-equal over 60 steps, their ms a step in turns
+     once the ranks are done; 9b the two gloo ranks on the one card,
+     float32, global batch 200, DP_STEPS steps through the split graphs
+     against training/oracle.oracle_steps in this process within atol 2e-6
+     / rtol 2e-5 (losses rtol 1e-5), the oracle with reduce="sum" more
+     than DP_CONTROL_GAP times over, the gloo ranks' ms a step (this
+     process's work on the card at the same time); 9c predict_long(mesh=)
+     on the two ranks over phase 3's 30 s clip within 2e-5 of phase 3's
+     output; 9d rank 0's checkpoint after 9b resumed by train() at world 1
+     (4 steps) against the oracle run on.
+ 10. tensor parallelism (parallel/tensor.py, the JAX 'model' axis), in
+     spawned ranks, in at most PHASE10_LIMIT_S (60 s); every rank counts its
+     own launches (C in each rank's data synthesis; the split front-end is
+     the gemm path), none may run a plain version: 10b 1 x 2 and 2 x 2 as
+     gloo ranks on the one card at once (gloo's collectives cannot be
+     captured: op by op), float32, global batch 200, TP_STEPS steps at the
+     JAX dp x tp test's schedule against training/oracle.oracle_steps at
+     n_data shards, run in this process meanwhile, within
+     oracle.state_excess <= 1 (the weights and Adam's moments within atol
+     2e-6 / rtol 2e-5, each moment's norm within rtol), the losses within
+     rtol 1e-5, the replicated weights bit-equal across the ranks; at 2 x 2
+     the sum-not-mean oracle more than TP_CONTROL_GAP times over and the
+     two scale controls (parallel/tensor.scale_control) over; each rank's
+     ms a step and the peak memory of one step beside an unsharded rank's
+     at the same rows; 10c the 2 x 2 checkpoint (whole matrices) loaded
+     strict into one card, its next step against the oracle's, and phase
+     4's checkpoint resumed by train() at 1 x 2 (4 steps; only rank 0
+     writes) against the oracle; 10a, in this process while the 10b ranks
+     run, a world of one under NCCL: the split front-end on a model group
+     of one, its collectives captured in the train graphs, bf16, batch 200,
+     60 steps bit-equal to the gemm graph without a mesh (losses, weights,
+     Adam's moments; every sum runs in the same order), their ms a step in
+     turns once the ranks are done, and the split analysis' full-width
+     product (ops/frontend.py) timed beside one rank's bins alone at
+     n_model 2 and 4 (cli/time_data_parallel.analysis_product_ms).
+The script's seconds in all, then the kernels JSON line and the result line,
+end the output.
 
 Exits non-zero with no result when torch.cuda.is_available() is false, or
 when it is not next to the signaltrain_tpu_torch package it drives.
@@ -1808,9 +1836,9 @@ def single_card_surface(dev, results: dict, smi: str) -> dict:
 
 
 # ---- phase 9: data parallelism (parallel/, training/oracle.py, predict_long(mesh=)).
-# The ranks are spawned processes (parallel/launch.spawn): one card takes a
-# world of one under NCCL (NCCL refuses two ranks on one device) and two
-# ranks under gloo, on the same split graphs that run on several cards.
+# One card takes a world of one under NCCL, in this process (NCCL refuses two
+# ranks on one device), and two spawned ranks under gloo (parallel/launch.spawn),
+# on the same split graphs that run on several cards.
 PHASE9_LIMIT_S = 60.0
 DP_STEPS = 3  # 9b: steps of the 2 ranks against the oracle
 DP_OPT = (TRAIN_LR, 4 * TRAIN_BATCH, 1, TRAIN_BATCH)  # 9b's schedule, and 9d's resume: 4 steps
@@ -1840,42 +1868,57 @@ def _graph_ms(graph, step0: int, steps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def dp_world_one(mesh, workdir: str, sr: int) -> dict:
-    """9a, in a rank of a world of one under NCCL: train() in bf16 (counted),
-    then the train graph with and without the mesh from the same weights in
-    turns: their losses and weights bit-equal, and their ms a step."""
+def dp_world_one(dev, workdir: str, sr: int, before_timing) -> dict:
+    """9a, in this process, in a world of one under NCCL (a file store in a
+    temporary directory): train() in bf16 (counted), then the train graph
+    with and without the mesh from the same weights; ``before_timing()``
+    (which waits until the card is this process's alone), then two blocks
+    of each in turns: their losses and weights bit-equal, and their ms a
+    step."""
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects
     from signaltrain_tpu_torch.models.st_model import st_model
     from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.parallel import distributed
+    from signaltrain_tpu_torch.parallel import mesh as meshlib
     from signaltrain_tpu_torch.training import graphs
     from signaltrain_tpu_torch.training import train as train_mod
 
-    dev = mesh.device
-    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
-    _cuda.reset_counts()
-    model, hist = in_dir(workdir, lambda: train_mod.train(
-        effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
-        lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16, make_plots=False))
-    counts = _rank_counts()
-    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
-    loops = {}
-    for way, m in (("single", None), ("mesh", mesh)):
-        net = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
-                       compute_dtype=BF16).train()
-        opt, lr_fn = train_mod.make_optimizer(net, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
-        g = graphs.TrainGraph(net, opt, lr_fn, batch_fn, TRAIN_BATCH, torch.Generator(device=dev),
-                              TRAIN_SEED, capacity=DP_TIMED_STEPS, mesh=m)
-        loops[way] = {"net": net, "graph": g, "losses": g(0, DP_TIMED_STEPS).cpu(), "ms": []}
-    for turn, way in enumerate(("single", "mesh", "mesh", "single")):
-        loops[way]["ms"].append(_graph_ms(loops[way]["graph"], DP_TIMED_STEPS * (1 + turn // 2),
-                                          DP_TIMED_STEPS))
-    graph_equal = torch.equal(loops["single"]["losses"], loops["mesh"]["losses"]) and all(
-        torch.equal(a, b) for a, b in zip(loops["single"]["net"].parameters(),
-                                          loops["mesh"]["net"].parameters()))
-    return {"hist": hist, "weights": _weights(model), "counts": counts,
-            "graphs_bit_equal": graph_equal,
-            "ms": {way: v["ms"] for way, v in loops.items()}}
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize("file://" + os.path.join(store, "store"), 1, 0, "nccl", dev)
+        try:
+            mesh = meshlib.make_mesh(device=dev)
+            effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+            _cuda.reset_counts()
+            model, hist = in_dir(workdir, lambda: train_mod.train(
+                effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
+                lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16,
+                make_plots=False))
+            counts = _rank_counts()
+            batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+            loops = {}
+            for way, m in (("single", None), ("mesh", mesh)):
+                net = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                               compute_dtype=BF16).train()
+                opt, lr_fn = train_mod.make_optimizer(net, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS,
+                                                      TRAIN_BATCH)
+                g = graphs.TrainGraph(net, opt, lr_fn, batch_fn, TRAIN_BATCH,
+                                      torch.Generator(device=dev), TRAIN_SEED,
+                                      capacity=DP_TIMED_STEPS, mesh=m)
+                loops[way] = {"net": net, "graph": g, "losses": g(0, DP_TIMED_STEPS).cpu(),
+                              "ms": []}
+            before_timing()
+            for turn, way in enumerate(("single", "mesh", "mesh", "single")):
+                loops[way]["ms"].append(_graph_ms(loops[way]["graph"],
+                                                  DP_TIMED_STEPS * (1 + turn // 2), DP_TIMED_STEPS))
+            graph_equal = torch.equal(loops["single"]["losses"], loops["mesh"]["losses"]) and all(
+                torch.equal(a, b) for a, b in zip(loops["single"]["net"].parameters(),
+                                                  loops["mesh"]["net"].parameters()))
+            return {"hist": hist, "weights": {k: v.cpu() for k, v in _weights(model).items()},
+                    "counts": counts, "graphs_bit_equal": graph_equal,
+                    "ms": {way: v["ms"] for way, v in loops.items()}}
+        finally:
+            distributed.shutdown()
 
 
 def dp_two_ranks(mesh, ckpt: str, sr: int, clip, knobs_nn) -> dict:
@@ -1921,6 +1964,8 @@ def dp_two_ranks(mesh, ckpt: str, sr: int, clip, knobs_nn) -> dict:
 def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred) -> dict:
     """Phase 9 (module docstring); its failures raise, and it must end
     within PHASE9_LIMIT_S."""
+    import concurrent.futures
+
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects
     from signaltrain_tpu_torch.models.st_model import st_model
@@ -1937,15 +1982,42 @@ def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred)
             check(plain == 0, f"{what} ran the plain version of {k}")
             launches[k] = launches.get(k, 0) + n_launch
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the 9b ranks start first; this process runs 9a and the oracles meanwhile.
+        # Every directory this process works in outlives the ranks: a rank
+        # starts in this process's working directory of the moment.
+        ckpt = os.path.join(tmp, "world2.tar")
+        spawned = pool.submit(launch.spawn, dp_two_ranks, [str(dev)] * 2, "gloo",
+                              args=(ckpt, sr, clip, knobs_nn), timeout_s=120)
+        dirs = {d: os.path.join(tmp, d) for d in ("single", "world1", "resume")}
+        for d in dirs.values():
+            os.makedirs(d)
         # ---- 9a: a world of one under NCCL against the same run without a mesh
-        (a,) = launch.spawn(dp_world_one, [str(dev)], "nccl", args=(tmp, sr), timeout_s=120)
         effect = effects.make_effect("comp_4c", sr=sr, device=dev)
-        with tempfile.TemporaryDirectory() as single:
-            model, hist = in_dir(single, lambda: train_mod.train(
-                effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
-                lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16,
-                make_plots=False))
+        model, hist = in_dir(dirs["single"], lambda: train_mod.train(
+            effect, epochs=1, n_data_points=TRAIN_POINTS, batch_size=TRAIN_BATCH, sr=sr,
+            lr_max=TRAIN_LR, seed=TRAIN_SEED, device=dev, compute_dtype=BF16, make_plots=False))
+        batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+
+        def fresh():
+            m = st_model(device=dev, sr=sr,
+                         generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+            return m, *train_mod.make_optimizer(m, *DP_OPT)
+
+        om, oopt, lr_fn = fresh()  # 9b's oracle
+        o_losses = oracle.oracle_steps(om, oopt, lr_fn, batch_fn, TRAIN_BATCH, 2,
+                                       torch.Generator(device=dev), TRAIN_SEED, 0, DP_STEPS)
+        want = _weights(om)
+        bm, bopt, _ = fresh()  # the control: the shards' gradients summed, not averaged
+        oracle.oracle_steps(bm, bopt, lr_fn, batch_fn, TRAIN_BATCH, 2, torch.Generator(device=dev),
+                            TRAIN_SEED, 0, DP_STEPS, reduce="sum")
+        control = oracle.excess(_weights(bm), want)
+        runs = {}
+
+        def ranks_done():  # the card is 9a's alone from here
+            runs["ranks"] = spawned.result()
+
+        a = dp_world_one(dev, dirs["world1"], sr, ranks_done)
         for key in ("train_loss", "val_loss", "val_mae", "val_mae_mean", "step"):
             check(a["hist"][key] == hist[key], f"9a: train() at world 1 differs in {key}")
         check(all(torch.equal(torch.as_tensor(a["weights"][k]), v.detach().float().cpu())
@@ -1956,30 +2028,14 @@ def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred)
             check(a["counts"][k][0] > 0, f"9a: train() at world 1 never launched {k}")
         add(a["counts"], "9a")
         report["9a"] = {"steps": len(hist["train_loss"]), "ms_a_step": a["ms"]}
-        print(f"9a: train() bf16 at world 1 under NCCL, {len(hist['train_loss'])} steps: losses, "
+        print(f"9a: train() bf16 at world 1 under NCCL (in this process), "
+              f"{len(hist['train_loss'])} steps: losses, "
               f"validation and every weight bit-equal to the run without a mesh; the split graphs "
               f"bit-equal to the single graph; ms a step (host clock, blocks of {DP_TIMED_STEPS}, "
               f"in turns) single {a['ms']['single']}, mesh {a['ms']['mesh']} on {smi}")
 
         # ---- 9b, 9c: two gloo ranks on this card against the oracle
-        ckpt = os.path.join(tmp, "world2.tar")
-        ranks = launch.spawn(dp_two_ranks, [str(dev)] * 2, "gloo",
-                             args=(ckpt, sr, clip, knobs_nn), timeout_s=120)
-        batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
-
-        def fresh():
-            m = st_model(device=dev, sr=sr,
-                         generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
-            return m, *train_mod.make_optimizer(m, *DP_OPT)
-
-        om, oopt, lr_fn = fresh()
-        o_losses = oracle.oracle_steps(om, oopt, lr_fn, batch_fn, TRAIN_BATCH, 2,
-                                       torch.Generator(device=dev), TRAIN_SEED, 0, DP_STEPS)
-        want = _weights(om)
-        bm, bopt, _ = fresh()  # the control: the shards' gradients summed, not averaged
-        oracle.oracle_steps(bm, bopt, lr_fn, batch_fn, TRAIN_BATCH, 2, torch.Generator(device=dev),
-                            TRAIN_SEED, 0, DP_STEPS, reduce="sum")
-        control = oracle.excess(_weights(bm), want)
+        ranks = runs["ranks"]
         excess = [oracle.excess(r["weights"], want) for r in ranks]
         delta = max(oracle.max_param_delta(r["weights"], om) for r in ranks)
         loss_err = max(float(np.abs(r["losses"] / o_losses.cpu().numpy() - 1).max()) for r in ranks)
@@ -1999,7 +2055,8 @@ def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred)
               f"({'bit-equal' if delta == 0.0 else 'not bit-equal'}), {max(excess):.3f} x the "
               f"limit (atol {oracle.ATOL}, rtol {oracle.RTOL}), losses within {loss_err:.2e}; "
               f"sum-not-mean control {control:.1f} x over (must be > {DP_CONTROL_GAP}); "
-              f"{ranks[0]['ms']} ms a step (host clock, blocks of {DP_TIMED_STEPS}); peak memory "
+              f"{ranks[0]['ms']} ms a step (host clock, blocks of {DP_TIMED_STEPS}; this process's 9a "
+              f"run and oracles on the card at the same time); peak memory "
               f"{report['9b']['memory_gb']} GB a rank on {smi}")
 
         # ---- 9c: predict_long split over the two ranks against phase 3's output
@@ -2019,9 +2076,7 @@ def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred)
         check(rv["optax_step"] == DP_STEPS, "9d: the checkpoint's step")
         check(all(torch.equal(v, torch.as_tensor(ranks[0]["weights"][k]))
                   for k, v in state.items()), "9d: the checkpoint is not rank 0's weights")
-        resume_dir = os.path.join(tmp, "resume")
-        os.makedirs(resume_dir)
-        resumed, r_hist = in_dir(resume_dir, lambda: train_mod.train(
+        resumed, r_hist = in_dir(dirs["resume"], lambda: train_mod.train(
             effect, epochs=DP_OPT[2], n_data_points=DP_OPT[1], batch_size=TRAIN_BATCH, sr=sr,
             lr_max=DP_OPT[0], seed=TRAIN_SEED, device=dev, compute_dtype=torch.float32,
             make_plots=False, in_checkpointname=ckpt))
@@ -2049,7 +2104,351 @@ def data_parallel(dev, results: dict, smi: str, sr: int, clip, knobs_nn, y_pred)
     return report
 
 
+# ---- phase 10: tensor parallelism (parallel/tensor.py, the JAX 'model' axis).
+# One card: 10a a world of one under NCCL with the split front-end forced on a
+# model group of one, its collectives captured in the graphs; 10b 1 x 2 and
+# 2 x 2 as gloo ranks on the card (NCCL refuses two ranks on one device, and
+# gloo's collectives cannot be captured, so their steps run op by op); 10c
+# the 2 x 2 checkpoint on one card, and phase 4's checkpoint resumed at 1 x 2.
+PHASE10_LIMIT_S = 60.0
+TP_STEPS = 3  # 10b: checked steps a mesh, and each control's
+TP_TIMED_STEPS = 20  # 10a: steps a graph and a timed block
+TP_CONTROL_GAP = 10.0  # how many times over the limit the sum-not-mean oracle must land
+# 10b's schedule: the JAX dp x tp test's (tests/test_multichip_oracle.py, _setup:
+# make_optimizer(1e-4, 256, 2, 16), 32 steps) at batch 200, the first steps of a
+# 1cycle; its atol is 1% of such an update (lr ~1e-4), and in the schedule's
+# first steps 10-30% of one
+TP_OPT = (1e-4, 16 * TRAIN_BATCH, 2, TRAIN_BATCH)
+
+
+def _gathered(state: dict) -> dict:
+    """A copy of ``checkpoint.training_tensors``' dict on the host."""
+    return {k: {n: v.detach().float().cpu() for n, v in d.items()} for k, d in state.items()}
+
+
+def split_graph_check(dev, sr: int, before_timing) -> dict:
+    """10a, in this process, in a world of one under NCCL (a file store in a
+    temporary directory): the gemm front-end's train graph without a mesh
+    and the split front-end's on the mesh (a model group of one: every sum
+    in the same order), bf16, TP_TIMED_STEPS steps each, every count set to
+    0 just before and read just after; then ``before_timing()`` (which waits
+    until the card is this process's alone) and two more blocks each in
+    turns; their losses, weights and Adam moments compared, their ms a
+    step."""
+    from signaltrain_tpu_torch.cli import time_data_parallel
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.parallel import distributed
+    from signaltrain_tpu_torch.parallel import mesh as meshlib
+    from signaltrain_tpu_torch.training import checkpoint, graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize("file://" + os.path.join(store, "store"), 1, 0, "nccl", dev)
+        try:
+            mesh = meshlib.make_mesh(device=dev)
+            effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+            batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+            loops = {}
+            _cuda.reset_counts()
+            for way, m in (("gemm", None), ("split", mesh)):
+                net = STModel(compute_spec(sr=sr), frontend="gemm", device=dev,
+                              compute_dtype=BF16, mesh=m,
+                              generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+                opt, lr_fn = train_mod.make_optimizer(net, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS,
+                                                      TRAIN_BATCH)
+                g = graphs.TrainGraph(net, opt, lr_fn, batch_fn, TRAIN_BATCH,
+                                      torch.Generator(device=dev), TRAIN_SEED,
+                                      capacity=TP_TIMED_STEPS, mesh=m)
+                loops[way] = {"net": net, "opt": opt, "graph": g,
+                              "losses": g(0, TP_TIMED_STEPS).cpu(), "ms": []}
+            counts = _rank_counts()
+            before_timing()
+            for turn, way in enumerate(("gemm", "split", "split", "gemm")):
+                loops[way]["ms"].append(_graph_ms(loops[way]["graph"],
+                                                  TP_TIMED_STEPS * (1 + turn // 2), TP_TIMED_STEPS))
+            # what the split analysis' full-width product costs beside one rank's bins
+            product_ms = {n: time_data_parallel.analysis_product_ms(loops["gemm"]["net"], n)
+                          for n in (2, 4)}
+            a, b = (checkpoint.training_tensors(loops[w]["net"], loops[w]["opt"])
+                    for w in ("gemm", "split"))
+            return {"losses_equal": torch.equal(loops["gemm"]["losses"], loops["split"]["losses"]),
+                    "state_equal": {k: all(torch.equal(v, b[k][n]) for n, v in d.items())
+                                    for k, d in a.items()},
+                    "counts": counts, "ms": {w: v["ms"] for w, v in loops.items()},
+                    "steps": loops["split"]["graph"].graph.replays + 1,
+                    "analysis_product_ms": product_ms}
+        finally:
+            distributed.shutdown()
+
+
+def tp_ranks(mesh, workdir: str, phase4_ckpt: str, sr: int) -> dict:
+    """10b and 10c, in one gloo rank of a 1 x 2 or 2 x 2 mesh on the card, in
+    float32: TP_STEPS steps op by op at global batch TRAIN_BATCH (the first
+    the warm-up, the others timed), the whole weights and moments gathered
+    (2 x 2: rank 0 saves them as the checkpoint), each scale control's
+    (2 x 2), the peak memory of one step beside an unsharded rank's at the
+    same rows; at 1 x 2 train() resumed from phase 4's checkpoint."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import st_model
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.parallel import tensor as tp
+    from signaltrain_tpu_torch.training import checkpoint
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    clock = {"start": time.time()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+
+    def steps(m=mesh, n=TP_STEPS):
+        model = st_model(device=dev, sr=sr, generator=torch.Generator().manual_seed(TRAIN_SEED),
+                         mesh=m).train()
+        opt, lr_fn = train_mod.make_optimizer(model, *TP_OPT)
+        g = torch.Generator(device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        first = train_mod.eager_steps(model, opt, lr_fn, batch_fn, TRAIN_BATCH, g, TRAIN_SEED, 0,
+                                      1, mesh=mesh)
+        memory = torch.cuda.max_memory_allocated(dev) / 1e9
+        if n == 1:
+            return model, opt, first, memory, None
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        rest = train_mod.eager_steps(model, opt, lr_fn, batch_fn, TRAIN_BATCH, g, TRAIN_SEED, 1,
+                                     n - 1, mesh=mesh)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / (n - 1)
+        return model, opt, torch.cat([first, rest]), memory, ms
+
+    _cuda.reset_counts()
+    model, opt, losses, memory, ms = steps()
+    counts = _rank_counts()
+    clock["steps"] = time.time()
+    state = checkpoint.training_tensors(model, opt)  # gathered over the model group
+    if mesh.n_data == 2 and mesh.rank == 0:
+        checkpoint.save_checkpoint(os.path.join(workdir, "tp2x2.tar"), model.spec, effect, 0,
+                                   state, TP_STEPS)
+    params = dict(model.named_parameters())
+    # rank 0 sends the whole state (every rank gathers the same); each rank
+    # its replicated weights and a digest of its rows (equal across its data group)
+    out = {"losses": losses, "state": _gathered(state) if mesh.rank == 0 else None,
+           "counts": counts, "ms": ms, "memory_gb": memory,
+           "replicated": {k: v.detach().clone() for k, v in params.items() if "dft_" not in k},
+           "shard_digest": [float(params[k].double().sum()) for k in train_mod.FRONTEND_PARAMS]
+           + [float(params[k].double().square().sum()) for k in train_mod.FRONTEND_PARAMS],
+           "controls": {}}
+    del model, opt, params, state
+    if mesh.n_data == 2:
+        for name in tp.SCALE_CONTROLS:
+            with tp.scale_control(name):
+                c_model, c_opt = steps()[:2]
+                c_state = checkpoint.training_tensors(c_model, c_opt)
+                if mesh.rank == 0:
+                    out["controls"][name] = _gathered(c_state)
+    clock["controls"] = time.time()
+    out["memory_gb_unsharded"] = steps(None, 1)[3]  # the same rows, the front-end whole
+    clock["unsharded"] = time.time()
+    if mesh.n_data == 1:
+        here = os.path.join(workdir, f"rank{mesh.rank}")
+        os.makedirs(here)
+        resumed, hist = in_dir(here, lambda: train_mod.train(
+            effect, epochs=DP_OPT[2], n_data_points=DP_OPT[1], batch_size=TRAIN_BATCH, sr=sr,
+            lr_max=DP_OPT[0], seed=TRAIN_SEED, device=dev, compute_dtype=torch.float32,
+            make_plots=False, in_checkpointname=phase4_ckpt, n_model=2))
+        weights = checkpoint.training_tensors(resumed)["state_dict"]
+        out["resume"] = {"hist": hist, "files": sorted(os.listdir(here)),
+                         "weights": _gathered({"w": weights})["w"] if mesh.rank == 0 else None}
+    clock["end"] = time.time()
+    out["clock"] = clock
+    return out
+
+
+def tensor_parallel(dev, results: dict, smi: str, sr: int, phase4: dict) -> dict:
+    """Phase 10 (module docstring); its failures raise, and it must end
+    within PHASE10_LIMIT_S."""
+    import concurrent.futures
+
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.parallel import launch
+    from signaltrain_tpu_torch.training import checkpoint, oracle
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    t_phase, t_wall = time.perf_counter(), time.time()
+    report = {}
+    launches = 0
+
+    def add(counts: dict, what: str) -> None:
+        nonlocal launches
+        for k, (n_launch, plain) in counts.items():
+            check(plain == 0, f"{what} ran the plain version of {k}")
+        check(counts["switched_one_pole"][0] > 0, f"{what} never launched kernel C")
+        launches += counts["switched_one_pole"][0]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 10b: 1 x 2 and 2 x 2 gloo ranks on this card, spawned at once; the
+        # oracles run in this process meanwhile
+        ckpt4 = os.path.join(tmp, "phase4.tar")
+        with open(ckpt4, "wb") as f:
+            f.write(phase4["checkpoint"])
+        dirs = {s: os.path.join(tmp, s) for s in ("1x2", "2x2")}
+        for d in dirs.values():
+            os.makedirs(d)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            spawned = {s: pool.submit(launch.spawn, tp_ranks, [str(dev)] * w, "gloo",
+                                      args=(dirs[s], ckpt4, sr), timeout_s=120, n_model=2)
+                       for s, w in (("2x2", 4), ("1x2", 2))}
+            effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+            batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+
+            def fresh(schedule=TP_OPT):  # the oracle's model: the ranks' gemm front-end, whole
+                m = STModel(compute_spec(sr=sr), frontend="gemm", device=dev,
+                            generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+                return m, *train_mod.make_optimizer(m, *schedule)
+
+            def run_oracle(n_data: int, step0: int = 0, n: int = TP_STEPS, reduce: str = "mean",
+                           state=None):
+                m, o, lr_fn = fresh() if state is None else state
+                losses = oracle.oracle_steps(m, o, lr_fn, batch_fn, TRAIN_BATCH, n_data,
+                                             torch.Generator(device=dev), TRAIN_SEED, step0, n,
+                                             reduce=reduce)
+                return (m, o, lr_fn), losses.cpu().numpy(), _gathered(
+                    checkpoint.training_tensors(m, o))
+
+            oracles = {"1x2": run_oracle(1), "2x2": run_oracle(2)}
+            summed = run_oracle(2, reduce="sum")[2]
+            # 10c's references: the 2 x 2 oracle one step on, and phase 4's
+            # checkpoint run on 4 steps at one shard under train()'s schedule there
+            _, o_next, want_next = run_oracle(2, TP_STEPS, 1, state=oracles["2x2"][0])
+            p4_state, p4_rv = checkpoint.load_checkpoint(ckpt4)
+            pm, popt, p_lr_fn = fresh(DP_OPT)
+            pm.load_state_dict(p4_state, strict=True)
+            checkpoint.restore_optimizer(pm, popt, p4_rv["optax_state"], p4_rv["optax_step"])
+            n_more = DP_OPT[1] // TRAIN_BATCH
+            _, p_losses, p_want = run_oracle(1, p4_rv["optax_step"], n_more,
+                                             state=(pm, popt, p_lr_fn))
+            t_oracles = time.perf_counter() - t_phase
+            runs = {}
+
+            def ranks_done():  # the card is 10a's alone from here
+                runs.update({s: f.result() for s, f in spawned.items()})
+                report["10b_seconds"] = time.perf_counter() - t_phase
+
+            # ---- 10a meanwhile: the split front-end's graph on a model group of
+            # one under NCCL, in this process; timed once the ranks are done
+            a = split_graph_check(dev, sr, ranks_done)
+            report["10a_returned_s"] = time.perf_counter() - t_phase
+        print("10b clocks (s from the phase's start):", json.dumps(
+            {s: [{k: round(v - t_wall, 2) for k, v in r["clock"].items()} for r in rs]
+             for s, rs in runs.items()}), f"oracles {t_oracles:.2f}")
+        report["10b"] = {}
+        for shape, n_data in (("1x2", 1), ("2x2", 2)):
+            ranks = runs[shape]
+            _, o_losses, want = oracles[shape]
+            excess = oracle.state_excess(ranks[0]["state"], want)
+            loss_err = max(float(np.abs(r["losses"] / o_losses - 1).max()) for r in ranks)
+            check(excess <= 1.0, f"10b {shape}: the ranks are off the oracle: {excess:.3f} x")
+            check(loss_err <= 1e-5, f"10b {shape}: the losses are off the oracle by {loss_err:.3e}")
+            check(all(np.array_equal(v, ranks[0]["replicated"][k]) for r in ranks
+                      for k, v in r["replicated"].items()),
+                  f"10b {shape}: the replicated weights differ across the ranks")
+            check(all(r["shard_digest"] == ranks[r_i % 2]["shard_digest"]
+                      for r_i, r in enumerate(ranks)),
+                  f"10b {shape}: a data group's ranks hold different rows")
+            for r in ranks:
+                add(r["counts"], f"10b {shape}")
+            rep = {"excess": excess, "loss_rel_err": loss_err, "replicated_bit_equal": True,
+                   "ms_a_step": [r["ms"] for r in ranks],
+                   "memory_gb": [r["memory_gb"] for r in ranks],
+                   "memory_gb_unsharded": [r["memory_gb_unsharded"] for r in ranks]}
+            if shape == "2x2":
+                rep["control_excess"] = oracle.state_excess(ranks[0]["state"], summed)
+                check(rep["control_excess"] > TP_CONTROL_GAP,
+                      f"10b: the sum-not-mean control is only {rep['control_excess']:.2f} x over")
+                rep["scale_control_excess"] = {
+                    name: oracle.state_excess(st, want)
+                    for name, st in ranks[0]["controls"].items()}
+                for name, v in rep["scale_control_excess"].items():
+                    check(v > 1.0, f"10b: the scale control {name} passes the check ({v:.3f} x)")
+            report["10b"][shape] = rep
+            print(f"10b: {shape} as gloo ranks on one card, f32, global batch {TRAIN_BATCH}, "
+                  f"{TP_STEPS} steps op by op against the oracle at {n_data} shard(s): "
+                  f"{excess:.4f} x the limit over the weights and Adam's moments (atol "
+                  f"{oracle.ATOL}, rtol {oracle.RTOL}), losses within {loss_err:.2e}; the "
+                  f"replicated weights bit-equal across the ranks; "
+                  + (f"sum-not-mean control {rep['control_excess']:.1f} x over (must be > "
+                     f"{TP_CONTROL_GAP}), scale controls {rep['scale_control_excess']} x; "
+                     if shape == "2x2" else "")
+                  + f"ms a step {rep['ms_a_step']} (both meshes, the oracles and 10a's checked "
+                  f"steps at once on the card); peak memory of a step {rep['memory_gb']} GB a "
+                  f"rank, an unsharded rank's {rep['memory_gb_unsharded']} GB, on {smi}")
+
+        report["10b_checked_s"] = time.perf_counter() - t_phase
+        # ---- 10c: the 2 x 2 checkpoint on one card; phase 4's resumed at 1 x 2
+        state, rv = checkpoint.load_checkpoint(os.path.join(dirs["2x2"], "tp2x2.tar"))
+        single, sopt, lr_fn = fresh()
+        single.load_state_dict(state, strict=True)
+        checkpoint.restore_optimizer(single, sopt, rv["optax_state"], rv["optax_step"])
+        _, l_single, got_next = run_oracle(2, TP_STEPS, 1, state=(single, sopt, lr_fn))
+        c_excess = oracle.state_excess(got_next, want_next)
+        c_loss = float(np.abs(l_single / o_next - 1).max())
+        check(rv["optax_step"] == TP_STEPS and c_excess <= 1.0 and c_loss <= 1e-5,
+              f"10c: the 2 x 2 checkpoint's next step is off the oracle's: {c_excess:.3f} x, "
+              f"losses {c_loss:.3e}")
+        r0, r1 = (r["resume"] for r in runs["1x2"])
+        r_excess = oracle.excess(r0["weights"], p_want["state_dict"])
+        r_loss = float(np.abs(np.asarray(r0["hist"]["train_loss"]) / p_losses - 1).max())
+        check(r0["hist"] == r1["hist"] and r1["files"] == []
+              and "modelcheckpoint.tar" in r0["files"],
+              "10c: the 1 x 2 ranks' histories differ, or rank 1 wrote")
+        check(r0["hist"]["step"] == p4_rv["optax_step"] + n_more and r_excess <= 1.0
+              and r_loss <= 1e-5,
+              f"10c: phase 4's checkpoint resumed at 1 x 2 is off the oracle: {r_excess:.3f} x, "
+              f"losses {r_loss:.3e}")
+        report["10c"] = {"excess": c_excess, "loss_rel_err": c_loss, "resume_excess": r_excess,
+                         "resume_loss_rel_err": r_loss, "resume_steps": n_more}
+        print(f"10c: the 2 x 2 checkpoint (whole matrices) loads strict into one card, its next "
+              f"step {c_excess:.4f} x the limit of the oracle's (losses {c_loss:.2e}); phase 4's "
+              f"checkpoint (step {p4_rv['optax_step']}) resumed by train() at 1 x 2 for {n_more} "
+              f"steps: {r_excess:.4f} x, losses within {r_loss:.2e}; only rank 0 wrote")
+
+        # ---- 10a's verdict
+        check(a["losses_equal"] and all(a["state_equal"].values()),
+              f"10a: the split front-end's graph differs from the gemm graph: losses equal "
+              f"{a['losses_equal']}, state equal {a['state_equal']}")
+        add(a["counts"], "10a")
+        report["10a"] = {"steps": a["steps"], "bit_equal": True, "ms_a_step": a["ms"],
+                         "analysis_product_ms": a["analysis_product_ms"]}
+        print(f"10a: the split front-end on a model group of one under NCCL, its collectives "
+              f"captured, bf16, batch {TRAIN_BATCH}, {a['steps']} steps: losses, weights and Adam "
+              f"moments bit-equal to the gemm front-end's graph without a mesh; ms a step (host "
+              f"clock, blocks of {TP_TIMED_STEPS}, in turns) gemm {a['ms']['gemm']}, split "
+              f"{a['ms']['split']} on {smi}")
+        print("10a: the split analysis' product of a step's frames (200 rows), CUDA-event ms: "
+              "the full width each rank runs against one rank's bins alone at n_model 2 and 4: "
+              + json.dumps({n: {k: round(v, 4) for k, v in d.items()}
+                            for n, d in a["analysis_product_ms"].items()}))
+    report["oracles_seconds"] = t_oracles
+    results["switched_one_pole"]["launches_tensor_parallel"] = launches
+    report["launches"] = {"switched_one_pole": launches}
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10: {report['seconds']:.2f} s (limit {PHASE10_LIMIT_S:.0f} s): the oracles "
+          f"by {t_oracles:.2f} s, the 10b ranks returned by {report['10b_seconds']:.2f}, 10a by "
+          f"{report['10a_returned_s']:.2f}, 10b checked by {report['10b_checked_s']:.2f}")
+    check(report["seconds"] <= PHASE10_LIMIT_S,
+          f"phase 10 took {report['seconds']:.2f} s > {PHASE10_LIMIT_S:.0f} s")
+    return report
+
+
 def main() -> None:
+    t_main = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script drives the port on a CUDA card")
     if not (HERE / "signaltrain_tpu_torch" / "__init__.py").is_file() or not CKPT.is_file():
@@ -2453,6 +2852,8 @@ def main() -> None:
                 vl_lines = [ln.split() for ln in open("vl_avg_out.dat").read().strip().splitlines()]
                 served, served_rv = load_model("modelcheckpoint.tar", device=dev,  # strict inside
                                                compute_dtype=compute_dtype)
+                with open("modelcheckpoint.tar", "rb") as f:
+                    saved = f.read()
             finally:
                 os.chdir(cwd)
         y_served = pl.predict_long(short_clip, knobs_nn, served)
@@ -2493,7 +2894,7 @@ def main() -> None:
               f"{tag}: train() under CUDA graphs and eager dispatch differ in the weights")
         print(f"train({tag}) under CUDA graphs = eager dispatch, bit for bit: {len(eager_losses)} "
               f"losses, {len(eager_maes)} validation passes, every weight")
-        phase4 = {"hist": hist, "epochs": epochs,
+        phase4 = {"hist": hist, "epochs": epochs, "checkpoint": saved,
                   "weights": {k: v.clone() for k, v in trained.state_dict().items()}}
         return served, hist, mean_maes, t_path, phase4
 
@@ -2515,6 +2916,8 @@ def main() -> None:
     # ---- 9. data parallelism
     print(json.dumps({"data_parallel": data_parallel(dev, results, smi, sr, clip, knobs_nn,
                                                      y_pred)}))
+    # ---- 10. tensor parallelism
+    print(json.dumps({"tensor_parallel": tensor_parallel(dev, results, smi, sr, phase4_b)}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -3004,6 +3407,7 @@ def main() -> None:
             print(f"  at the training shape {r['train_shape']}: {r['train_ms']:.4f} ms (bound "
                   f"{r['train_bound_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, library "
                   f"{tlib}{ttf})")
+    print(f"chip_smoke: {time.perf_counter() - t_main:.2f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

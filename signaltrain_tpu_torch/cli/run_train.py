@@ -16,8 +16,7 @@ and ``-t chunk`` with ``-e files`` is refused (a file effect has no signal
 to re-run);
 ``--apex`` is accepted and ignored, as there. ``--profile DIR`` runs the
 training inside ``utils/profiling.trace(DIR)`` (a ``torch.profiler`` trace
-with the card's kernels, for TensorBoard or Perfetto). ``--nmodel`` (model
-parallelism) exits with a message that it is not ported yet.
+with the card's kernels, for TensorBoard or Perfetto).
 
 Data parallelism: ``--nproc N`` spawns N ranks (``parallel/launch.py``), on
 the cards ``cuda:0 .. N-1`` under NCCL, or N CPU processes under gloo with
@@ -28,6 +27,13 @@ torchrun (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``cuda:LOCAL_RANK``. Without either it trains in this one process on
 ``--device``: unlike the JAX ``train()``, which takes every local device,
 the port takes one card unless told otherwise.
+
+Tensor parallelism: ``--nmodel M`` splits the front-end's matrices over M
+ranks of each data index (the JAX ``"model"`` axis, ``parallel/mesh.py``):
+the world (``--nproc``, or torchrun's) must be ``n_data x M`` ranks, e.g.
+``--nproc 4 --nmodel 2`` for 2 x 2. It runs on gloo ranks (``--device
+cpu``); on the cards, under NCCL, ``train()`` refuses it until a run there
+has matched the single-process oracle (``cli.time_data_parallel --nmodel``).
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", default="bfloat16",
                         help="compute dtype: bfloat16 (bf16) or float32 (f32)")
     parser.add_argument("--nmodel", type=int, default=1,
-                        help="model-axis size (model parallelism is not ported yet)")
+                        help="model-axis size: ranks that split the front-end's matrices "
+                        "(the world, --nproc or torchrun's, is n_data x nmodel)")
     parser.add_argument("--seed", type=int, default=218)
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="capture a torch.profiler trace of the run into DIR")
@@ -99,23 +106,11 @@ def torchrun_rank(env) -> dict | None:
                 local_rank=int(env["LOCAL_RANK"]))
 
 
-def unported(args) -> list[str]:
-    """The options on this command line that need a part not ported yet."""
-    found = []
-    if args.nmodel != 1:
-        found.append("--nmodel (model parallelism)")
-    return found
-
-
 def main(argv=None) -> None:
     from ..config import DTYPES
 
     args = build_parser().parse_args(argv)
     print("Command line: ", " ".join(sys.argv[:]))
-    missing = unported(args)
-    if missing:
-        print("Error: not yet ported: " + ", ".join(missing))
-        sys.exit(1)
     if args.dtype not in DTYPES:
         print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
         sys.exit(1)
@@ -131,6 +126,11 @@ def main(argv=None) -> None:
     if args.nproc > 1 and (world is not None or args.profile):
         print("Error: --nproc spawns its own ranks: not under torchrun, and not with "
               "--profile (which traces this process)")
+        sys.exit(1)
+    ranks = world["world_size"] if world is not None else args.nproc
+    if args.nmodel < 1 or ranks % args.nmodel:
+        print(f"Error: --nmodel {args.nmodel}: a world of {ranks} ranks is not n_data x "
+              f"{args.nmodel}; run n_data x nmodel ranks (--nproc, or torchrun's)")
         sys.exit(1)
     device = args.device
     if world is not None and torch.device(device).type == "cuda":
@@ -158,7 +158,7 @@ def main(argv=None) -> None:
     if cfg.nproc > 1:
         devices = launch.rank_devices(cfg.device, cfg.nproc)
         launch.spawn(launch.train_rank, devices, launch.backend_for(cfg.device), args=(cfg,),
-                     timeout_s=None)
+                     timeout_s=None, n_model=cfg.n_model)
         print("run_train: Execution completed.")
         return
     if world is not None:

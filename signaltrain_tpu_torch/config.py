@@ -3,10 +3,11 @@
 Counterpart of signaltrain_tpu/config.py: the CLI parses into a
 ``RunConfig``, ``train_from_config`` runs it, and its geometry fields are the
 ones ``compute_spec`` and the checkpoint keep. The port adds ``device`` (the
-card unless ``"cpu"`` is asked for) and ``nproc``, the data-parallel ranks
-``cli.run_train`` spawns (one process a rank, on ``device``'s card and the
-next ones; 1 trains in this process). ``n_model`` must be 1: tensor
-parallelism is not ported (``cli/run_train.py`` refuses ``--nmodel``).
+card unless ``"cpu"`` is asked for) and ``nproc``, the ranks ``cli.run_train``
+spawns (one process a rank, on ``device``'s card and the next ones; 1 trains
+in this process). ``n_model`` is the JAX ``"model"`` axis: the ranks that
+split the front-end's matrices (``parallel/mesh.py``); ``nproc`` must be
+``n_data x n_model``.
 """
 
 from __future__ import annotations
@@ -88,11 +89,11 @@ class RunConfig:
         return dataclasses.replace(self, **kw)
 
     def __post_init__(self):
-        if self.n_model != 1:
-            raise NotImplementedError("n_model: tensor parallelism (the 'model' axis) is not "
-                                      "ported yet")
         if self.nproc < 1:
             raise ValueError(f"nproc {self.nproc}: at least one rank")
+        if self.n_model < 1 or self.nproc % self.n_model:
+            raise ValueError(f"n_model {self.n_model}: nproc {self.nproc} is not n_data x "
+                             f"{self.n_model} ranks")
 
 
 def train_from_config(cfg: RunConfig, effect=None):
@@ -126,4 +127,5 @@ def train_from_config(cfg: RunConfig, effect=None):
         datapath=cfg.datapath,
         target_type=cfg.target_type,
         compand=cfg.compand,
+        n_model=cfg.n_model,
     )

@@ -81,7 +81,7 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     if n_run > n_real:  # pad windows of zeros, so that the ranks' shares are equal
         windows = torch.cat([windows, windows.new_zeros(n_run - n_real, chunk_size)])
     share = n_run // n_data
-    first = 0 if mesh is None else mesh.rank * share
+    first = 0 if mesh is None else mesh.data_index * share
 
     outs = []
     with torch.inference_mode():

@@ -22,6 +22,15 @@ Two paths over the same parameters, chosen by ``frontend``:
   (T, B, F) / (OT, B, F); 2*(wave + x_tail/2) is expanded to
   2*wave + x_tail, and the x/2 happens inside kernel A only.
 
+``frontend="auto"`` takes the fused path, or the gemm path on a
+tensor-parallel ``mesh`` (the JAX ``_pick_train_module``,
+signaltrain_tpu/training/train.py:118-138). With ``mesh`` (a
+``parallel/mesh.Mesh``) the front-end holds only this rank's rows
+(``mesh.frontend_shard``) and runs the gemm path with the model group's
+collectives; ``frontend="fused"`` is refused there, as the JAX arrays-fed
+step refuses ``frontend='pallas'`` on a multi-device mesh
+(signaltrain_tpu/training/train.py:416-426).
+
 As in the JAX package, ``return_acts`` or an active dropout
 (``dropout_rate`` > 0 and ``deterministic=False``) takes the batch-major
 gemm path whatever ``frontend`` says; ``return_acts`` adds the 30
@@ -48,21 +57,39 @@ from .autoencoder import AsymAutoEncoder
 FRONTENDS = ("gemm", "fused")
 
 
+def pick_frontend(frontend: str, mesh=None) -> str:
+    """``frontend`` ("gemm", "fused" or "auto") for a model on ``mesh``:
+    "auto" is the fused path, or the gemm path on a tensor-parallel mesh,
+    which refuses "fused"."""
+    if frontend not in (*FRONTENDS, "auto"):
+        raise ValueError(f"frontend must be one of {FRONTENDS} or 'auto', got {frontend!r}")
+    if mesh is None:
+        return "fused" if frontend == "auto" else frontend
+    if frontend == "fused":
+        raise ValueError("frontend='fused' is unsupported on a tensor-parallel mesh: kernels A "
+                         "and B take whole front-end matrices; use frontend='auto' or 'gemm'")
+    return "gemm"
+
+
 class AsymMPAEC(nn.Module):
     def __init__(self, expected_time_frames: int, ft_size: int = 1024, hop_size: int = 384,
                  decomposition_rank: int = 64, n_knobs: int = 4, output_tf: int | None = None,
-                 frontend: str = "fused", device: str | torch.device = "cuda",
+                 frontend: str = "auto", device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0):
+                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0,
+                 mesh=None):
         super().__init__()
-        if frontend not in FRONTENDS:
-            raise ValueError(f"frontend must be one of {FRONTENDS}, got {frontend!r}")
+        frontend = pick_frontend(frontend, mesh)
         dev = resolve_device(device)
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         out_tf = output_tf if output_tf is not None else expected_time_frames
         self.frontend = frontend
-        self.dft_analysis = Analysis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
-        self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype)
+        self.mesh = mesh
+        shard = None if mesh is None else mesh.frontend_shard(ft_size)
+        self.dft_analysis = Analysis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype,
+                                     shard=shard)
+        self.dft_synthesis = Synthesis(ft_size, hop_size, device=dev, compute_dtype=compute_dtype,
+                                       shard=shard)
         self.aenc = AsymAutoEncoder(expected_time_frames, decomposition_rank, n_knobs,
                                     out_tf, device=dev, generator=gen, compute_dtype=compute_dtype,
                                     dropout_rate=dropout_rate)

@@ -13,7 +13,9 @@ nn_proc.py:344-385):
 
 At defaults: 8192 -> 2048 samples, T=25, OT=9, 513 bins, ~4.2M params. The
 model computes in ``compute_dtype`` (float32 or bfloat16; parameters are
-float32 either way); ``dropout_rate`` goes to both autoencoders.
+float32 either way); ``dropout_rate`` goes to both autoencoders. With
+``mesh`` (``parallel/mesh.Mesh``) the front-end is split over the mesh's
+model group (``models/mpaec.py``), on the gemm path.
 """
 
 from __future__ import annotations
@@ -83,10 +85,11 @@ class STModel(nn.Module):
     """The model with its geometry. Its parameters sit under ``mpaec.``, the
     prefix of the reference's checkpoint keys."""
 
-    def __init__(self, spec: ModelSpec, frontend: str = "fused",
+    def __init__(self, spec: ModelSpec, frontend: str = "auto",
                  device: str | torch.device = "cuda",
                  generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0):
+                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0,
+                 mesh=None):
         super().__init__()
         self.spec = spec
         self.compute_dtype = compute_dtype
@@ -101,6 +104,7 @@ class STModel(nn.Module):
             generator=generator,
             compute_dtype=compute_dtype,
             dropout_rate=dropout_rate,
+            mesh=mesh,
         )
 
     @property
@@ -117,8 +121,10 @@ class STModel(nn.Module):
 def st_model(scale_factor: float = 1.0, shrink_factor: float = 4.0, num_knobs: int = 4,
              sr: int = 44100, scale_scheme: str = "lean", device: str | torch.device = "cuda",
              generator: torch.Generator | None = None,
-             compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0) -> STModel:
-    """The model with the geometry ``compute_spec`` derives, fused front-end."""
+             compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.0,
+             mesh=None) -> STModel:
+    """The model with the geometry ``compute_spec`` derives: the fused
+    front-end, or with a tensor-parallel ``mesh`` the gemm one, split."""
     spec = compute_spec(scale_factor, shrink_factor, num_knobs, sr, scale_scheme)
     return STModel(spec, device=device, generator=generator, compute_dtype=compute_dtype,
-                   dropout_rate=dropout_rate)
+                   dropout_rate=dropout_rate, mesh=mesh)

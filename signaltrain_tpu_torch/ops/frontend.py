@@ -25,6 +25,28 @@ Synthesis folds the conjugate-symmetric mirror into the weights: full
 spectrum channel j in [half, ft) carries bin ft - j with re_full[j] = re[c],
 im_full[j] = -im[c], so trainable row ft - c adds onto row c (reversed, and
 negated for the imaginary part).
+
+Tensor parallelism (``shard=``, a ``parallel/mesh.FrontendShard``; the JAX
+``"model"`` axis): the module holds only its rank's rows of each matrix,
+those of its bins [lo, hi) and their mirrors, ascending, under the same
+names. Analysis is column-parallel: the rank's bins come out of one product
+against an operand of the unsharded shape that holds its rows' columns in
+their places and zeros in the others', and are gathered
+(``parallel/tensor.gather_bins``) before the magnitude and phase. The
+product keeps the unsharded shape because cuBLAS picks its kernel by shape:
+a narrower one rounds the spectrum otherwise, and the phase adjoint
+(dphs / |spec|, ill-conditioned on near-zero bins) turns that into
+front-end gradients float32 cannot resolve (PERF.md, tensor parallelism);
+at this shape each bin is the single card's, bit for bit. Synthesis is
+row-parallel: the rank slices its bins out of the replicated spectrum
+(``tensor.enter_shard``), folds its
+own mirror rows onto them (both rows of a pair sit on the rank), multiplies,
+overlap-adds and trims, and the ranks' partial waveforms are summed
+(``tensor.sum_partials``) after the trim, the smallest tensor of the chain
+(2048 samples an example against the frames' 9 x 1024). At one shard every
+operation is the unsharded gemm path's, in the same order. Only the gemm
+path is sharded: ``mag_phs`` / ``from_mag_phs`` (kernels A, B) take whole
+matrices.
 """
 
 from __future__ import annotations
@@ -33,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import tensor as tp
 from ..utils.device import resolve_device
 from . import cuda_frontend, framing, windows
 
@@ -108,36 +131,81 @@ def fold_synthesis_weights(w_real: torch.Tensor, w_imag: torch.Tensor, half: int
     return wr, wi
 
 
+def _rows(matrices, shard):
+    """The init matrices, or a shard's rows of them."""
+    if shard is None:
+        return matrices
+    rows = shard.rows()
+    return tuple(m[rows] for m in matrices)
+
+
+def _fold_shard(w_real: torch.Tensor, w_imag: torch.Tensor, shard):
+    """A shard's synthesis rows (its bins [lo, hi), then its mirror rows in
+    reverse bin order) -> (hi - lo, ft) each with the mirrors folded in, the
+    sums ``fold_synthesis_weights`` makes for these bins."""
+    lo, hi = shard.bins()
+    plo, phi = shard.paired()
+    n = hi - lo
+    if phi <= plo:
+        return w_real[:n], w_imag[:n]
+    a, b = plo - lo, phi - lo
+    wr = torch.cat([w_real[:a], w_real[a:b] + torch.flip(w_real[n:], dims=[0]), w_real[b:n]])
+    wi = torch.cat([w_imag[:a], w_imag[a:b] + (-torch.flip(w_imag[n:], dims=[0])), w_imag[b:n]])
+    return wr, wi
+
+
+def _whole(module) -> None:
+    if module.shard is not None:
+        raise ValueError("the fused front-end (kernels A and B) takes whole front-end matrices; "
+                         "a tensor-parallel front-end (shard=) runs the gemm path")
+
+
 class Analysis(nn.Module):
     """Trainable STFT analysis. Frame t covers padded-input samples
     [t*hop, t*hop+ft) with ft zeros of padding on both sides, as
     Conv1d(1, ft, ft, stride=hop, padding=ft)."""
 
     def __init__(self, ft_size: int = 1024, hop_size: int = 384,
-                 device: str | torch.device = "cuda", compute_dtype: torch.dtype = torch.float32):
+                 device: str | torch.device = "cuda", compute_dtype: torch.dtype = torch.float32,
+                 shard=None):
         super().__init__()
         dev = resolve_device(device)
         self.ft_size, self.hop_size = ft_size, hop_size
         self.half = ft_size // 2 + 1
         self.compute_dtype = compute_dtype
-        re0, im0 = windows.analysis_init(ft_size)
+        self.shard = shard
+        re0, im0 = _rows(windows.analysis_init(ft_size), shard)
         self.conv_analysis_real = ConvWeight(re0, dev)
         self.conv_analysis_imag = ConvWeight(im0, dev)
 
     def stacked_weights(self) -> torch.Tensor:
-        return cuda_frontend.stack_analysis_weights(
-            self.conv_analysis_real.matrix, self.conv_analysis_imag.matrix, self.half
-        )
+        """(ft, 2 * half) operand of the used rows; of a shard, its bins'
+        columns in their places and zeros in the others'."""
+        if self.shard is None:
+            return cuda_frontend.stack_analysis_weights(
+                self.conv_analysis_real.matrix, self.conv_analysis_imag.matrix, self.half)
+        lo, hi = self.shard.bins()
+        n, half = hi - lo, self.half
+        return torch.cat([F.pad(m[:n].t(), (lo, half - hi))
+                          for m in (self.conv_analysis_real.matrix,
+                                    self.conv_analysis_imag.matrix)], dim=1).contiguous()
 
     def forward(self, wave: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """GEMM path: (B, L) -> (re, im), each (B, T, half)."""
+        """GEMM path: (B, L) -> (re, im), each (B, T, half); a shard computes
+        its bins and gathers the rest."""
         frames = framing.frame_signal(wave, self.ft_size, self.hop_size, pad=self.ft_size)
         spec = gemm(frames, self.stacked_weights(), self.compute_dtype)
-        return spec[..., : self.half], spec[..., self.half :]
+        re, im = spec[..., : self.half], spec[..., self.half :]
+        if self.shard is not None:
+            lo, hi = self.shard.bins()
+            return (tp.gather_bins(re[..., lo:hi], self.shard),
+                    tp.gather_bins(im[..., lo:hi], self.shard))
+        return re, im
 
     def mag_phs(self, wave: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Fused path (kernel A): RAW, un-halved signal (B, L) -> (mag, phs),
         each (T, B, half) frame-major. The kernel applies the x/2."""
+        _whole(self)
         xp = F.pad(wave, (self.ft_size, self.ft_size))
         return cuda_frontend.fused_analysis(xp, self.stacked_weights(), self.ft_size, self.hop_size,
                                             self.compute_dtype)
@@ -148,32 +216,42 @@ class Synthesis(nn.Module):
     (OT-1)*hop + ft, and ft samples are trimmed from each end."""
 
     def __init__(self, ft_size: int = 1024, hop_size: int = 384,
-                 device: str | torch.device = "cuda", compute_dtype: torch.dtype = torch.float32):
+                 device: str | torch.device = "cuda", compute_dtype: torch.dtype = torch.float32,
+                 shard=None):
         super().__init__()
         dev = resolve_device(device)
         self.ft_size, self.hop_size = ft_size, hop_size
         self.half = ft_size // 2 + 1
         self.compute_dtype = compute_dtype
-        re0, im0 = windows.synthesis_init(ft_size, hop_size)
+        self.shard = shard
+        re0, im0 = _rows(windows.synthesis_init(ft_size, hop_size), shard)
         self.conv_synthesis_real = ConvWeight(re0, dev)
         self.conv_synthesis_imag = ConvWeight(im0, dev)
 
     def stacked_weights(self) -> torch.Tensor:
-        wr, wi = fold_synthesis_weights(
-            self.conv_synthesis_real.matrix, self.conv_synthesis_imag.matrix, self.half
-        )
+        """(2 * bins, ft) operand of the folded rows (of a shard: its bins)."""
+        w_real, w_imag = self.conv_synthesis_real.matrix, self.conv_synthesis_imag.matrix
+        if self.shard is None:
+            wr, wi = fold_synthesis_weights(w_real, w_imag, self.half)
+        else:
+            wr, wi = _fold_shard(w_real, w_imag, self.shard)
         return cuda_frontend.stack_synthesis_weights(wr, wi)
 
     def forward(self, re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-        """GEMM path: (re, im), each (B, OT, half) -> (B, out_len)."""
+        """GEMM path: (re, im), each (B, OT, half) -> (B, out_len); a shard
+        takes its bins and sums its partial waveform over the model group."""
         ft = self.ft_size
+        if self.shard is not None:
+            re, im = tp.enter_shard(re, self.shard), tp.enter_shard(im, self.shard)
         frames = gemm(torch.cat([re, im], dim=-1), self.stacked_weights(), self.compute_dtype)
         wave = framing.overlap_add(frames, self.hop_size)
-        return wave[:, ft : wave.shape[1] - ft]
+        wave = wave[:, ft : wave.shape[1] - ft]
+        return wave if self.shard is None else tp.sum_partials(wave, self.shard.group)
 
     def from_mag_phs(self, mag: torch.Tensor, phs: torch.Tensor) -> torch.Tensor:
         """Fused path (kernel B): frame-major (OT, B, half) magnitude and
         phase -> trimmed waveform (B, out_len)."""
+        _whole(self)
         return cuda_frontend.fused_synthesis(
             mag, phs, self.stacked_weights(), self.ft_size, self.hop_size, self.compute_dtype
         )

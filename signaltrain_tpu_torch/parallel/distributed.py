@@ -68,6 +68,11 @@ def world_size() -> int:
     return dist.get_world_size() if is_initialized() else 1
 
 
+def backend() -> str | None:
+    """The world's backend ("nccl" or "gloo"), or None outside a process group."""
+    return str(dist.get_backend()) if is_initialized() else None
+
+
 def is_primary() -> bool:
     """True on the process that writes logs, plots and checkpoints."""
     return rank() == 0

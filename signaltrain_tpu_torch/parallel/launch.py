@@ -1,10 +1,10 @@
 """Start a data-parallel run: one spawned process a rank.
 
-``spawn(fn, devices, backend, args)`` starts ``len(devices)`` processes
-(``multiprocessing``'s spawn method), rank r on ``devices[r]``; each joins a
-process group through a ``file://`` store in a temporary directory
-(``distributed.initialize``), calls ``fn(mesh, *args)`` with its
-``mesh.make_mesh``, leaves the group and sends back what ``fn`` returned,
+``spawn(fn, devices, backend, args, n_model=1)`` starts ``len(devices)``
+processes (``multiprocessing``'s spawn method), rank r on ``devices[r]``;
+each joins a process group through a ``file://`` store in a temporary
+directory (``distributed.initialize``), calls ``fn(mesh, *args)`` with its
+``mesh.make_mesh(n_model=n_model)``, leaves the group and sends back what ``fn`` returned,
 tensors as numpy arrays. ``fn`` is pickled by name: a module-level function.
 ``fn`` and ``args`` go to the ranks through a file in that directory, not
 through the start of each process: the parent writes a process's start-up
@@ -20,7 +20,7 @@ after stopping every rank; a run that outlasts ``timeout_s`` (None: no
 limit) is stopped and raises too.
 
 ``train_rank`` is ``cli.run_train --nproc``'s target: ``train_from_config``
-on the rank's device.
+on the rank's device (``train()`` builds its own mesh, of ``cfg.n_model``).
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ def _to_host(value):
 
 
 def _rank_main(rank: int, world: int, init_method: str, backend: str, device: str,
-               payload: str, results) -> None:
+               n_model: int, payload: str, results) -> None:
     try:
         with open(payload, "rb") as f:
             fn, args = pickle.load(f)
@@ -76,7 +76,7 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device: st
             torch.set_num_threads(1)
         dev = distributed.initialize(init_method, world, rank, backend, device)
         try:
-            value = _to_host(fn(make_mesh(device=dev), *args))
+            value = _to_host(fn(make_mesh(n_model=n_model, device=dev), *args))
         finally:
             distributed.shutdown()
         results.put((rank, None, value))
@@ -86,9 +86,10 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str, device: st
 
 
 def spawn(fn, devices: list, backend: str, args: tuple = (),
-          timeout_s: float | None = 600.0) -> list:
-    """Run ``fn(mesh, *args)`` on ranks 0 .. len(devices) - 1 (module
-    docstring); their results in rank order."""
+          timeout_s: float | None = 600.0, n_model: int = 1) -> list:
+    """Run ``fn(mesh, *args)`` on ranks 0 .. len(devices) - 1 of an
+    ``n_data x n_model`` mesh (module docstring); their results in rank
+    order."""
     if any(torch.device(d).type == "cuda" for d in devices):
         from ..ops import _cuda
 
@@ -103,8 +104,8 @@ def spawn(fn, devices: list, backend: str, args: tuple = (),
         with open(payload, "wb") as f:
             pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main,
-                             args=(r, world, init_method, backend, str(devices[r]), payload,
-                                   results))
+                             args=(r, world, init_method, backend, str(devices[r]), n_model,
+                                   payload, results))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -46,7 +46,8 @@ def make_train_step(model, tx, batch_fn, batch_size, generator=None, seed: int =
                     clip_max_norm: float = 1.0, mesh=None):
     opt, lr_fn = tx
     g = _generator(model, generator)
-    local, shard = (batch_size, 0) if mesh is None else (mesh.local_batch(batch_size), mesh.rank)
+    local, shard = ((batch_size, 0) if mesh is None
+                    else (mesh.local_batch(batch_size), mesh.data_index))
 
     def step(s: int) -> torch.Tensor:
         x, y, knobs = batch_fn(local, synth_data.step_generator(g, seed, s, shard))

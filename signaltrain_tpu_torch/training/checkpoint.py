@@ -32,6 +32,14 @@ fnn_enc3, fnn_enc4, each as bias then kernel (in, out); inside a front-end
 side w_imag then w_real (ft, ft). ``torch.optim.Adam`` keeps the same
 moments as ``exp_avg`` / ``exp_avg_sq`` per parameter and the same count as
 ``step``.
+
+A tensor-parallel model (``parallel/mesh.py``) holds only its rows of the
+four front-end matrices. Its checkpoint is the one a single card writes:
+``training_tensors`` gathers each matrix and its two moments over the model
+group to the whole (ft, ft) tensor under the reference's name, and loading
+takes the rows of the mesh it resumes on (``shard_state_dict``,
+``restore_optimizer``), so a run resumes under any mesh shape (the JAX
+package's mesh-agnostic form, tests/test_mesh_elastic.py).
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..parallel import tensor as tp
 
 AE_LAYERS = (
     "fnn_enc", "fnn_enc2", "fnn_enc3", "fnn_enc4", "fnn_addknobs",
@@ -114,14 +124,37 @@ def _unflatten(template, leaves: list):
     return leaves.pop(0)
 
 
+def frontend_shards(model: torch.nn.Module) -> dict:
+    """{state_dict name: ``FrontendShard``} of a tensor-parallel model's
+    front-end matrices; empty for a whole model."""
+    return {f"{prefix}.{name}": m.shard
+            for prefix, m in model.named_modules() if getattr(m, "shard", None) is not None
+            for name, _ in m.named_parameters()}
+
+
+def shard_state_dict(model: torch.nn.Module, sd: dict) -> dict:
+    """A state dict of whole matrices -> the tensors ``model`` holds: of a
+    tensor-parallel model's front-end, its rank's rows."""
+    shards = frontend_shards(model)
+    return {k: v[torch.as_tensor(shards[k].rows())] if k in shards else v for k, v in sd.items()}
+
+
 def training_tensors(model: torch.nn.Module,
                      optimizer: torch.optim.Adam | None = None) -> dict[str, dict]:
-    """The live tensors a checkpoint holds: {"state_dict": the model's state
+    """The tensors a checkpoint holds: {"state_dict": the model's state
     dict} and, with ``optimizer``, Adam's moments by parameter name,
     {"exp_avg": ..., "exp_avg_sq": ...} (zeros for a parameter not stepped
-    yet). ``async_io.snapshot`` copies them on the device for a background
-    write (``save_checkpoint``)."""
-    out = {"state_dict": dict(model.state_dict())}
+    yet). A whole model's are its live tensors; a tensor-parallel model's
+    front-end matrices and their moments are gathered to the whole (ft, ft)
+    tensors, a collective that every rank of the model group calls.
+    ``async_io.snapshot`` copies them on the device for a background write
+    (``save_checkpoint``)."""
+    shards = frontend_shards(model)
+
+    def whole(sd: dict) -> dict:
+        return {k: tp.gather_rows(v, shards[k]) if k in shards else v for k, v in sd.items()}
+
+    out = {"state_dict": whole(dict(model.state_dict()))}
     if optimizer is not None:
         names = {id(p): n for n, p in model.named_parameters()}
         moments = {"exp_avg": {}, "exp_avg_sq": {}}
@@ -130,7 +163,7 @@ def training_tensors(model: torch.nn.Module,
                 st = optimizer.state.get(p, {})
                 for key, sd in moments.items():
                     sd[names[id(p)]] = st[key] if key in st else torch.zeros_like(p)
-        out.update(moments)
+        out.update({k: whole(v) for k, v in moments.items()})
     return out
 
 
@@ -158,15 +191,16 @@ def _optax_leaves(exp_avg: dict, exp_avg_sq: dict, step: int) -> list:
 
 def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leaves: list,
                       step: int) -> None:
-    """Load ``optax_state`` leaves (module docstring) into Adam's state. Every
+    """Load ``optax_state`` leaves (module docstring) into Adam's state (of a
+    tensor-parallel model, the moments' rows of its front-end shard). Every
     tensor of it, the float32 ``step`` included, lies on its parameter's
     device, where ``torch.optim.Adam(capturable=True)`` wants it."""
     template = state_dict_to_params(model.state_dict())
     n = len(_leaves(template))
     if len(leaves) != 2 * n + 2:
         raise ValueError(f"optimizer state has {len(leaves)} leaves, expected {2 * n + 2}")
-    mu = params_to_state_dict(_unflatten(template, list(leaves[1 : 1 + n])))
-    nu = params_to_state_dict(_unflatten(template, list(leaves[1 + n : 1 + 2 * n])))
+    mu, nu = (shard_state_dict(model, params_to_state_dict(_unflatten(template, list(part))))
+              for part in (leaves[1 : 1 + n], leaves[1 + n : 1 + 2 * n]))
     for name, p in model.named_parameters():
         optimizer.state[p] = {
             "step": torch.tensor(float(step), dtype=torch.float32, device=p.device),

@@ -65,6 +65,19 @@ capture mode, so that the process group's own threads may query their
 events while a capture is open. An evaluation graph with a mesh evaluates
 this rank's rows of the global batch; the mean over the ranks is taken
 after the pass (``train.pmean_validation``), outside it.
+
+With a tensor-parallel model (``parallel/mesh.py``, ``n_model > 1``: the
+front-end's rows split over the model group) the forward and the backward
+hold the model group's collectives (``parallel/tensor.py``) and the clip
+one more (its L1 total). The graphs capture them when
+``Mesh.captures_collectives`` says a graph may: NCCL collectives on a model
+group of one rank are captured into the graph (in the ``thread_local`` mode,
+as above) and each replay runs them again on the same buffers; the data
+group's all-reduce of the bucket stays between the two graphs, on the host.
+gloo's collectives cannot be captured, and a captured step of a model group
+of several NCCL ranks has not been seen to finish on the cards, so every
+graph refuses such a model: ``train()`` then dispatches its steps op by op
+(``train.eager_steps``), and a capture that fails still raises.
 """
 
 from __future__ import annotations
@@ -83,6 +96,16 @@ def _append(buffer: torch.Tensor, value: torch.Tensor) -> None:
     """Shift ``buffer`` down by one and put ``value`` last, on the card: after
     n replays its last n entries are theirs, oldest first."""
     buffer.copy_(torch.cat([buffer[1:], value.reshape(1).float()]))
+
+
+def _capturable(model: STModel) -> None:
+    """Refuse a tensor-parallel model whose collectives a graph may not hold
+    (``Mesh.captures_collectives``)."""
+    mesh = model.mpaec.mesh
+    if mesh is not None and not mesh.captures_collectives():
+        raise ValueError("this model group's collectives are not captured in a CUDA graph "
+                         "(gloo's cannot be; NCCL's only on a group of one rank): dispatch "
+                         "the tensor-parallel step op by op (train.eager_steps)")
 
 
 class _Graph:
@@ -173,6 +196,7 @@ class TrainGraph:
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn,
                  batch_size: int, generator: torch.Generator, seed: int, capacity: int,
                  mesh=None):
+        _capturable(model)
         self.model, self.opt, self.lr_fn = model, opt, lr_fn
         self.batch_fn, self.batch_size = batch_fn, batch_size
         self.generator, self.seed = generator, seed
@@ -182,7 +206,7 @@ class TrainGraph:
         if mesh is None:
             self.graph = _Graph(self._body, generator)
         else:
-            self.batch_size, self.shard = mesh.local_batch(batch_size), mesh.rank
+            self.batch_size, self.shard = mesh.local_batch(batch_size), mesh.data_index
             self.bucket = train_mod.GradBucket(model)
             self.graph = _Graph(self._grads, generator, capture_error_mode="thread_local")
             self.update = _MeanUpdate(model, opt, mesh, self.losses, self.bucket)
@@ -245,6 +269,7 @@ class EvalGraph(_EvalOutputs):
 
     def __init__(self, model: STModel, val_batch_fn, batch_size: int,
                  generator: torch.Generator, n_batches: int, mesh=None):
+        _capturable(model)
         super().__init__(n_batches, generator.device)
         self.model, self.val_batch_fn, self.batch_size = model, val_batch_fn, batch_size
         self.generator, self.n_batches, self.mesh = generator, n_batches, mesh
@@ -279,6 +304,7 @@ class ArraysTrainGraph:
 
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, shapes,
                  capacity: int, mesh=None):
+        _capturable(model)
         dev = next(model.parameters()).device
         self.model, self.opt, self.lr_fn, self.next_batch = model, opt, lr_fn, next_batch
         self.buffers = tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
@@ -318,6 +344,7 @@ class ArraysEvalGraph(_EvalOutputs):
     rank's rows and the figures are averaged over the ranks after the pass."""
 
     def __init__(self, model: STModel, shapes, n_batches: int, mesh=None):
+        _capturable(model)
         dev = next(model.parameters()).device
         super().__init__(n_batches, dev)
         self.model, self.n_batches, self.mesh = model, n_batches, mesh

@@ -21,6 +21,15 @@ ranks they agree to float32 reassociation, not bit for bit. The oracle with
 ``reduce="sum"`` is the control that shows the check has teeth: the shards'
 gradients added, not averaged (the classic data-parallel bug), must land
 far outside it.
+
+The oracle has no ``n_model``, as the JAX one has none
+(signaltrain_tpu/training/oracle.py): tensor parallelism splits the
+front-end's rows over the ranks of a data index, which all draw that index's
+rows, so it changes only the order of the front-end's sums (the bins
+gathered, the partial waveforms summed, the clip's L1 total summed over the
+ranks), not the program. A dp x tp run is held against ``oracle_steps`` at
+its ``n_data`` as it is, its front-end and Adam's moments gathered to whole
+matrices (``checkpoint.training_tensors``).
 """
 
 from __future__ import annotations
@@ -85,3 +94,23 @@ def excess(got, want, atol: float = ATOL, rtol: float = RTOL) -> float:
     ``got`` and ``want`` as for ``max_param_delta``: at most 1 where every
     entry passes ``numpy.testing.assert_allclose(got, want, rtol, atol)``."""
     return max(float(((x - y).abs() / (atol + rtol * y.abs())).max()) for x, y in _pairs(got, want))
+
+
+def state_excess(got: dict, want: dict, atol: float = ATOL, rtol: float = RTOL) -> float:
+    """The check of a run against the oracle over the tensors of
+    ``checkpoint.training_tensors`` (whole matrices): the largest of
+    ``excess`` over the weights and Adam's two moments, entry by entry, as
+    the JAX test holds the parameters and the optimizer state
+    (tests/test_multichip_oracle.py:94-95), and, for each moment tensor,
+    | |got| / |want| - 1 | / ``rtol`` of its norms. At most 1 passes. The
+    moments carry the scale of the gradients, which Adam's normalized step
+    hides from the weights and which their entries, far below ``atol`` at
+    the flagship size, do not show; their norms do, and float32
+    reassociation moves a norm by parts in a million."""
+    worst = 0.0
+    for key in ("state_dict", "exp_avg", "exp_avg_sq"):
+        for x, y in _pairs(got[key], want[key]):
+            worst = max(worst, float(((x - y).abs() / (atol + rtol * y.abs())).max()))
+            if key != "state_dict" and float(y.norm()) > 0:
+                worst = max(worst, abs(float(x.norm() / y.norm()) - 1) / rtol)
+    return worst

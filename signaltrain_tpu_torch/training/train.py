@@ -62,8 +62,21 @@ evaluates its own rows and the figures are averaged (``pmean_validation``),
 so they are the single-process ones up to float32 reassociation. Only the
 primary (rank 0) prints, writes the logs, the checkpoints and the plots (its
 plots draw its own rows; example 0 of the global batch is among them), and
-the returned ``history`` is the same on every rank. Tensor parallelism (the
-JAX ``"model"`` axis) is not ported.
+the returned ``history`` is the same on every rank.
+
+With ``n_model > 1`` the world is ``n_data x n_model`` ranks (the JAX
+``("data", "model")`` mesh, ``parallel/mesh.py``): the ranks of one data
+index draw the same rows (``shard=mesh.data_index``) and split the rows of
+the four front-end matrices (the gemm front-end, with the model group's
+collectives, ``parallel/tensor.py``); the gradient bucket is all-reduced over
+the data group, the front-end clip's L1 total over the model group. The
+replicated weights start from rank 0's and each shard from the rank of data
+index 0 that holds its rows; checkpoints hold the gathered full matrices
+(``checkpoint.training_tensors``), so a run resumes under any mesh shape. The
+steps are dispatched op by op (``eager_steps``, ``host_steps``): gloo's
+collectives cannot be captured in a CUDA graph. Over NCCL (across CUDA
+cards) ``n_model > 1`` is refused: no such run has yet matched the oracle
+on the cards (``cli.time_data_parallel --nmodel`` is the check).
 Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
@@ -85,6 +98,7 @@ from ..data import synth_data
 from ..models.st_model import STModel, st_model
 from ..parallel import distributed
 from ..parallel import mesh as meshlib
+from ..parallel import tensor as tp
 from ..utils import async_io
 from ..utils.device import resolve_device
 from . import checkpoint, loss as loss_mod, schedule
@@ -100,10 +114,15 @@ FRONTEND_PARAMS = (
 def clip_frontend_grads(model: torch.nn.Module, max_norm: float = 1.0) -> torch.Tensor:
     """L1-norm clip of the front-end gradients only, in place: the joint norm
     over the four (ft, ft) matrices, coef = min(1, max_norm / (total + 1e-6)).
-    Returns the norm (a device scalar; nothing is fetched)."""
+    On a tensor-parallel model the total is the sum of each rank's shard
+    sums, all-reduced (summed) over the model group. Returns the norm (a
+    device scalar; nothing is fetched)."""
     params = dict(model.named_parameters())
     grads = [params[name].grad for name in FRONTEND_PARAMS]
     total = torch.stack([g.abs().sum() for g in grads]).sum()
+    shard = model.mpaec.dft_analysis.shard
+    if shard is not None:
+        total = tp.all_reduce_sum(total, shard.group)
     coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
     for g in grads:
         g.mul_(coef)
@@ -269,12 +288,14 @@ def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, bat
                 mesh=None) -> torch.Tensor:
     """Steps step0 .. step0 + n - 1, each on the batch of
     ``synth_data.step_generator(generator, seed, step)``, dispatched one op
-    at a time: the (n,) losses on the device. The loop on the CPU, and the
-    reference that ``graphs.TrainGraph`` is bit-equal to on the card. With
-    ``mesh`` each rank draws its ``batch_size // n_data`` rows from its
-    shard's stream (``shard=mesh.rank``) and the step takes the mean over
-    the ranks (``reduce_grads``)."""
-    local, shard = (batch_size, 0) if mesh is None else (mesh.local_batch(batch_size), mesh.rank)
+    at a time: the (n,) losses on the device. The loop on the CPU and under
+    a gloo tensor-parallel mesh, and the reference that ``graphs.TrainGraph``
+    is bit-equal to on the card. With ``mesh`` each rank draws its
+    ``batch_size // n_data`` rows from its data index's stream
+    (``shard=mesh.data_index``) and the step takes the mean over the data
+    ranks (``reduce_grads``)."""
+    local, shard = ((batch_size, 0) if mesh is None
+                    else (mesh.local_batch(batch_size), mesh.data_index))
     return torch.stack([
         train_step_from_arrays(
             model, opt, lr_fn, s,
@@ -414,13 +435,16 @@ def train(
     target_type: str = "stream",
     compand: bool = False,
     device_resident_limit_bytes: int = 4 << 30,
+    n_model: int = 1,
 ):
     """Main training routine, computing in ``compute_dtype`` (torch.bfloat16,
     the JAX package's default, or torch.float32), on data synthesized on the
     device or, with ``datapath``, on the file dataset there (``target_type``
     "chunk" re-runs ``effect`` on each cropped input; ``compand`` mu-law
     companding; ``device_resident_limit_bytes`` the device budget that picks
-    the corpus's tier). With ``make_plots`` the validation triptychs are
+    the corpus's tier; ``n_model`` the ranks of the process group's world
+    that split the front-end, module docstring). With ``make_plots`` the
+    validation triptychs are
     drawn every ``plot_every`` epochs, the spectrogram and weight images
     every 20 epochs and at the last, on the background writer.
 
@@ -435,7 +459,15 @@ def train(
     dev = resolve_device(device)
     if effect.device != dev:
         raise ValueError(f"effect is on {effect.device}, train() was given device {dev}")
-    mesh = meshlib.make_mesh(device=dev) if distributed.is_initialized() else None
+    tensor_parallel = n_model > 1
+    if tensor_parallel and distributed.backend() == "nccl":
+        raise ValueError(f"n_model {n_model} over NCCL: tensor parallelism across CUDA cards is "
+                         "refused until a run of it on the cards has matched the single-process "
+                         "oracle (cli.time_data_parallel --nmodel checks it); train with n_model 1, "
+                         "or on gloo ranks (--device cpu)")
+    mesh = None
+    if distributed.is_initialized() or tensor_parallel:
+        mesh = meshlib.make_mesh(n_model=n_model, device=dev)
     local_batch = batch_size if mesh is None else mesh.local_batch(batch_size)
     primary = distributed.is_primary()
     say = print if primary else (lambda *a, **k: None)
@@ -445,6 +477,8 @@ def train(
         f"compute_dtype = {str(compute_dtype).removeprefix('torch.')}, device = {dev}")
     if mesh is not None:
         say(f"    data parallel over {mesh.n_data} ranks, {local_batch} rows each a step")
+    if tensor_parallel:
+        say(f"    tensor parallel over {n_model} ranks: each holds its rows of the front-end")
     num_knobs = effect.num_knobs
     say(f"    num_knobs = {num_knobs}")
     if primary:
@@ -458,9 +492,9 @@ def train(
 
     model = st_model(scale_factor=scale_factor, shrink_factor=shrink_factor, num_knobs=num_knobs,
                      sr=sr, device=dev, generator=torch.Generator().manual_seed(seed),
-                     compute_dtype=compute_dtype)
+                     compute_dtype=compute_dtype, mesh=mesh if tensor_parallel else None)
     if state_dict is not None:
-        model.load_state_dict(state_dict, strict=True)
+        model.load_state_dict(checkpoint.shard_state_dict(model, state_dict), strict=True)
     model.train()
     spec = model.spec
     say("Model defined.  Number of trainable parameters:",
@@ -474,8 +508,8 @@ def train(
         step0 = int(rv.get("optax_step", 0))
         checkpoint.restore_optimizer(model, opt, rv["optax_state"], step0)
         say(f"Restored optimizer state at step {step0}.")
-    if mesh is not None:  # every rank starts from rank 0's weights
-        mesh.broadcast([*model.parameters(), *model.buffers()])
+    if mesh is not None:  # every rank starts from one model
+        mesh.broadcast_model(model)
 
     chunk, out_chunk = spec.in_chunk_size, spec.out_chunk_size
     steps_per_epoch = max(1, n_data_points // batch_size)
@@ -500,7 +534,9 @@ def train(
         val_ds = file_data.FileDataset(datapath + "/Val/", effect, chunk, out_chunk,
                                        augment=False, **kw)
         batch_fn, val_batch_fn = train_ds.batch_fn, val_ds.batch_fn
-    if dev.type == "cuda":
+    # graphs on the card, but not around a model group's collectives (gloo's, above)
+    use_graphs = dev.type == "cuda" and not tensor_parallel
+    if use_graphs:
         from . import graphs  # it builds on this module's steps
     generator = torch.Generator(device=dev)
     if host_data:
@@ -514,7 +550,7 @@ def train(
             vrng = np.random.default_rng(7)
             return (val_ds.host_batch(batch_size, vrng, rows=rows) for _ in range(val_steps))
 
-        if dev.type == "cuda":
+        if use_graphs:
             run_steps = graphs.ArraysTrainGraph(model, opt, lr_fn, next_batch, shapes, n_inner,
                                                 mesh=mesh)
             eval_graph = graphs.ArraysEvalGraph(model, shapes, val_steps, mesh=mesh)
@@ -522,7 +558,7 @@ def train(
         else:
             run_steps = functools.partial(host_steps, model, opt, lr_fn, next_batch, mesh=mesh)
             validate = lambda: host_validation(model, val_batches(), mesh=mesh)
-    elif dev.type == "cuda":
+    elif use_graphs:
         run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
                                       n_inner, mesh=mesh)
         validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps,
@@ -540,6 +576,8 @@ def train(
     pending_eval = None  # an epoch's validation results in flight
     frame_major = model.mpaec.frontend == "fused"  # mag / mag_hat come back (T, B, F)
     writer = async_io.AsyncWriter() if primary else None
+    # the ranks that take part in gathering what rank 0 writes: rank 0's model group
+    gathers = primary or (tensor_parallel and mesh.data_index == 0)
     first_time = time.time()
 
     def process_pending(pend):
@@ -623,13 +661,16 @@ def train(
 
             # ---- validation over the frozen batches, dispatched; read next epoch
             do_val_plot = primary and make_plots and (epoch + 1) % plot_every == 0
-            do_spec_plot = primary and make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
+            spec_due = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
+            do_spec_plot = primary and spec_due
             model.eval()
             losses_val, maes_val, last = timing.clock("eval", validate)
             model.train()
+            weights = (checkpoint.training_tensors(model)["state_dict"] if gathers and spec_due
+                       else None)
             new_eval = (epoch, iter_count, HostCopy(losses_val), HostCopy(maes_val),
                         async_io.snapshot(last) if do_val_plot or do_spec_plot else None,
-                        async_io.snapshot(model.state_dict()) if do_spec_plot else None,
+                        async_io.snapshot(weights) if do_spec_plot else None,
                         do_val_plot)
             pend, pending = pending, None
             timing.clock("pending", process_pending, pend)
@@ -637,10 +678,11 @@ def train(
             if ev is not None:
                 timing.clock("evproc", process_eval, ev)
 
-            if primary and (((epoch + 1) % cp_every == 0) or (epoch == epochs - 1)):
-                snap = timing.clock("cp", async_io.snapshot,
-                                    checkpoint.training_tensors(model, opt))
-                writer.submit(functools.partial(save, snap, epoch, iter_count))
+            if gathers and (((epoch + 1) % cp_every == 0) or (epoch == epochs - 1)):
+                tensors = checkpoint.training_tensors(model, opt)
+                if primary:
+                    snap = timing.clock("cp", async_io.snapshot, tensors)
+                    writer.submit(functools.partial(save, snap, epoch, iter_count))
 
             timing.report(epoch)
             if epoch == 0:

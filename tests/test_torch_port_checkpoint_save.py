@@ -190,11 +190,11 @@ def test_run_train_cli(tmp_path, monkeypatch, capsys):
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
     with open(os.path.join("prof", traces[0])) as f:
         assert "train_block" in f.read()  # the loop's blocks are named in the trace
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(SystemExit) as e:  # --nmodel 2 needs n_data x 2 ranks, not one
         run_train.main(["--nmodel", "2", "--device", "cpu"])
     assert e.value.code == 1
     out = capsys.readouterr().out
-    assert "not yet ported" in out and "--nmodel" in out
+    assert "--nmodel 2" in out and "not n_data x 2" in out
     with pytest.raises(SystemExit) as e:  # bfloat16 and float32 run; nothing else does
         run_train.main(["--dtype", "float16", "--device", "cpu"])
     assert e.value.code == 1 and "--dtype float16" in capsys.readouterr().out

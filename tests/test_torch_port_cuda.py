@@ -1129,3 +1129,16 @@ def test_lfilter_folds_leading_axes_on_card(dev, order):
     assert float((err - (1e-5 + 1e-6 * ref.abs())).max()) <= 0, float(err.max())
     with pytest.raises(ValueError, match="order 2"):  # kernel L is built for orders 1 and 3
         iir.lfilter(*iir.butter_lowpass(2, torch.full((2, 3), 0.05, device=dev)), x)
+
+
+def test_split_front_end_graph_under_nccl_is_the_gemm_graph(dev):
+    """chip_smoke.py 10a at the tiny geometry: in a world of one under NCCL,
+    the front-end split over a model group of one (its collectives captured
+    in the train graphs) takes every sum of the gemm front-end in its order,
+    so 5 bf16 steps match the gemm graph without a mesh bit for bit."""
+    from signaltrain_tpu_torch.parallel import launch
+    from tests import torch_port_tp_ranks
+
+    (res,) = launch.spawn(torch_port_tp_ranks.nccl_world_one, [str(dev)], "nccl", timeout_s=300)
+    assert res["replays"] == 4
+    assert res["losses_equal"] and all(res["state_equal"].values()), res

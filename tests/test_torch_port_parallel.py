@@ -30,7 +30,9 @@ module fixture. World 1 runs in this process, in a gloo group of one.
   world 4: its next steps against the oracle at the new world.
 * (h) at world 2 only rank 0 writes, and every rank returns one history.
 * (i) ``host_batch(rows=)`` over the ranks' rows is the global batch.
-* (j) tensor parallelism (``--nmodel``, ``n_model``) is refused.
+* (j) a mesh must tile the world: ``make_mesh``, ``RunConfig`` and
+  ``run_train --nmodel`` refuse a world that is not ``n_data x n_model``
+  (tensor parallelism itself: tests/test_torch_port_tensor_parallel.py).
 * ``cli.run_train --nproc 2 --device cpu`` and the same CLI under torchrun
   (``python -m torch.distributed.run --standalone --nproc_per_node 2``),
   run beside the spawns: each trains one world of 2, and only rank 0 prints
@@ -360,18 +362,22 @@ def test_host_batch_rows_make_up_the_global_batch(tmp_path):
         pf.close()
 
 
-def test_tensor_parallelism_is_refused_and_batches_must_divide(capsys):
-    with pytest.raises(SystemExit) as e:
+def test_meshes_must_tile_the_world_and_batches_must_divide(capsys):
+    with pytest.raises(SystemExit) as e:  # one process is no world of n_data x 2
         run_train.main(["--nmodel", "2", "--device", "cpu"])
     assert e.value.code == 1
     out = capsys.readouterr().out
-    assert "not yet ported" in out and "--nmodel" in out
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    assert "--nmodel 2: a world of 1 ranks is not n_data x 2" in out
+    with pytest.raises(ValueError, match="not n_data x 2"):
         meshlib.make_mesh(n_model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="not n_data x 2"):
         config.RunConfig(n_model=2)
+    with pytest.raises(ValueError, match="not n_data x 3"):
+        config.RunConfig(n_model=3, nproc=4)
     mesh = meshlib.Mesh(n_data=4, n_model=1, rank=2, device=torch.device("cpu"))
     assert mesh.local_rows(200) == slice(100, 150)
+    dp_tp = meshlib.Mesh(n_data=2, n_model=2, rank=3, device=torch.device("cpu"))
+    assert (dp_tp.data_index, dp_tp.model_index, dp_tp.local_rows(200)) == (1, 1, slice(100, 200))
     with pytest.raises(ValueError, match="must divide over the mesh's 4 'data' ranks"):
         mesh.local_rows(10)
     with pytest.raises(ValueError, match="one per shard"):
