@@ -122,7 +122,11 @@ Phases (any failure raises and exits non-zero):
      0, 1 and 19 bit-equal to batch_fn run eagerly; the
      bf16 modes of A, B, D and E at the training shapes (A and B also at the
      serving batch) beside their plain bf16 versions, cuDNN's bf16
-     convolutions and the bound at the dense bf16 rate (989 TFLOP/s); L on
+     convolutions and the bound at the dense bf16 rate (989 TFLOP/s); beside
+     every cuDNN call, in either dtype, the cuBLAS products that the gemm
+     front-end runs for the same linear part at the same shapes
+     (cli/time_frontend.cublas_*: A's frames times the stacked matrix, B's
+     frame product, D's and E's two backward products); L on
      its three cases beside its bound (8 B a sample at 3.35 TB/s) and its
      chain floor (cli/time_lfilter.chain_cycles: order 1 is fma -> mul ->
      fma, 12 cycles a step; order 3 about 9.3; at the SM clock).
@@ -241,6 +245,23 @@ Phases (any failure raises and exits non-zero):
      turns once the ranks are done, and the split analysis' full-width
      product (ops/frontend.py) timed beside one rank's bins alone at
      n_model 2 and 4 (cli/time_data_parallel.analysis_product_ms).
+ 11. ST_TPU_MICROBATCH (train.microbatches, train.loss_and_grads(micro=)),
+     in at most PHASE11_LIMIT_S (60 s): 11a the flagship comp_4c train graph
+     at micro=MICRO (4 slices of 50 rows inside the one capture), batch 200,
+     MB_STEPS steps in float32 and in bfloat16, each with the counters set
+     to 0 just before and read just after: bit-equal to eager_steps at the
+     same micro (losses and weights), A, B, D, E launched MICRO times a step
+     and C once, no plain version; 11b one float32 step at micro=MICRO
+     against the unsliced step on one batch: the loss within rtol 1e-5 and
+     every gradient within 1e-5 of its leaf's largest element, but the
+     analysis matrices' (the phase adjoint's ill-conditioning), which may
+     instead each lie within twice the unsliced step's distance from a
+     float64 step (the gemm model in float64); 11c a world of one under NCCL
+     at micro=MICRO (the split graphs around the all-reduce) bit-equal to the
+     single graph without a mesh; 11d bf16 at batch 200 and 1600, micro 1
+     and MICRO: ms a step (blocks of MB_TIMED replays, in turns) and the
+     peak memory of a step above the model (torch.cuda.max_memory_allocated
+     over the warm-up and the capture).
 The script's seconds in all, then the kernels JSON line and the result line,
 end the output.
 
@@ -271,6 +292,7 @@ CLIP_SECONDS = 30.0
 MIN_CORR = 0.98
 C_CHAIN_OPS = 2  # kernel C: one fma and one select a step, dependent
 BF16 = torch.bfloat16
+F32 = torch.float32
 TRAIN_BATCH = 200
 TRAIN_EPOCHS, TRAIN_POINTS, TRAIN_LR = 3, 4000, 2e-4  # 3 epochs x 20 steps
 TRAIN_SEED = 218
@@ -2447,6 +2469,179 @@ def tensor_parallel(dev, results: dict, smi: str, sr: int, phase4: dict) -> dict
     return report
 
 
+# ---- phase 11: ST_TPU_MICROBATCH (train.microbatches): the forward and the
+# backward of a step in k slices of the synthesized batch, inside the one
+# captured graph (training/graphs.TrainGraph(micro=)).
+PHASE11_LIMIT_S = 60.0
+MICRO = 4  # slices a step: 50 rows of the batch of 200
+MB_STEPS = 3  # 11a, 11c: steps a graph (its warm-up and two replays)
+MB_TIMED = 10  # 11d: replays a timed block
+MB_BATCHES = (TRAIN_BATCH, 1600)  # 11d: the training batch, and the batch of JAX's one gain
+MB_RTOL = 1e-5  # 11b: the loss, relative; each gradient, of its leaf's largest element
+# 11b: the leaves that may miss MB_RTOL for the phase adjoint's ill-conditioning
+# (dphs / |spec|), held instead each against a float64 step
+MB_ILL_CONDITIONED = ("mpaec.dft_analysis.conv_analysis_real.weight",
+                      "mpaec.dft_analysis.conv_analysis_imag.weight")
+
+
+def microbatch(dev, results: dict, smi: str, sr: int) -> dict:
+    """Phase 11 (module docstring); its failures raise, and it must end
+    within PHASE11_LIMIT_S."""
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.st_model import STModel, compute_spec
+    from signaltrain_tpu_torch.ops import _cuda
+    from signaltrain_tpu_torch.parallel import distributed
+    from signaltrain_tpu_torch.parallel import mesh as meshlib
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    t_phase = time.perf_counter()
+    effect = effects.make_effect("comp_4c", sr=sr, device=dev)
+    batch_fn = synth_data.make_synth_batch_fn(effect, 8192, 2048, sr=sr, augment=True)
+
+    def fresh(dtype, frontend="fused"):
+        m = STModel(compute_spec(sr=sr), frontend=frontend, device=dev, compute_dtype=dtype,
+                    generator=torch.Generator().manual_seed(TRAIN_SEED)).train()
+        return m, *train_mod.make_optimizer(m, TRAIN_LR, TRAIN_POINTS, TRAIN_EPOCHS, TRAIN_BATCH)
+
+    def graph(net, opt, lr_fn, batch, capacity, micro, mesh=None):
+        return graphs.TrainGraph(net, opt, lr_fn, batch_fn, batch, torch.Generator(device=dev),
+                                 TRAIN_SEED, capacity, mesh=mesh, micro=micro)
+
+    report = {"micro": MICRO, "11a": {}}
+    launches = {}
+    # ---- 11a: the main path, counted: the graph at k = MICRO against eager at k = MICRO
+    for tag, dtype in (("f32", F32), ("bf16", BF16)):
+        (gm, gopt, lr_fn), (em, eopt, _) = fresh(dtype), fresh(dtype)
+        g = graph(gm, gopt, lr_fn, TRAIN_BATCH, MB_STEPS, MICRO)
+        _cuda.reset_counts()
+        got = g(0, MB_STEPS)
+        counts = _rank_counts()
+        want = train_mod.eager_steps(em, eopt, lr_fn, batch_fn, TRAIN_BATCH,
+                                     torch.Generator(device=dev), TRAIN_SEED, 0, MB_STEPS,
+                                     micro=MICRO)
+        check(torch.equal(got, want) and all(torch.equal(p, q) for p, q in
+                                              zip(gm.parameters(), em.parameters())),
+              f"11a {tag}: the microbatched graph differs from eager dispatch at micro={MICRO}")
+        prefix = "bf16_" if dtype == BF16 else ""
+        for name, (n_launch, plain) in counts.items():
+            check(plain == 0, f"11a {tag} ran the plain version of {name}")
+        for name in F32_NAMES:  # the front-end kernels: once a slice
+            n_launch = counts[prefix + name][0]
+            check(n_launch == MICRO * MB_STEPS,
+                  f"11a {tag}: {prefix + name} launched {n_launch} times, not {MICRO} a step")
+            launches[prefix + name] = n_launch
+        check(counts["switched_one_pole"][0] == MB_STEPS,
+              f"11a {tag}: C launched {counts['switched_one_pole'][0]} times, not once a step")
+        launches["switched_one_pole"] = launches.get("switched_one_pole", 0) + MB_STEPS
+        report["11a"][tag] = {"steps": MB_STEPS, "bit_equal": True, "losses": got.tolist(),
+                              "counted": {k: v[0] for k, v in counts.items() if v[0]}}
+        print(f"11a {tag}: TrainGraph at micro={MICRO} ({TRAIN_BATCH // MICRO} rows a slice), "
+              f"{MB_STEPS} steps bit-equal to eager_steps at micro={MICRO}; A, B, D, E "
+              f"{MICRO} launches a step, C one (the whole batch's synthesis)")
+        del gm, gopt, em, eopt, g
+    report["11a_s"] = time.perf_counter() - t_phase
+
+    # ---- 11b: one float32 step, sliced against unsliced, on one batch
+    m1 = fresh(F32)[0]
+    m4 = copy.deepcopy(m1)
+    bx, by, bk = batch_fn(TRAIN_BATCH, synth_data.step_generator(torch.Generator(device=dev),
+                                                                 TRAIN_SEED, 0))
+    l1 = float(train_mod.loss_and_grads(m1, bx, by, bk))
+    l4 = float(train_mod.loss_and_grads(m4, bx, by, bk, micro=MICRO))
+    loss_rel = abs(l4 / l1 - 1)
+    names = [k for k, _ in m1.named_parameters()]
+    g1 = [p.grad for p in m1.parameters()]
+    g4 = [p.grad for p in m4.parameters()]
+    errs = {k: float((a - b).abs().max() / b.abs().max()) for k, a, b in zip(names, g4, g1)}
+    misses = [k for k, e in errs.items() if e > MB_RTOL]
+    check(loss_rel <= MB_RTOL, f"11b: the loss at micro={MICRO} is {loss_rel:.2e} off k = 1's")
+    check(set(misses) <= set(MB_ILL_CONDITIONED),
+          f"11b: gradients at micro={MICRO} off k = 1's beyond {MB_RTOL} of their largest "
+          f"element: {[(k, errs[k]) for k in misses]}")
+    vs_f64 = {}
+    if misses:  # each against a float64 step: k = MICRO within 2 x k = 1's distance
+        ref = copy.deepcopy(m1).double()
+        ref.mpaec.frontend = "gemm"
+        train_mod.loss_and_grads(ref, bx.double(), by.double(), bk.double())
+        r64 = dict(ref.named_parameters())
+        for k in misses:
+            i = names.index(k)
+            d1, d4 = (float((g[i].double() - r64[k].grad).abs().max()) for g in (g1, g4))
+            vs_f64[k] = {"k1": d1, f"k{MICRO}": d4, "max_g": float(r64[k].grad.abs().max())}
+            check(d4 <= 2 * d1, f"11b: {k} at micro={MICRO} is {d4:.3e} off float64, over twice "
+                                f"k = 1's {d1:.3e}")
+        del ref, r64
+    report["11b"] = {"loss_rel": loss_rel, "grad_rel": errs, "rule": (
+        f"every gradient within {MB_RTOL} of its leaf's max|g|" if not misses else
+        f"within {MB_RTOL} of max|g| but {misses}, each within 2 x k = 1's distance from a "
+        "float64 step"), "vs_float64": vs_f64}
+    print(f"11b: one f32 step at micro={MICRO} against k = 1 on one batch of {TRAIN_BATCH}: loss "
+          f"{loss_rel:.2e} relative (limit {MB_RTOL}); the worst gradient {max(errs.values()):.2e} "
+          f"of its leaf's max|g| ({max(errs, key=errs.get)}); "
+          + ("every leaf within the limit" if not misses else
+             "the ill-conditioned leaves against float64: " + json.dumps(vs_f64)))
+    del m1, m4, g1, g4
+    report["11b_s"] = time.perf_counter() - t_phase
+
+    # ---- 11c: a world of one under NCCL at k = MICRO against no mesh
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize("file://" + os.path.join(store, "store"), 1, 0, "nccl", dev)
+        try:
+            mesh = meshlib.make_mesh(device=dev)
+            runs = []
+            for m in (None, mesh):
+                net, opt, lr_fn = fresh(BF16)
+                losses = graph(net, opt, lr_fn, TRAIN_BATCH, MB_STEPS, MICRO, mesh=m)(0, MB_STEPS)
+                runs.append((losses, [p.detach().clone() for p in net.parameters()]))
+        finally:
+            distributed.shutdown()
+    (l_single, w_single), (l_mesh, w_mesh) = runs
+    check(torch.equal(l_single, l_mesh) and all(torch.equal(a, b) for a, b in zip(w_single, w_mesh)),
+          f"11c: the world of one under NCCL at micro={MICRO} differs from no mesh")
+    report["11c"] = {"steps": MB_STEPS, "bit_equal": True}
+    print(f"11c: a world of one under NCCL (the split graphs around the all-reduce) at "
+          f"micro={MICRO}, bf16, {MB_STEPS} steps bit-equal to the single graph without a mesh")
+    del runs, w_single, w_mesh
+    report["11c_s"] = time.perf_counter() - t_phase
+
+    # ---- 11d: bf16 ms a step and the peak memory of a step, k = 1 against k = MICRO
+    report["11d"] = {}
+    for batch in MB_BATCHES:
+        made = {}
+        for k in (1, MICRO):
+            net, opt, lr_fn = fresh(BF16)
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            g = graph(net, opt, lr_fn, batch, MB_TIMED, k)
+            g(0, 1)  # the warm-up step, dispatched op by op, and the capture
+            torch.cuda.synchronize(dev)
+            made[k] = {"graph": g, "net": net, "next": 1, "ms": [],
+                       "peak_gb": (torch.cuda.max_memory_allocated(dev) - base) / 1e9}
+        for k in (1, MICRO, MICRO, 1):
+            run = made[k]
+            run["ms"].append(_graph_ms(run["graph"], run["next"], MB_TIMED))
+            run["next"] += MB_TIMED
+        report["11d"][batch] = {f"k{k}": {"ms_a_step": v["ms"], "peak_gb_a_step": v["peak_gb"]}
+                                for k, v in made.items()}
+        print(f"11d: bf16, batch {batch}: ms a step (host clock, blocks of {MB_TIMED} replays, in "
+              f"turns) k = 1 {made[1]['ms']}, k = {MICRO} {made[MICRO]['ms']}; the peak memory of "
+              f"a step above the model (the warm-up and the capture) k = 1 "
+              f"{made[1]['peak_gb']:.3f} GB, k = {MICRO} {made[MICRO]['peak_gb']:.3f} GB, on {smi}")
+        del made
+    for name, n_launch in launches.items():
+        results[name]["launches_microbatch"] = n_launch
+    report["launches"] = launches
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {report['seconds']:.2f} s (limit {PHASE11_LIMIT_S:.0f} s): 11a by "
+          f"{report['11a_s']:.2f}, 11b by {report['11b_s']:.2f}, 11c by {report['11c_s']:.2f}")
+    check(report["seconds"] <= PHASE11_LIMIT_S,
+          f"phase 11 took {report['seconds']:.2f} s > {PHASE11_LIMIT_S:.0f} s")
+    return report
+
+
 def main() -> None:
     t_main = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2455,7 +2650,7 @@ def main() -> None:
         fail(f"run from a checkout of the repository: {HERE} lacks the package or {CKPT.name}")
     sys.path.insert(0, str(HERE))
 
-    from signaltrain_tpu_torch.cli import time_smoother
+    from signaltrain_tpu_torch.cli import time_frontend, time_smoother
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects, synths
     from signaltrain_tpu_torch.inference import predict_long as pl
@@ -2918,6 +3113,8 @@ def main() -> None:
                                                      y_pred)}))
     # ---- 10. tensor parallelism
     print(json.dumps({"tensor_parallel": tensor_parallel(dev, results, smi, sr, phase4_b)}))
+    # ---- 11. ST_TPU_MICROBATCH
+    print(json.dumps({"microbatch": microbatch(dev, results, smi, sr)}))
     for name, r in results.items():
         r["launches"] = sum(v for k, v in r.items() if k.startswith("launches_"))
 
@@ -2963,6 +3160,8 @@ def main() -> None:
         w_conv = w_an.t().contiguous()[:, None, :]  # (2*half, 1, ft)
         results["fused_analysis"]["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv1d(xp[:, None, :], w_conv, stride=hop), reps=10)
+        results["fused_analysis"]["cublas_ms"] = cuda_ms(
+            time_frontend.cublas_analysis(xp, w_an, ft, hop, F32), reps=10)
         a_flops = 2.0 * n_windows * frames * ft * 2 * half
         a_bytes = 4.0 * (n_windows * lp + ft * 2 * half + 2 * frames * n_windows * half)
         results["fused_analysis"].update(zip(("bound_ms", "bound_by"),
@@ -2980,6 +3179,8 @@ def main() -> None:
         w_tconv = w_syn[:, None, :].contiguous()  # (2*half, 1, ft)
         results["fused_synthesis"]["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv_transpose1d(spec_bct, w_tconv, stride=hop), reps=10)
+        results["fused_synthesis"]["cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
+            time_frontend.synthesis_spectrum(smag, sphs), w_syn, F32), reps=10)
         la = (out_frames - 1) * hop + ft
         overlap = sum(max(0, min(t * hop + ft, la - ft) - max(t * hop, ft))
                       for t in range(out_frames))  # frame samples that reach the trimmed output
@@ -3049,6 +3250,10 @@ def main() -> None:
             lambda: (torch.nn.grad.conv1d_input(x_in.shape, w_conv, dspec_bct, stride=hop),
                      torch.nn.grad.conv1d_weight(x_in, w_conv.shape, dspec_bct, stride=hop)),
             reps=5)
+        # the gemm front-end's two backward products for the same linear part (cuBLAS)
+        d_frames = txp.unfold(1, ft, hop).reshape(-1, ft)
+        d_spec = torch.randn(tb * frames, 2 * half, generator=gen, device=dev)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(d_frames, w_an, d_spec, F32), reps=5)
         d_flops = 3 * 2.0 * tb * frames * ft * 2 * half
         d_bytes = 4.0 * (2 * tb * tlp + 2 * ft * 2 * half + 2 * frames * tb * half)
         r.update(zip(("bound_ms", "bound_by"), bound(d_flops, d_bytes, PEAK_SPLIT_TF32_FLOPS)))
@@ -3069,6 +3274,10 @@ def main() -> None:
             lambda: (torch.nn.functional.conv1d(dacc, w_tconv, stride=hop),
                      torch.nn.grad.conv1d_weight(dacc, w_tconv.shape, spec_t, stride=hop)),
             reps=5)
+        e_frames = dacc[:, 0].unfold(1, ft, hop).reshape(-1, ft)  # the padded dout's frames
+        e_spec = time_frontend.synthesis_spectrum(tmag, tphs).reshape(-1, 2 * half)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(e_spec, w_syn, e_frames, F32),
+                                 reps=5)
         e_flops = 2 * 2.0 * tb * 2 * half * overlap  # the live frame samples only
         e_bytes = 4.0 * (4 * out_frames * tb * half + 2 * 2 * half * ft + tb * out_len)
         r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_SPLIT_TF32_FLOPS)))
@@ -3084,6 +3293,8 @@ def main() -> None:
         txp_c = txp[:, None, :]
         r["train_library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv1d(txp_c, w_conv, stride=hop), reps=10)
+        r["train_cublas_ms"] = cuda_ms(time_frontend.cublas_analysis(txp, w_an, ft, hop, F32),
+                                       reps=10)
         at_flops = 2.0 * tb * frames * ft * 2 * half
         at_bytes = 4.0 * (tb * tlp + ft * 2 * half + 2 * frames * tb * half)
         r["train_bound_ms"] = bound(at_flops, at_bytes, PEAK_SPLIT_TF32_FLOPS)[0]
@@ -3099,6 +3310,8 @@ def main() -> None:
         tspec_bct = tspec_bct.permute(1, 2, 0).contiguous()  # (B, 2*half, OT)
         r["train_library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv_transpose1d(tspec_bct, w_tconv, stride=hop), reps=10)
+        r["train_cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
+            time_frontend.synthesis_spectrum(tmag, tphs), w_syn, F32), reps=10)
         bt_flops = 2.0 * tb * 2 * half * overlap
         bt_bytes = 4.0 * (2 * out_frames * tb * half + 2 * half * ft + tb * out_len)
         r["train_bound_ms"] = bound(bt_flops, bt_bytes, PEAK_SPLIT_TF32_FLOPS)[0]
@@ -3144,6 +3357,7 @@ def main() -> None:
         bxp16 = bxp[:, None, :].to(BF16)
         r["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv1d(bxp16, w_conv16, stride=hop), reps=10)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_analysis(bxp, w_an, ft, hop, BF16), reps=10)
         r.update(zip(("bound_ms", "bound_by"), bound(at_flops, at_bytes, PEAK_BF16_FLOPS)))
         r["tflops"] = at_flops / r["ms"] / 1e9
         r["shape"] = f"xp {tuple(bxp.shape)}, w {tuple(w_an.shape)}"
@@ -3154,6 +3368,8 @@ def main() -> None:
         sxp16 = sxp[:, None, :].to(BF16)
         r["serve_library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv1d(sxp16, w_conv16, stride=hop), reps=10)
+        r["serve_cublas_ms"] = cuda_ms(time_frontend.cublas_analysis(sxp, w_an, ft, hop, BF16),
+                                       reps=10)
         r["serve_bound_ms"] = bound(a_flops, a_bytes, PEAK_BF16_FLOPS)[0]
         r["serve_shape"] = f"xp {tuple(sxp.shape)}"
 
@@ -3167,6 +3383,8 @@ def main() -> None:
         bspec16 = bspec16.contiguous().to(BF16)  # (B, 2*half, OT)
         r["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv_transpose1d(bspec16, w_tconv16, stride=hop), reps=10)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
+            time_frontend.synthesis_spectrum(bmag, bphs), w_syn, BF16), reps=10)
         r.update(zip(("bound_ms", "bound_by"), bound(bt_flops, bt_bytes, PEAK_BF16_FLOPS)))
         r["tflops"] = bt_flops / r["ms"] / 1e9
         r["shape"] = f"mag {tuple(bmag.shape)}, w {tuple(w_syn.shape)}"
@@ -3180,6 +3398,8 @@ def main() -> None:
         sspec16 = sspec16.permute(1, 2, 0).contiguous().to(BF16)  # (B, 2*half, OT)
         r["serve_library_ms"] = cuda_ms(
             lambda: torch.nn.functional.conv_transpose1d(sspec16, w_tconv16, stride=hop), reps=10)
+        r["serve_cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
+            time_frontend.synthesis_spectrum(smag_b, sphs_b), w_syn, BF16), reps=10)
         r["serve_bound_ms"] = bound(b_flops, b_bytes, PEAK_BF16_FLOPS)[0]
         r["serve_shape"] = f"mag {tuple(smag_b.shape)}"
 
@@ -3196,6 +3416,8 @@ def main() -> None:
             lambda: (torch.nn.grad.conv1d_input(x_in16.shape, w_conv16, dspec16, stride=hop),
                      torch.nn.grad.conv1d_weight(x_in16, w_conv16.shape, dspec16, stride=hop)),
             reps=5)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(
+            dxp_in.unfold(1, ft, hop).reshape(-1, ft), w_an, d_spec, BF16), reps=5)
         r.update(zip(("bound_ms", "bound_by"), bound(d_flops, d_bytes, PEAK_BF16_FLOPS)))
         r["tflops"] = d_flops / r["ms"] / 1e9
         r["tflops_without_dxp"] = d_flops * 2 / 3 / r["ms_without_dxp"] / 1e9
@@ -3212,6 +3434,10 @@ def main() -> None:
         r["library_ms"] = cuda_ms(
             lambda: (torch.nn.functional.conv1d(dacc16, w_tconv16, stride=hop),
                      torch.nn.grad.conv1d_weight(dacc16, w_tconv16.shape, spec_t16, stride=hop)),
+            reps=5)
+        r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(
+            time_frontend.synthesis_spectrum(bmag, bphs).reshape(-1, 2 * half), w_syn,
+            torch.nn.functional.pad(edout, (ft, ft)).unfold(1, ft, hop).reshape(-1, ft), BF16),
             reps=5)
         r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_BF16_FLOPS)))
         r["tflops"] = e_flops / r["ms"] / 1e9
@@ -3370,10 +3596,13 @@ def main() -> None:
                 "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
                 "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
                 "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools",
-                "launches_parallel")
+                "launches_parallel", "launches_microbatch", "cublas_ms", "train_cublas_ms",
+                "serve_cublas_ms")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        if "cublas_ms" in r:
+            lib += f", the gemm front-end's cuBLAS products {r['cublas_ms']:.4f} ms"
         extra = ""
         if "bound_ms_cuda_cores" in r:
             extra = (f"; {r['tflops']:.1f} TFLOP/s of f32-accurate work, bound at the CUDA cores' "
@@ -3383,7 +3612,7 @@ def main() -> None:
         if "serve_ms" in r:
             extra += (f"; at the serving shape {r['serve_shape']}: {r['serve_ms']:.4f} ms (bound "
                       f"{r['serve_bound_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, library "
-                      f"{r['serve_library_ms']:.4f} ms)")
+                      f"{r['serve_library_ms']:.4f} ms, cuBLAS {r['serve_cublas_ms']:.4f} ms)")
         if name == "lfilter":
             extra = (f"; at {r['shape']} its chain floor ({r['chain_cycles']:.2f} cycles a step at "
                      f"{r['sm_clock_mhz']:.0f} MHz) {r['chain_floor_ms']:.4f} ms; LowPass "
@@ -3403,6 +3632,8 @@ def main() -> None:
               f"plain {r['plain_ms']:.4f} ms, library {lib}{extra}) on {smi}")
         if "train_ms" in r:
             tlib = f"{r['train_library_ms']:.4f} ms" if "train_library_ms" in r else "n/a"
+            if "train_cublas_ms" in r:
+                tlib += f", cuBLAS {r['train_cublas_ms']:.4f} ms"
             ttf = f", {r['train_tflops']:.1f} TFLOP/s" if "train_tflops" in r else ""
             print(f"  at the training shape {r['train_shape']}: {r['train_ms']:.4f} ms (bound "
                   f"{r['train_bound_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, library "

@@ -31,9 +31,10 @@ the port takes one card unless told otherwise.
 Tensor parallelism: ``--nmodel M`` splits the front-end's matrices over M
 ranks of each data index (the JAX ``"model"`` axis, ``parallel/mesh.py``):
 the world (``--nproc``, or torchrun's) must be ``n_data x M`` ranks, e.g.
-``--nproc 4 --nmodel 2`` for 2 x 2. It runs on gloo ranks (``--device
-cpu``); on the cards, under NCCL, ``train()`` refuses it until a run there
-has matched the single-process oracle (``cli.time_data_parallel --nmodel``).
+``--nproc 4 --nmodel 2`` for 2 x 2, on the cards under NCCL or on gloo
+ranks (``--device cpu``). Its steps are dispatched op by op
+(``cli.time_data_parallel --nmodel`` checks them against the single-process
+oracle on the cards).
 """
 
 from __future__ import annotations

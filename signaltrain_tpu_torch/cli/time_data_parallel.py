@@ -14,9 +14,8 @@ comp_4c data synthesized on the rank's card from its data index's stream,
 the flagship geometry, seeded weights, ``BATCH`` rows a data index. With
 ``--nmodel`` above 1 the front-end's rows are split over the model group
 (the gemm front-end), and the steps run op by op
-(``Mesh.captures_collectives``). ``train()`` refuses ``n_model > 1`` under
-NCCL until this check has passed on the cards: this tool is how the path is
-run there.
+(``Mesh.captures_collectives``), as ``train(n_model=)`` runs them under
+NCCL.
 
 * The check, in float32: ``CHECK_STEPS`` steps of the ranks against
   ``training/oracle.oracle_steps`` run in this process on cuda:0 at
@@ -38,6 +37,13 @@ run there.
   and the split analysis' full-width product is timed beside a product of
   one rank's bins alone (``analysis_product_ms``).
 
+The ranks run with NCCL's flight recorder on (``flight_recorder``): each
+keeps its last collectives, and a rank whose collective outlasts its group's
+timeout (``distributed.TIMEOUT_S``) writes them to ``--flight-dir`` before
+it fails; the tool then prints each dump's last collectives
+(``flight_summary``). ``--timeout`` bounds the whole spawn (900 s by
+default; 300 s is ample for four cards).
+
 The cards' names and power limits head the output; the last line is one
 JSON object. Exits non-zero when a check fails.
 """
@@ -46,9 +52,13 @@ from __future__ import annotations
 
 import argparse
 import functools
+import glob
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -150,6 +160,48 @@ def analysis_product_ms(model, n_model: int) -> dict:
     return out
 
 
+FLIGHT_ENTRIES = 2000
+
+
+def flight_recorder(directory: str) -> str:
+    """Turn NCCL's flight recorder on for ranks spawned from now on (their
+    environment is this process's): ``FLIGHT_ENTRIES`` collectives kept a
+    rank, dumped to ``directory/rank_<r>`` when a collective times out.
+    Both of PyTorch's names for each setting are set. Returns the dump
+    files' prefix."""
+    os.makedirs(directory, exist_ok=True)
+    prefix = os.path.join(os.path.abspath(directory), "rank_")
+    for names, value in ((("TORCH_NCCL_TRACE_BUFFER_SIZE", "TORCH_FR_BUFFER_SIZE"),
+                          str(FLIGHT_ENTRIES)),
+                         (("TORCH_NCCL_DUMP_ON_TIMEOUT", "TORCH_FR_DUMP_ON_TIMEOUT"), "1"),
+                         (("TORCH_NCCL_DEBUG_INFO_TEMP_FILE", "TORCH_FR_DUMP_TEMP_FILE"), prefix)):
+        for name in names:
+            os.environ[name] = value
+    return prefix
+
+
+def flight_summary(prefix: str, last: int = 8) -> str:
+    """Each dump under ``prefix``: its rank's last ``last`` collectives, one
+    line each (process group, sequence number, name, sizes, state), or a line
+    saying that no rank wrote one."""
+    lines = []
+    for path in sorted(glob.glob(prefix + "*")):
+        try:
+            with open(path, "rb") as f:
+                dump = pickle.load(f)
+        except Exception as e:  # a dump cut short says so and the rest still print
+            lines.append(f"{path}: unreadable ({e!r})")
+            continue
+        entries = dump.get("entries", [])
+        lines.append(f"{os.path.basename(path)}: {len(entries)} collectives recorded")
+        for e in entries[-last:]:
+            lines.append("  pg {} seq {} {} in {} out {} {}".format(
+                e.get("process_group", e.get("pg_id")), e.get("collective_seq_id"),
+                e.get("profiling_name"), e.get("input_sizes"), e.get("output_sizes"),
+                e.get("state")))
+    return "\n".join(lines) or f"no flight recorder dump under {prefix}*"
+
+
 def _checked(mesh, global_batch: int) -> dict:
     """CHECK_STEPS float32 steps: the losses, the replicated weights, and on
     rank 0 the whole state (every rank gathers the same)."""
@@ -183,6 +235,11 @@ def main(argv=None) -> None:
     parser.add_argument("--nproc", type=int, default=torch.cuda.device_count())
     parser.add_argument("--nmodel", type=int, default=1,
                         help="ranks of a data index that split the front-end's rows")
+    parser.add_argument("--timeout", type=float, default=900.0,
+                        help="seconds the ranks may run before they are stopped")
+    parser.add_argument("--flight-dir", default=None,
+                        help="where a rank whose collective times out dumps NCCL's flight "
+                             "recorder (a new temporary directory when not given)")
     args = parser.parse_args(argv)
     n, n_model = args.nproc, args.nmodel
     if not torch.cuda.is_available():
@@ -195,9 +252,15 @@ def main(argv=None) -> None:
     print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    prefix = flight_recorder(args.flight_dir or tempfile.mkdtemp(prefix="nccl_flight_"))
     t0 = time.perf_counter()
-    ranks = launch.spawn(_rank, launch.rank_devices("cuda", n), "nccl", timeout_s=900,
-                         n_model=n_model)
+    try:
+        ranks = launch.spawn(_rank, launch.rank_devices("cuda", n), "nccl",
+                             timeout_s=args.timeout, n_model=n_model)
+    except (RuntimeError, TimeoutError):
+        print(f"time_data_parallel: the ranks failed after {time.perf_counter() - t0:.1f} s; "
+              f"NCCL's flight recorder:\n{flight_summary(prefix)}", flush=True)
+        raise
     spawn_s = time.perf_counter() - t0
 
     dev = torch.device("cuda", 0)

@@ -20,6 +20,14 @@ chunk 8192, OT 9):
     plain version, TFLOP/s over the frame samples that reach the trimmed
     output, the device time of every kernel they launch, and the largest
     error of kernel and plain version against a float64 plain version.
+Beside each kernel it times the cuBLAS products that the gemm front-end
+(``ops/frontend.py``: ``gemm``, ``Bf16Gemm``) runs for the same linear part
+at the same shapes and dtype (``cublas_*`` below): A's framed signal times
+the stacked (ft, 2 * half) matrix, B's frame product before its overlap-add,
+D's and E's two backward products. They compute the linear part only (no
+magnitude and phase, no trigonometry, overlap-add or trim), so they say how
+fast the library does the products a kernel fuses, not the kernel's whole
+function.
 ``--dtype bfloat16`` times the kernels' bf16 modes instead; "float64" is then
 the float64 plain version of the same bf16-rounded computation, and TFLOP/s
 count the bf16 products. It then also takes D's error under unit-normal
@@ -54,6 +62,44 @@ def ms(fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def cublas_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int, dtype):
+    """A's linear part as the gemm front-end runs it: the frames of the
+    padded signal (a view) times the stacked (ft, 2 * half) matrix, through
+    ``frontend.gemm`` (bf16: ``Bf16Gemm``, its operands rounded). A callable."""
+    frames = xp.unfold(1, ft, hop)
+    return lambda: frontend.gemm(frames, w, dtype)
+
+
+def synthesis_spectrum(mag: torch.Tensor, phs: torch.Tensor) -> torch.Tensor:
+    """Frame-major (OT, B, half) magnitude and phase -> the batch-major (B,
+    OT, 2 * half) [re | im] that the gemm synthesis multiplies."""
+    return torch.cat([mag * torch.cos(phs), mag * torch.sin(phs)], -1).transpose(0, 1).contiguous()
+
+
+def cublas_synthesis(spec: torch.Tensor, w: torch.Tensor, dtype):
+    """B's linear part as the gemm front-end runs it: the frame product
+    (B, OT, 2 * half) x (2 * half, ft) before its overlap-add. A callable."""
+    return lambda: frontend.gemm(spec, w, dtype)
+
+
+def cublas_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, dtype):
+    """The two products of ``frontend.gemm``'s backward for a (M, K) @ b (K,
+    N) under the cotangent g (M, N): g b^T and a^T g, in float32 as autograd
+    takes them, in bf16 as ``Bf16Gemm.backward`` does (the residuals already
+    bf16, the cotangent rounded, float32 results). D's are the frames, the
+    analysis matrix and dspec; E's the spectrum, the synthesis matrix and the
+    frames of the padded dout. A callable."""
+    if dtype == torch.bfloat16:
+        ac, bc = a.to(torch.bfloat16), b.to(torch.bfloat16)
+
+        def run():
+            gc = g.to(torch.bfloat16)
+            return frontend._mm(gc, bc.t()), frontend._mm(ac.t(), gc)
+
+        return run
+    return lambda: (g @ b.t(), a.t() @ g)
+
+
 def kernel_rows(fn, reps=5):
     """The device time of every kernel fn() launches, by name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -85,8 +131,9 @@ def synthesis(dev, which, dt):
             if "B" in which:
                 t_b = ms(lambda: cf.fused_synthesis(mag, phs, w, FT, HOP, dt))
                 t_plain = ms(lambda: cf.fused_synthesis_reference(mag, phs, w, FT, HOP, dt), reps=5)
+                t_lib = ms(cublas_synthesis(synthesis_spectrum(mag, phs), w, dt))
                 print(f"batch {batch}: B {t_b:.4f} ms ({flops / t_b / 1e9:.1f} TFLOP/s), plain "
-                      f"{t_plain:.4f} ms")
+                      f"{t_plain:.4f} ms, cuBLAS frame product {t_lib:.4f} ms")
                 kernel_rows(lambda: cf.fused_synthesis(mag, phs, w, FT, HOP, dt))
                 x = cf.fused_synthesis_reference(mag.double(), phs.double(), w.double(), FT, HOP, dt)
                 print(f"    B against float64: kernel "
@@ -97,8 +144,11 @@ def synthesis(dev, which, dt):
                 t_e = ms(lambda: cf.fused_synthesis_bwd(mag, phs, w, dout, FT, HOP, compute_dtype=dt))
                 t_plain = ms(lambda: cf.fused_synthesis_bwd_reference(mag, phs, w, dout, FT, HOP, dt),
                              reps=5)
+                spec = synthesis_spectrum(mag, phs).reshape(-1, 2 * HALF)
+                dframes = torch.nn.functional.pad(dout, (FT, FT)).unfold(1, FT, HOP)
+                t_lib = ms(cublas_backward(spec, w, dframes.reshape(-1, FT), dt))
                 print(f"batch {batch}: E {t_e:.4f} ms ({2 * flops / t_e / 1e9:.1f} TFLOP/s), "
-                      f"plain {t_plain:.4f} ms")
+                      f"plain {t_plain:.4f} ms, cuBLAS backward products {t_lib:.4f} ms")
                 kernel_rows(lambda: cf.fused_synthesis_bwd(mag, phs, w, dout, FT, HOP, compute_dtype=dt))
                 got = cf.fused_synthesis_bwd(mag, phs, w, dout, FT, HOP, compute_dtype=dt)
                 plain = cf.fused_synthesis_bwd_reference(mag, phs, w, dout, FT, HOP, dt)
@@ -223,9 +273,14 @@ def main():
             t_d = ms(lambda: cf.fused_analysis_bwd(xp, w, dmag, dphs, FT, HOP, compute_dtype=dt))
             t_dw = ms(lambda: cf.fused_analysis_bwd(xp, w, dmag, dphs, FT, HOP, need_dxp=False,
                                                     compute_dtype=dt))
+            t_lib_a = ms(cublas_analysis(xp, w, FT, HOP, dt))
+            dspec = torch.randn(batch * frames, 2 * HALF, generator=g, device=dev)
+            t_lib_d = ms(cublas_backward(xp.unfold(1, FT, HOP).reshape(-1, FT), w, dspec, dt))
             print(f"batch {batch}: A {t_a:.4f} ms ({flops / t_a / 1e9:.1f} TFLOP/s), plain "
-                  f"{t_plain:.4f} ms; D {t_d:.4f} ms ({3 * flops / t_d / 1e9:.1f} TFLOP/s), "
-                  f"without dxp {t_dw:.4f} ms ({2 * flops / t_dw / 1e9:.1f} TFLOP/s)")
+                  f"{t_plain:.4f} ms, cuBLAS product {t_lib_a:.4f} ms; D {t_d:.4f} ms "
+                  f"({3 * flops / t_d / 1e9:.1f} TFLOP/s), without dxp {t_dw:.4f} ms "
+                  f"({2 * flops / t_dw / 1e9:.1f} TFLOP/s), cuBLAS backward products "
+                  f"{t_lib_d:.4f} ms")
             if "D" in which:
                 kernel_rows(lambda: cf.fused_analysis_bwd(xp, w, dmag, dphs, FT, HOP,
                                                           compute_dtype=dt))

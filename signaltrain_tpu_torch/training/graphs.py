@@ -12,7 +12,8 @@ graph:
   forward (kernels A and B, or the GEMM front-end), ``calc_loss``, the
   backward (E, D), ``clip_frontend_grads`` and ``opt.step()``
   (``train.optimizer_step``, the body of ``train_step_from_arrays``). It is
-  replayed once a step.
+  replayed once a step. Under ``ST_TPU_MICROBATCH`` the forward and the
+  backward run in slices of the synthesized batch inside the same capture.
 * ``EvalGraph`` captures one validation batch (``val_batch_fn`` and
   ``eval_step_from_arrays``) and is replayed once a batch.
 * ``ArraysTrainGraph`` and ``ArraysEvalGraph`` are the counterparts of
@@ -191,13 +192,17 @@ class TrainGraph:
     last step's (x, y, knobs). With ``mesh`` each step is this rank's
     ``batch_size // n_data`` rows from ``step_generator(..., shard=rank)``
     and two graphs around the all-reduce (module docstring); the losses are
-    the means over the ranks."""
+    the means over the ranks. With ``micro`` k > 1 (``train.microbatches``)
+    the graph synthesizes the whole local batch and runs its forward and
+    backward in k slices inside the one capture (``train.loss_and_grads``);
+    with a mesh the slices' mean goes into the bucket before the all-reduce,
+    JAX's order (slice mean, then ``pmean``)."""
 
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn,
                  batch_size: int, generator: torch.Generator, seed: int, capacity: int,
-                 mesh=None):
+                 mesh=None, micro: int = 1):
         _capturable(model)
-        self.model, self.opt, self.lr_fn = model, opt, lr_fn
+        self.model, self.opt, self.lr_fn, self.micro = model, opt, lr_fn, micro
         self.batch_fn, self.batch_size = batch_fn, batch_size
         self.generator, self.seed = generator, seed
         self.losses = torch.zeros(capacity, dtype=torch.float32, device=generator.device)
@@ -213,12 +218,14 @@ class TrainGraph:
 
     def _body(self) -> None:
         batch = self.batch_fn(self.batch_size, self.generator)
-        _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *batch))
+        _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *batch,
+                                                      micro=self.micro))
         self._batches[torch.cuda.is_current_stream_capturing()] = batch
 
     def _grads(self) -> None:
         batch = self.batch_fn(self.batch_size, self.generator)
-        self.bucket.put_loss(train_mod.loss_and_grads(self.model, *batch, self.bucket))
+        self.bucket.put_loss(train_mod.loss_and_grads(self.model, *batch, self.bucket,
+                                                      self.micro))
         self._batches[torch.cuda.is_current_stream_capturing()] = batch
 
     @property
@@ -300,7 +307,9 @@ class ArraysTrainGraph:
     ``train.host_steps`` on the same batches. ``shapes`` are those of (x, y,
     knobs). The first step run is the capture's warm-up. With ``mesh`` the
     batches are this rank's rows (``shapes`` are theirs) and each step is two
-    graphs around the all-reduce, as ``TrainGraph``'s."""
+    graphs around the all-reduce, as ``TrainGraph``'s. Its step is never
+    sliced (``ST_TPU_MICROBATCH`` does not reach it): the JAX package's
+    host-fed step, ``make_train_step_from_arrays``, takes the whole batch."""
 
     def __init__(self, model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, shapes,
                  capacity: int, mesh=None):

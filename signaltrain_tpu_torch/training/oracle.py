@@ -45,11 +45,15 @@ REDUCTIONS = {"mean": lambda t: t.mean(0), "sum": lambda t: t.sum(0)}
 
 def oracle_steps(model: torch.nn.Module, opt: torch.optim.Optimizer, lr_fn, batch_fn,
                  batch_size: int, n_data: int, generator: torch.Generator, seed: int, step0: int,
-                 n: int, clip_max_norm: float = 1.0, reduce: str = "mean") -> torch.Tensor:
+                 n: int, clip_max_norm: float = 1.0, reduce: str = "mean",
+                 micro: int = 1) -> torch.Tensor:
     """Steps step0 .. step0 + n - 1 of an ``n_data``-rank data-parallel run
     at global batch ``batch_size``, emulated in this process: the (n,) mean
     losses on the device. ``reduce="sum"`` adds the shards' gradients and
-    losses instead (the control, module docstring)."""
+    losses instead (the control, module docstring). ``micro`` slices each
+    shard's forward and backward as the ranks do (``train.loss_and_grads``),
+    so a microbatched run is held against the same bits, not against the
+    unsliced step."""
     combine = REDUCTIONS[reduce]
     if batch_size % n_data:
         raise ValueError(f"batch_size {batch_size} must divide over {n_data} shards")
@@ -61,7 +65,7 @@ def oracle_steps(model: torch.nn.Module, opt: torch.optim.Optimizer, lr_fn, batc
         shard_losses, shard_grads = [], []
         for shard in range(n_data):
             x, y, knobs = batch_fn(local, synth_data.step_generator(generator, seed, step, shard))
-            shard_losses.append(train_mod.loss_and_grads(model, x, y, knobs))
+            shard_losses.append(train_mod.loss_and_grads(model, x, y, knobs, micro=micro))
             shard_grads.append([p.grad.clone() for p in params])
         for i, p in enumerate(params):
             p.grad = combine(torch.stack([g[i] for g in shard_grads]))

@@ -35,6 +35,12 @@ loop:
 loop's buckets: dispatch, pending, eval, evproc, cp and fetch (the host
 tier's waits on its prefetcher), and the rest.
 
+``ST_TPU_MICROBATCH=k`` (``microbatches``, read once, after the mesh fixes
+the local batch) runs each step's forward and backward in k slices of the
+synthesized or device-resident batch (``loss_and_grads(micro=k)``), as the
+JAX package's ``_make_lg_fn``; the host tier's step and validation take the
+whole batch, as JAX's do.
+
 ``train`` computes in ``compute_dtype``, bfloat16 by default as in the JAX
 package (its mixed precision: bf16 products with float32 accumulation in the
 front-end kernels and the autoencoders; parameters, Adam's state, the
@@ -73,10 +79,12 @@ the data group, the front-end clip's L1 total over the model group. The
 replicated weights start from rank 0's and each shard from the rank of data
 index 0 that holds its rows; checkpoints hold the gathered full matrices
 (``checkpoint.training_tensors``), so a run resumes under any mesh shape. The
-steps are dispatched op by op (``eager_steps``, ``host_steps``): gloo's
-collectives cannot be captured in a CUDA graph. Over NCCL (across CUDA
-cards) ``n_model > 1`` is refused: no such run has yet matched the oracle
-on the cards (``cli.time_data_parallel --nmodel`` is the check).
+steps are dispatched op by op (``eager_steps``, ``host_steps``), over gloo
+ranks and over NCCL across CUDA cards alike: gloo's collectives cannot be
+captured in a CUDA graph, and a captured step of a model group of several
+NCCL ranks has not been seen to finish (``Mesh.captures_collectives``). The
+op-by-op steps match the single-process oracle on four cards
+(``cli.time_data_parallel --nmodel 2`` and ``4``).
 Artifacts keep the reference's shapes: ``vl_avg_out.dat`` and
 ``val_err_mae.dat`` append logs in the working directory, the ``\\r`` status
 line with lr / mom / smoothed loss, the checkpoint cadence, the first-epoch
@@ -224,17 +232,46 @@ class GradBucket:
         return self.loss[0]
 
 
+def microbatches(local_batch: int) -> int:
+    """The slices of a local batch a train step runs (``ST_TPU_MICROBATCH``,
+    the JAX package's ``_make_lg_fn`` rule): k when the variable is k > 1 and
+    k divides ``local_batch``, else 1 (the unsliced step, exactly)."""
+    k = int(os.environ.get("ST_TPU_MICROBATCH", "0"))
+    return k if k > 1 and local_batch % k == 0 else 1
+
+
 def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor, knobs: torch.Tensor,
-                   bucket: GradBucket | None = None) -> torch.Tensor:
+                   bucket: GradBucket | None = None, micro: int = 1) -> torch.Tensor:
     """The training loss on one batch; leaves its gradients in ``.grad``:
-    fresh tensors, or with ``bucket`` its views, zeroed first."""
+    fresh tensors, or with ``bucket`` its views, zeroed first.
+
+    With ``micro`` k > 1 (``microbatches``) the batch runs as k equal slices
+    of rows, in order, each forward and backward in turn, as the JAX
+    package's ``lax.scan`` with gradient accumulation: backward adds each
+    slice's gradients into ``.grad`` (0 + g0 + g1 + ..., the JAX sum's
+    order), the slice losses are summed, and both sums are multiplied by
+    float32 1 / k. The mean loss and gradients of the whole batch, to
+    float32 reassociation; a slice's activations are freed before the next
+    slice runs."""
     if bucket is None:
         model.zero_grad(set_to_none=True)
     else:
         bucket.zero()
-    l, _ = _model_loss(model, x, y, knobs)
-    l.backward()
-    return l.detach()
+    if micro == 1:
+        l, _ = _model_loss(model, x, y, knobs)
+        l.backward()
+        return l.detach()
+    if x.shape[0] % micro:
+        raise ValueError(f"{micro} microbatches do not divide a batch of {x.shape[0]}")
+    rows = x.shape[0] // micro
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xs, ys, ks in zip(x.split(rows), y.split(rows), knobs.split(rows)):
+        l, _ = _model_loss(model, xs, ys, ks)
+        l.backward()
+        total = total + l.detach()
+    inv = 1.0 / micro  # a multiply in float32, as JAX scales its sums
+    torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
+    return total * inv
 
 
 def reduce_grads(bucket: GradBucket, loss: torch.Tensor, mesh) -> torch.Tensor:
@@ -250,17 +287,18 @@ def reduce_grads(bucket: GradBucket, loss: torch.Tensor, mesh) -> torch.Tensor:
 
 def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
                    y: torch.Tensor, knobs: torch.Tensor, clip_max_norm: float = 1.0,
-                   mesh=None) -> torch.Tensor:
-    """Loss and gradients on the batch (x, y, knobs), with ``mesh`` their
-    mean over the data ranks (``reduce_grads``), the front-end clip and one
-    optimizer step at the learning rate already set; returns the loss (a
-    device scalar). Without a mesh it runs no host work that reads the card:
-    what a train graph captures."""
+                   mesh=None, micro: int = 1) -> torch.Tensor:
+    """Loss and gradients on the batch (x, y, knobs) in ``micro`` slices
+    (``loss_and_grads``), with ``mesh`` their mean over the data ranks
+    (``reduce_grads``), the front-end clip and one optimizer step at the
+    learning rate already set; returns the loss (a device scalar). Without a
+    mesh it runs no host work that reads the card: what a train graph
+    captures."""
     if mesh is None:
-        l = loss_and_grads(model, x, y, knobs)
+        l = loss_and_grads(model, x, y, knobs, micro=micro)
     else:
         bucket = GradBucket(model)
-        l = reduce_grads(bucket, loss_and_grads(model, x, y, knobs, bucket), mesh)
+        l = reduce_grads(bucket, loss_and_grads(model, x, y, knobs, bucket, micro), mesh)
     clip_frontend_grads(model, clip_max_norm)
     opt.step()
     return l
@@ -268,12 +306,13 @@ def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
 
 def train_step_from_arrays(model: STModel, opt: torch.optim.Optimizer, lr_fn, step: int,
                            x: torch.Tensor, y: torch.Tensor, knobs: torch.Tensor,
-                           clip_max_norm: float = 1.0, mesh=None) -> torch.Tensor:
+                           clip_max_norm: float = 1.0, mesh=None, micro: int = 1) -> torch.Tensor:
     """One optimizer step on the batch (x, y, knobs) at schedule position
-    ``step``; returns the loss (a device scalar). With ``mesh`` the batch is
-    this rank's rows and the step takes the mean gradient over the ranks."""
+    ``step``, in ``micro`` slices; returns the loss (a device scalar). With
+    ``mesh`` the batch is this rank's rows and the step takes the mean
+    gradient over the ranks."""
     set_lr(opt, lr_fn(step))
-    return optimizer_step(model, opt, x, y, knobs, clip_max_norm, mesh)
+    return optimizer_step(model, opt, x, y, knobs, clip_max_norm, mesh, micro)
 
 
 @torch.no_grad()
@@ -285,21 +324,23 @@ def eval_step_from_arrays(model: STModel, x: torch.Tensor, y: torch.Tensor, knob
 
 def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, batch_size: int,
                 generator: torch.Generator, seed: int, step0: int, n: int,
-                mesh=None) -> torch.Tensor:
+                mesh=None, micro: int = 1) -> torch.Tensor:
     """Steps step0 .. step0 + n - 1, each on the batch of
     ``synth_data.step_generator(generator, seed, step)``, dispatched one op
     at a time: the (n,) losses on the device. The loop on the CPU and under
-    a gloo tensor-parallel mesh, and the reference that ``graphs.TrainGraph``
-    is bit-equal to on the card. With ``mesh`` each rank draws its
-    ``batch_size // n_data`` rows from its data index's stream
-    (``shard=mesh.data_index``) and the step takes the mean over the data
-    ranks (``reduce_grads``)."""
+    a tensor-parallel mesh of several ranks, and the reference that
+    ``graphs.TrainGraph`` is bit-equal to on the card. With ``mesh`` each
+    rank draws its ``batch_size // n_data`` rows from its data index's
+    stream (``shard=mesh.data_index``) and the step takes the mean over the
+    data ranks (``reduce_grads``). The whole local batch is synthesized at
+    once and its forward and backward run in ``micro`` slices."""
     local, shard = ((batch_size, 0) if mesh is None
                     else (mesh.local_batch(batch_size), mesh.data_index))
     return torch.stack([
         train_step_from_arrays(
             model, opt, lr_fn, s,
-            *batch_fn(local, synth_data.step_generator(generator, seed, s, shard)), mesh=mesh)
+            *batch_fn(local, synth_data.step_generator(generator, seed, s, shard)), mesh=mesh,
+            micro=micro)
         for s in range(step0, step0 + n)])
 
 
@@ -460,15 +501,11 @@ def train(
     if effect.device != dev:
         raise ValueError(f"effect is on {effect.device}, train() was given device {dev}")
     tensor_parallel = n_model > 1
-    if tensor_parallel and distributed.backend() == "nccl":
-        raise ValueError(f"n_model {n_model} over NCCL: tensor parallelism across CUDA cards is "
-                         "refused until a run of it on the cards has matched the single-process "
-                         "oracle (cli.time_data_parallel --nmodel checks it); train with n_model 1, "
-                         "or on gloo ranks (--device cpu)")
     mesh = None
     if distributed.is_initialized() or tensor_parallel:
         mesh = meshlib.make_mesh(n_model=n_model, device=dev)
     local_batch = batch_size if mesh is None else mesh.local_batch(batch_size)
+    micro = microbatches(local_batch)
     primary = distributed.is_primary()
     say = print if primary else (lambda *a, **k: None)
     say(f"SignalTrain (PyTorch) training began at {time.ctime()}. Options:")
@@ -534,6 +571,11 @@ def train(
         val_ds = file_data.FileDataset(datapath + "/Val/", effect, chunk, out_chunk,
                                        augment=False, **kw)
         batch_fn, val_batch_fn = train_ds.batch_fn, val_ds.batch_fn
+    if host_data:  # the host tier's step is never sliced, as JAX's host-fed step
+        micro = 1
+    if micro > 1:
+        say(f"ST_TPU_MICROBATCH: the forward and backward run in {micro} slices of "
+            f"{local_batch // micro} rows a step")
     # graphs on the card, but not around a model group's collectives (gloo's, above)
     use_graphs = dev.type == "cuda" and not tensor_parallel
     if use_graphs:
@@ -560,12 +602,12 @@ def train(
             validate = lambda: host_validation(model, val_batches(), mesh=mesh)
     elif use_graphs:
         run_steps = graphs.TrainGraph(model, opt, lr_fn, batch_fn, batch_size, generator, seed,
-                                      n_inner, mesh=mesh)
+                                      n_inner, mesh=mesh, micro=micro)
         validate = graphs.EvalGraph(model, val_batch_fn, batch_size, generator, val_steps,
                                     mesh=mesh)
     else:
         run_steps = functools.partial(eager_steps, model, opt, lr_fn, batch_fn, batch_size,
-                                      generator, seed, mesh=mesh)
+                                      generator, seed, mesh=mesh, micro=micro)
         validate = functools.partial(eager_validation, model, val_batch_fn, batch_size,
                                      generator, val_steps, mesh=mesh)
 

@@ -633,6 +633,32 @@ def test_train_graph_is_bit_equal_to_eager_steps(dev, frontend, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_microbatched_train_graph_is_bit_equal_to_eager_steps(dev, dtype):
+    """ST_TPU_MICROBATCH's slices inside the one captured step: 10 steps of
+    the train graph at micro=4 (four slices of 2 rows) against 10 eager
+    steps at micro=4, every loss and parameter bit-equal; the front-end
+    kernels launch four times a replay, C once (the whole batch's data)."""
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (gm, em), ((gopt, lr_fn), (eopt, _)), batch_fn, _ = _graph_setup(
+        dev, "fused", getattr(torch, dtype))
+    graph = graphs.TrainGraph(gm, gopt, lr_fn, batch_fn, GRAPH_BATCH,
+                              torch.Generator(device=dev), 218, capacity=10, micro=4)
+    got = graph(0, 1)
+    got = torch.cat([got, graph(1, 9)])
+    want = train_mod.eager_steps(em, eopt, lr_fn, batch_fn, GRAPH_BATCH,
+                                 torch.Generator(device=dev), 218, 0, 10, micro=4)
+    assert torch.equal(got, want), (got, want)
+    for (name, p), q in zip(gm.named_parameters(), em.parameters()):
+        assert torch.equal(p, q), name
+    prefix = "bf16_" if dtype == "bfloat16" else ""
+    assert graph.graph.counts.get("switched_one_pole") == 1
+    for name in ("fused_analysis", "fused_synthesis", "fused_analysis_bwd", "fused_synthesis_bwd"):
+        assert graph.graph.counts.get(prefix + name) == 4, (name, graph.graph.counts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_eval_graph_equals_eager_validation(dev, dtype):
     from signaltrain_tpu_torch.training import graphs
     from signaltrain_tpu_torch.training import train as train_mod

@@ -30,6 +30,10 @@ module fixture. World 1 runs in this process, in a gloo group of one.
   world 4: its next steps against the oracle at the new world.
 * (h) at world 2 only rank 0 writes, and every rank returns one history.
 * (i) ``host_batch(rows=)`` over the ranks' rows is the global batch.
+* (k) ``ST_TPU_MICROBATCH``: 3 steps of the 2 ranks with each rank's rows in
+  2 slices, at 2 x 1 and at 1 x 2 (the front-end split over both ranks),
+  against ``oracle_steps(..., micro=2)`` with the (a) limits (at 1 x 2 over
+  the weights and Adam's moments, ``oracle.state_excess``).
 * (j) a mesh must tile the world: ``make_mesh``, ``RunConfig`` and
   ``run_train --nmodel`` refuse a world that is not ``n_data x n_model``
   (tensor parallelism itself: tests/test_torch_port_tensor_parallel.py).
@@ -183,6 +187,25 @@ def test_an_oracle_that_sums_the_shards_fails_the_check(spawned):
     with pytest.raises(AssertionError):
         assert_params_close(spawned["two"][0]["dp"]["params"], ranks.params_of(model))
     assert oracle.excess(spawned["two"][0]["dp"]["params"], ranks.params_of(model)) > 1.0
+
+
+@pytest.mark.parametrize("mesh_shape", ["2x1", "1x2"])
+def test_microbatched_steps_match_the_microbatched_oracle(mesh_shape, spawned):
+    n_data = 2 if mesh_shape == "2x1" else 1
+    model, opt, lr_fn, batch_fn = ranks.dp_setup()
+    if mesh_shape == "1x2":  # the ranks' front-end
+        model.mpaec.frontend = "gemm"
+    losses = oracle.oracle_steps(model, opt, lr_fn, batch_fn, ranks.BATCH, n_data,
+                                 torch.Generator(), ranks.DP_SEED, 0, ranks.DP_STEPS,
+                                 micro=ranks.MICRO)
+    for r in spawned["two"]:
+        got = r["micro"][mesh_shape]
+        np.testing.assert_allclose(got["losses"], n(losses), rtol=1e-5)
+        if mesh_shape == "2x1":
+            assert_params_close(got["params"], ranks.params_of(model))
+        else:
+            assert oracle.state_excess(got["state"],
+                                       checkpoint.training_tensors(model, opt)) <= 1.0
 
 
 def test_world_one_is_bit_equal_to_the_single_process_path(tmp_path):

@@ -25,6 +25,7 @@ TINY = dict(scale_factor=512 / 8192.0, shrink_factor=4.0, num_knobs=4, sr=44100,
 BATCH = 16
 DP_SEED = 3
 DP_STEPS = 3
+MICRO = 2  # ST_TPU_MICROBATCH's slices in the microbatched steps
 OPT = dict(lr_max=1e-4, n_data_points=256, epochs=2, batch_size=BATCH)
 # the arrays step: tests/test_torch_port_train.py's five steps
 ARRAYS_OPT = dict(lr_max=2e-4, n_data_points=40, epochs=1, batch_size=8)
@@ -56,11 +57,12 @@ def params_of(model) -> dict:
     return {k: v.detach().clone() for k, v in model.named_parameters()}
 
 
-def dp_steps(mesh) -> dict:
-    """DP_STEPS eager data-parallel steps at global batch BATCH."""
+def dp_steps(mesh, micro: int = 1) -> dict:
+    """DP_STEPS eager data-parallel steps at global batch BATCH, each
+    rank's rows in ``micro`` slices."""
     model, opt, lr_fn, batch_fn = dp_setup()
     losses = train_mod.eager_steps(model, opt, lr_fn, batch_fn, BATCH, torch.Generator(),
-                                   DP_SEED, 0, DP_STEPS, mesh=mesh)
+                                   DP_SEED, 0, DP_STEPS, mesh=mesh, micro=micro)
     return {"losses": losses, "params": params_of(model)}
 
 
@@ -92,11 +94,18 @@ def train_world(mesh, workdir: str, in_checkpointname: str = "modelcheckpoint.ta
 
 
 def two_ranks(mesh, state_dict, signal, knobs, workdir, done: str) -> dict:
-    """Rank 0 touches ``done`` once train()'s checkpoint is written."""
+    """Rank 0 touches ``done`` once train()'s checkpoint is written; then
+    the microbatched steps at 2 x 1 and, on a mesh of the same world that
+    splits the front-end, at 1 x 2."""
+    from signaltrain_tpu_torch.parallel import mesh as meshlib
+    from tests import torch_port_tp_ranks as tp_ranks
+
     out = {"dp": dp_steps(mesh), "predict": predict(mesh, state_dict, signal, knobs),
            "train": train_world(mesh, workdir)}
     if mesh.rank == 0:
         open(done, "w").close()
+    out["micro"] = {"2x1": dp_steps(mesh, MICRO),
+                    "1x2": tp_ranks.tp_steps(meshlib.make_mesh(n_model=2, device="cpu"), MICRO)}
     return out
 
 

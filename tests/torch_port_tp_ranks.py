@@ -60,9 +60,10 @@ def forward(mesh, state_dict, x, knobs) -> dict:
     return {"whole": whole_batch, "rows": own}
 
 
-def tp_steps(mesh) -> dict:
+def tp_steps(mesh, micro: int = 1) -> dict:
     """STEPS eager dp x tp steps at global batch dp.BATCH from the seeded
-    weights, as ``tests/torch_port_parallel_ranks.dp_steps`` takes them."""
+    weights, as ``tests/torch_port_parallel_ranks.dp_steps`` takes them,
+    each data index's rows in ``micro`` slices."""
     from signaltrain_tpu_torch.data import synth_data
     from signaltrain_tpu_torch.dsp import effects
 
@@ -71,7 +72,7 @@ def tp_steps(mesh) -> dict:
     batch_fn = synth_data.make_synth_batch_fn(effects.make_effect("comp_4c", device="cpu"),
                                               dp.TINY["in_chunk_size"], dp.TINY["out_chunk_size"])
     losses = train_mod.eager_steps(model, opt, lr_fn, batch_fn, dp.BATCH, torch.Generator(),
-                                   dp.DP_SEED, 0, STEPS, mesh=mesh)
+                                   dp.DP_SEED, 0, STEPS, mesh=mesh, micro=micro)
     params = dict(model.named_parameters())
     rows = {k: (params[k].shape[0], params[k].grad.shape[0], opt.state[params[k]]["exp_avg"].shape[0],
                 opt.state[params[k]]["exp_avg_sq"].shape[0]) for k in train_mod.FRONTEND_PARAMS}
