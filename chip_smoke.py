@@ -35,9 +35,17 @@ Phases (any failure raises and exits non-zero):
      float32 kernel more than 20x further off (the operands were rounded); B
      and E element by element (3e-4 and 5e-4 + 5e-4|g|); D, which rounds its
      own dspec before its products, against the float64 plain version of the
-     same bf16-rounded computation with unit-normal and well-conditioned
-     phase cotangents (within 2 x the plain f32 version's error + 1e-3 *
-     max|g|), E also so; B, D and E twice, bit-equal. Each check's control:
+     same bf16-rounded computation with unit-normal (at the training and the
+     serving batch) and well-conditioned phase cotangents (within 2 x the
+     plain f32 version's error + 1e-3 * max|g|, each element's error less
+     the slack a flip of dspec's bf16 rounding gives it,
+     cuda_frontend.fused_analysis_bwd_flip_slack), E also so; B, D and E
+     twice, bit-equal. D and E on both of their bf16 schedules (wgmma, which
+     the rule picks at these shapes, and mma.sync). The slack's own measure:
+     the spectrum D forms again, read through E's product
+     (cli/time_frontend.spectrum_error), within FLIP_SIGMA (root mean
+     square) and FLIP_K * FLIP_SIGMA (largest) times max|spectrum| of
+     float64 on both schedules at both batches. Each check's control:
      the float32 kernel on the same inputs must land more than GAP_B, GAP_D,
      GAP_E times over its limit;
   2c. kernel L (csrc/iir.cu, lfilter) against its plain version within
@@ -126,7 +134,10 @@ Phases (any failure raises and exits non-zero):
      every cuDNN call, in either dtype, the cuBLAS products that the gemm
      front-end runs for the same linear part at the same shapes
      (cli/time_frontend.cublas_*: A's frames times the stacked matrix, B's
-     frame product, D's and E's two backward products); L on
+     frame product, D's and E's two backward products); bf16 D (with and
+     without dxp) and E on both schedules in turns (wgmma, mma.sync,
+     mma.sync, wgmma), each also as one CUDA-graph replay (the card's time
+     with no host work between the passes); L on
      its three cases beside its bound (8 B a sample at 3.35 TB/s) and its
      chain floor (cli/time_lfilter.chain_cycles: order 1 is fma -> mul ->
      fma, 12 cycles a step; order 3 about 9.3; at the SM clock).
@@ -414,24 +425,39 @@ def phase_classes(phs: torch.Tensor, rphs: torch.Tensor, rmag: torch.Tensor) -> 
 
 
 def as_accurate(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor,
-                floor: float) -> tuple[float, float]:
+                floor: float, slack: torch.Tensor | None = None) -> tuple[float, float]:
     """Largest errors of a kernel's and of its plain version's result against
     a float64 one; raises unless the kernel's is within twice the plain
     version's plus floor. The statement 'as accurate as f32' for quantities
-    too ill-conditioned to compare two f32 results with each other."""
-    err = float((got.double() - exact).abs().max())
+    too ill-conditioned to compare two f32 results with each other.
+    ``slack``: a per-element allowance taken off each element's error first
+    (the returned error is then the largest of those)."""
+    diff = (got.double() - exact).abs()
+    err = float((diff if slack is None else diff - slack).max())
     plain_err = float((plain.double() - exact).abs().max())
     check(err <= 2 * plain_err + floor,
           f"kernel {name}: error {err:.3e} against float64, the plain version's is {plain_err:.3e}")
     return err, plain_err
 
 
-def f64_rule(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor) -> tuple:
+def f64_rule(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor,
+             slack: torch.Tensor | None = None) -> tuple:
     """A bf16 mode's result that rounds one of its own results (D's dspec) or
     a gradient: the kernel's largest error against the float64 plain version
     of the same bf16-rounded computation within twice the plain f32
-    version's plus 1e-3 * max|exact|. Returns both errors."""
-    return as_accurate(name, got, plain, exact, 1e-3 * float(exact.abs().max()))
+    version's plus 1e-3 * max|exact|, each element's error taken less its
+    ``slack`` first (bf16 D: the moves a flip of dspec's bf16 rounding can
+    make, cuda_frontend.fused_analysis_bwd_flip_slack). Returns both errors."""
+    return as_accurate(name, got, plain, exact, 1e-3 * float(exact.abs().max()), slack)
+
+
+def f64_rule_ratio(got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor,
+                   slack: torch.Tensor | None = None) -> float:
+    """How many times over f64_rule's limit ``got`` lands (a control)."""
+    diff = (got.double() - exact).abs()
+    err = float((diff if slack is None else diff - slack).max())
+    plain_err = float((plain.double() - exact).abs().max())
+    return err / (2 * plain_err + 1e-3 * float(exact.abs().max()))
 
 
 def rounding_shows(name: str, ratio: float, factor: float) -> float:
@@ -513,79 +539,135 @@ def check_bf16_kernels(cf, dev, w_an, w_syn, ft, hop, chunk, out_frames, n_windo
         tolerance=f"3e-4 + 3e-4*|wave| against the plain bf16 version, the float32 kernel > {GAP_B:g}x "
                   "it; two runs bit-equal")
 
-    # D: unit-normal and well-conditioned phase cotangents, both against float64
+    # D: unit-normal and well-conditioned phase cotangents, both against
+    # float64, on both schedules (cuda_frontend.SCHEDULES: wgmma, the rule's
+    # pick at this shape, and mma.sync); the unit-normal ones also at the
+    # serving batch. Each element's error is taken less the slack a flip of
+    # dspec's one bf16 rounding gives it (fused_analysis_bwd_flip_slack)
     tb, lp = TRAIN_BATCH, chunk + 2 * ft
     frames = (lp - ft) // hop + 1
-    sg = torch.Generator(device=dev).manual_seed(500)
-    txp = torch.nn.functional.pad(torch.randn(tb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
-    tdmag = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
-    tdphs = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
-    kmag = cf.fused_analysis_reference(txp, w_an, ft, hop)[0]
-    d_err, d_gap = {}, {}
-    for cot, dphs in (("unit-normal", tdphs), ("well-conditioned", tdphs * (kmag >= 0.25 * kmag.median()))):
+    check(cf.schedule_for(None, BF16, ft, hop, lp) == "wgmma", "bf16 D: the rule does not pick wgmma")
+    d_err = {sched: {} for sched in cf.SCHEDULES}
+    d_gap, d_cases = {}, []
+    for nb in (tb, n_windows):
+        sg = torch.Generator(device=dev).manual_seed(500 if nb == tb else 510)
+        txp = torch.nn.functional.pad(torch.randn(nb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
+        tdmag = torch.randn(frames, nb, half, generator=sg, device=dev) * (64.0 / ft)
+        tdphs = torch.randn(frames, nb, half, generator=sg, device=dev) * (64.0 / ft)
+        d_cases.append((nb, "unit-normal", txp, tdmag, tdphs))
+        if nb == tb:
+            kmag = cf.fused_analysis_reference(txp, w_an, ft, hop)[0]
+            d_cases.append((nb, "well-conditioned", txp, tdmag, tdphs * (kmag >= 0.25 * kmag.median())))
+            ins["D"] = (txp, tdmag, tdphs)
+            d_sg = sg
+    for nb, cot, txp, tdmag, dphs in d_cases:
         args = (txp, w_an, tdmag, dphs, ft, hop)
-        dxp, dw = cf.fused_analysis_bwd(*args, compute_dtype=BF16)
-        dxp2, dw2 = cf.fused_analysis_bwd(*args, compute_dtype=BF16)
         rdxp, rdw = cf.fused_analysis_bwd_reference(*args, compute_dtype=BF16)
         xdxp, xdw = cf.fused_analysis_bwd_reference(*(a.double() for a in args[:4]), ft, hop, BF16)
+        sdxp, sdw = cf.fused_analysis_bwd_flip_slack(*args)
         fdxp, fdw = cf.fused_analysis_bwd(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2), "kernel D bf16: runs not bit-equal")
         sl = slice(ft, -ft) if cot == "unit-normal" else slice(None)
-        ex, ex_plain = f64_rule(f"D bf16 ({cot} dx)", dxp[:, sl], rdxp[:, sl], xdxp[:, sl])
-        ew, ew_plain = f64_rule(f"D bf16 ({cot} dW)", dw, rdw, xdw)
         # the float32 kernel against the same limits: how far over them it lands
-        gaps = [float((f - x).abs().max()) / (2 * e_plain + 1e-3 * float(x.abs().max()))
-                for f, x, e_plain in ((fdxp[:, sl], xdxp[:, sl], ex_plain), (fdw, xdw, ew_plain))]
-        print(f"D bf16 xp {tuple(txp.shape)}, {cot} phase cotangents, against float64: dx kernel "
-              f"{ex:.3e} plain {ex_plain:.3e} (max {float(xdxp[:, sl].abs().max()):.3e}); dW kernel "
-              f"{ew:.3e} plain {ew_plain:.3e} (max {float(xdw.abs().max()):.3e}); limit 2 x plain + "
-              f"1e-3 max; two runs bit-equal; the float32 kernel {gaps[0]:.2f}x (dx), "
-              f"{gaps[1]:.2f}x (dW) the limit")
-        d_err[cot] = (ew, ex)
-        d_gap[cot] = max(gaps)
-        del xdxp, xdw, fdxp, fdw
-    for cot, gap in d_gap.items():
-        rounding_shows(f"D bf16 ({cot})", gap, GAP_D)
+        gap = max(f64_rule_ratio(fdxp[:, sl], rdxp[:, sl], xdxp[:, sl], sdxp[:, sl]),
+                  f64_rule_ratio(fdw, rdw, xdw, sdw))
+        d_gap[nb, cot] = gap
+        del fdxp, fdw
+        for sched in cf.SCHEDULES:
+            dxp, dw = cf.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=sched)
+            dxp2, dw2 = cf.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=sched)
+            torch.cuda.synchronize()
+            check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2),
+                  f"kernel D bf16 ({sched}): runs not bit-equal")
+            ex, ex_plain = f64_rule(f"D bf16 {sched} ({cot} dx, batch {nb})", dxp[:, sl], rdxp[:, sl],
+                                    xdxp[:, sl], sdxp[:, sl])
+            ew, ew_plain = f64_rule(f"D bf16 {sched} ({cot} dW, batch {nb})", dw, rdw, xdw, sdw)
+            raw_w = float((dw.double() - xdw).abs().max())
+            raw_x = float((dxp[:, sl].double() - xdxp[:, sl]).abs().max())
+            print(f"D bf16 {sched} xp {tuple(txp.shape)}, {cot} phase cotangents, against float64 "
+                  f"less the flip slack: dx kernel {ex:.3e} plain {ex_plain:.3e} (max "
+                  f"{float(xdxp[:, sl].abs().max()):.3e}); dW kernel {ew:.3e} (without the slack "
+                  f"{raw_w:.3e}) plain {ew_plain:.3e} (max {float(xdw.abs().max()):.3e}); limit 2 x "
+                  f"plain + 1e-3 max; two runs bit-equal; the float32 kernel {gap:.2f}x the limit")
+            d_err[sched][nb, cot] = (ew, ex, raw_w, raw_x)
+        del xdxp, xdw, sdxp, sdw
+    for (nb, cot), gap in d_gap.items():
+        rounding_shows(f"D bf16 ({cot}, batch {nb})", gap, GAP_D)
+    # the slack's own measure on the card: how far the spectrum D forms again
+    # lies from float64 on each schedule, read through E's product
+    # (time_frontend.spectrum_error), within its sigma (root mean square) and
+    # k * sigma (largest), each a share of max|spectrum|
+    from signaltrain_tpu_torch.cli import time_frontend
+
+    spec_err = {}
+    for nb, cot, txp, *_ in d_cases:
+        for sched in cf.SCHEDULES if cot == "unit-normal" else ():
+            e = spec_err[sched, nb] = time_frontend.spectrum_error(txp[:, ft:-ft], w_an, ft, hop,
+                                                                   sched)
+            print(f"D bf16 {sched}, batch {nb}: the spectrum it forms again against float64 "
+                  f"(through E): " + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+            sigma = cf.FLIP_SIGMA * e["spec_max"]
+            check(e["rms"] <= sigma and e["max"] <= cf.FLIP_K * sigma,
+                  f"D bf16 {sched}, batch {nb}: the spectrum's error (rms {e['rms']:.3e}, max "
+                  f"{e['max']:.3e}) exceeds the flip slack's sigma {sigma:.3e} or "
+                  f"{cf.FLIP_K:g} sigma")
+
+    def d_summary(errs):
+        """dW's and dx's largest error against float64 (unit-normal cotangents,
+        the training batch), the same less each element's flip slack (what the
+        rule holds), the well-conditioned case's and the serving batch's."""
+        return dict(max_abs_err=errs[tb, "unit-normal"][2], max_dx_err=errs[tb, "unit-normal"][3],
+                    max_err_less_slack=errs[tb, "unit-normal"][0],
+                    max_dx_err_less_slack=errs[tb, "unit-normal"][1],
+                    max_regular_err=max(errs[tb, "well-conditioned"][2:]),
+                    max_abs_err_at_serving_batch=errs[n_windows, "unit-normal"][2])
+
     res["bf16_fused_analysis_bwd"] = dict(
-        max_abs_err=d_err["unit-normal"][0], max_dx_err=d_err["unit-normal"][1],
-        max_regular_err=max(d_err["well-conditioned"]), f32_kernel_gap=min(d_gap.values()),
+        **d_summary(d_err["wgmma"]), f32_kernel_gap=min(d_gap.values()), schedule="wgmma",
+        mma_sync=d_summary(d_err["mma"]),
+        spectrum_err={f"{sched}_{nb}": e for (sched, nb), e in spec_err.items()},
         tolerance="against the float64 plain version of the same bf16-rounded computation, with "
-                  "unit-normal and with well-conditioned phase cotangents: within 2 x the plain "
-                  "f32 version's error + 1e-3*max|g| (dx on the unpadded signal under unit-normal "
-                  f"ones), the float32 kernel > {GAP_D:g}x that limit in both; two runs bit-equal")
-    ins["D"] = (txp, tdmag, tdphs)
+                  "unit-normal (batches 200 and 643) and with well-conditioned phase cotangents, "
+                  "each element's error less the slack of a flip of dspec's bf16 rounding "
+                  "(cuda_frontend.fused_analysis_bwd_flip_slack): within 2 x the plain f32 "
+                  "version's error + 1e-3*max|g| (dx on the unpadded signal under unit-normal "
+                  f"ones), the float32 kernel > {GAP_D:g}x that limit in every case; both "
+                  "schedules; two runs bit-equal")
 
     tmag, tphs = ins["syn", TRAIN_BATCH]
-    tdout = torch.randn(tb, out_len, generator=sg, device=dev)
+    tdout = torch.randn(tb, out_len, generator=d_sg, device=dev)
     args = (tmag, tphs, w_syn, tdout, ft, hop)
-    got = cf.fused_synthesis_bwd(*args, compute_dtype=BF16)
-    again = cf.fused_synthesis_bwd(*args, compute_dtype=BF16)
+    check(cf.schedule_for(None, BF16, ft, hop, out_len + 2 * ft) == "wgmma",
+          "bf16 E: the rule does not pick wgmma")
     want = cf.fused_synthesis_bwd_reference(*args, compute_dtype=BF16)
     exact = cf.fused_synthesis_bwd_reference(*(a.double() for a in args[:4]), ft, hop, BF16)
     f32_got = cf.fused_synthesis_bwd(*args)
-    torch.cuda.synchronize()
-    e_err = e_f64 = 0.0
-    e_gap = float("inf")
-    for name, g1, g2, r, x, f in zip(("dmag", "dphs", "dW"), got, again, want, exact, f32_got):
-        check(torch.equal(g1, g2), f"kernel E bf16: two runs differ in {name}")
-        err, excess = elementwise_excess(g1, r, 5e-4)
-        check(excess <= 0, disagreement(f"E bf16 ({name})", g1, r))
-        f64, f64_plain = f64_rule(f"E bf16 ({name})", g1, r, x)
-        gap = excess_ratio(f, r, 5e-4)
-        print(f"E bf16 {name}: max error {err:.3e} (tolerance 5e-4+5e-4|g|); against float64: "
-              f"kernel {f64:.3e}, plain {f64_plain:.3e} (max {float(x.abs().max()):.3e}); the float32 "
-              f"kernel is {gap:.2f}x the tolerance off the plain bf16 version")
-        e_err, e_f64 = max(e_err, err), max(e_f64, f64)
-        e_gap = min(e_gap, rounding_shows(f"E bf16 ({name})", gap, GAP_E))
-    for g1 in got[:2]:
-        check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
-              "kernel E bf16: an edge frame's gradient is not exactly 0")
+    e_res = {}
+    for sched in cf.SCHEDULES:
+        got = cf.fused_synthesis_bwd(*args, compute_dtype=BF16, schedule=sched)
+        again = cf.fused_synthesis_bwd(*args, compute_dtype=BF16, schedule=sched)
+        torch.cuda.synchronize()
+        e_err = e_f64 = 0.0
+        e_gap = float("inf")
+        for name, g1, g2, r, x, f in zip(("dmag", "dphs", "dW"), got, again, want, exact, f32_got):
+            check(torch.equal(g1, g2), f"kernel E bf16 ({sched}): two runs differ in {name}")
+            err, excess = elementwise_excess(g1, r, 5e-4)
+            check(excess <= 0, disagreement(f"E bf16 {sched} ({name})", g1, r))
+            f64, f64_plain = f64_rule(f"E bf16 {sched} ({name})", g1, r, x)
+            gap = excess_ratio(f, r, 5e-4)
+            print(f"E bf16 {sched} {name}: max error {err:.3e} (tolerance 5e-4+5e-4|g|); against "
+                  f"float64: kernel {f64:.3e}, plain {f64_plain:.3e} (max {float(x.abs().max()):.3e}); "
+                  f"the float32 kernel is {gap:.2f}x the tolerance off the plain bf16 version")
+            e_err, e_f64 = max(e_err, err), max(e_f64, f64)
+            e_gap = min(e_gap, rounding_shows(f"E bf16 ({name})", gap, GAP_E))
+        for g1 in got[:2]:
+            check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
+                  f"kernel E bf16 ({sched}): an edge frame's gradient is not exactly 0")
+        e_res[sched] = dict(max_abs_err=e_err, max_err_vs_float64=e_f64, f32_kernel_gap=e_gap)
     res["bf16_fused_synthesis_bwd"] = dict(
-        max_abs_err=e_err, max_err_vs_float64=e_f64, f32_kernel_gap=e_gap,
+        **e_res["wgmma"], schedule="wgmma", mma_sync=e_res["mma"],
         tolerance="5e-4 + 5e-4*|g| against the plain bf16 version (the float32 kernel > "
                   f"{GAP_E:g}x it), and against float64 within 2 x the plain version's error + "
-                  "1e-3*max|g|; two runs bit-equal; edge frames 0")
+                  "1e-3*max|g|; both schedules; two runs bit-equal; edge frames 0")
     ins["E"] = tdout
     return res, ins
 
@@ -765,6 +847,8 @@ def train_every_effect(dev, results: dict, chunk: int, out_chunk: int, sr: int) 
             check(counts[k][0] > 0, f"training {name}: kernel {k} never launched")
         for k in bf16_names:
             check(counts[k[5:]][0] == 0, f"training {name}: the float32 kernel {k[5:]} launched")
+        for k in ("bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"):
+            check(counts[k][0] == 0, f"training {name}: D or E took the mma.sync schedule ({k})")
         check((counts["switched_one_pole"][0] > 0) == uses_c,
               f"training {name}: kernel C launched {counts['switched_one_pole'][0]} times")
         check((counts["lfilter"][0] > 0) == uses_l,
@@ -1060,6 +1144,8 @@ def train_and_replay(dev, tag: str, effect, datapath: str, epochs: int, limit: i
     for k in BF16_NAMES:
         check(counts[k][0] > 0, f"file training {tag}: kernel {k} never launched")
         check(counts[k[5:]][0] == 0, f"file training {tag}: the float32 kernel {k[5:]} launched")
+    for k in ("bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"):
+        check(counts[k][0] == 0, f"file training {tag}: D or E took the mma.sync schedule ({k})")
     no_plain(counts, f"file training {tag}")
     check(len(hist["train_loss"]) == epochs * FILE_STEPS
           and bool(np.all(np.isfinite(hist["train_loss"]))), f"file training {tag}: the losses")
@@ -1293,10 +1379,11 @@ SURFACE_STEPS = SURFACE_POINTS // TRAIN_BATCH
 SURFACE_LOOPS = {"default": {}, "ragged": dict(status_every=7), "plots": dict(plot_every=1),
                  "checkpoints": dict(cp_every=1)}
 # the kernels of the front-end's libraries (csrc/frontend.cu, frontend_bwd.cu,
-# tc_product.cuh), by base name: a train step launches them in four runs, A, B, E, D
+# tc_product.cuh, wgmma_product.cuh), by base name: a train step launches them
+# in four runs, A, B, E, D
 FRONTEND_KERNELS = {"product", "spectrum_rows", "overlap_add", "halve_to_bf16", "pack_weights",
-                    "pack_transposed", "pad_dout", "synthesis_adjoint", "sum_analysis_partials",
-                    "sum_synthesis_partials"}
+                    "pack_transposed", "pad_dout", "pad_dout_zero_edges", "synthesis_adjoint",
+                    "sum_analysis_partials", "sum_synthesis_partials"}
 # a name each of A-E launches and nothing else does (the template argument of
 # A's and D's and E's products, B's first pass, C's row schedule)
 KERNEL_MARKS = {"A": "AnalysisFwd", "B": "spectrum_rows", "C": "smoother_kernel",
@@ -3093,9 +3180,15 @@ def main() -> None:
                   "weights": {k: v.clone() for k, v in trained.state_dict().items()}}
         return served, hist, mean_maes, t_path, phase4
 
-    served, hist, mean_maes, t_path, _ = training_path(torch.float32, f32_names, bf16_names)
+    # bf16 D and E at this shape take the wgmma schedule: their mma.sync
+    # schedule's counters must stay 0 on both paths
+    mma_names = ["bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"]
+    served, hist, mean_maes, t_path, _ = training_path(torch.float32, f32_names,
+                                                       bf16_names + mma_names)
     served_b, hist_b, mean_maes_b, t_path_b, phase4_b = training_path(BF16, bf16_names,
-                                                                       f32_names)
+                                                                       f32_names + mma_names)
+    for name in mma_names:
+        results[name.removesuffix("_mma")]["launches_mma_sync_training_bfloat16"] = 0
 
     # ---- 4b. every effect trained; 4c. the Denoise checkpoint served
     effects_report = train_every_effect(dev, results, chunk, out_chunk, sr)
@@ -3403,12 +3496,41 @@ def main() -> None:
         r["serve_bound_ms"] = bound(b_flops, b_bytes, PEAK_BF16_FLOPS)[0]
         r["serve_shape"] = f"mag {tuple(smag_b.shape)}"
 
+        # bf16 D and E on both schedules, in turns (wgmma, mma, mma, wgmma):
+        # the mean of each way, and its least and most
         r = results["bf16_fused_analysis_bwd"]
         dxp_in, ddmag, ddphs = bf16_ins["D"]
-        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd(
-            dxp_in, w_an, ddmag, ddphs, ft, hop, compute_dtype=BF16), reps=10)
-        r["ms_without_dxp"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd(
-            dxp_in, w_an, ddmag, ddphs, ft, hop, need_dxp=False, compute_dtype=BF16), reps=10)
+        edout = bf16_ins["E"]
+        ways = {
+            "ms": lambda sched: cuda_frontend.fused_analysis_bwd(
+                dxp_in, w_an, ddmag, ddphs, ft, hop, compute_dtype=BF16, schedule=sched),
+            "ms_without_dxp": lambda sched: cuda_frontend.fused_analysis_bwd(
+                dxp_in, w_an, ddmag, ddphs, ft, hop, need_dxp=False, compute_dtype=BF16,
+                schedule=sched),
+            "e_ms": lambda sched: cuda_frontend.fused_synthesis_bwd(
+                bmag, bphs, w_syn, edout, ft, hop, compute_dtype=BF16, schedule=sched)}
+        turns = {(way, sched): [] for way in ways for sched in cuda_frontend.SCHEDULES}
+        for sched in ("wgmma", "mma", "mma", "wgmma"):
+            for way, fn in ways.items():
+                turns[way, sched].append(cuda_ms(lambda: fn(sched), reps=10))
+        sched_ms = {k: sum(v) / len(v) for k, v in turns.items()}
+        # one CUDA-graph replay of a call: the card's time with no host work
+        # between the passes, as the train graphs run them
+        graph = {(way, sched): time_frontend.graph_ms(lambda: fn(sched))
+                 for way, fn in ways.items() for sched in cuda_frontend.SCHEDULES}
+        r["ms"], r["ms_without_dxp"] = sched_ms["ms", "wgmma"], sched_ms["ms_without_dxp", "wgmma"]
+        r["ms_min_max"] = [min(turns["ms", "wgmma"]), max(turns["ms", "wgmma"])]
+        r["ms_without_dxp_min_max"] = [min(turns["ms_without_dxp", "wgmma"]),
+                                       max(turns["ms_without_dxp", "wgmma"])]
+        r["graph_ms"], r["graph_ms_without_dxp"] = graph["ms", "wgmma"], graph["ms_without_dxp", "wgmma"]
+        r["mma_sync"].update(
+            graph_ms=graph["ms", "mma"], graph_ms_without_dxp=graph["ms_without_dxp", "mma"],
+            ms=sched_ms["ms", "mma"], ms_without_dxp=sched_ms["ms_without_dxp", "mma"],
+            ms_min_max=[min(turns["ms", "mma"]), max(turns["ms", "mma"])],
+            ms_without_dxp_min_max=[min(turns["ms_without_dxp", "mma"]),
+                                    max(turns["ms_without_dxp", "mma"])],
+            tflops=d_flops / sched_ms["ms", "mma"] / 1e9,
+            tflops_without_dxp=d_flops * 2 / 3 / sched_ms["ms_without_dxp", "mma"] / 1e9)
         r["plain_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis_bwd_reference(
             dxp_in, w_an, ddmag, ddphs, ft, hop, BF16), reps=5)
         x_in16, dspec16 = x_in.to(BF16), dspec_bct.to(BF16)
@@ -3419,14 +3541,20 @@ def main() -> None:
         r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(
             dxp_in.unfold(1, ft, hop).reshape(-1, ft), w_an, d_spec, BF16), reps=5)
         r.update(zip(("bound_ms", "bound_by"), bound(d_flops, d_bytes, PEAK_BF16_FLOPS)))
+        # without dxp: two products, and no dxp written
+        r["bound_ms_without_dxp"] = bound(d_flops * 2 / 3, d_bytes - 4.0 * tb * tlp,
+                                          PEAK_BF16_FLOPS)[0]
         r["tflops"] = d_flops / r["ms"] / 1e9
         r["tflops_without_dxp"] = d_flops * 2 / 3 / r["ms_without_dxp"] / 1e9
         r["shape"] = f"xp {tuple(dxp_in.shape)}, w {tuple(w_an.shape)}, dmag/dphs {tuple(ddmag.shape)}"
 
         r = results["bf16_fused_synthesis_bwd"]
-        edout = bf16_ins["E"]
-        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis_bwd(
-            bmag, bphs, w_syn, edout, ft, hop, compute_dtype=BF16), reps=10)
+        r["ms"] = sched_ms["e_ms", "wgmma"]
+        r["ms_min_max"] = [min(turns["e_ms", "wgmma"]), max(turns["e_ms", "wgmma"])]
+        r["graph_ms"] = graph["e_ms", "wgmma"]
+        r["mma_sync"].update(ms=sched_ms["e_ms", "mma"], graph_ms=graph["e_ms", "mma"],
+                             ms_min_max=[min(turns["e_ms", "mma"]), max(turns["e_ms", "mma"])],
+                             tflops=e_flops / sched_ms["e_ms", "mma"] / 1e9)
         r["plain_ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis_bwd_reference(
             bmag, bphs, w_syn, edout, ft, hop, BF16), reps=5)
         dacc16 = torch.nn.functional.pad(edout, (ft, ft))[:, None, :].to(BF16)
@@ -3597,7 +3725,10 @@ def main() -> None:
                 "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
                 "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools",
                 "launches_parallel", "launches_microbatch", "cublas_ms", "train_cublas_ms",
-                "serve_cublas_ms")
+                "serve_cublas_ms", "schedule", "mma_sync", "ms_min_max", "ms_without_dxp_min_max",
+                "bound_ms_without_dxp", "max_err_less_slack", "max_dx_err_less_slack", "graph_ms",
+                "graph_ms_without_dxp",
+                "max_abs_err_at_serving_batch", "launches_mma_sync_training_bfloat16")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -3628,6 +3759,16 @@ def main() -> None:
                      f"ms; row schedule {r['rows_ms']:.4f} ms; randn input {r['randn_ms']:.4f} ms "
                      f"(row schedule {r['randn_rows_ms']:.4f}); never meeting {r['worst_ms']:.4f} "
                      f"ms (row schedule {r['worst_rows_ms']:.4f}); {r['rerun_steps']} steps re-run")
+        if "mma_sync" in r:
+            m = r["mma_sync"]
+            extra += (f"; schedule {r['schedule']}, one graph replay {r['graph_ms']:.4f} ms" + (
+                f"; without dxp {r['ms_without_dxp']:.4f} ms, replay "
+                f"{r['graph_ms_without_dxp']:.4f} (bound {r['bound_ms_without_dxp']:.4f})"
+                if "ms_without_dxp" in r else "") + f"; the mma.sync schedule {m['ms']:.4f} ms, "
+                f"replay {m['graph_ms']:.4f}"
+                + (f", without dxp {m['ms_without_dxp']:.4f} ms, replay "
+                   f"{m['graph_ms_without_dxp']:.4f}" if "ms_without_dxp" in m else "")
+                + f", {m['tflops']:.1f} TFLOP/s")
         print(f"{name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}{extra}) on {smi}")
         if "train_ms" in r:

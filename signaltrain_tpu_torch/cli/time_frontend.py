@@ -30,14 +30,25 @@ fast the library does the products a kernel fuses, not the kernel's whole
 function.
 ``--dtype bfloat16`` times the kernels' bf16 modes instead; "float64" is then
 the float64 plain version of the same bf16-rounded computation, and TFLOP/s
-count the bf16 products. It then also takes D's error under unit-normal
-cotangents apart on the bins of least magnitude (``near_zero_bins``).
+count the bf16 products. It then also splits D's error under unit-normal
+cotangents on each schedule by product (``d_error_split``), reads how far the
+spectrum D forms again lies from float64 (``spectrum_error``), and
+splits bf16 D (with and without dxp) and E at batch 200 by pass on each
+schedule (``pass_split``: the wgmma one of ``csrc/wgmma_product.cuh`` and the
+mma.sync one of ``csrc/tc_product.cuh``): the median and spread over
+``SPLIT_REPS`` calls of every kernel the call launches (pack, pad or halve,
+each product, the adjoint pass, the slice sums, the overlap-add), their sum
+(the card's time a call), the call's own time by CUDA events (which also
+holds the host's launch work whenever the card waits for it), and the call
+replayed from a CUDA graph (the card's time with no host work in between, as
+training runs it).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 
@@ -100,6 +111,103 @@ def cublas_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, dtype):
     return lambda: (g @ b.t(), a.t() @ g)
 
 
+SPLIT_REPS = 20
+
+
+def _median(v):
+    v = sorted(v)
+    return v[len(v) // 2] if len(v) % 2 else 0.5 * (v[len(v) // 2 - 1] + v[len(v) // 2])
+
+
+def pass_name(key: str) -> str:
+    """A short name of a kernel from the profiler's demangled one."""
+    name = re.sub(r"\(anonymous namespace\)::|void |tc::|wg::", "", key).split("(")[0]
+    return re.sub(r"<__nv_bfloat16>|, \d+>", lambda m: ">" if m.group().startswith(",") else "",
+                  name)
+
+
+def graph_ms(fn, reps=SPLIT_REPS):
+    """Milliseconds of one replay of fn() captured as a CUDA graph: the
+    card's time a call with no host work between its kernels."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return ms(g.replay, reps)
+
+
+def pass_split(fn, reps=SPLIT_REPS) -> dict:
+    """fn() split by pass: each kernel it launches (in launch order) with the
+    median, least and most of its device time over reps calls
+    (torch.profiler), their sum, the call's own time by CUDA events (median,
+    least, most of reps single calls) and one graph replay's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    calls = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        calls.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = torch.autograd.DeviceType.CUDA
+    runs = {}  # kernel name -> its times, in the order the kernels first ran
+    for e in prof.events():
+        if e.device_type == on_card:
+            runs.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    passes = [(pass_name(k), _median(v), min(v), max(v)) for k, v in runs.items()]
+    return {"passes": passes, "device_ms": sum(p[1] for p in passes),
+            "call_ms": (_median(calls), min(calls), max(calls)), "graph_ms": graph_ms(fn)}
+
+
+def print_split(title: str, split: dict) -> None:
+    c = split["call_ms"]
+    print(f"  {title}: a call {c[0]:.4f} ms [{c[1]:.4f}, {c[2]:.4f}] (median [least, most] of "
+          f"{SPLIT_REPS}); one graph replay {split['graph_ms']:.4f} ms; the card's kernels "
+          f"{split['device_ms']:.4f} ms in {len(split['passes'])}:")
+    for name, med, lo, hi in split["passes"]:
+        print(f"    {med:.4f} ms [{lo:.4f}, {hi:.4f}]  {name[:100]}")
+
+
+def schedule_splits(dev) -> None:
+    """bf16 D (with and without dxp) and E at batch 200, flagship geometry,
+    split by pass on each schedule."""
+    bf = torch.bfloat16
+    batch, ot = 200, 9
+    g = torch.Generator(device=dev).manual_seed(batch)
+    with torch.no_grad():
+        wa = frontend.Analysis(FT, HOP, device=dev).stacked_weights().contiguous()
+        ws = frontend.Synthesis(FT, HOP, device=dev).stacked_weights().contiguous()
+    xp = torch.nn.functional.pad(torch.randn(batch, CHUNK, generator=g, device=dev) * 0.3, (FT, FT))
+    frames = (xp.shape[1] - FT) // HOP + 1
+    dmag = torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT)
+    dphs = torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT)
+    mag = torch.nn.functional.softplus(torch.randn(ot, batch, HALF, generator=g, device=dev))
+    phs = torch.randn(ot, batch, HALF, generator=g, device=dev) * 2.0
+    dout = torch.randn(batch, (ot - 1) * HOP - FT, generator=g, device=dev)
+    print(f"bf16 D and E at batch {batch} by pass, each schedule (ms):")
+    with torch.inference_mode():
+        for sched in cf.SCHEDULES:
+            for title, fn in (
+                    ("D", lambda: cf.fused_analysis_bwd(xp, wa, dmag, dphs, FT, HOP,
+                                                        compute_dtype=bf, schedule=sched)),
+                    ("D without dxp", lambda: cf.fused_analysis_bwd(
+                        xp, wa, dmag, dphs, FT, HOP, need_dxp=False, compute_dtype=bf,
+                        schedule=sched)),
+                    ("E", lambda: cf.fused_synthesis_bwd(mag, phs, ws, dout, FT, HOP,
+                                                         compute_dtype=bf, schedule=sched))):
+                print_split(f"{title}, {sched}", pass_split(fn))
+
+
 def kernel_rows(fn, reps=5):
     """The device time of every kernel fn() launches, by name (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -160,75 +268,74 @@ def synthesis(dev, which, dt):
                     for name, k, p, x in zip(("dmag", "dphs", "dW"), got, plain, exact)))
 
 
-def near_zero_bins(xp, w, dmag, dphs, errors, n=32):
-    """D's bf16 mode under unit-normal cotangents, against float64, on the n
-    bins of least nonzero magnitude, where dspec ~ dphs / |spec|^2 turns the
-    float32 error of the recomputed spectrum into a large relative error.
-    Prints, for the kernel and for the plain version: each one's dspec on
-    those bins (read back exactly by running it with the cotangent of that
-    bin alone: dW's column is then frame * dspec, a product of two bf16
-    values, exact in float32) in bf16 ulps from the float64 version's; the
-    part of the dx and dW errors those bins make (their dspec offsets pushed
-    through the float64 products); what is left of the error without them;
-    and the errors again with the cotangents of those bins set to 0.
-    ``errors``: the full run's (dx kernel, dx plain, dW kernel, dW plain)
-    differences from float64 (dx on the unpadded signal)."""
+def quantiles(v: torch.Tensor, qs=(0.5, 0.99, 0.9999)) -> dict:
+    """The largest value, the root mean square and the quantiles ``qs`` of v."""
+    v = v.flatten().sort().values
+    out = {"max": float(v[-1]), "rms": float(v.double().square().mean().sqrt())}
+    out.update({f"q{q:g}": float(v[int(q * (v.numel() - 1))]) for q in qs})
+    return out
+
+
+def spectrum_error(x: torch.Tensor, w: torch.Tensor, ft: int, hop: int, schedule: str) -> dict:
+    """How far the f32 spectrum that bf16 D forms again lies from float64 on
+    ``schedule``, over its components: read through kernel E's dspec product
+    (the same product of csrc/wgmma_product.cuh or csrc/tc_product.cuh, on the
+    same bf16 frames and weights, K = ft), which with mag 1 and phs 0 writes
+    its f32 sums unchanged as (dmag, dphs). E's live frames of dout = x / 2
+    are D's frames 1 .. T - 2 of the padded x, halved and rounded as D rounds
+    them; w is D's (ft, 2 * half) matrix, whose transpose E takes. Returns
+    ``quantiles`` of |kernel - float64| and max|spectrum| (``spec_max``)."""
+    b, n = x.shape
+    half = w.shape[1] // 2
+    ot = (n + ft) // hop + 1
+    if (ot - 1) * hop - ft != n:
+        raise ValueError(f"a chunk of {n} is not a whole number of hops past ft")
+    ones = torch.ones(ot, b, half, device=x.device)
+    dout = x * 0.5
+    re, im, _ = cf.fused_synthesis_bwd(ones, torch.zeros_like(ones), w.t().contiguous(), dout,
+                                       ft, hop, need_dw=False, compute_dtype=torch.bfloat16,
+                                       schedule=schedule)
+    frames = cf.round_operand(framing.frame_signal(dout.double(), ft, hop, pad=ft),
+                              torch.bfloat16)[:, 1:-1].transpose(0, 1)  # (ot - 2, b, ft)
+    spec = frames @ cf.round_operand(w.double(), torch.bfloat16)
+    err = torch.cat([(re[1:-1].double() - spec[..., :half]).flatten(),
+                     (im[1:-1].double() - spec[..., half:]).flatten()]).abs()
+    return {**quantiles(err), "spec_max": float(spec.abs().max())}
+
+
+def d_error_split(xp, w, dmag, dphs):
+    """bf16 D under unit-normal cotangents against float64 (the float64 plain
+    version of the same bf16-rounded computation), on each schedule and for
+    the plain version, split by product: each schedule's dspec is read back
+    (``cf.analysis_bwd_dspec``) and its dW product held against the float64
+    product of the frames and that dspec (the product's own error); that
+    product's distance from float64's is what dspec's rounding flips make
+    (with the count of dspec elements off float64's rounded dspec, and by how
+    many bf16 ulps at most). Also the dx errors on the unpadded signal."""
     bf = torch.bfloat16
-    half = HALF
-    frames = cf.round_operand(framing.frame_signal(xp.double(), FT, HOP, pad=0) * 0.5, bf)
-    frames = frames.transpose(0, 1)  # (T, B, ft)
-    w64 = cf.round_operand(w.double(), bf)
-    spec = frames @ w64
-    r = torch.sqrt(spec[..., :half] ** 2 + spec[..., half:] ** 2)
-    r = torch.where(r > 0, r, torch.full_like(r, float("inf")))  # all-padding frames are exact
-    idx = torch.topk(r.flatten(), n, largest=False).indices
-    bins = [tuple(int(v) for v in torch.unravel_index(i, r.shape)) for i in idx]
-    dx_k, dx_p, dw_k, dw_p = errors
     sl = slice(FT, -FT)
-    impls = {"kernel": lambda *a: cf.fused_analysis_bwd(*a, FT, HOP, compute_dtype=bf)[1],
-             "plain": lambda *a: cf.fused_analysis_bwd_reference(*a, FT, HOP, bf)[1],
-             "float64": lambda *a: cf.fused_analysis_bwd_reference(
-                 *(t.double() for t in a), FT, HOP, bf)[1]}
-    dspec = {name: [] for name in impls}
-    for t, b, j in bins:
-        one_m, one_p = torch.zeros_like(dmag), torch.zeros_like(dphs)
-        one_m[t, b, j], one_p[t, b, j] = dmag[t, b, j], dphs[t, b, j]
-        k = int(frames[t, b].abs().argmax())
-        for name, fn in impls.items():
-            col = fn(xp, w, one_m, one_p)[k]
-            dspec[name].append(torch.stack([col[j], col[half + j]]).double() / frames[t, b, k])
-    x = torch.stack(dspec["float64"])
+    frames, _, x = cf.analysis_bwd_dspec_reference(xp.double(), w.double(), dmag.double(),
+                                                   dphs.double(), FT, HOP, bf)
+    fr = frames.reshape(-1, FT).t()
+    exact = fr @ x.reshape(-1, 2 * HALF)
+    xdxp = cf.fused_analysis_bwd_reference(xp.double(), w.double(), dmag.double(), dphs.double(),
+                                           FT, HOP, bf)[0][:, sl]
+    rdxp, rdw = cf.fused_analysis_bwd_reference(xp, w, dmag, dphs, FT, HOP, bf)
+    print(f"    D, unit-normal cotangents, against float64 (max|dW| {float(exact.abs().max()):.3e},"
+          f" max|dx| {float(xdxp.abs().max()):.3e}): plain dW "
+          f"{float((rdw - exact).abs().max()):.3e} dx {float((rdxp[:, sl] - xdxp).abs().max()):.3e}")
     ulp = torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
-    print(f"    D's {n} bins of least magnitude ({float(r.flatten()[idx[0]]):.2e} to "
-          f"{float(r.flatten()[idx[-1]]):.2e}; max|dspec| {float(x.abs().max()):.3e}):")
-    for name, (e_dx, e_dw) in (("kernel", (dx_k, dw_k)), ("plain", (dx_p, dw_p))):
-        off = torch.stack(dspec[name]) - x
-        pred_dx = torch.zeros(xp.shape, dtype=torch.float64, device=xp.device)
-        pred_dw = torch.zeros(FT, 2 * half, dtype=torch.float64, device=xp.device)
-        for (t, b, j), (d_re, d_im) in zip(bins, off):
-            pred_dx[b, t * HOP: t * HOP + FT] += 0.5 * (d_re * w64[:, j] + d_im * w64[:, half + j])
-            pred_dw[:, j] += frames[t, b] * d_re
-            pred_dw[:, half + j] += frames[t, b] * d_im
-        ulps = (off / ulp).abs().amax(1)
-        print(f"      {name}: dspec off float64's on {int((ulps > 0).sum())} of them, by up to "
-              f"{float(ulps.max()):.1f} bf16 ulps (median {float(ulps.median()):.1f}); "
-              f"the part they make of the error: dx {float(pred_dx[:, sl].abs().max()):.3e} of "
-              f"{float(e_dx.abs().max()):.3e} (left without it "
-              f"{float((e_dx - pred_dx[:, sl]).abs().max()):.3e}), dW "
-              f"{float(pred_dw.abs().max()):.3e} of {float(e_dw.abs().max()):.3e} (left "
-              f"{float((e_dw - pred_dw).abs().max()):.3e})")
-    zm, zp = dmag.clone(), dphs.clone()
-    for t, b, j in bins:
-        zm[t, b, j] = zp[t, b, j] = 0
-    got = cf.fused_analysis_bwd(xp, w, zm, zp, FT, HOP, compute_dtype=bf)
-    plain = cf.fused_analysis_bwd_reference(xp, w, zm, zp, FT, HOP, bf)
-    exact = cf.fused_analysis_bwd_reference(xp.double(), w.double(), zm.double(), zp.double(),
-                                            FT, HOP, bf)
-    print(f"      with their cotangents 0: dx kernel "
-          f"{float((got[0][:, sl] - exact[0][:, sl]).abs().max()):.3e} plain "
-          f"{float((plain[0][:, sl] - exact[0][:, sl]).abs().max()):.3e}; dW kernel "
-          f"{float((got[1] - exact[1]).abs().max()):.3e} plain "
-          f"{float((plain[1] - exact[1]).abs().max()):.3e}")
+    for sched in cf.SCHEDULES:
+        dw, dspec = cf.analysis_bwd_dspec(xp, w, dmag, dphs, FT, HOP, schedule=sched)
+        dxp = cf.fused_analysis_bwd(xp, w, dmag, dphs, FT, HOP, compute_dtype=bf,
+                                    schedule=sched)[0]
+        on_own = fr @ dspec.double().reshape(-1, 2 * HALF)
+        off = (dspec.double() - x).abs() / ulp
+        print(f"      {sched}: dW {float((dw - exact).abs().max()):.3e} = its product "
+              f"{float((dw - on_own).abs().max()):.3e} (against float64 on its own dspec) and "
+              f"dspec's flips {float((on_own - exact).abs().max()):.3e} ({int((off > 0).sum())} "
+              f"of {off.numel()} elements off, by up to {float(off.max()):.1f} ulps); dx "
+              f"{float((dxp[:, sl] - xdxp).abs().max()):.3e}")
 
 
 def main():
@@ -253,6 +360,8 @@ def main():
     occ = _cuda.function("frontend", "st_analysis_blocks_per_sm", [ctypes.c_int])
     print(f"compute dtype {args.dtype}; blocks of kernel A's product an SM holds at once: "
           f"{occ(int(dt == torch.bfloat16))}")
+    if dt == torch.bfloat16 and which & {"D", "E"}:
+        schedule_splits(dev)
     if which & {"B", "E"}:
         synthesis(dev, which, dt)
     if not which & {"A", "D"}:
@@ -297,15 +406,19 @@ def main():
                 emag = cf.mag_phs(emu[..., :HALF], emu[..., HALF:])[0]
                 line += f", split_tf32_matmul {float((emag - mag64).abs().max()):.3e}"
             print(f"{line}; max |mag| {float(mag64.max()):.2f}")
+            if dt == torch.bfloat16:
+                d_error_split(xp, w, dmag, dphs)
+                for sched in cf.SCHEDULES:
+                    x = xp[:, FT:-FT]
+                    e = spectrum_error(x, w, FT, HOP, sched)
+                    print(f"    the spectrum D forms again, {sched}, against float64 (through E): "
+                          + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+                continue
             dxp, dw = cf.fused_analysis_bwd(xp, w, dmag, dphs, FT, HOP, compute_dtype=dt)
             rdxp, rdw = cf.fused_analysis_bwd_reference(xp, w, dmag, dphs, FT, HOP, dt)
             xdxp, xdw = cf.fused_analysis_bwd_reference(xp.double(), w.double(), dmag.double(),
                                                         dphs.double(), FT, HOP, dt)
             sl = slice(FT, -FT)
-            if dt == torch.bfloat16:
-                near_zero_bins(xp, w, dmag, dphs, (
-                    dxp[:, sl].double() - xdxp[:, sl], rdxp[:, sl].double() - xdxp[:, sl],
-                    dw.double() - xdw, rdw.double() - xdw))
             print(f"    D, unit-normal cotangents, against float64: dx kernel "
                   f"{float((dxp[:, sl] - xdxp[:, sl]).abs().max()):.3e} plain "
                   f"{float((rdxp[:, sl] - xdxp[:, sl]).abs().max()):.3e} (max|dx| "

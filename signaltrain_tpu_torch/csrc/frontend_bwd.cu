@@ -81,12 +81,24 @@
 //     ordered pass adds the K slices and writes the (2*half, ft) transpose
 //     through shared memory.
 // K slices come from one rule for every product, cuda_frontend.k_slices.
+//
+// The bf16 modes have a second schedule, on wgmma_product.cuh (TMA into a
+// ring of swizzled shared-memory stages, wgmma, persistent blocks): the same
+// products with their epilogues (D: the spectrum and dspec, the frame
+// gradients for dxp, dW written straight from the accumulators; E: dspec
+// with dmag / dphs and the spectrum in its epilogue, dW transposed from the
+// accumulators), no K slices and so no partials and no pass to add them
+// (synthesis_adjoint, sum_*_partials are the mma.sync schedule's). The
+// wrapper picks it by a rule on the shape (cuda_frontend.uses_wgmma: every
+// frame offset a multiple of 16 bytes, which TMA needs); other shapes, and
+// the float32 modes, run the mma.sync loop above.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tc_product.cuh"
+#include "wgmma_product.cuh"
 
 namespace {
 
@@ -259,6 +271,24 @@ __global__ void pad_dout(const float* __restrict__ dout, T* __restrict__ doutp, 
   doutp[i] = tc::round_to<T>(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
 }
 
+// pad_dout in bf16, and the exact zeros of dmag and dphs on frames 0 and
+// out_frames - 1 (wholly in the trimmed margin), which the wgmma schedule's
+// dspec product, over the live frames only, does not write.
+__global__ void pad_dout_zero_edges(const float* __restrict__ dout, tc::bf16* __restrict__ doutp,
+                                    float* __restrict__ dmag, float* __restrict__ dphs, int batch,
+                                    int out_len, int ft, int lp, int out_frames, int half) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t edge = (int64_t)batch * half;
+  if (i < 2 * edge) {
+    const int64_t at = i < edge ? i : (int64_t)(out_frames - 1) * edge + (i - edge);
+    dmag[at] = 0.f;
+    dphs[at] = 0.f;
+  }
+  if (i >= (int64_t)batch * lp) return;
+  const int b = (int)(i / lp), p = (int)(i % lp) - ft;
+  doutp[i] = __float2bfloat16_rn(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
+}
+
 // dspec of the live frames, interleaved: slice z of the K steps (frame samples)
 // of tc::Spectrum on doutp, written to partial[z] (rows, ldc).
 template <class T>
@@ -374,11 +404,251 @@ int synthesis_bwd(const float* mag, const float* phs, const float* w, const floa
   return (int)cudaGetLastError();
 }
 
+// ======================================================= the wgmma schedule
+// The bf16 modes of D and E on wgmma_product.cuh: the same passes around the
+// products (tc::pack / pack_synthesis, halve_to_bf16, pad_dout, tc::gather)
+// and the same arithmetic in the epilogues, but no K slices, so no partials
+// and no pass to add them: D's dW and E's dmag / dphs / spec and dW are
+// written by the products that finish them. The rows of the products are
+// padded rows R = t * bpad + b (wgmma_product.cuh); dspec and E's spectrum
+// are stored that way, zero on the padding rows. D's spectrum is formed again
+// in another order than kernel A's (A stays on tc_product.cuh), so it is no
+// longer A's bit for bit; `sq >= 1e-36` still decides as the forward did,
+// since a frame that is all padding gives an exact 0 in any order and a
+// frame with signal in it gives sq many orders of magnitude above the floor.
+
+// The spectrum product of D and E, whose epilogues read two (frames, batch,
+// half) arrays at the tile's bins: prefetch_bins has the producer warp hint
+// the tile's lines of both into L2 when the tile starts (a row's bins
+// [n0 / 2, (n0 + w) / 2) of frame t + t_off), so that the epilogue's reads,
+// which first touch them in device memory, overlap the tile's products.
+template <int TN>
+struct BinsSpectrum : wg::FrameSpectrum<TN> {
+  int batch, half, ldc;
+  __device__ void prefetch_bins(const float* x, const float* y, int t_off, int m0, int n0, int w,
+                                int lane) const {
+    const int lo = n0 / 2, hi = min(half, (n0 + w + 1) / 2);
+    if (hi <= lo) return;
+    const int lines = (hi - lo + 31) / 32 + 1;  // 128-byte lines a row, at any alignment
+    for (int i = lane; i < wg::BM * lines; i += 32) {
+      const int r = m0 + i / lines;
+      const int t = r / this->bpad, b = r - t * this->bpad;
+      if (r >= this->m || b >= batch) continue;
+      const int bin = min(lo + (i % lines) * 32, hi - 1);
+      const int64_t at = ((int64_t)(t + t_off) * batch + b) * half + bin;
+      wg::prefetch_l2(x + at);
+      wg::prefetch_l2(y + at);
+    }
+  }
+};
+
+// D's spectrum again, then (dmag, dphs) -> dspec, interleaved, rounded once to
+// bf16 (the JAX kernel's `dspec.astype(compute_dtype)`); padding rows and
+// columns 0.
+struct AnalysisDspecW : BinsSpectrum<128> {
+  const float* dmag;
+  const float* dphs;
+  tc::bf16* dspec;
+  using Aux = float2;  // (dmag, dphs) of the bin, 0 outside
+  __device__ float2 fetch(int r, int n) const {
+    const int t = r / bpad, b = r - t * bpad, bin = n >> 1;
+    if (r >= m || b >= batch || bin >= half) return make_float2(0.f, 0.f);
+    const int64_t at = ((int64_t)t * batch + b) * half + bin;
+    return make_float2(__ldg(dmag + at), __ldg(dphs + at));
+  }
+  __device__ void prefetch(int m0, int n0, int w, int lane) const {
+    prefetch_bins(dmag, dphs, 0, m0, n0, w, lane);
+  }
+  __device__ void pair(int r, int n, float re, float im, float2 cot) const {
+    if (r >= m || n >= ldc) return;
+    const int t = r / bpad, b = r - t * bpad;
+    float d_re = 0.f, d_im = 0.f;
+    const int bin = n >> 1;
+    if (b < batch && bin < half) {
+      const float dm = cot.x;
+      const float dp = cot.y;
+      // mag = sqrt(max(sq, 1e-36)): no gradient under the floor
+      const float sq = re * re + im * im;
+      const float gm = sq >= 1e-36f ? dm / sqrtf(fmaxf(sq, 1e-36f)) : 0.f;
+      // phs = atan2(im, re + 1e-7)
+      const float rr = re + 1e-7f;
+      const float den = rr * rr + im * im;
+      d_re = gm * re - dp * im / den;
+      d_im = gm * im + dp * rr / den;
+    }
+    tc::store2(dspec + (int64_t)r * ldc + n, d_re, d_im);
+  }
+};
+
+// dframes[t * batch + b, j] for dxp's overlap-add (tc::gather).
+struct DxFramesW : wg::RowProduct<128> {
+  float* dframes;
+  int batch, bpad, ft;
+  __device__ void pair(int r, int j, float v0, float v1, wg::NoAux) const {
+    if (r >= m) return;
+    const int t = r / bpad, b = r - t * bpad;
+    if (b >= batch) return;
+    float* dst = dframes + ((int64_t)t * batch + b) * ft + j;
+    if (j + 1 < ft) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);  // ft is even: aligned
+    } else if (j < ft) {
+      dst[0] = v0;
+    }
+  }
+};
+
+// dw[j, part * half + bin] from column 2 * bin + part.
+struct AnalysisDwW : wg::FrameGrad<64> {
+  float* dw;
+  int half;
+  __device__ void pair(int j, int c, float v0, float v1, wg::NoAux) const {
+    if (j >= m || c >= 2 * half) return;
+    float* row = dw + (int64_t)j * 2 * half;
+    row[c >> 1] = v0;
+    row[half + (c >> 1)] = v1;
+  }
+};
+
+int analysis_bwd_wgmma(const float* xp, const float* w, const float* dmag, const float* dphs,
+                       tc::bf16* xq, tc::bf16* wp, tc::bf16* dspec, float* dframes, float* dxp,
+                       float* dw, int batch, int lp, int ft, int hop, int half, int frames,
+                       int need_dxp, int need_dw, cudaStream_t s) {
+  const int ldc = tc::packed_width<tc::bf16>(half);
+  const int bpad = wg::pad_rows(batch);
+  const int rows = frames * bpad;
+  int err = tc::pack(w, wp, ft, half, s);
+  if (err) return err;
+  const tc::bf16* signal;
+  err = tc::signal(xp, xq, (int64_t)batch * lp, &signal, s);
+  if (err) return err;
+  AnalysisDspecW p1;
+  p1.m = rows, p1.n = ldc;
+  if ((err = wg::frames_map(&p1.frames, signal, ft, batch, frames, lp, hop))) return err;
+  if ((err = wg::matrix_map(&p1.w, wp, ft, ldc))) return err;
+  p1.bpad = bpad, p1.ft = ft, p1.hop = hop, p1.live_lo = 0, p1.live_hi = lp;  // every sample
+  p1.dmag = dmag, p1.dphs = dphs, p1.dspec = dspec;
+  p1.batch = batch, p1.half = half, p1.ldc = ldc;
+  if ((err = wg::launch(p1, s))) return err;
+  CUtensorMap dspec_map;
+  if ((err = wg::matrix_map(&dspec_map, dspec, rows, ldc))) return err;
+  if (need_dxp) {
+    DxFramesW p2;
+    p2.m = rows, p2.n = ft;
+    p2.d = dspec_map;
+    p2.w = p1.w;  // wp (ft, ldc): row j of W is K-major
+    p2.k = ldc;
+    p2.dframes = dframes, p2.batch = batch, p2.bpad = bpad, p2.ft = ft;
+    if ((err = wg::launch(p2, s))) return err;
+    if ((err = tc::gather(dframes, dxp, batch, lp, 0, ft, hop, 0, frames, 1, 0.5f, s))) return err;
+  }
+  if (need_dw) {
+    AnalysisDwW p3;
+    p3.m = ft, p3.n = ldc;
+    p3.frames = p1.frames, p3.s = dspec_map;
+    p3.bpad = bpad, p3.hop = hop, p3.n_frames = frames, p3.live_lo = 0, p3.live_hi = lp;
+    p3.dw = dw, p3.half = half;
+    if ((err = wg::launch(p3, s))) return err;
+  }
+  return 0;
+}
+
+// E's dspec over the live frames, and in its epilogue what synthesis_adjoint
+// does with it: dmag = d_re*cos + d_im*sin, dphs = mag*(d_im*cos - d_re*sin),
+// and (when spec is given) the live rows' spectrum (mag*cos, mag*sin) in bf16
+// (the JAX kernel's `spec.astype(compute_dtype)`) for the dW product, padding
+// rows and columns 0.
+struct SynthesisDspecW : BinsSpectrum<128> {
+  const float* mag;
+  const float* phs;
+  float* dmag;
+  float* dphs;
+  tc::bf16* spec;
+  using Aux = float2;  // (mag, phs) of the bin, 0 outside
+  __device__ float2 fetch(int r, int n) const {
+    const int t = r / bpad, b = r - t * bpad, bin = n >> 1;
+    if (r >= m || b >= batch || bin >= half) return make_float2(0.f, 0.f);
+    const int64_t at = ((int64_t)(t + 1) * batch + b) * half + bin;
+    return make_float2(__ldg(mag + at), __ldg(phs + at));
+  }
+  __device__ void prefetch(int m0, int n0, int w, int lane) const {
+    prefetch_bins(mag, phs, 1, m0, n0, w, lane);
+  }
+  __device__ void pair(int r, int n, float d_re, float d_im, float2 mp) const {
+    if (r >= m || n >= ldc) return;
+    const int t = r / bpad, b = r - t * bpad;  // t counts the live frames, from frame 1
+    const int bin = n >> 1;
+    float re = 0.f, im = 0.f;
+    if (b < batch && bin < half) {
+      const int64_t at = ((int64_t)(t + 1) * batch + b) * half + bin;
+      float sn, cs;
+      sincosf(mp.y, &sn, &cs);
+      const float mg = mp.x;
+      dmag[at] = d_re * cs + d_im * sn;
+      dphs[at] = mg * (d_im * cs - d_re * sn);
+      re = mg * cs;
+      im = mg * sn;
+    }
+    if (spec) tc::store2(spec + (int64_t)r * ldc + n, re, im);
+  }
+};
+
+// dw[part * half + bin, j] from column 2 * bin + part: the transpose, the
+// epilogue walking the tile down its rows (j).
+struct SynthesisDwW : wg::FrameGrad<64> {
+  static constexpr bool ROW_FAST = true;  // consecutive j: a warp writes along dw's rows
+  float* dw;
+  int half;
+  __device__ void pair(int j, int c, float v0, float v1, wg::NoAux) const {
+    if (j >= m || c >= 2 * half) return;
+    dw[(int64_t)(c >> 1) * m + j] = v0;
+    dw[(int64_t)(half + (c >> 1)) * m + j] = v1;
+  }
+};
+
+int synthesis_bwd_wgmma(const float* mag, const float* phs, const float* w, const float* dout,
+                        tc::bf16* wp, tc::bf16* doutp, tc::bf16* spec, float* dmag, float* dphs,
+                        float* dw, int batch, int out_frames, int ft, int hop, int half,
+                        int out_len, int need_dw, cudaStream_t s) {
+  const int ldc = tc::packed_width<tc::bf16>(half);
+  const int lp = out_len + 2 * ft;
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int bpad = wg::pad_rows(batch);
+  const int rows = live * bpad;
+  const tc::bf16* frame1 = doutp + hop;  // frame t of the live ones at t*hop
+  const int live_lo = ft - hop, live_hi = ft + out_len - hop;  // the trimmed output, from frame1
+  int err = tc::pack_synthesis(w, wp, ft, half, s);
+  if (err) return err;
+  const int64_t size = (int64_t)batch * lp;
+  pad_dout_zero_edges<<<tc::blocks(size, 256), 256, 0, s>>>(dout, doutp, dmag, dphs, batch,
+                                                            out_len, ft, lp, out_frames, half);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (live <= 0)  // no frame reaches the trimmed output: every gradient is 0
+    return need_dw ? (int)cudaMemsetAsync(dw, 0, sizeof(float) * 2 * half * ft, s) : 0;
+  SynthesisDspecW p1;
+  p1.m = rows, p1.n = ldc;
+  if ((err = wg::frames_map(&p1.frames, frame1, ft, batch, live, lp, hop))) return err;
+  if ((err = wg::matrix_map(&p1.w, wp, ft, ldc))) return err;
+  p1.bpad = bpad, p1.ft = ft, p1.hop = hop, p1.live_lo = live_lo, p1.live_hi = live_hi;
+  p1.mag = mag, p1.phs = phs, p1.dmag = dmag, p1.dphs = dphs, p1.spec = need_dw ? spec : nullptr;
+  p1.batch = batch, p1.half = half, p1.ldc = ldc;
+  if ((err = wg::launch(p1, s)) || !need_dw) return err;
+  SynthesisDwW p2;
+  p2.m = ft, p2.n = ldc;
+  p2.frames = p1.frames;
+  if ((err = wg::matrix_map(&p2.s, spec, rows, ldc))) return err;
+  p2.bpad = bpad, p2.hop = hop, p2.n_frames = live, p2.live_lo = live_lo, p2.live_hi = live_hi;
+  p2.dw = dw, p2.half = half;
+  return wg::launch(p2, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* st_error_string(int code) {
+  if (code >= wg::ENCODE_ERROR) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half); dmag, dphs
 // (frames, batch, half); dxp (batch, lp), written when need_dxp; dw (ft,
@@ -432,6 +702,35 @@ int st_synthesis_bwd(const void* mag, const void* phs, const void* w, const void
                        (float*)dw_partial, (float*)dmag, (float*)dphs, (float*)dw, batch,
                        out_frames, ft, hop, half, out_len, nsplit_dspec, nsplit_dw, need_dw,
                        vec, s);
+}
+
+// The bf16 mode of st_analysis_bwd on the wgmma schedule (wgmma_product.cuh),
+// for geometries whose hop, lp and ft are multiples of 8 (16 bytes) and
+// 16-byte aligned pointers. Scratch, in bf16, with ldc as above and bpad =
+// batch rounded up to 8: wp (ft, ldc), xq (batch, lp), dspec (frames*bpad,
+// ldc); in float32 dframes (frames*batch, ft) when need_dxp. No partials.
+int st_analysis_bwd_wgmma(const void* xp, const void* w, const void* dmag, const void* dphs,
+                          void* xq, void* wp, void* dspec, void* dframes, void* dxp, void* dw,
+                          int batch, int lp, int ft, int hop, int half, int frames, int need_dxp,
+                          int need_dw, void* stream) {
+  return analysis_bwd_wgmma((const float*)xp, (const float*)w, (const float*)dmag,
+                            (const float*)dphs, (tc::bf16*)xq, (tc::bf16*)wp, (tc::bf16*)dspec,
+                            (float*)dframes, (float*)dxp, (float*)dw, batch, lp, ft, hop, half,
+                            frames, need_dxp, need_dw, (cudaStream_t)stream);
+}
+
+// The bf16 mode of st_synthesis_bwd on the wgmma schedule, for geometries
+// whose hop, ft and out_len + 2*ft are multiples of 8. Scratch, in bf16: wp
+// (ft, ldc), doutp (batch, out_len + 2*ft) and, when need_dw, spec
+// ((out_frames - 2)*bpad, ldc). No partials.
+int st_synthesis_bwd_wgmma(const void* mag, const void* phs, const void* w, const void* dout,
+                           void* wp, void* doutp, void* spec, void* dmag, void* dphs, void* dw,
+                           int batch, int out_frames, int ft, int hop, int half, int out_len,
+                           int need_dw, void* stream) {
+  return synthesis_bwd_wgmma((const float*)mag, (const float*)phs, (const float*)w,
+                             (const float*)dout, (tc::bf16*)wp, (tc::bf16*)doutp,
+                             (tc::bf16*)spec, (float*)dmag, (float*)dphs, (float*)dw, batch,
+                             out_frames, ft, hop, half, out_len, need_dw, (cudaStream_t)stream);
 }
 
 }  // extern "C"

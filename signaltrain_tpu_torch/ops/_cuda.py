@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds) and loaded with ``ctypes``. Libraries go to
+build takes seconds), linked against the driver API (``-lcuda``, for the
+tensor maps of ``csrc/wgmma_product.cuh``), and loaded with ``ctypes``. Libraries go to
 ``build/kernels/`` at the repository root, named by a hash of the source, the
 shared headers (``csrc/*.cuh``) and the flags, so a fresh checkout builds them at first use and later calls reuse
 them. ``build()`` starts one ``nvcc`` per missing source, all at once.
@@ -40,6 +41,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# after the source: the driver API (cuTensorMapEncodeTiled, csrc/wgmma_product.cuh)
+LINK_FLAGS = ("-lcuda",)
 
 
 class KernelCounter:
@@ -107,7 +110,8 @@ def sources() -> list[str]:
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # any may be included
-    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS + LINK_FLAGS).encode()
+    key = hashlib.sha256(src + headers + flags).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -126,7 +130,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
     try:
         for name, out in todo.items():
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *LINK_FLAGS]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )

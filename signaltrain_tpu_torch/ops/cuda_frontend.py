@@ -31,6 +31,16 @@ launch counter (``bf16_*`` for bfloat16).
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
+The bf16 modes of D and E have two schedules (``SCHEDULES``): "wgmma"
+(``csrc/wgmma_product.cuh``: TMA into a ring of shared-memory stages, wgmma,
+no K slices) and "mma" (the ``mma.sync`` loop of ``csrc/tc_product.cuh``).
+The wrapper picks by a rule on the shape, ``uses_wgmma``: "wgmma" where every
+frame offset and length is a multiple of 16 bytes (TMA's rule), "mma"
+elsewhere; ``schedule=`` names one for the tests and timers. Each schedule has
+its own launch counter. A schedule that cannot take the shape, or fails to
+build or launch, raises; nothing retries on the other one. The float32 modes
+have one schedule, "mma".
+
 All four are bound by operations (f32-accurate matrix products). A product
 whose output has too few tiles to fill the card (dW of D and E, B's frames,
 E's dspec) has its K cut into a fixed number of contiguous slices
@@ -68,9 +78,12 @@ ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")
 SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
 ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")
 SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")
-ANALYSIS_BWD_BF16 = _cuda.counter("bf16_fused_analysis_bwd")
-SYNTHESIS_BWD_BF16 = _cuda.counter("bf16_fused_synthesis_bwd")
+ANALYSIS_BWD_BF16 = _cuda.counter("bf16_fused_analysis_bwd")  # the wgmma schedule
+SYNTHESIS_BWD_BF16 = _cuda.counter("bf16_fused_synthesis_bwd")  # the wgmma schedule
+ANALYSIS_BWD_BF16_MMA = _cuda.counter("bf16_fused_analysis_bwd_mma")
+SYNTHESIS_BWD_BF16_MMA = _cuda.counter("bf16_fused_synthesis_bwd_mma")
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+SCHEDULES = ("wgmma", "mma")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,6 +91,8 @@ _ANALYSIS_ARGS = [_P] * 6 + [_I] * 8 + [_P]
 _SYNTHESIS_ARGS = [_P] * 7 + [_I] * 9 + [_P]
 _ANALYSIS_BWD_ARGS = [_P] * 11 + [_I] * 11 + [_P]
 _SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 11 + [_P]
+_ANALYSIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 8 + [_P]
+_SYNTHESIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 7 + [_P]
 
 
 def _counters(f32: _cuda.KernelCounter, bf16: _cuda.KernelCounter, compute_dtype: torch.dtype):
@@ -129,6 +144,77 @@ def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor,
     wide = _wide(dtype)
     aligned = ft % wide == 0 and hop % wide == 0 and lp % wide == 0
     return wide if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
+
+
+def uses_wgmma(ft: int, hop: int, lp: int) -> bool:
+    """The rule that picks the bf16 schedule of kernels D and E: "wgmma" when
+    the frames can be read by TMA, i.e. when ft, hop and the padded row
+    length lp are multiples of 16 bytes of bf16 (8 elements), else "mma".
+    TMA reads only the launch's own scratch (the halved or padded signal, the
+    packed weights, dspec, E's spectrum), which the allocator aligns, so no
+    pointer enters the rule. The flagship geometry (1024, 384, 10240) takes
+    wgmma; the tests' "ragged" one (hop 30) cannot."""
+    wide = _wide(torch.bfloat16)
+    return ft % wide == 0 and hop % wide == 0 and lp % wide == 0
+
+
+def schedule_for(schedule: str | None, compute_dtype: torch.dtype, ft: int, hop: int,
+                 lp: int) -> str:
+    """The schedule of a D or E launch: ``schedule`` if given (one of
+    ``SCHEDULES``; "wgmma" only in bf16 and where ``uses_wgmma`` holds), else
+    the rule's. Raises on anything else."""
+    if schedule is not None and schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES} or None, got {schedule!r}")
+    wgmma_ok = compute_dtype == torch.bfloat16 and uses_wgmma(ft, hop, lp)
+    if schedule == "wgmma" and not wgmma_ok:
+        raise ValueError(f"the wgmma schedule takes bf16 and 16-byte frames (ft={ft}, hop={hop}, "
+                         f"lp={lp}, compute_dtype={compute_dtype})")
+    return schedule or ("wgmma" if wgmma_ok else "mma")
+
+
+def pad_rows(batch: int) -> int:
+    """The wgmma schedule's rows a frame: batch rounded up to 8 (a TMA box of
+    8 windows, csrc/wgmma_product.cuh)."""
+    return -(-batch // 8) * 8
+
+
+def analysis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, lp: int, ft: int,
+                         half: int, t: int, need_dxp: bool, need_dw: bool) -> dict:
+    """The scratch tensors kernel D's launch takes, name -> (shape, dtype), in
+    the launcher's order (None: not needed). The mma schedule's f32 K-slice
+    partials of dW and the wgmma schedule's padded dspec rows are the
+    difference."""
+    op, f32 = compute_dtype, torch.float32
+    ldc = packed_width(half, compute_dtype)
+    bf16 = compute_dtype == torch.bfloat16
+    if schedule == "wgmma":
+        return {"xq": ((b, lp), op), "wp": ((ft, ldc), op), "dspec": ((t * pad_rows(b), ldc), op),
+                "dframes": ((t * b, ft), f32) if need_dxp else None}
+    return {"xq": ((b, lp), op) if bf16 else None, "wp": ((ft, ldc), op),
+            "dspec": ((t * b, ldc), op),
+            "dw_partial": ((k_slices(ft, ldc, t * b), ft, ldc), f32) if need_dw else None,
+            "dframes": ((t * b, ft), f32) if need_dxp else None}
+
+
+def synthesis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, ot: int, ft: int,
+                          half: int, out_len: int, need_dw: bool) -> dict:
+    """The scratch tensors kernel E's launch takes, name -> (shape, dtype), in
+    the launcher's order (None: not needed): the mma schedule's f32 K-slice
+    partials of dspec and dW against the wgmma schedule's none."""
+    op, f32 = compute_dtype, torch.float32
+    ldc, rows, lp = packed_width(half, compute_dtype), max(0, ot - 2) * b, out_len + 2 * ft
+    if schedule == "wgmma":
+        return {"wp": ((ft, ldc), op), "doutp": ((b, lp), op),
+                "spec": ((max(0, ot - 2) * pad_rows(b), ldc), op) if need_dw else None}
+    return {"wp": ((ft, ldc), op), "doutp": ((b, lp), op),
+            "dspec": ((k_slices(rows, ldc, ft), rows, ldc), f32),
+            "spec": ((rows, ldc), op) if need_dw else None,
+            "dw_partial": ((k_slices(ft, ldc, rows), ft, ldc), f32) if need_dw else None}
+
+
+def _scratch(spec: dict, dev: torch.device) -> dict:
+    return {k: None if v is None else torch.empty(v[0], device=dev, dtype=v[1])
+            for k, v in spec.items()}
 
 
 def round_operand(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -215,6 +301,65 @@ def fused_analysis_bwd_conditioning(xp: torch.Tensor, w: torch.Tensor, dmag: tor
     return k * torch.sqrt(dxp), k * torch.sqrt(dw)
 
 
+# How far the f32 spectrum that bf16 D forms again lies from float64, as a
+# share of the spectrum's largest component (its error is much the same on
+# every bin and scales with the frames and weights), as
+# cli/time_frontend.spectrum_error reads it on an NVIDIA H100 at the flagship
+# geometry (batches 200 and 643, two sets of inputs): root mean square over
+# the components 1.6e-8 on the wgmma schedule, 2.4e-8 on the mma.sync one,
+# the largest 2.4e-7 and 4.0e-7. FLIP_SIGMA is the larger root mean square
+# rounded up, FLIP_K * FLIP_SIGMA lies half over the largest; chip_smoke.py
+# holds both schedules to them on every run.
+FLIP_SIGMA = 3e-8
+FLIP_K = 20.0
+
+
+def fused_analysis_bwd_flip_slack(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                                  dphs: torch.Tensor, ft: int, hop: int):
+    """The bf16 counterpart of ``fused_analysis_bwd_conditioning``: how far
+    kernel D's bf16 (dxp, dw) move, element by element, as k = ``FLIP_K``
+    standard deviations in float64, when the spectrum is formed in another
+    order, each component off float64's by sigma = ``FLIP_SIGMA`` times the
+    spectrum's largest component.
+    bf16 D rounds dspec once; a spectrum component that moves by sigma moves
+    dspec's float32 value by moved = sigma * (|dmag|/r + |dphs|/r^2) (taken
+    at r - k*sigma), which flips its rounding with a chance of about
+    moved / ulp, the flip moving it by one bf16 ulp (2^-8 relative, of the
+    float64 dspec's binade), or moves it by about moved where moved >= ulp:
+    a variance of moved * max(moved, ulp) an element of dspec, pushed
+    through the two products (the bf16-rounded frames and weights) in
+    quadrature. It is large on the near-zero bins, whose dspec (the phase
+    adjoint) is large, and exactly 0 where the frame is all padding.
+    Returns (dxp_slack, dw_slack). Not used on the main path: the tests and
+    ``chip_smoke.py`` subtract it from bf16 D's error before the float64
+    rule."""
+    bf16, k = torch.bfloat16, FLIP_K
+    half = w.shape[1] // 2
+    frames = framing.frame_signal(xp.double(), ft, hop, pad=0).transpose(0, 1) * 0.5
+    frames, w = round_operand(frames, bf16), round_operand(w.double(), bf16)
+    spec = torch.matmul(frames, w)
+    sigma = FLIP_SIGMA * float(spec.abs().max())
+    re, im = spec[..., :half], spec[..., half:]
+    sq = re * re + im * im
+    r = torch.sqrt(sq)
+    r_near = torch.clamp_min(r - k * sigma, 1e-30)
+    dmag, dphs = dmag.double(), dphs.double()
+    moved = sigma * (dmag.abs() / r_near + dphs.abs() / (r_near * r_near))
+    moved = torch.where(r > 0, moved, torch.zeros_like(moved))  # an exact 0 stays exact
+    gm = torch.where(sq >= 1e-36, dmag / torch.sqrt(torch.clamp_min(sq, 1e-36)),
+                     torch.zeros_like(sq))
+    rr = re + 1e-7
+    den = rr * rr + im * im
+    dspec = torch.cat([gm * re - dphs * im / den, gm * im + dphs * rr / den], dim=-1)
+    ulp = torch.exp2(torch.floor(torch.log2(dspec.abs().clamp_min(1e-300))) - 7)
+    moved = torch.cat([moved, moved], dim=-1)
+    var = moved * torch.maximum(moved, ulp)
+    dxp = framing.overlap_add((torch.matmul(var, (w * w).t()) * 0.25).transpose(0, 1), hop)
+    dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))
+    dw = torch.matmul((frames * frames).reshape(-1, ft).t(), var.reshape(-1, 2 * half))
+    return k * torch.sqrt(dxp), k * torch.sqrt(dw)
+
+
 # ------------------------------------------------------------ plain versions
 # In bfloat16 each rounds, with round_operand, exactly the operands that the
 # JAX kernel casts, and multiplies in its input's own dtype (float32: with
@@ -257,6 +402,21 @@ def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.
     rounded."""
     _counters(ANALYSIS_BWD, ANALYSIS_BWD_BF16, compute_dtype).plain_calls += 1
     half = w.shape[1] // 2
+    frames, w, dspec = analysis_bwd_dspec_reference(xp, w, dmag, dphs, ft, hop, compute_dtype)
+    dframes = torch.matmul(dspec, w.t()) * 0.5  # (T, B, ft)
+    dxp = framing.overlap_add(dframes.transpose(0, 1), hop)
+    dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))  # samples past the last frame
+    dw = torch.matmul(frames.reshape(-1, ft).t(), dspec.reshape(-1, 2 * half))
+    return dxp, dw
+
+
+def analysis_bwd_dspec_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                                 dphs: torch.Tensor, ft: int, hop: int,
+                                 compute_dtype: torch.dtype = torch.float32):
+    """The first half of kernel D's plain version: the two operands of its
+    products and dspec, each rounded as the compute dtype rounds it: (halved
+    frames (T, B, ft), w, dspec (T, B, 2*half), re then im)."""
+    half = w.shape[1] // 2
     frames = framing.frame_signal(xp, ft, hop, pad=0).transpose(0, 1) * 0.5  # (T, B, ft)
     frames, w = round_operand(frames, compute_dtype), round_operand(w, compute_dtype)
     spec = torch.matmul(frames, w)
@@ -267,12 +427,7 @@ def fused_analysis_bwd_reference(xp: torch.Tensor, w: torch.Tensor, dmag: torch.
     rr = re + 1e-7
     den = rr * rr + im * im
     dspec = torch.cat([gm * re - dphs * im / den, gm * im + dphs * rr / den], dim=-1)
-    dspec = round_operand(dspec, compute_dtype)
-    dframes = torch.matmul(dspec, w.t()) * 0.5  # (T, B, ft)
-    dxp = framing.overlap_add(dframes.transpose(0, 1), hop)
-    dxp = F.pad(dxp, (0, xp.shape[1] - dxp.shape[1]))  # samples past the last frame
-    dw = torch.matmul(frames.reshape(-1, ft).t(), dspec.reshape(-1, 2 * half))
-    return dxp, dw
+    return frames, w, round_operand(dspec, compute_dtype)
 
 
 def fused_synthesis_bwd_reference(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
@@ -319,7 +474,7 @@ def _analysis_dims(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int):
     t = (lp - ft) // hop + 1
     if b < 1 or t < 1 or lp < ft:
         raise ValueError(f"fused_analysis: no frame fits (B={b}, Lp={lp}, ft={ft})")
-    if max(b * lp, t * b * packed_width(half, torch.bfloat16)) >= 2 ** 31:
+    if max(b * lp, t * pad_rows(b) * packed_width(half, torch.bfloat16)) >= 2 ** 31:
         raise ValueError(f"fused_analysis: too large for 32-bit offsets (B={b}, Lp={lp}, T={t})")
     return b, lp, half, t
 
@@ -331,7 +486,7 @@ def _synthesis_dims(mag: torch.Tensor, ft: int, hop: int):
     out_len = (ot - 1) * hop - ft
     if b < 1 or out_len < 1:
         raise ValueError(f"fused_synthesis: empty output (OT={ot}, B={b}, ft={ft}, hop={hop})")
-    rows = max(0, ot - 2) * b
+    rows = max(0, ot - 2) * pad_rows(b)
     if max(b * (out_len + 2 * ft), rows * max(ft, packed_width(half, torch.bfloat16))) >= 2 ** 31:
         raise ValueError(f"fused_synthesis: too large for 32-bit offsets (OT={ot}, B={b}, ft={ft})")
     return ot, b, half, out_len
@@ -394,47 +549,80 @@ def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: in
 def fused_analysis_bwd(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
                        dphs: torch.Tensor, ft: int, hop: int,
                        need_dxp: bool = True, need_dw: bool = True,
-                       compute_dtype: torch.dtype = torch.float32):
+                       compute_dtype: torch.dtype = torch.float32, schedule: str | None = None):
     """Kernel D on CUDA tensors, its plain version on CPU tensors:
-    (dxp (B, Lp), dw (ft, 2*half)); a gradient that is not needed is None."""
+    (dxp (B, Lp), dw (ft, 2*half)); a gradient that is not needed is None.
+    ``schedule``: None (the rule, ``schedule_for``), "wgmma" or "mma"."""
+    return _analysis_bwd(xp, w, dmag, dphs, ft, hop, need_dxp, need_dw, compute_dtype,
+                         schedule)[:2]
+
+
+def analysis_bwd_dspec(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
+                       dphs: torch.Tensor, ft: int, hop: int, schedule: str | None = None):
+    """Kernel D in bf16 on CUDA tensors, as ``fused_analysis_bwd`` without
+    dxp, and the bf16 dspec that its dW product multiplied, read back from the
+    launch's scratch: (dw, dspec (T, B, 2*half) in float32, re then im as the
+    plain version lays it out). ``cli/time_frontend.py`` splits D's error
+    against float64 by it."""
+    if _is_cpu(xp):
+        raise ValueError("analysis_bwd_dspec reads a kernel's scratch: it takes CUDA tensors")
+    _, dw, sc = _analysis_bwd(xp, w, dmag, dphs, ft, hop, False, True, torch.bfloat16, schedule)
+    t, b, half = dmag.shape
+    ldc = sc["dspec"].shape[1]
+    d = sc["dspec"].view(t, -1, ldc)[:, :b, :2 * half].float().reshape(t, b, half, 2)
+    return dw, torch.cat([d[..., 0], d[..., 1]], dim=-1)
+
+
+def _analysis_bwd(xp, w, dmag, dphs, ft, hop, need_dxp, need_dw, compute_dtype, schedule):
+    """fused_analysis_bwd, and the scratch of its launch (None on the CPU)."""
     count = _counters(ANALYSIS_BWD, ANALYSIS_BWD_BF16, compute_dtype)
+    b, lp = xp.shape if xp.dim() == 2 else (0, 0)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, lp)
     if _is_cpu(xp):
         dxp, dw = fused_analysis_bwd_reference(xp, w, dmag, dphs, ft, hop, compute_dtype)
-        return (dxp if need_dxp else None), (dw if need_dw else None)
+        return (dxp if need_dxp else None), (dw if need_dw else None), None
     dev = xp.device
     b, lp, half, t = _analysis_dims(xp, w, ft, hop)
     _cuda.require(xp, "xp", (b, lp), dev)
     _cuda.require(w, "w", (ft, 2 * half), dev)
     _cuda.require(dmag, "dmag", (t, b, half), dev)
     _cuda.require(dphs, "dphs", (t, b, half), dev)
-    ldc = packed_width(half, compute_dtype)
-    nsplit = k_slices(ft, ldc, t * b)
-    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    f32 = _empty(dev, torch.float32)
     bf16 = compute_dtype == torch.bfloat16
-    wp, dspec = op(ft, ldc), op(t * b, ldc)
-    xq = op(b, lp) if bf16 else None  # the halved, rounded signal
     dxp = f32(b, lp) if need_dxp else None
-    dframes = f32(t * b, ft) if need_dxp else None
     dw = f32(ft, 2 * half) if need_dw else None
-    partial = f32(nsplit, ft, ldc) if need_dw else None
-    vec = copy_width(ft, hop, lp, xp if xq is None else xq, wp, dspec, dtype=compute_dtype)
-    f = _cuda.function("frontend_bwd", "st_analysis_bwd", _ANALYSIS_BWD_ARGS)
+    sc = _scratch(analysis_bwd_scratch(sched, compute_dtype, b, lp, ft, half, t, need_dxp,
+                                       need_dw), dev)
+    ins = [_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs)]
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(xq),
-                   _cuda.ptr(wp), _cuda.ptr(dspec), _cuda.ptr(partial), _cuda.ptr(dframes),
-                   _cuda.ptr(dxp), _cuda.ptr(dw), b, lp, ft, hop, half, t, nsplit,
-                   int(need_dxp), int(need_dw), vec, int(bf16), _cuda.stream(dev))
+        if sched == "wgmma":
+            f = _cuda.function("frontend_bwd", "st_analysis_bwd_wgmma", _ANALYSIS_BWD_WGMMA_ARGS)
+            status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), _cuda.ptr(dxp), _cuda.ptr(dw),
+                       b, lp, ft, hop, half, t, int(need_dxp), int(need_dw), _cuda.stream(dev))
+        else:
+            if bf16:
+                count = ANALYSIS_BWD_BF16_MMA
+            nsplit = k_slices(ft, sc["wp"].shape[1], t * b)
+            vec = copy_width(ft, hop, lp, xp if sc["xq"] is None else sc["xq"], sc["wp"],
+                             sc["dspec"], dtype=compute_dtype)
+            f = _cuda.function("frontend_bwd", "st_analysis_bwd", _ANALYSIS_BWD_ARGS)
+            status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), _cuda.ptr(dxp), _cuda.ptr(dw),
+                       b, lp, ft, hop, half, t, nsplit, int(need_dxp), int(need_dw), vec,
+                       int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
-    return dxp, dw
+    return dxp, dw, sc
 
 
 def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
                         dout: torch.Tensor, ft: int, hop: int, need_dw: bool = True,
-                        compute_dtype: torch.dtype = torch.float32):
+                        compute_dtype: torch.dtype = torch.float32, schedule: str | None = None):
     """Kernel E on CUDA tensors, its plain version on CPU tensors:
-    (dmag, dphs (OT, B, half), dw (2*half, ft) or None)."""
+    (dmag, dphs (OT, B, half), dw (2*half, ft) or None). ``schedule``: None
+    (the rule, ``schedule_for``), "wgmma" or "mma"."""
     count = _counters(SYNTHESIS_BWD, SYNTHESIS_BWD_BF16, compute_dtype)
+    out_len = dout.shape[-1]
+    sched = schedule_for(schedule, compute_dtype, ft, hop, out_len + 2 * ft)
     if _is_cpu(mag):
         dmag, dphs, dw = fused_synthesis_bwd_reference(mag, phs, w, dout, ft, hop, compute_dtype)
         return dmag, dphs, (dw if need_dw else None)
@@ -444,22 +632,30 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
     _cuda.require(dout, "dout", (b, out_len), dev)
-    ldc, rows, lp = packed_width(half, compute_dtype), max(0, ot - 2) * b, out_len + 2 * ft
-    n_dspec, n_dw = k_slices(rows, ldc, ft), k_slices(ft, ldc, rows)
-    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
-    wp, doutp, dspec = op(ft, ldc), op(b, lp), f32(n_dspec, rows, ldc)
+    lp = out_len + 2 * ft
+    f32 = _empty(dev, torch.float32)
     dmag, dphs = f32(ot, b, half), f32(ot, b, half)
-    spec = op(rows, ldc) if need_dw else None
-    partial = f32(n_dw, ft, ldc) if need_dw else None
     dw = f32(2 * half, ft) if need_dw else None
-    f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
+    sc = _scratch(synthesis_bwd_scratch(sched, compute_dtype, b, ot, ft, half, out_len, need_dw),
+                  dev)
+    ins = [_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout)]
+    outs = [_cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(dw)]
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout),
-                   _cuda.ptr(wp), _cuda.ptr(doutp), _cuda.ptr(dspec), _cuda.ptr(spec),
-                   _cuda.ptr(partial), _cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(dw),
-                   b, ot, ft, hop, half, out_len, n_dspec, n_dw, int(need_dw),
-                   copy_width(ft, hop, lp, doutp, wp, dspec, dtype=compute_dtype),
-                   int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
+        if sched == "wgmma":
+            f = _cuda.function("frontend_bwd", "st_synthesis_bwd_wgmma", _SYNTHESIS_BWD_WGMMA_ARGS)
+            status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), *outs, b, ot, ft, hop, half,
+                       out_len, int(need_dw), _cuda.stream(dev))
+        else:
+            if compute_dtype == torch.bfloat16:
+                count = SYNTHESIS_BWD_BF16_MMA
+            ldc, rows = packed_width(half, compute_dtype), max(0, ot - 2) * b
+            n_dspec, n_dw = k_slices(rows, ldc, ft), k_slices(ft, ldc, rows)
+            f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
+            status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), *outs, b, ot, ft, hop, half,
+                       out_len, n_dspec, n_dw, int(need_dw),
+                       copy_width(ft, hop, lp, sc["doutp"], sc["wp"], sc["dspec"],
+                                  dtype=compute_dtype),
+                       int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
     return dmag, dphs, dw

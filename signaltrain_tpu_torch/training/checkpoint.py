@@ -132,6 +132,15 @@ def frontend_shards(model: torch.nn.Module) -> dict:
             for name, _ in m.named_parameters()}
 
 
+def param_count(model: torch.nn.Module) -> int:
+    """The whole model's parameter count: a tensor-parallel model's front-end
+    matrices at their whole (ft, ft) size, so that every mesh shape counts
+    what one card holds (the JAX package counts before placement)."""
+    shards = frontend_shards(model)
+    return sum(shards[k].ft ** 2 if k in shards else p.numel()
+               for k, p in model.named_parameters())
+
+
 def shard_state_dict(model: torch.nn.Module, sd: dict) -> dict:
     """A state dict of whole matrices -> the tensors ``model`` holds: of a
     tensor-parallel model's front-end, its rank's rows."""

@@ -534,8 +534,7 @@ def train(
         model.load_state_dict(checkpoint.shard_state_dict(model, state_dict), strict=True)
     model.train()
     spec = model.spec
-    say("Model defined.  Number of trainable parameters:",
-        sum(p.numel() for p in model.parameters()))
+    say("Model defined.  Number of trainable parameters:", checkpoint.param_count(model))
     say("      in_chunk_size, out_chunk_size = ", spec.in_chunk_size, spec.out_chunk_size)
 
     opt, lr_fn = make_optimizer(model, lr_max, n_data_points, epochs, batch_size)
@@ -553,7 +552,8 @@ def train(
     val_steps = max(1, (n_data_points // 4) // batch_size)
     n_inner = pick_n_inner(steps_per_epoch, status_every)
     host_data, prefetcher = False, None
-    timing = _Timing(os.environ.get("ST_TPU_TIMING", "0") == "1")
+    # the primary rank alone times and prints its epochs (JAX: `if timing and primary`)
+    timing = _Timing(os.environ.get("ST_TPU_TIMING", "0") == "1" and primary)
     if datapath is None:
         batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
         val_batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr,

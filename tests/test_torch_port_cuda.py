@@ -352,17 +352,39 @@ BF16 = torch.bfloat16
 BF16_GEOMS = BWD_GEOMS + [TRAIN_GEOM]
 
 
-def _f64_rule_ratio(got, plain, exact, floor=1e-3):
+def _f64_rule_ratio(got, plain, exact, floor=1e-3, slack=None):
     """The error of ``got`` against float64 over the limit: twice the plain
-    version's error plus floor * max|exact|."""
-    err = float((got.double() - exact).abs().max())
+    version's error plus floor * max|exact|. ``slack``: a per-element
+    allowance taken off each element's error first (bf16 D: the moves of a
+    flip of dspec's rounding, cuda_frontend.fused_analysis_bwd_flip_slack)."""
+    diff = (got.double() - exact).abs()
+    err = float((diff if slack is None else diff - slack).max())
     plain_err = float((plain.double() - exact).abs().max())
     return err / (2 * plain_err + floor * float(exact.abs().max()))
 
 
-def _f64_rule(name, got, plain, exact, floor=1e-3):
-    ratio = _f64_rule_ratio(got, plain, exact, floor)
+def _f64_rule(name, got, plain, exact, floor=1e-3, slack=None):
+    ratio = _f64_rule_ratio(got, plain, exact, floor, slack)
     assert ratio <= 1, (name, ratio)
+
+
+def _bf16_bwd_cases(geoms, extra=()):
+    """(geometry..., schedule) for each bf16 backward case: both schedules
+    where the rule allows wgmma (cuda_frontend.uses_wgmma), mma elsewhere."""
+    cases = []
+    for g in geoms:
+        ft, hop, chunk = g[:3]
+        wgmma = cuda_frontend.uses_wgmma(ft, hop, chunk + 2 * ft) and cuda_frontend.uses_wgmma(
+            ft, hop, (9 - 1) * hop + ft)
+        cases += [(*g, sched) for sched in (("wgmma", "mma") if wgmma else ("mma",))]
+    return cases + list(extra)
+
+
+def _bwd_counter(kernel, schedule):
+    """The launch counter of bf16 kernel D or E on a schedule."""
+    names = {("D", "wgmma"): "ANALYSIS_BWD_BF16", ("D", "mma"): "ANALYSIS_BWD_BF16_MMA",
+             ("E", "wgmma"): "SYNTHESIS_BWD_BF16", ("E", "mma"): "SYNTHESIS_BWD_BF16_MMA"}
+    return getattr(cuda_frontend, names[kernel, schedule])
 
 
 def _rounding_shows(name, f32_result, plain_bf16, tol, factor):
@@ -418,10 +440,7 @@ def test_bf16_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
     _rounding_shows("B", f32_wave, ref, 3e-4, 5)  # 15-36x on an H100
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b,cot",
-                         [(*g, cot) for g in BF16_GEOMS for cot in ("full", "regular")]
-                         + [(1024, 384, 8192, 643, "regular")])
-def test_bf16_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
+def _bf16_analysis_bwd_case(dev, ft, hop, chunk, b, cot):
     inp = analysis_bwd_inputs(ft, hop, chunk, b)
     if cot == "regular":
         inp["c"] = regular_phase_cotangent(inp, ft, hop)
@@ -429,11 +448,22 @@ def test_bf16_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
     half = ft // 2 + 1
     xp = torch.nn.functional.pad(inp["x"], (ft, ft))
     w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
-    args = (xp, w, inp["a"], inp["c"], ft, hop)
-    before = cuda_frontend.ANALYSIS_BWD_BF16.launches
-    dxp, dw = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16)
-    dxp2, dw2 = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16)
-    assert cuda_frontend.ANALYSIS_BWD_BF16.launches == before + 2
+    return xp, w, inp["a"], inp["c"]
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b,cot,schedule",
+                         [(*g[:4], cot, g[4]) for g in _bf16_bwd_cases(BF16_GEOMS)
+                          for cot in ("full", "regular")]
+                         + [(1024, 384, 8192, 643, cot, sched) for cot in ("full", "regular")
+                            for sched in ("wgmma", "mma")])
+def test_bf16_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot, schedule):
+    xp, w, dmag, dphs = _bf16_analysis_bwd_case(dev, ft, hop, chunk, b, cot)
+    args = (xp, w, dmag, dphs, ft, hop)
+    count = _bwd_counter("D", schedule)
+    before = count.launches
+    dxp, dw = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=schedule)
+    dxp2, dw2 = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=schedule)
+    assert count.launches == before + 2
     rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(*args, compute_dtype=BF16)
     torch.cuda.synchronize()
     assert torch.equal(dw, dw2) and torch.equal(dxp, dxp2)
@@ -441,32 +471,46 @@ def test_bf16_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
     # products, and a float32-level difference in it (another order of sums
     # in the spectrum) moves a rounding by one bf16 ulp, 2^-8 relative; on an
     # H100 at batch 200 that moved 0.4% of the elements of dW by up to 0.016
-    # even with the well-conditioned cotangent. dx on the unpadded signal under the full
-    # cotangent (the padding's part carries the all-zero frames' adjoint)
+    # even with the well-conditioned cotangent. Each element's error is taken
+    # less the slack such a flip gives it (fused_analysis_bwd_flip_slack)
+    # before the rule. dx on the unpadded signal under the full cotangent
+    # (the padding's part carries the all-zero frames' adjoint)
     xdxp, xdw = cuda_frontend.fused_analysis_bwd_reference(
-        xp.double(), w.double(), inp["a"].double(), inp["c"].double(), ft, hop, BF16)
+        xp.double(), w.double(), dmag.double(), dphs.double(), ft, hop, BF16)
+    sdxp, sdw = cuda_frontend.fused_analysis_bwd_flip_slack(*args)
     sl = slice(None) if cot == "regular" else slice(ft, -ft)
-    _f64_rule("dx", dxp[:, sl], rdxp[:, sl], xdxp[:, sl])
-    _f64_rule("dW", dw, rdw, xdw)
-    if cot == "regular":  # the float32 kernel lands over the same limits (5.5-9.5x on an H100)
-        fdxp, fdw = cuda_frontend.fused_analysis_bwd(*args)
-        gap = max(_f64_rule_ratio(fdxp, rdxp, xdxp), _f64_rule_ratio(fdw, rdw, xdw))
-        assert gap > 2, gap
-    only_dw = cuda_frontend.fused_analysis_bwd(*args, need_dxp=False, compute_dtype=BF16)
+    _f64_rule("dx", dxp[:, sl], rdxp[:, sl], xdxp[:, sl], slack=sdxp[:, sl])
+    _f64_rule("dW", dw, rdw, xdw, slack=sdw)
+    # the control: the float32 kernel lands over the same limits (5.5-9.5x
+    # on an H100 without the slack)
+    fdxp, fdw = cuda_frontend.fused_analysis_bwd(*args)
+    gap = max(_f64_rule_ratio(fdxp[:, sl], rdxp[:, sl], xdxp[:, sl], slack=sdxp[:, sl]),
+              _f64_rule_ratio(fdw, rdw, xdw, slack=sdw))
+    assert gap > 2, gap
+    only_dw = cuda_frontend.fused_analysis_bwd(*args, need_dxp=False, compute_dtype=BF16,
+                                               schedule=schedule)
     assert only_dw[0] is None and torch.equal(only_dw[1], dw)
+    only_dx = cuda_frontend.fused_analysis_bwd(*args, need_dw=False, compute_dtype=BF16,
+                                               schedule=schedule)
+    assert only_dx[1] is None and torch.equal(only_dx[0], dxp)
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + SYN_GEOMS)
-def test_bf16_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
+def _bf16_synthesis_bwd_case(dev, ft, hop, b):
     inp = {k: torch.from_numpy(v).to(dev) for k, v in synthesis_bwd_inputs(ft, hop, b).items()}
     half = ft // 2 + 1
     w = cuda_frontend.stack_synthesis_weights(
         *frontend.fold_synthesis_weights(inp["wr"], inp["wi"], half))
-    args = (inp["mag"], inp["phs"], w, inp["a"], ft, hop)
-    before = cuda_frontend.SYNTHESIS_BWD_BF16.launches
-    got = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16)
-    again = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16)
-    assert cuda_frontend.SYNTHESIS_BWD_BF16.launches == before + 2
+    return inp["mag"], inp["phs"], w, inp["a"]
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b,schedule", _bf16_bwd_cases(BF16_GEOMS + SYN_GEOMS))
+def test_bf16_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, schedule):
+    args = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
+    count = _bwd_counter("E", schedule)
+    before = count.launches
+    got = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16, schedule=schedule)
+    again = cuda_frontend.fused_synthesis_bwd(*args, compute_dtype=BF16, schedule=schedule)
+    assert count.launches == before + 2
     want = cuda_frontend.fused_synthesis_bwd_reference(*args, compute_dtype=BF16)
     torch.cuda.synchronize()
     exact = cuda_frontend.fused_synthesis_bwd_reference(
@@ -479,8 +523,60 @@ def test_bf16_synthesis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b):
         _rounding_shows("E " + name, f, r, 5e-4, 4)  # 11-375x on an H100
     for g in got[:2]:
         assert torch.all(g[0] == 0) and torch.all(g[-1] == 0)
-    only = cuda_frontend.fused_synthesis_bwd(*args, need_dw=False, compute_dtype=BF16)
+    only = cuda_frontend.fused_synthesis_bwd(*args, need_dw=False, compute_dtype=BF16,
+                                             schedule=schedule)
     assert only[2] is None and torch.equal(only[0], got[0]) and torch.equal(only[1], got[1])
+
+
+WGMMA_GEOMS = [BWD_GEOMS[0], TRAIN_GEOM]  # "small" and the flagship at the training batch
+
+
+@pytest.mark.parametrize("ft,hop,chunk,b", WGMMA_GEOMS)
+def test_bf16_wgmma_schedule_agrees_with_mma(dev, ft, hop, chunk, b):
+    """The wgmma schedule of bf16 D and E against the mma.sync one on the
+    same inputs: E element by element (5e-4 + 5e-4|g|); D, whose own bf16
+    rounding of dspec may land one ulp apart, by the float64 rule with the
+    mma schedule in the place of the plain version (and the flip slack);
+    the default picks wgmma at these shapes."""
+    xp, w, dmag, dphs = _bf16_analysis_bwd_case(dev, ft, hop, chunk, b, "full")
+    args = (xp, w, dmag, dphs, ft, hop)
+    before = _bwd_counter("D", "wgmma").launches, _bwd_counter("D", "mma").launches
+    got = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16)
+    assert (_bwd_counter("D", "wgmma").launches, _bwd_counter("D", "mma").launches) == (
+        before[0] + 1, before[1])
+    mma = cuda_frontend.fused_analysis_bwd(*args, compute_dtype=BF16, schedule="mma")
+    exact = cuda_frontend.fused_analysis_bwd_reference(
+        *(a.double() for a in args[:4]), ft, hop, BF16)
+    slack = cuda_frontend.fused_analysis_bwd_flip_slack(*args)
+    sls = ((slice(None), slice(ft, -ft)), (slice(None), slice(None)))  # dx unpadded, dW
+    for g, m, x, s, sl in zip(got, mma, exact, slack, sls):
+        _f64_rule("D wgmma against mma", g[sl], m[sl], x[sl], slack=s[sl])
+    sargs = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
+    before = _bwd_counter("E", "wgmma").launches, _bwd_counter("E", "mma").launches
+    got = cuda_frontend.fused_synthesis_bwd(*sargs, compute_dtype=BF16)
+    assert (_bwd_counter("E", "wgmma").launches, _bwd_counter("E", "mma").launches) == (
+        before[0] + 1, before[1])
+    mma = cuda_frontend.fused_synthesis_bwd(*sargs, compute_dtype=BF16, schedule="mma")
+    for g, m in zip(got, mma):
+        torch.testing.assert_close(g, m, atol=5e-4, rtol=5e-4)
+
+
+def test_bf16_wgmma_schedule_refuses_what_tma_cannot_read(dev):
+    """hop 30 (60 bytes of bf16) cannot be a TMA stride: the rule picks mma,
+    and asking for wgmma raises instead of running the other schedule."""
+    ft, hop, chunk, b = BWD_GEOMS[1]
+    xp, w, dmag, dphs = _bf16_analysis_bwd_case(dev, ft, hop, chunk, b, "full")
+    with pytest.raises(ValueError):
+        cuda_frontend.fused_analysis_bwd(xp, w, dmag, dphs, ft, hop, compute_dtype=BF16,
+                                         schedule="wgmma")
+    with pytest.raises(ValueError):
+        cuda_frontend.fused_analysis_bwd(xp, w, dmag, dphs, ft, hop, schedule="wgmma")  # f32
+    before = _bwd_counter("D", "mma").launches
+    cuda_frontend.fused_analysis_bwd(xp, w, dmag, dphs, ft, hop, compute_dtype=BF16)
+    assert _bwd_counter("D", "mma").launches == before + 1
+    sargs = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
+    with pytest.raises(ValueError):
+        cuda_frontend.fused_synthesis_bwd(*sargs, compute_dtype=BF16, schedule="wgmma")
 
 
 class _Bf16GemmFloat64(torch.autograd.Function):
@@ -629,6 +725,8 @@ def test_train_graph_is_bit_equal_to_eager_steps(dev, frontend, dtype):
         n = counts.get(prefix + name, 0)
         assert n == (1 if frontend == "fused" else 0), (name, counts)
         assert launched.get(prefix + name, 0) == 20 * n  # the warm-up step and 19 replays
+    for name in names[2:]:  # bf16 D and E at the flagship take the wgmma schedule
+        assert counts.get(f"bf16_{name}_mma", 0) == 0 and launched.get(f"bf16_{name}_mma", 0) == 0
     assert launched["switched_one_pole"] == 20 + 3  # and the three eager batches above
 
 

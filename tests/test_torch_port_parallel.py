@@ -117,7 +117,7 @@ def spawned(tmp_path_factory, weights, signal, arrays_batches):
     world2, world4 = tmp_path_factory.mktemp("world2"), tmp_path_factory.mktemp("world4")
     ckpt, done = str(world2 / "rank0" / "modelcheckpoint.tar"), str(world2 / "done")
     path = os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])
-    env = dict(os.environ, PYTHONPATH=path)
+    env = dict(os.environ, PYTHONPATH=path, ST_TPU_TIMING="1")  # the CLIs time their epochs
     clis = {}
     for name, argv in LAUNCHES.items():
         cwd = tmp_path_factory.mktemp(name)
@@ -410,6 +410,16 @@ def test_meshes_must_tile_the_world_and_batches_must_divide(capsys):
                MASTER_PORT="29511")
     assert run_train.torchrun_rank(env) == dict(init_method="env://", world_size=4, rank=3,
                                                 local_rank=1)
+
+
+@pytest.mark.parametrize("launch_by", list(LAUNCHES))
+def test_only_the_primary_rank_prints_its_epoch_timing(launch_by, spawned):
+    """ST_TPU_TIMING=1 in both ranks of a world of 2: one [timing] line for
+    the one epoch, rank 0's (JAX: `if timing and primary`); both ranks share
+    the launcher's stderr, so a line from rank 1 would make two."""
+    _, rc, _, stderr = spawned[launch_by]
+    assert rc == 0, stderr[-3000:]
+    assert stderr.count("[timing] epoch 1:") == 1, stderr[-3000:]
 
 
 @pytest.mark.parametrize("launch_by", list(LAUNCHES))

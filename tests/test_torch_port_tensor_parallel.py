@@ -318,6 +318,21 @@ def test_run_train_nmodel_trains_one_1x2_world(spawned):
     st_model(scale_factor=0.0625, device="cpu").load_state_dict(state, strict=True)
 
 
+def test_run_train_nmodel_prints_the_whole_models_parameter_count(spawned):
+    """Under tensor parallelism rank 0 prints the one-card model's count (the
+    JAX package's, as test_param_count_matches_jax holds the port's), not its
+    share of the front-end."""
+    from signaltrain_tpu.models import st_model as jst
+
+    _, rc, stdout, stderr = spawned["cli"]
+    assert rc == 0, stderr[-3000:]
+    line = [ln for ln in stdout.splitlines() if "Number of trainable parameters:" in ln]
+    assert len(line) == 1, stdout[-3000:]
+    one_card = sum(p.numel() for p in st_model(scale_factor=0.0625, device="cpu").parameters())
+    jm = jst.st_model(scale_factor=0.0625)
+    assert int(line[0].split(":")[-1]) == one_card == jst.param_count(jm.init(jax.random.PRNGKey(0)))
+
+
 def test_run_config_takes_n_model_and_refuses_a_world_it_does_not_tile():
     cfg = config.RunConfig(n_model=2, nproc=4)
     assert (cfg.n_model, cfg.nproc) == (2, 4)
