@@ -40,8 +40,10 @@ Phases (any failure raises and exits non-zero):
      plain f32 version's error + 1e-3 * max|g|, each element's error less
      the slack a flip of dspec's bf16 rounding gives it,
      cuda_frontend.fused_analysis_bwd_flip_slack), E also so; B, D and E
-     twice, bit-equal. D and E on both of their bf16 schedules (wgmma, which
-     the rule picks at these shapes, and mma.sync). The slack's own measure:
+     twice, bit-equal. A, B, D and E on both of their bf16 schedules (wgmma,
+     which the rule picks at these shapes, and mma.sync), A and B at both
+     batches, each with its control; A's edge frames exactly 1e-18 and 0 on
+     both. The slack's own measure:
      the spectrum D forms again, read through E's product
      (cli/time_frontend.spectrum_error), within FLIP_SIGMA (root mean
      square) and FLIP_K * FLIP_SIGMA (largest) times max|spectrum| of
@@ -134,10 +136,10 @@ Phases (any failure raises and exits non-zero):
      every cuDNN call, in either dtype, the cuBLAS products that the gemm
      front-end runs for the same linear part at the same shapes
      (cli/time_frontend.cublas_*: A's frames times the stacked matrix, B's
-     frame product, D's and E's two backward products); bf16 D (with and
-     without dxp) and E on both schedules in turns (wgmma, mma.sync,
-     mma.sync, wgmma), each also as one CUDA-graph replay (the card's time
-     with no host work between the passes); L on
+     frame product, D's and E's two backward products); bf16 A and B (at both
+     batches), D (with and without dxp) and E on both schedules in turns
+     (wgmma, mma.sync, mma.sync, wgmma), each also as one CUDA-graph replay
+     (the card's time with no host work between the passes); L on
      its three cases beside its bound (8 B a sample at 3.35 TB/s) and its
      chain floor (cli/time_lfilter.chain_cycles: order 1 is fma -> mul ->
      fma, 12 cycles a step; order 3 about 9.3; at the SM clock).
@@ -482,62 +484,83 @@ def check_bf16_kernels(cf, dev, w_an, w_syn, ft, hop, chunk, out_frames, n_windo
     half = ft // 2 + 1
     out_len = (out_frames - 1) * hop - ft
     res, ins = {}, {}
-    errs = {"mag": 0.0, "phs": 0.0, "small": 0.0, "gap": float("inf")}
+    # A and B on both schedules (cuda_frontend.SCHEDULES: wgmma, the rule's
+    # pick at these shapes, and mma.sync), at the training and serving batch
+    check(cf.schedule_for(None, BF16, ft, hop, chunk + 2 * ft) == "wgmma",
+          "bf16 A: the rule does not pick wgmma")
+    check(cf.schedule_for(None, BF16, ft, hop, None) == "wgmma", "bf16 B: the rule does not pick wgmma")
+    a_errs = {sched: {"mag": 0.0, "phs": 0.0, "small": 0.0, "gap": float("inf")}
+              for sched in cf.SCHEDULES}
     for nb in (TRAIN_BATCH, n_windows):
         sg = torch.Generator(device=dev).manual_seed(300 + nb)
         xp = torch.nn.functional.pad(torch.randn(nb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
-        mag, phs = cf.fused_analysis(xp, w_an, ft, hop, BF16)
         rmag, rphs = cf.fused_analysis_reference(xp, w_an, ft, hop, BF16)
         f32_mag = cf.fused_analysis(xp, w_an, ft, hop)[0]
-        torch.cuda.synchronize()
-        check(mag.shape == rmag.shape and mag.dtype == torch.float32, "bf16 A: shape or dtype")
-        m_err, mag_excess = elementwise_excess(mag, rmag, 2e-5)
-        cls = phase_classes(phs, rphs, rmag)
         gap = float((f32_mag - rmag).abs().max())
-        print(f"A bf16 xp {tuple(xp.shape)}: max|dmag| {m_err:.3e} (tolerance 2e-5+2e-5|mag|); "
-              f"wrapped phase {cls['regular']['worst']:.3e} on {cls['regular']['bins']} bins >= 1e-2 "
-              f"(2e-4+2e-4|phs|), {cls['small']['worst']:.3e} on {cls['small']['bins']} smaller "
-              f"(2e-6/mag); the float32 kernel is {gap:.3e} off the plain bf16 version")
-        check(mag_excess <= 0, disagreement("A bf16 (magnitude)", mag, rmag))
-        for name, c in cls.items():
-            check(c["excess"] <= 0, f"kernel A bf16 (phase, {name} bins): {c['worst']:.3e}")
-        check(gap > 20 * m_err, "kernel A bf16 is as close to the float32 kernel as to its plain "
-                                "bf16 version: the operands were not rounded")
-        check(all(bool(torch.all(mag[e] == np.float32(1e-18))) for e in (0, -1)),
-              "kernel A bf16: an edge frame's magnitude is not exactly 1e-18")
-        errs = {"mag": max(errs["mag"], m_err), "phs": max(errs["phs"], cls["regular"]["worst"]),
-                "small": max(errs["small"], cls["small"]["worst"]), "gap": min(errs["gap"], gap)}
+        for sched in cf.SCHEDULES:
+            mag, phs = cf.fused_analysis(xp, w_an, ft, hop, BF16, schedule=sched)
+            torch.cuda.synchronize()
+            check(mag.shape == rmag.shape and mag.dtype == torch.float32, "bf16 A: shape or dtype")
+            m_err, mag_excess = elementwise_excess(mag, rmag, 2e-5)
+            cls = phase_classes(phs, rphs, rmag)
+            print(f"A bf16 {sched} xp {tuple(xp.shape)}: max|dmag| {m_err:.3e} (tolerance "
+                  f"2e-5+2e-5|mag|); wrapped phase {cls['regular']['worst']:.3e} on "
+                  f"{cls['regular']['bins']} bins >= 1e-2 (2e-4+2e-4|phs|), "
+                  f"{cls['small']['worst']:.3e} on {cls['small']['bins']} smaller (2e-6/mag); the "
+                  f"float32 kernel is {gap:.3e} off the plain bf16 version")
+            check(mag_excess <= 0, disagreement(f"A bf16 {sched} (magnitude)", mag, rmag))
+            for name, c in cls.items():
+                check(c["excess"] <= 0, f"kernel A bf16 {sched} (phase, {name} bins): "
+                                        f"{c['worst']:.3e}")
+            check(gap > 20 * m_err, f"kernel A bf16 {sched} is as close to the float32 kernel as "
+                                    "to its plain bf16 version: the operands were not rounded")
+            check(all(bool(torch.all(mag[e] == np.float32(1e-18))) and bool(torch.all(phs[e] == 0))
+                      for e in (0, -1)),
+                  f"kernel A bf16 {sched}: an edge frame's magnitude is not exactly 1e-18 or its "
+                  "phase not 0")
+            e = a_errs[sched]
+            a_errs[sched] = {"mag": max(e["mag"], m_err), "phs": max(e["phs"], cls["regular"]["worst"]),
+                             "small": max(e["small"], cls["small"]["worst"]),
+                             "gap": min(e["gap"], gap)}
         ins["xp", nb] = xp
-    res["bf16_fused_analysis"] = dict(
-        max_abs_err=errs["mag"], max_phase_err=errs["phs"], max_small_bin_phase_err=errs["small"],
-        f32_kernel_gap=errs["gap"],
-        tolerance="against the plain bf16 version: mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + "
-                  "2e-4*|phs| where mag >= 1e-2, 2e-6/mag below; the float32 kernel > 20x further")
 
-    b_err, b_gap = 0.0, float("inf")
+    def a_summary(e):
+        return dict(max_abs_err=e["mag"], max_phase_err=e["phs"], max_small_bin_phase_err=e["small"],
+                    f32_kernel_gap=e["gap"])
+
+    res["bf16_fused_analysis"] = dict(
+        **a_summary(a_errs["wgmma"]), schedule="wgmma", mma_sync=a_summary(a_errs["mma"]),
+        tolerance="against the plain bf16 version: mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + "
+                  "2e-4*|phs| where mag >= 1e-2, 2e-6/mag below; the float32 kernel > 20x further; "
+                  "both schedules at batches 200 and 643; edge frames exactly 1e-18 and 0")
+
+    b_res = {sched: {"max_abs_err": 0.0, "f32_kernel_gap": float("inf")} for sched in cf.SCHEDULES}
     for nb in (TRAIN_BATCH, n_windows):
         sg = torch.Generator(device=dev).manual_seed(400 + nb)
         smag = torch.nn.functional.softplus(torch.randn(out_frames, nb, half, generator=sg, device=dev))
         sphs = torch.randn(out_frames, nb, half, generator=sg, device=dev) * 2.0
-        wave = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16)
-        wave2 = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16)
         rwave = cf.fused_synthesis_reference(smag, sphs, w_syn, ft, hop, BF16)
         f32_wave = cf.fused_synthesis(smag, sphs, w_syn, ft, hop)
-        torch.cuda.synchronize()
-        check(wave.shape == (nb, out_len), f"bf16 synthesis shape {tuple(wave.shape)}")
-        check(torch.equal(wave, wave2), "kernel B bf16: two runs are not bit-equal")
-        err, excess = elementwise_excess(wave, rwave, 3e-4)
         gap = excess_ratio(f32_wave, rwave, 3e-4)
-        print(f"B bf16 mag {tuple(smag.shape)}: max|dwave| {err:.3e} (tolerance 3e-4+3e-4|wave|, "
-              f"max|wave| {float(rwave.abs().max()):.3f}); two runs bit-equal; the float32 kernel "
-              f"is {gap:.2f}x the tolerance off the plain bf16 version")
-        check(excess <= 0, disagreement("B bf16", wave, rwave))
-        b_err, b_gap = max(b_err, err), min(b_gap, rounding_shows("B bf16", gap, GAP_B))
+        for sched in cf.SCHEDULES:
+            wave = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16, schedule=sched)
+            wave2 = cf.fused_synthesis(smag, sphs, w_syn, ft, hop, BF16, schedule=sched)
+            torch.cuda.synchronize()
+            check(wave.shape == (nb, out_len), f"bf16 synthesis shape {tuple(wave.shape)}")
+            check(torch.equal(wave, wave2), f"kernel B bf16 {sched}: two runs are not bit-equal")
+            err, excess = elementwise_excess(wave, rwave, 3e-4)
+            print(f"B bf16 {sched} mag {tuple(smag.shape)}: max|dwave| {err:.3e} (tolerance "
+                  f"3e-4+3e-4|wave|, max|wave| {float(rwave.abs().max()):.3f}); two runs bit-equal; "
+                  f"the float32 kernel is {gap:.2f}x the tolerance off the plain bf16 version")
+            check(excess <= 0, disagreement(f"B bf16 {sched}", wave, rwave))
+            r = b_res[sched]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["f32_kernel_gap"] = min(r["f32_kernel_gap"], rounding_shows("B bf16", gap, GAP_B))
         ins["syn", nb] = (smag, sphs)
     res["bf16_fused_synthesis"] = dict(
-        max_abs_err=b_err, f32_kernel_gap=b_gap,
+        **b_res["wgmma"], schedule="wgmma", mma_sync=b_res["mma"],
         tolerance=f"3e-4 + 3e-4*|wave| against the plain bf16 version, the float32 kernel > {GAP_B:g}x "
-                  "it; two runs bit-equal")
+                  "it; both schedules at batches 200 and 643; two runs bit-equal")
 
     # D: unit-normal and well-conditioned phase cotangents, both against
     # float64, on both schedules (cuda_frontend.SCHEDULES: wgmma, the rule's
@@ -847,8 +870,8 @@ def train_every_effect(dev, results: dict, chunk: int, out_chunk: int, sr: int) 
             check(counts[k][0] > 0, f"training {name}: kernel {k} never launched")
         for k in bf16_names:
             check(counts[k[5:]][0] == 0, f"training {name}: the float32 kernel {k[5:]} launched")
-        for k in ("bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"):
-            check(counts[k][0] == 0, f"training {name}: D or E took the mma.sync schedule ({k})")
+        for k in MMA_NAMES:
+            check(counts[k][0] == 0, f"training {name}: a kernel took the mma.sync schedule ({k})")
         check((counts["switched_one_pole"][0] > 0) == uses_c,
               f"training {name}: kernel C launched {counts['switched_one_pole'][0]} times")
         check((counts["lfilter"][0] > 0) == uses_l,
@@ -962,6 +985,9 @@ GEN_TOL = {"comp_4c": 1e-5, "comp": 1e-4}  # the card against the plain version 
 FILE_STEPS = TRAIN_POINTS // TRAIN_BATCH  # 20 steps an epoch, 5 validation batches
 BF16_NAMES = ["bf16_fused_analysis", "bf16_fused_synthesis", "bf16_fused_analysis_bwd",
               "bf16_fused_synthesis_bwd"]
+# the counters of the bf16 kernels' mma.sync schedule, which the main paths
+# at the flagship geometry never take (the rule picks wgmma there)
+MMA_NAMES = [name + "_mma" for name in BF16_NAMES]
 
 
 def counted(fn):
@@ -1144,8 +1170,8 @@ def train_and_replay(dev, tag: str, effect, datapath: str, epochs: int, limit: i
     for k in BF16_NAMES:
         check(counts[k][0] > 0, f"file training {tag}: kernel {k} never launched")
         check(counts[k[5:]][0] == 0, f"file training {tag}: the float32 kernel {k[5:]} launched")
-    for k in ("bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"):
-        check(counts[k][0] == 0, f"file training {tag}: D or E took the mma.sync schedule ({k})")
+    for k in MMA_NAMES:
+        check(counts[k][0] == 0, f"file training {tag}: a kernel took the mma.sync schedule ({k})")
     no_plain(counts, f"file training {tag}")
     check(len(hist["train_loss"]) == epochs * FILE_STEPS
           and bool(np.all(np.isfinite(hist["train_loss"]))), f"file training {tag}: the losses")
@@ -1380,7 +1406,8 @@ SURFACE_LOOPS = {"default": {}, "ragged": dict(status_every=7), "plots": dict(pl
                  "checkpoints": dict(cp_every=1)}
 # the kernels of the front-end's libraries (csrc/frontend.cu, frontend_bwd.cu,
 # tc_product.cuh, wgmma_product.cuh), by base name: a train step launches them
-# in four runs, A, B, E, D
+# in four runs, A, B, E, D (the wgmma schedules' products, A's and B's
+# included, are all "product<...>")
 FRONTEND_KERNELS = {"product", "spectrum_rows", "overlap_add", "halve_to_bf16", "pack_weights",
                     "pack_transposed", "pad_dout", "pad_dout_zero_edges", "synthesis_adjoint",
                     "sum_analysis_partials", "sum_synthesis_partials"}
@@ -3180,14 +3207,13 @@ def main() -> None:
                   "weights": {k: v.clone() for k, v in trained.state_dict().items()}}
         return served, hist, mean_maes, t_path, phase4
 
-    # bf16 D and E at this shape take the wgmma schedule: their mma.sync
+    # bf16 A, B, D and E at this shape take the wgmma schedule: their mma.sync
     # schedule's counters must stay 0 on both paths
-    mma_names = ["bf16_fused_analysis_bwd_mma", "bf16_fused_synthesis_bwd_mma"]
     served, hist, mean_maes, t_path, _ = training_path(torch.float32, f32_names,
-                                                       bf16_names + mma_names)
+                                                       bf16_names + MMA_NAMES)
     served_b, hist_b, mean_maes_b, t_path_b, phase4_b = training_path(BF16, bf16_names,
-                                                                       f32_names + mma_names)
-    for name in mma_names:
+                                                                       f32_names + MMA_NAMES)
+    for name in MMA_NAMES:
         results[name.removesuffix("_mma")]["launches_mma_sync_training_bfloat16"] = 0
 
     # ---- 4b. every effect trained; 4c. the Denoise checkpoint served
@@ -3275,11 +3301,13 @@ def main() -> None:
         results["fused_synthesis"]["cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
             time_frontend.synthesis_spectrum(smag, sphs), w_syn, F32), reps=10)
         la = (out_frames - 1) * hop + ft
-        overlap = sum(max(0, min(t * hop + ft, la - ft) - max(t * hop, ft))
-                      for t in range(out_frames))  # frame samples that reach the trimmed output
+        reach = [max(0, min(t * hop + ft, la - ft) - max(t * hop, ft))
+                 for t in range(out_frames)]  # each frame's samples in the trimmed output
+        overlap = sum(reach)
+        live = sum(n > 0 for n in reach)  # B and E need mag and phs of these frames only
         r = results["fused_synthesis"]
         b_flops = 2.0 * n_windows * 2 * half * overlap
-        b_bytes = 4.0 * (2 * out_frames * n_windows * half + 2 * half * ft + n_windows * out_len)
+        b_bytes = 4.0 * (2 * live * n_windows * half + 2 * half * ft + n_windows * out_len)
         r.update(zip(("bound_ms", "bound_by"), bound(b_flops, b_bytes, PEAK_SPLIT_TF32_FLOPS)))
         r["bound_ms_cuda_cores"] = bound(b_flops, b_bytes)[0]
         r["tflops"] = b_flops / r["ms"] / 1e9
@@ -3372,7 +3400,7 @@ def main() -> None:
         r["cublas_ms"] = cuda_ms(time_frontend.cublas_backward(e_spec, w_syn, e_frames, F32),
                                  reps=5)
         e_flops = 2 * 2.0 * tb * 2 * half * overlap  # the live frame samples only
-        e_bytes = 4.0 * (4 * out_frames * tb * half + 2 * 2 * half * ft + tb * out_len)
+        e_bytes = 4.0 * (2 * (live + out_frames) * tb * half + 2 * 2 * half * ft + tb * out_len)
         r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_SPLIT_TF32_FLOPS)))
         r["bound_ms_cuda_cores"] = bound(e_flops, e_bytes)[0]
         r["tflops"] = e_flops / r["ms"] / 1e9
@@ -3406,7 +3434,7 @@ def main() -> None:
         r["train_cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
             time_frontend.synthesis_spectrum(tmag, tphs), w_syn, F32), reps=10)
         bt_flops = 2.0 * tb * 2 * half * overlap
-        bt_bytes = 4.0 * (2 * out_frames * tb * half + 2 * half * ft + tb * out_len)
+        bt_bytes = 4.0 * (2 * live * tb * half + 2 * half * ft + tb * out_len)
         r["train_bound_ms"] = bound(bt_flops, bt_bytes, PEAK_SPLIT_TF32_FLOPS)[0]
         r["train_bound_ms_cuda_cores"] = bound(bt_flops, bt_bytes)[0]
         r["train_tflops"] = bt_flops / r["train_ms"] / 1e9
@@ -3442,9 +3470,40 @@ def main() -> None:
         # batch), on the inputs of their checks; the bound at the dense bf16
         # rate; the library calls the same linear parts in bf16 (cuDNN)
         w_conv16, w_tconv16 = w_conv.to(BF16), w_tconv.to(BF16)
+        bxp, sxp = bf16_ins["xp", TRAIN_BATCH], bf16_ins["xp", n_windows]
+        bmag, bphs = bf16_ins["syn", TRAIN_BATCH]
+        smag_b, sphs_b = bf16_ins["syn", n_windows]
+        # bf16 A and B on both schedules at both batches, in turns (wgmma, mma,
+        # mma, wgmma): the mean of each way, its least and most, and one
+        # CUDA-graph replay of a call
+        fwd = {
+            ("A", ""): lambda sched: cuda_frontend.fused_analysis(bxp, w_an, ft, hop, BF16, sched),
+            ("A", "serve_"): lambda sched: cuda_frontend.fused_analysis(sxp, w_an, ft, hop, BF16,
+                                                                        sched),
+            ("B", ""): lambda sched: cuda_frontend.fused_synthesis(bmag, bphs, w_syn, ft, hop, BF16,
+                                                                   sched),
+            ("B", "serve_"): lambda sched: cuda_frontend.fused_synthesis(smag_b, sphs_b, w_syn, ft,
+                                                                         hop, BF16, sched)}
+        fwd_turns = {(way, sched): [] for way in fwd for sched in cuda_frontend.SCHEDULES}
+        for sched in ("wgmma", "mma", "mma", "wgmma"):
+            for way, fn in fwd.items():
+                fwd_turns[way, sched].append(cuda_ms(lambda: fn(sched), reps=20))
+        fwd_graph = {(way, sched): time_frontend.graph_ms(lambda: fn(sched))
+                     for way, fn in fwd.items() for sched in cuda_frontend.SCHEDULES}
+
+        def fwd_times(r, kernel, flops, serve_flops):
+            """A's or B's times on both schedules into its results: the wgmma
+            schedule's at the top level, the mma.sync one's under mma_sync."""
+            for sched, into in (("wgmma", r), ("mma", r["mma_sync"])):
+                for pre, fl in (("", flops), ("serve_", serve_flops)):
+                    runs = fwd_turns[(kernel, pre), sched]
+                    into[f"{pre}ms"] = sum(runs) / len(runs)
+                    into[f"{pre}ms_min_max"] = [min(runs), max(runs)]
+                    into[f"{pre}graph_ms"] = fwd_graph[(kernel, pre), sched]
+                    into[f"{pre}tflops"] = fl / into[f"{pre}ms"] / 1e9
+
         r = results["bf16_fused_analysis"]
-        bxp = bf16_ins["xp", TRAIN_BATCH]
-        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(bxp, w_an, ft, hop, BF16), reps=20)
+        fwd_times(r, "A", at_flops, a_flops)
         r["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis_reference(bxp, w_an, ft, hop, BF16), reps=10)
         bxp16 = bxp[:, None, :].to(BF16)
@@ -3452,10 +3511,7 @@ def main() -> None:
             lambda: torch.nn.functional.conv1d(bxp16, w_conv16, stride=hop), reps=10)
         r["cublas_ms"] = cuda_ms(time_frontend.cublas_analysis(bxp, w_an, ft, hop, BF16), reps=10)
         r.update(zip(("bound_ms", "bound_by"), bound(at_flops, at_bytes, PEAK_BF16_FLOPS)))
-        r["tflops"] = at_flops / r["ms"] / 1e9
         r["shape"] = f"xp {tuple(bxp.shape)}, w {tuple(w_an.shape)}"
-        sxp = bf16_ins["xp", n_windows]
-        r["serve_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(sxp, w_an, ft, hop, BF16), reps=20)
         r["serve_plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis_reference(sxp, w_an, ft, hop, BF16), reps=10)
         sxp16 = sxp[:, None, :].to(BF16)
@@ -3467,9 +3523,7 @@ def main() -> None:
         r["serve_shape"] = f"xp {tuple(sxp.shape)}"
 
         r = results["bf16_fused_synthesis"]
-        bmag, bphs = bf16_ins["syn", TRAIN_BATCH]
-        r["ms"] = cuda_ms(lambda: cuda_frontend.fused_synthesis(bmag, bphs, w_syn, ft, hop, BF16),
-                          reps=20)
+        fwd_times(r, "B", bt_flops, b_flops)
         r["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis_reference(bmag, bphs, w_syn, ft, hop, BF16), reps=10)
         bspec16 = torch.cat([bmag * torch.cos(bphs), bmag * torch.sin(bphs)], -1).permute(1, 2, 0)
@@ -3479,11 +3533,7 @@ def main() -> None:
         r["cublas_ms"] = cuda_ms(time_frontend.cublas_synthesis(
             time_frontend.synthesis_spectrum(bmag, bphs), w_syn, BF16), reps=10)
         r.update(zip(("bound_ms", "bound_by"), bound(bt_flops, bt_bytes, PEAK_BF16_FLOPS)))
-        r["tflops"] = bt_flops / r["ms"] / 1e9
         r["shape"] = f"mag {tuple(bmag.shape)}, w {tuple(w_syn.shape)}"
-        smag_b, sphs_b = bf16_ins["syn", n_windows]
-        r["serve_ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_synthesis(smag_b, sphs_b, w_syn, ft, hop, BF16), reps=20)
         r["serve_plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis_reference(smag_b, sphs_b, w_syn, ft, hop, BF16),
             reps=10)
@@ -3726,6 +3776,7 @@ def main() -> None:
                 "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools",
                 "launches_parallel", "launches_microbatch", "cublas_ms", "train_cublas_ms",
                 "serve_cublas_ms", "schedule", "mma_sync", "ms_min_max", "ms_without_dxp_min_max",
+                "serve_ms_min_max", "serve_graph_ms", "serve_tflops",
                 "bound_ms_without_dxp", "max_err_less_slack", "max_dx_err_less_slack", "graph_ms",
                 "graph_ms_without_dxp",
                 "max_abs_err_at_serving_batch", "launches_mma_sync_training_bfloat16")
@@ -3768,7 +3819,10 @@ def main() -> None:
                 f"replay {m['graph_ms']:.4f}"
                 + (f", without dxp {m['ms_without_dxp']:.4f} ms, replay "
                    f"{m['graph_ms_without_dxp']:.4f}" if "ms_without_dxp" in m else "")
-                + f", {m['tflops']:.1f} TFLOP/s")
+                + f", {m['tflops']:.1f} TFLOP/s"
+                + (f"; at the serving shape replay {r['serve_graph_ms']:.4f} ms, the mma.sync "
+                   f"schedule {m['serve_ms']:.4f} ms, replay {m['serve_graph_ms']:.4f}"
+                   if "serve_graph_ms" in r else ""))
         print(f"{name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}{extra}) on {smi}")
         if "train_ms" in r:

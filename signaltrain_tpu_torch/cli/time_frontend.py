@@ -33,15 +33,18 @@ the float64 plain version of the same bf16-rounded computation, and TFLOP/s
 count the bf16 products. It then also splits D's error under unit-normal
 cotangents on each schedule by product (``d_error_split``), reads how far the
 spectrum D forms again lies from float64 (``spectrum_error``), and
-splits bf16 D (with and without dxp) and E at batch 200 by pass on each
-schedule (``pass_split``: the wgmma one of ``csrc/wgmma_product.cuh`` and the
-mma.sync one of ``csrc/tc_product.cuh``): the median and spread over
-``SPLIT_REPS`` calls of every kernel the call launches (pack, pad or halve,
-each product, the adjoint pass, the slice sums, the overlap-add), their sum
-(the card's time a call), the call's own time by CUDA events (which also
-holds the host's launch work whenever the card waits for it), and the call
-replayed from a CUDA graph (the card's time with no host work in between, as
-training runs it).
+splits bf16 A and B (batches 200 and 643), D (with and without dxp) and E
+(batch 200) by pass on each schedule, the wgmma one of
+``csrc/wgmma_product.cuh`` and the mma.sync one of ``csrc/tc_product.cuh``
+(``schedule_splits`` with ``pass_split``):
+the median and spread over ``SPLIT_REPS`` calls of every kernel the call
+launches (pack, pad or halve, the spectrum rows, each product, the adjoint
+pass, the slice sums, the overlap-add), their sum (the card's time a call),
+the call's own time by CUDA events (which also holds the host's launch work
+whenever the card waits for it), and the call replayed from a CUDA graph (the
+card's time with no host work in between, as training runs it):
+
+    python -m signaltrain_tpu_torch.cli.time_frontend A B --dtype bfloat16
 """
 
 from __future__ import annotations
@@ -178,34 +181,51 @@ def print_split(title: str, split: dict) -> None:
         print(f"    {med:.4f} ms [{lo:.4f}, {hi:.4f}]  {name[:100]}")
 
 
-def schedule_splits(dev) -> None:
-    """bf16 D (with and without dxp) and E at batch 200, flagship geometry,
-    split by pass on each schedule."""
-    bf = torch.bfloat16
-    batch, ot = 200, 9
+def split_inputs(dev, batch: int, ot: int = 9) -> dict:
+    """Seeded inputs of A, B, D and E at the flagship geometry and ``batch``."""
     g = torch.Generator(device=dev).manual_seed(batch)
+    xp = torch.nn.functional.pad(torch.randn(batch, CHUNK, generator=g, device=dev) * 0.3, (FT, FT))
+    frames = (xp.shape[1] - FT) // HOP + 1
+    return dict(
+        xp=xp, dmag=torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT),
+        dphs=torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT),
+        mag=torch.nn.functional.softplus(torch.randn(ot, batch, HALF, generator=g, device=dev)),
+        phs=torch.randn(ot, batch, HALF, generator=g, device=dev) * 2.0,
+        dout=torch.randn(batch, (ot - 1) * HOP - FT, generator=g, device=dev))
+
+
+def schedule_splits(dev, which) -> None:
+    """bf16 A and B at batches 200 and 643, D (with and without dxp) and E at
+    batch 200, flagship geometry, split by pass on each schedule."""
+    bf = torch.bfloat16
     with torch.no_grad():
         wa = frontend.Analysis(FT, HOP, device=dev).stacked_weights().contiguous()
         ws = frontend.Synthesis(FT, HOP, device=dev).stacked_weights().contiguous()
-    xp = torch.nn.functional.pad(torch.randn(batch, CHUNK, generator=g, device=dev) * 0.3, (FT, FT))
-    frames = (xp.shape[1] - FT) // HOP + 1
-    dmag = torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT)
-    dphs = torch.randn(frames, batch, HALF, generator=g, device=dev) * (64.0 / FT)
-    mag = torch.nn.functional.softplus(torch.randn(ot, batch, HALF, generator=g, device=dev))
-    phs = torch.randn(ot, batch, HALF, generator=g, device=dev) * 2.0
-    dout = torch.randn(batch, (ot - 1) * HOP - FT, generator=g, device=dev)
-    print(f"bf16 D and E at batch {batch} by pass, each schedule (ms):")
+    calls = []  # (title, fn(schedule))
+    for batch in (200, 643):
+        x = split_inputs(dev, batch)
+        if "A" in which:
+            calls.append((f"A, batch {batch}", lambda s, x=x: cf.fused_analysis(
+                x["xp"], wa, FT, HOP, bf, schedule=s)))
+        if "B" in which:
+            calls.append((f"B, batch {batch}", lambda s, x=x: cf.fused_synthesis(
+                x["mag"], x["phs"], ws, FT, HOP, bf, schedule=s)))
+        if batch != 200:
+            continue
+        if "D" in which:
+            calls.append(("D, batch 200", lambda s, x=x: cf.fused_analysis_bwd(
+                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, compute_dtype=bf, schedule=s)))
+            calls.append(("D without dxp, batch 200", lambda s, x=x: cf.fused_analysis_bwd(
+                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, need_dxp=False, compute_dtype=bf,
+                schedule=s)))
+        if "E" in which:
+            calls.append(("E, batch 200", lambda s, x=x: cf.fused_synthesis_bwd(
+                x["mag"], x["phs"], ws, x["dout"], FT, HOP, compute_dtype=bf, schedule=s)))
+    print("bf16 kernels by pass, each schedule (ms):")
     with torch.inference_mode():
         for sched in cf.SCHEDULES:
-            for title, fn in (
-                    ("D", lambda: cf.fused_analysis_bwd(xp, wa, dmag, dphs, FT, HOP,
-                                                        compute_dtype=bf, schedule=sched)),
-                    ("D without dxp", lambda: cf.fused_analysis_bwd(
-                        xp, wa, dmag, dphs, FT, HOP, need_dxp=False, compute_dtype=bf,
-                        schedule=sched)),
-                    ("E", lambda: cf.fused_synthesis_bwd(mag, phs, ws, dout, FT, HOP,
-                                                         compute_dtype=bf, schedule=sched))):
-                print_split(f"{title}, {sched}", pass_split(fn))
+            for title, fn in calls:
+                print_split(f"{title}, {sched}", pass_split(lambda: fn(sched)))
 
 
 def kernel_rows(fn, reps=5):
@@ -360,8 +380,8 @@ def main():
     occ = _cuda.function("frontend", "st_analysis_blocks_per_sm", [ctypes.c_int])
     print(f"compute dtype {args.dtype}; blocks of kernel A's product an SM holds at once: "
           f"{occ(int(dt == torch.bfloat16))}")
-    if dt == torch.bfloat16 and which & {"D", "E"}:
-        schedule_splits(dev)
+    if dt == torch.bfloat16:
+        schedule_splits(dev, which)
     if which & {"B", "E"}:
         synthesis(dev, which, dt)
     if not which & {"A", "D"}:

@@ -32,8 +32,8 @@
 //   A: framing is folded into the loads (frame t of window b is the row of xp
 //     at offset t*hop) and the magnitude/phase into the epilogue: re and im of
 //     a bin are neighbouring columns of the repacked weights, so the thread
-//     that finishes bin k holds both. Kernel D's first product is the same
-//     code, so it finds the spectrum A found, bit for bit.
+//     that finishes bin k holds both. Kernel D's first product on the same
+//     loop is the same code, so it finds the spectrum A found, bit for bit.
 //   B: three steps. An elementwise pass writes the spectrum (mag*cos(phs),
 //     mag*sin(phs)) of the live frames once, interleaved like the repacked
 //     weights (7 MB at batch 200, a few us); the frame product
@@ -45,12 +45,44 @@
 //     88 output tiles against 264 resident blocks, so the product's K (the
 //     2*half spectrum columns) is cut into slices by the rule of
 //     cuda_frontend.k_slices and the gather adds them in order.
+//
+// The bf16 modes have two schedules (cuda_frontend.schedule_for): the
+// mma.sync loop above, and the wgmma one at the end of this file, on
+// wgmma_product.cuh (TMA into a ring of 128-byte-swizzled stages, two
+// consumer warpgroups on wgmma.mma_async, persistent blocks, no K slices).
+// At the dense bf16 rate (989 TFLOP/s) and 3.35 TB/s, A is bound by
+// operations (batch 200: 10.5 GFLOP, 0.0106 ms, against 33 MB in and out,
+// 0.0098 ms; the operations grow their lead above batch 200) and B at
+// batch 200 by bytes (11.6 MB, 0.0035 ms: magnitude and phase of the live
+// frames, the weights and the output; its products over the live frames
+// 0.0022 ms). Neither comes near either bound: what holds the wgmma products
+// back is the hand-over between TMA and the consumers (wgmma_product.cuh's
+// note), so the design moves the fewest bytes through it and adds no pass:
+//   A: kernel D's spectrum product itself (wg::FrameSpectrum, 128-column
+//     tiles of 128 padded rows R = t * bpad + b, the frames read through a
+//     3-D tensor map), with AnalysisFwd's magnitude and phase as its
+//     epilogue, staged in shared memory so that a warp writes contiguous
+//     bins. The same instance, K steps and pieces as D's: the spectrum A
+//     finds on this schedule is the one D's wgmma schedule forms again.
+//   B: kernel D's frame product (wg::RowProduct: the spectrum rows and the
+//     packed weights both K-major) in 128 x 128 tiles: 11 x 8 = 88 tiles at
+//     batch 200 (0.67 of a wave on 132 SMs), 36 x 8 = 288 at 643 windows
+//     (2.2 waves). The frames (rows, ft) are written once in f32 and the
+//     gather adds one slice. 128 x 64 tiles (176 at batch 200) read the
+//     spectrum twice as often: the product took 0.0224 ms against 0.0155.
+// Two consumer schedules were built and measured on both and not kept
+// (PERF.md, section 6): alternate 64-row tiles, one warpgroup's epilogue beside
+// the other's products (A's product 0.0902 ms against 0.0925 at batch 200,
+// 0.2190-0.2277 against 0.2150 at 643; B's 0.0226 against 0.0155), and each
+// tile's epilogue drained a share a K step beside the next tile's products
+// (A 0.0927-0.0932 against 0.0925; B 0.0185 against 0.0153).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "tc_product.cuh"
+#include "wgmma_product.cuh"
 
 namespace {
 
@@ -142,6 +174,85 @@ int synthesis_fwd(const float* mag, const float* phs, const float* w, T* wp, T* 
   return tc::gather(frames, out, batch, out_len, ft, ft, hop, 1, live, nsplit, 1.f, s);
 }
 
+// ======================================================= the wgmma schedule
+// The bf16 modes of A and B on wgmma_product.cuh: the same passes around the
+// products (tc::pack / pack_synthesis, halve_to_bf16, spectrum_rows,
+// tc::gather) and the same arithmetic in the epilogues, but no K slices.
+
+// A: kernel D's spectrum product (wg::FrameSpectrum over the frames of the
+// halved bf16 signal, padded rows R = t * bpad + b, 128-column tiles), its
+// finished (re, im) pairs made magnitude and phase as AnalysisFwd makes them;
+// padding rows and columns past 2 * half write nothing.
+struct AnalysisFwdW : wg::FrameSpectrum<128> {
+  float* mag;
+  float* phs;
+  int batch, half;
+  __device__ void pair(int r, int n, float re, float im, wg::NoAux) const {
+    const int t = r / this->bpad, b = r - t * this->bpad, bin = n >> 1;
+    if (r >= this->m || b >= batch || bin >= half) return;
+    const int64_t at = ((int64_t)t * batch + b) * half + bin;
+    mag[at] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
+    phs[at] = atan2f(im, re + 1e-7f);
+  }
+};
+
+int analysis_fwd_wgmma(const float* xp, const float* w, tc::bf16* xq, tc::bf16* wp, float* mag,
+                       float* phs, int batch, int lp, int ft, int hop, int half, int frames,
+                       cudaStream_t s) {
+  int err = tc::pack(w, wp, ft, half, s);
+  if (err) return err;
+  const tc::bf16* signal;
+  if ((err = tc::signal(xp, xq, (int64_t)batch * lp, &signal, s))) return err;
+  AnalysisFwdW p;
+  p.m = frames * wg::pad_rows(batch), p.n = tc::packed_width<tc::bf16>(half);
+  if ((err = wg::frames_map(&p.frames, signal, ft, batch, frames, lp, hop))) return err;
+  if ((err = wg::matrix_map(&p.w, wp, ft, p.n))) return err;
+  p.bpad = wg::pad_rows(batch), p.ft = ft, p.hop = hop, p.live_lo = 0, p.live_hi = lp;
+  p.mag = mag, p.phs = phs, p.batch = batch, p.half = half;
+  return wg::launch(p, s);
+}
+
+// B: the live frames' samples frames[r, j] = sum_c spec[r, c] * wp[j, c]
+// (kernel D's DxFramesW product: spec and the packed weights both K-major,
+// rows r = t * batch + b of the live frames), written once in f32 for the
+// overlap-add.
+struct SynthesisFramesW : wg::RowProduct<128> {
+  float* frames;
+  int ft;
+  __device__ void pair(int r, int j, float v0, float v1, wg::NoAux) const {
+    if (r >= this->m || j >= ft) return;
+    float* dst = frames + (int64_t)r * ft + j;
+    if (j + 1 < ft && !(ft & 1)) {
+      *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);  // ft even: aligned
+    } else {
+      dst[0] = v0;
+      if (j + 1 < ft) dst[1] = v1;
+    }
+  }
+};
+
+int synthesis_fwd_wgmma(const float* mag, const float* phs, const float* w, tc::bf16* wp,
+                        tc::bf16* spec, float* frames, float* out, int batch, int out_frames,
+                        int ft, int hop, int half, int out_len, cudaStream_t s) {
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int rows = live * batch;
+  const int ldc = tc::packed_width<tc::bf16>(half);
+  int err = tc::pack_synthesis(w, wp, ft, half, s);
+  if (err) return err;
+  if (rows <= 0)  // no frame reaches the trimmed output
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * batch * out_len, s);
+  spectrum_rows<tc::bf16><<<tc::blocks((int64_t)rows * (ldc / 2), 256), 256, 0, s>>>(
+      mag, phs, spec, rows, batch, half, ldc);
+  if ((err = (int)cudaGetLastError())) return err;
+  SynthesisFramesW p;
+  p.m = rows, p.n = ft;
+  if ((err = wg::matrix_map(&p.d, spec, rows, ldc))) return err;
+  if ((err = wg::matrix_map(&p.w, wp, ft, ldc))) return err;
+  p.k = ldc, p.frames = frames, p.ft = ft;
+  if ((err = wg::launch(p, s))) return err;
+  return tc::gather(frames, out, batch, out_len, ft, ft, hop, 1, live, 1, 1.f, s);
+}
+
 template <class T>
 int blocks_per_sm() {
   using S = tc::Smem<T>;
@@ -159,7 +270,10 @@ int blocks_per_sm() {
 
 extern "C" {
 
-const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+const char* st_error_string(int code) {
+  if (code >= wg::ENCODE_ERROR) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 // xp (batch, lp) padded signal, not halved; w (ft, 2*half) stacked analysis
 // weights; mag, phs (frames, batch, half) with frames = (lp - ft)/hop + 1.
@@ -204,6 +318,27 @@ int st_synthesis_fwd(const void* mag, const void* phs, const void* w, void* wp, 
   return synthesis_fwd((const float*)mag, (const float*)phs, (const float*)w, (float*)wp,
                        (float*)spec, (float*)frames, (float*)out, batch, out_frames, ft, hop,
                        half, out_len, nsplit, vec, s);
+}
+
+// The bf16 mode of st_analysis_fwd on the wgmma schedule (wgmma_product.cuh),
+// for geometries whose hop, lp and ft are multiples of 8 (16 bytes). Scratch,
+// in bf16, as for st_analysis_fwd: xq (batch, lp), wp (ft, ldc).
+int st_analysis_fwd_wgmma(const void* xp, const void* w, void* xq, void* wp, void* mag, void* phs,
+                          int batch, int lp, int ft, int hop, int half, int frames, void* stream) {
+  return analysis_fwd_wgmma((const float*)xp, (const float*)w, (tc::bf16*)xq, (tc::bf16*)wp, (float*)mag,
+             (float*)phs, batch, lp, ft, hop, half, frames, (cudaStream_t)stream);
+}
+
+// The bf16 mode of st_synthesis_fwd on the wgmma schedule, for any geometry
+// (its operands are rows of ldc bf16, 16-byte multiples). Scratch, in bf16:
+// wp (ft, ldc), spec (rows, ldc); in float32 frames (rows, ft), rows =
+// (out_frames - 2)*batch. No K slices.
+int st_synthesis_fwd_wgmma(const void* mag, const void* phs, const void* w, void* wp, void* spec,
+                           void* frames, void* out, int batch, int out_frames, int ft, int hop,
+                           int half, int out_len, void* stream) {
+  return synthesis_fwd_wgmma((const float*)mag, (const float*)phs, (const float*)w, (tc::bf16*)wp,
+             (tc::bf16*)spec, (float*)frames, (float*)out, batch, out_frames, ft, hop, half,
+             out_len, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -411,11 +411,17 @@ int synthesis_bwd(const float* mag, const float* phs, const float* w, const floa
 // and no pass to add them: D's dW and E's dmag / dphs / spec and dW are
 // written by the products that finish them. The rows of the products are
 // padded rows R = t * bpad + b (wgmma_product.cuh); dspec and E's spectrum
-// are stored that way, zero on the padding rows. D's spectrum is formed again
-// in another order than kernel A's (A stays on tc_product.cuh), so it is no
-// longer A's bit for bit; `sq >= 1e-36` still decides as the forward did,
-// since a frame that is all padding gives an exact 0 in any order and a
-// frame with signal in it gives sq many orders of magnitude above the floor.
+// are stored that way, zero on the padding rows. D's spectrum product is
+// kernel A's on the same schedule (frontend.cu's AnalysisFwdW: the same
+// wg::FrameSpectrum<128>, K steps and pieces), so where A and D both run on
+// wgmma, as training does at the flagship geometry, D forms again the
+// spectrum A found (by construction: the card holds each against its plain
+// version and float64, not the two against each other); across schedules
+// the order of the sums differs.
+// `sq >= 1e-36` decides as the forward did either way, since a frame that is
+// all padding gives an exact 0 in any order (A's edge frames are exactly
+// 1e-18 on both schedules, chip_smoke.py 2b) and a frame with signal in it
+// gives sq many orders of magnitude above the floor.
 
 // The spectrum product of D and E, whose epilogues read two (frames, batch,
 // half) arrays at the tile's bins: prefetch_bins has the producer warp hint

@@ -2,8 +2,9 @@
 // fed the Hopper way: a ring of shared-memory stages filled by the Tensor
 // Memory Accelerator (TMA) against mbarriers, one producer warp, and two
 // consumer warpgroups that multiply with wgmma.mma_async. The bf16 modes of
-// kernels D and E (frontend_bwd.cu) run their products on it; kernels A and
-// B, and every float32 mode, stay on the mma.sync loop of tc_product.cuh.
+// kernels A and B (frontend.cu) and D and E (frontend_bwd.cu) run their
+// products on it; every float32 mode stays on the mma.sync loop of
+// tc_product.cuh, which also remains each bf16 kernel's second schedule.
 //
 // What it replaces, and why. tc_product.cuh's bf16 loop issues one
 // mma.sync.m16n8k16 a K chunk of 16 from registers that its threads load
@@ -122,9 +123,19 @@
 // the consumers do between tiles instead of multiplying.
 // The producer warpgroup's three idle warps cannot take the epilogue over:
 // at the 56 registers a thread they could have, draining the staging
-// buffers took D's spectrum product to 0.19 ms. Next: two consumer
-// warpgroups on alternate tiles (one's epilogue beside the other's
-// products), and 2-block clusters sharing a B tile by TMA multicast.
+// buffers took D's spectrum product to 0.19 ms. Nor did two consumer
+// schedules that take the epilogue out of the consumers' way help kernel A,
+// whose product (A's spectrum, the instance of D's, with a magnitude and
+// phase epilogue that writes 20.5 MB at batch 200) takes 0.0925 ms against
+// D's 0.054 with its epilogue off (PERF.md, section 6): two consumer warpgroups
+// on alternate 64-row tiles, each with its own B tile and "order" mbarriers
+// so that the stages are consumed in the order they are filled (0.0902 at
+// batch 200, 0.2190-0.2277 against 0.2150 at 643: each warpgroup now loads
+// its own B tile, 1.5 times the bytes a step moves for the same products),
+// and a tile's epilogue drained a share a K step between the next tile's
+// wgmma issue and its wait (0.0927-0.0932). Neither is kept. What is left in
+// A's way is the feed, not the epilogue's arithmetic: next, 2-block clusters
+// sharing a B tile by TMA multicast, and fewer, larger frame boxes.
 
 #pragma once
 

@@ -31,21 +31,23 @@ launch counter (``bf16_*`` for bfloat16).
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
-The bf16 modes of D and E have two schedules (``SCHEDULES``): "wgmma"
+The bf16 modes of all four have two schedules (``SCHEDULES``): "wgmma"
 (``csrc/wgmma_product.cuh``: TMA into a ring of shared-memory stages, wgmma,
 no K slices) and "mma" (the ``mma.sync`` loop of ``csrc/tc_product.cuh``).
-The wrapper picks by a rule on the shape, ``uses_wgmma``: "wgmma" where every
-frame offset and length is a multiple of 16 bytes (TMA's rule), "mma"
-elsewhere; ``schedule=`` names one for the tests and timers. Each schedule has
-its own launch counter. A schedule that cannot take the shape, or fails to
-build or launch, raises; nothing retries on the other one. The float32 modes
-have one schedule, "mma".
+The wrapper picks by a rule on the shape (``schedule_for``): for A, D and E,
+which read frames through TMA, "wgmma" where every frame offset and length is
+a multiple of 16 bytes (``uses_wgmma``), "mma" elsewhere; for B, which reads
+none, "wgmma" at every shape. ``schedule=`` names one for the tests and
+timers. Each schedule has its own launch counter. A schedule that cannot take
+the shape, or fails to build or launch, raises; nothing retries on the other
+one. The float32 modes have one schedule, "mma".
 
-All four are bound by operations (f32-accurate matrix products). A product
-whose output has too few tiles to fill the card (dW of D and E, B's frames,
-E's dspec) has its K cut into a fixed number of contiguous slices
-(``k_slices``), each output tile of a slice owned by one block, and the
-slices are added in a fixed order by the pass that follows: no atomics, so
+All four are bound by operations (f32-accurate matrix products). On the
+mma.sync loop a product whose output has too few tiles to fill the card (dW
+of D and E, B's frames, E's dspec) has its K cut into a fixed number of
+contiguous slices (``k_slices``), each output tile of a slice owned by one
+block, and the slices are added in a fixed order by the pass that follows
+(the wgmma schedule cuts no K: its tiles fill the card): no atomics, so
 every result is bit-equal from run to run. The overlap-add of dxp (D) and of
 the waveform (B) is a gather: each sample is owned by one thread that sums
 the frames covering it. B and E work on the live frames only (1 .. OT-2, the
@@ -76,8 +78,10 @@ ANALYSIS = _cuda.counter("fused_analysis")
 SYNTHESIS = _cuda.counter("fused_synthesis")
 ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")
 SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
-ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")
-SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")
+ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")  # the wgmma schedule
+SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")  # the wgmma schedule
+ANALYSIS_BF16_MMA = _cuda.counter("bf16_fused_analysis_mma")
+SYNTHESIS_BF16_MMA = _cuda.counter("bf16_fused_synthesis_mma")
 ANALYSIS_BWD_BF16 = _cuda.counter("bf16_fused_analysis_bwd")  # the wgmma schedule
 SYNTHESIS_BWD_BF16 = _cuda.counter("bf16_fused_synthesis_bwd")  # the wgmma schedule
 ANALYSIS_BWD_BF16_MMA = _cuda.counter("bf16_fused_analysis_bwd_mma")
@@ -89,6 +93,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ANALYSIS_ARGS = [_P] * 6 + [_I] * 8 + [_P]
 _SYNTHESIS_ARGS = [_P] * 7 + [_I] * 9 + [_P]
+_ANALYSIS_WGMMA_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_SYNTHESIS_WGMMA_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _ANALYSIS_BWD_ARGS = [_P] * 11 + [_I] * 11 + [_P]
 _SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 11 + [_P]
 _ANALYSIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 8 + [_P]
@@ -147,25 +153,34 @@ def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor,
 
 
 def uses_wgmma(ft: int, hop: int, lp: int) -> bool:
-    """The rule that picks the bf16 schedule of kernels D and E: "wgmma" when
+    """The rule that picks the bf16 schedule of kernels A, D and E: "wgmma" when
     the frames can be read by TMA, i.e. when ft, hop and the padded row
     length lp are multiples of 16 bytes of bf16 (8 elements), else "mma".
     TMA reads only the launch's own scratch (the halved or padded signal, the
     packed weights, dspec, E's spectrum), which the allocator aligns, so no
     pointer enters the rule. The flagship geometry (1024, 384, 10240) takes
-    wgmma; the tests' "ragged" one (hop 30) cannot."""
+    wgmma; the tests' "ragged" one (hop 30) cannot.
+
+    Kernel B reads no frames through TMA: its two TMA operands are the
+    spectrum of the live frames (rows, ldc) and the packed weights (ft, ldc),
+    rows of ``packed_width`` bf16, a multiple of 16 bytes for every half, and
+    its epilogue writes the frames (rows, ft) in float32 at any ft. So B's
+    rule (``schedule_for`` with ``lp=None``) takes wgmma at every geometry,
+    the "ragged" one included."""
     wide = _wide(torch.bfloat16)
     return ft % wide == 0 and hop % wide == 0 and lp % wide == 0
 
 
 def schedule_for(schedule: str | None, compute_dtype: torch.dtype, ft: int, hop: int,
-                 lp: int) -> str:
-    """The schedule of a D or E launch: ``schedule`` if given (one of
-    ``SCHEDULES``; "wgmma" only in bf16 and where ``uses_wgmma`` holds), else
-    the rule's. Raises on anything else."""
+                 lp: int | None) -> str:
+    """The schedule of a bf16 launch of A, B, D or E: ``schedule`` if given
+    (one of ``SCHEDULES``; "wgmma" only in bf16 and, for the kernels that read
+    frames of a row of length ``lp`` through TMA (A, D, E), where
+    ``uses_wgmma`` holds; ``lp=None`` for B, which reads none), else the
+    rule's. Raises on anything else."""
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES} or None, got {schedule!r}")
-    wgmma_ok = compute_dtype == torch.bfloat16 and uses_wgmma(ft, hop, lp)
+    wgmma_ok = compute_dtype == torch.bfloat16 and (lp is None or uses_wgmma(ft, hop, lp))
     if schedule == "wgmma" and not wgmma_ok:
         raise ValueError(f"the wgmma schedule takes bf16 and 16-byte frames (ft={ft}, hop={hop}, "
                          f"lp={lp}, compute_dtype={compute_dtype})")
@@ -176,6 +191,28 @@ def pad_rows(batch: int) -> int:
     """The wgmma schedule's rows a frame: batch rounded up to 8 (a TMA box of
     8 windows, csrc/wgmma_product.cuh)."""
     return -(-batch // 8) * 8
+
+
+def analysis_fwd_scratch(compute_dtype: torch.dtype, b: int, lp: int, ft: int, half: int) -> dict:
+    """The scratch tensors kernel A's launch takes, name -> (shape, dtype), in
+    the launcher's order (None: not needed): the halved and rounded signal in
+    bf16 and the packed weights, the same on either schedule (A's product has
+    enough tiles on both, so neither cuts K into slices)."""
+    op = compute_dtype
+    return {"xq": ((b, lp), op) if op == torch.bfloat16 else None,
+            "wp": ((ft, packed_width(half, op)), op)}
+
+
+def synthesis_fwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, ot: int, ft: int,
+                          half: int) -> dict:
+    """The scratch tensors kernel B's launch takes, name -> (shape, dtype), in
+    the launcher's order: the packed weights, the spectrum of the live frames
+    and their samples in float32, in K slices (``k_slices``) on the mma
+    schedule, written once on the wgmma one."""
+    op, f32 = compute_dtype, torch.float32
+    ldc, rows = packed_width(half, op), max(0, ot - 2) * b
+    frames = (rows, ft) if schedule == "wgmma" else (k_slices(rows, ft, ldc), rows, ft)
+    return {"wp": ((ft, ldc), op), "spec": ((rows, ldc), op), "frames": (frames, f32)}
 
 
 def analysis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, lp: int, ft: int,
@@ -498,32 +535,41 @@ def _empty(dev: torch.device, dtype: torch.dtype):
 
 
 def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
-                  compute_dtype: torch.dtype):
+                  compute_dtype: torch.dtype, schedule: str | None = None):
     count = _counters(ANALYSIS, ANALYSIS_BF16, compute_dtype)
+    lp = xp.shape[1] if xp.dim() == 2 else 0
+    sched = schedule_for(schedule, compute_dtype, ft, hop, lp)
     if _is_cpu(xp):
         return fused_analysis_reference(xp, w, ft, hop, compute_dtype)
     dev = xp.device
     b, lp, half, t = _analysis_dims(xp, w, ft, hop)
     _cuda.require(xp, "xp", (b, lp), dev)
     _cuda.require(w, "w", (ft, 2 * half), dev)
-    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
+    f32 = _empty(dev, torch.float32)
     bf16 = compute_dtype == torch.bfloat16
     mag, phs = f32(t, b, half), f32(t, b, half)
-    wp = op(ft, packed_width(half, compute_dtype))
-    xq = op(b, lp) if bf16 else None  # the halved, rounded signal
-    vec = copy_width(ft, hop, lp, xp if xq is None else xq, wp, dtype=compute_dtype)
-    f = _cuda.function("frontend", "st_analysis_fwd", _ANALYSIS_ARGS)
+    sc = _scratch(analysis_fwd_scratch(compute_dtype, b, lp, ft, half), dev)
+    ptrs = [_cuda.ptr(v) for v in (xp, w, sc["xq"], sc["wp"], mag, phs)]
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(xq), _cuda.ptr(wp), _cuda.ptr(mag),
-                   _cuda.ptr(phs), b, lp, ft, hop, half, t, vec, int(bf16), _cuda.stream(dev))
+        if sched == "wgmma":
+            f = _cuda.function("frontend", "st_analysis_fwd_wgmma", _ANALYSIS_WGMMA_ARGS)
+            status = f(*ptrs, b, lp, ft, hop, half, t, _cuda.stream(dev))
+        else:
+            if bf16:
+                count = ANALYSIS_BF16_MMA
+            vec = copy_width(ft, hop, lp, xp if sc["xq"] is None else sc["xq"], sc["wp"],
+                             dtype=compute_dtype)
+            f = _cuda.function("frontend", "st_analysis_fwd", _ANALYSIS_ARGS)
+            status = f(*ptrs, b, lp, ft, hop, half, t, vec, int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
     return mag, phs
 
 
 def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
-                   compute_dtype: torch.dtype) -> torch.Tensor:
+                   compute_dtype: torch.dtype, schedule: str | None = None) -> torch.Tensor:
     count = _counters(SYNTHESIS, SYNTHESIS_BF16, compute_dtype)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, None)
     if _is_cpu(mag):
         return fused_synthesis_reference(mag, phs, w, ft, hop, compute_dtype)
     dev = mag.device
@@ -531,16 +577,21 @@ def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: in
     _cuda.require(mag, "mag", (ot, b, half), dev)
     _cuda.require(phs, "phs", (ot, b, half), dev)
     _cuda.require(w, "w", (2 * half, ft), dev)
-    ldc, rows = packed_width(half, compute_dtype), max(0, ot - 2) * b  # the live frames 1 .. OT-2
-    nsplit = k_slices(rows, ft, ldc)
-    f32, op = _empty(dev, torch.float32), _empty(dev, compute_dtype)
-    wp, spec, frames, out = op(ft, ldc), op(rows, ldc), f32(nsplit, rows, ft), f32(b, out_len)
-    f = _cuda.function("frontend", "st_synthesis_fwd", _SYNTHESIS_ARGS)
+    sc = _scratch(synthesis_fwd_scratch(sched, compute_dtype, b, ot, ft, half), dev)
+    out = torch.empty((b, out_len), device=dev, dtype=torch.float32)
+    ptrs = [_cuda.ptr(v) for v in (mag, phs, w, sc["wp"], sc["spec"], sc["frames"], out)]
     with torch.cuda.device(dev):
-        status = f(_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(wp), _cuda.ptr(spec),
-                   _cuda.ptr(frames), _cuda.ptr(out), b, ot, ft, hop, half, out_len, nsplit,
-                   copy_width(0, 0, 0, wp, spec, dtype=compute_dtype),
-                   int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
+        if sched == "wgmma":
+            f = _cuda.function("frontend", "st_synthesis_fwd_wgmma", _SYNTHESIS_WGMMA_ARGS)
+            status = f(*ptrs, b, ot, ft, hop, half, out_len, _cuda.stream(dev))
+        else:
+            if compute_dtype == torch.bfloat16:
+                count = SYNTHESIS_BF16_MMA
+            nsplit = sc["frames"].shape[0]
+            f = _cuda.function("frontend", "st_synthesis_fwd", _SYNTHESIS_ARGS)
+            status = f(*ptrs, b, ot, ft, hop, half, out_len, nsplit,
+                       copy_width(0, 0, 0, sc["wp"], sc["spec"], dtype=compute_dtype),
+                       int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
     return out
@@ -666,13 +717,13 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
 class FusedAnalysis(torch.autograd.Function):
     """(xp, w) -> (mag, phs): kernel A forward, kernel D backward (their plain
     versions on CPU tensors), in one compute dtype. Saves (xp, w) only; D
-    computes the spectrum again."""
+    computes the spectrum again. ``schedule`` is A's; D takes its rule's."""
 
     @staticmethod
-    def forward(ctx, xp, w, ft, hop, compute_dtype):
+    def forward(ctx, xp, w, ft, hop, compute_dtype, schedule=None):
         ctx.save_for_backward(xp, w)
         ctx.geometry = (ft, hop, compute_dtype)
-        return _analysis_fwd(xp, w, ft, hop, compute_dtype)
+        return _analysis_fwd(xp, w, ft, hop, compute_dtype, schedule)
 
     @staticmethod
     def backward(ctx, dmag, dphs):
@@ -684,19 +735,20 @@ class FusedAnalysis(torch.autograd.Function):
                                      need_dxp=ctx.needs_input_grad[0],
                                      need_dw=ctx.needs_input_grad[1],
                                      compute_dtype=compute_dtype)
-        return dxp, dw, None, None, None
+        return dxp, dw, None, None, None, None
 
 
 class FusedSynthesis(torch.autograd.Function):
     """(mag, phs, w) -> waveform: kernel B forward, kernel E backward (their
     plain versions on CPU tensors), in one compute dtype. Saves (mag, phs,
-    w); E computes the spectrum again."""
+    w); E computes the spectrum again. ``schedule`` is B's; E takes its
+    rule's."""
 
     @staticmethod
-    def forward(ctx, mag, phs, w, ft, hop, compute_dtype):
+    def forward(ctx, mag, phs, w, ft, hop, compute_dtype, schedule=None):
         ctx.save_for_backward(mag, phs, w)
         ctx.geometry = (ft, hop, compute_dtype)
-        return _synthesis_fwd(mag, phs, w, ft, hop, compute_dtype)
+        return _synthesis_fwd(mag, phs, w, ft, hop, compute_dtype, schedule)
 
     @staticmethod
     def backward(ctx, dout):
@@ -706,18 +758,21 @@ class FusedSynthesis(torch.autograd.Function):
                                              need_dw=ctx.needs_input_grad[2],
                                              compute_dtype=compute_dtype)
         return (dmag if ctx.needs_input_grad[0] else None,
-                dphs if ctx.needs_input_grad[1] else None, dw, None, None, None)
+                dphs if ctx.needs_input_grad[1] else None, dw, None, None, None, None)
 
 
 def fused_analysis(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
-                   compute_dtype: torch.dtype = torch.float32):
+                   compute_dtype: torch.dtype = torch.float32, schedule: str | None = None):
     """Kernel A (backward: kernel D) on CUDA tensors, the plain versions on
-    CPU tensors."""
-    return FusedAnalysis.apply(xp, w, ft, hop, compute_dtype)
+    CPU tensors. ``schedule``: A's, None (the rule, ``schedule_for``),
+    "wgmma" or "mma"."""
+    return FusedAnalysis.apply(xp, w, ft, hop, compute_dtype, schedule)
 
 
 def fused_synthesis(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
-                    ft: int, hop: int, compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    ft: int, hop: int, compute_dtype: torch.dtype = torch.float32,
+                    schedule: str | None = None) -> torch.Tensor:
     """Kernel B (backward: kernel E) on CUDA tensors, the plain versions on
-    CPU tensors."""
-    return FusedSynthesis.apply(mag, phs, w, ft, hop, compute_dtype)
+    CPU tensors. ``schedule``: B's, None (the rule, ``schedule_for`` with
+    ``lp=None``), "wgmma" or "mma"."""
+    return FusedSynthesis.apply(mag, phs, w, ft, hop, compute_dtype, schedule)

@@ -380,6 +380,26 @@ def _bf16_bwd_cases(geoms, extra=()):
     return cases + list(extra)
 
 
+def _fwd_cases(geoms, kernel):
+    """(geometry..., schedule) for each bf16 forward case: both schedules
+    where the rule allows wgmma (A: cuda_frontend.uses_wgmma; B: every
+    geometry), mma elsewhere."""
+    cases = []
+    for g in geoms:
+        ft, hop, chunk = g[:3]
+        lp = chunk + 2 * ft if kernel == "A" else None
+        wgmma = cuda_frontend.schedule_for(None, BF16, ft, hop, lp) == "wgmma"
+        cases += [(*g, sched) for sched in (("wgmma", "mma") if wgmma else ("mma",))]
+    return cases
+
+
+def _fwd_counter(kernel, schedule):
+    """The launch counter of bf16 kernel A or B on a schedule."""
+    names = {("A", "wgmma"): "ANALYSIS_BF16", ("A", "mma"): "ANALYSIS_BF16_MMA",
+             ("B", "wgmma"): "SYNTHESIS_BF16", ("B", "mma"): "SYNTHESIS_BF16_MMA"}
+    return getattr(cuda_frontend, names[kernel, schedule])
+
+
 def _bwd_counter(kernel, schedule):
     """The launch counter of bf16 kernel D or E on a schedule."""
     names = {("D", "wgmma"): "ANALYSIS_BWD_BF16", ("D", "mma"): "ANALYSIS_BWD_BF16_MMA",
@@ -395,42 +415,50 @@ def _rounding_shows(name, f32_result, plain_bf16, tol, factor):
     assert ratio > factor, (name, ratio)
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + [(1024, 384, 8192, 643)])
-def test_bf16_analysis_kernel_matches_plain(dev, ft, hop, chunk, b):
+@pytest.mark.parametrize("ft,hop,chunk,b,schedule",
+                         _fwd_cases(BF16_GEOMS + [(1024, 384, 8192, 643)], "A"))
+def test_bf16_analysis_kernel_matches_plain(dev, ft, hop, chunk, b, schedule):
     g = torch.Generator(device=dev).manual_seed(ft + b)
     half = ft // 2 + 1
+    count = _fwd_counter("A", schedule)
     with torch.no_grad():
         w = frontend.Analysis(ft, hop, device=dev).stacked_weights()
         w = w + torch.randn(w.shape, generator=g, device=dev) * 0.01
         xp = torch.nn.functional.pad(torch.randn(b, chunk, generator=g, device=dev) * 0.3, (ft, ft))
-        before, f32_before = cuda_frontend.ANALYSIS_BF16.launches, cuda_frontend.ANALYSIS.launches
-        mag, phs = cuda_frontend.fused_analysis(xp, w, ft, hop, BF16)
-        assert cuda_frontend.ANALYSIS_BF16.launches == before + 1
+        before, f32_before = count.launches, cuda_frontend.ANALYSIS.launches
+        mag, phs = cuda_frontend.fused_analysis(xp, w, ft, hop, BF16, schedule=schedule)
+        assert count.launches == before + 1
         assert cuda_frontend.ANALYSIS.launches == f32_before
         rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w, ft, hop, BF16)
         fmag = cuda_frontend.fused_analysis(xp, w, ft, hop)[0]
     torch.cuda.synchronize()
     assert mag.shape == rmag.shape == ((chunk + ft) // hop + 1, b, half)
     assert_analysis_close(mag, phs, rmag, rphs)
-    assert torch.all(mag[0] == np.float32(1e-18)) and torch.all(phs[0] == 0)
+    # frame 0, and the last where it lies wholly past the signal (not at the
+    # "ragged" geometry), cover only padding: exact zeros in any order of sums
+    edges = (0, -1) if (mag.shape[0] - 1) * hop >= ft + chunk else (0,)
+    for e in edges:
+        assert torch.all(mag[e] == np.float32(1e-18)) and torch.all(phs[e] == 0)
     # the rounding happened: the f32 kernel is far further off than the tolerance
     assert float((fmag - rmag).abs().max()) > 20 * float((mag - rmag).abs().max())
     wide = 8 if ft % 8 == hop % 8 == 0 else 1
     assert cuda_frontend.copy_width(ft, hop, xp.shape[1], xp, dtype=BF16) == wide
 
 
-@pytest.mark.parametrize("ft,hop,chunk,b", BF16_GEOMS + SYN_GEOMS + [(1024, 384, 8192, 643)])
-def test_bf16_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
+@pytest.mark.parametrize("ft,hop,chunk,b,schedule",
+                         _fwd_cases(BF16_GEOMS + SYN_GEOMS + [(1024, 384, 8192, 643)], "B"))
+def test_bf16_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b, schedule):
     g = torch.Generator(device=dev).manual_seed(ft + b + 1)
     half, ot = ft // 2 + 1, 9
+    count = _fwd_counter("B", schedule)
     with torch.no_grad():
         w = frontend.Synthesis(ft, hop, device=dev).stacked_weights()
         mag = torch.nn.functional.softplus(torch.randn(ot, b, half, generator=g, device=dev))
         phs = torch.randn(ot, b, half, generator=g, device=dev) * 2.0
-        before = cuda_frontend.SYNTHESIS_BF16.launches
-        wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16)
-        again = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16)
-        assert cuda_frontend.SYNTHESIS_BF16.launches == before + 2
+        before = count.launches
+        wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16, schedule=schedule)
+        again = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, BF16, schedule=schedule)
+        assert count.launches == before + 2
         ref = cuda_frontend.fused_synthesis_reference(mag, phs, w, ft, hop, BF16)
         f32_wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop)
     torch.cuda.synchronize()
@@ -561,6 +589,36 @@ def test_bf16_wgmma_schedule_agrees_with_mma(dev, ft, hop, chunk, b):
         torch.testing.assert_close(g, m, atol=5e-4, rtol=5e-4)
 
 
+@pytest.mark.parametrize("ft,hop,chunk,b", WGMMA_GEOMS + [(1024, 384, 8192, 643)])
+def test_bf16_forward_wgmma_schedule_agrees_with_mma(dev, ft, hop, chunk, b):
+    """The wgmma schedule of bf16 A and B against the mma.sync one on the
+    same inputs (the orders of their f32 sums differ): A by the plain
+    version's tolerances (assert_analysis_close), B 3e-4 + 3e-4|wave|; the
+    default picks wgmma at these shapes."""
+    g = torch.Generator(device=dev).manual_seed(ft + b + 2)
+    half = ft // 2 + 1
+    with torch.no_grad():
+        w = frontend.Analysis(ft, hop, device=dev).stacked_weights()
+        xp = torch.nn.functional.pad(torch.randn(b, chunk, generator=g, device=dev) * 0.3, (ft, ft))
+        before = _fwd_counter("A", "wgmma").launches, _fwd_counter("A", "mma").launches
+        got = cuda_frontend.fused_analysis(xp, w, ft, hop, BF16)
+        assert (_fwd_counter("A", "wgmma").launches, _fwd_counter("A", "mma").launches) == (
+            before[0] + 1, before[1])
+        mma = cuda_frontend.fused_analysis(xp, w, ft, hop, BF16, schedule="mma")
+        torch.cuda.synchronize()
+        assert_analysis_close(*got, *mma)
+        ws = frontend.Synthesis(ft, hop, device=dev).stacked_weights()
+        mag = torch.nn.functional.softplus(torch.randn(9, b, half, generator=g, device=dev))
+        phs = torch.randn(9, b, half, generator=g, device=dev) * 2.0
+        before = _fwd_counter("B", "wgmma").launches, _fwd_counter("B", "mma").launches
+        wave = cuda_frontend.fused_synthesis(mag, phs, ws, ft, hop, BF16)
+        assert (_fwd_counter("B", "wgmma").launches, _fwd_counter("B", "mma").launches) == (
+            before[0] + 1, before[1])
+        wave_mma = cuda_frontend.fused_synthesis(mag, phs, ws, ft, hop, BF16, schedule="mma")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wave, wave_mma, atol=3e-4, rtol=3e-4)
+
+
 def test_bf16_wgmma_schedule_refuses_what_tma_cannot_read(dev):
     """hop 30 (60 bytes of bf16) cannot be a TMA stride: the rule picks mma,
     and asking for wgmma raises instead of running the other schedule."""
@@ -577,6 +635,11 @@ def test_bf16_wgmma_schedule_refuses_what_tma_cannot_read(dev):
     sargs = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
     with pytest.raises(ValueError):
         cuda_frontend.fused_synthesis_bwd(*sargs, compute_dtype=BF16, schedule="wgmma")
+    with pytest.raises(ValueError):  # A reads frames through TMA as D does
+        cuda_frontend.fused_analysis(xp, w, ft, hop, BF16, schedule="wgmma")
+    before = _fwd_counter("A", "mma").launches
+    cuda_frontend.fused_analysis(xp, w, ft, hop, BF16)
+    assert _fwd_counter("A", "mma").launches == before + 1
 
 
 class _Bf16GemmFloat64(torch.autograd.Function):

@@ -1,22 +1,29 @@
-"""The two schedules of kernels D and E in bf16 (ops/cuda_frontend.py), on the CPU.
+"""The two schedules of kernels A, B, D and E in bf16 (ops/cuda_frontend.py), on the CPU.
 
 The wgmma schedule (csrc/wgmma_product.cuh) and the mma.sync one
 (csrc/tc_product.cuh) run only on the card (tests/test_torch_port_cuda.py);
 what surrounds them is plain Python and is held here: the rule that picks a
 schedule by shape, the scratch each asks for, the wrapper refusing what it
-cannot run, and the slack that the card checks of bf16 D allow for a flip of
-dspec's one bf16 rounding (fused_analysis_bwd_flip_slack), against float64.
+cannot run, A and B with a schedule named still matching the JAX package
+through their plain versions, and the slack that the card checks of bf16 D
+allow for a flip of dspec's one bf16 rounding (fused_analysis_bwd_flip_slack),
+against float64.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from signaltrain_tpu.ops import frontend as jfrontend
+from signaltrain_tpu.ops import pallas_frontend as pf
+from signaltrain_tpu_torch.ops import _cuda, frontend
 from signaltrain_tpu_torch.ops import cuda_frontend as cf
 from signaltrain_tpu_torch.ops import framing
 
-from tests.torch_port_util import analysis_bwd_inputs
+from tests.torch_port_util import (analysis_bwd_inputs, assert_analysis_close,
+                                   synthesis_bwd_inputs, t)
 
 BF16 = torch.bfloat16
 
@@ -35,6 +42,109 @@ def test_the_rule_picks_wgmma_where_tma_can_read_the_frames(ft, hop, lp, want):
     assert cf.schedule_for(None, BF16, ft, hop, lp) == want
     assert cf.schedule_for(None, torch.float32, ft, hop, lp) == "mma"  # f32 has one schedule
     assert cf.schedule_for("mma", BF16, ft, hop, lp) == "mma"
+
+
+# (ft, hop, padded row length of A) -> the pick of A's rule and of B's: B
+# reads no frames through TMA, so it takes wgmma at every geometry
+@pytest.mark.parametrize("ft,hop,lp,want_a", [
+    (1024, 384, 8192 + 2 * 1024, "wgmma"),   # the flagship
+    (64, 24, 512 + 2 * 64, "wgmma"),         # "small"
+    (100, 30, 700 + 2 * 100, "mma"),         # "ragged": hop 30 is 60 bytes of bf16
+    (602, 201, 8 * 201 + 602, "mma"),        # a narrow last column tile, odd hop
+    (1024, 384, 8190 + 2 * 1024, "mma"),     # a row length that is not 16 bytes
+    (16, 5, 203 + 2 * 16, "mma"),
+])
+def test_the_rule_picks_the_forward_schedules_by_shape(ft, hop, lp, want_a):
+    assert cf.schedule_for(None, BF16, ft, hop, lp) == want_a
+    assert cf.schedule_for(None, BF16, ft, hop, None) == "wgmma"
+    for lp_b in (lp, None):  # float32 has one schedule for A and B alike
+        assert cf.schedule_for(None, torch.float32, ft, hop, lp_b) == "mma"
+        assert cf.schedule_for("mma", BF16, ft, hop, lp_b) == "mma"
+    assert cf.schedule_for("wgmma", BF16, ft, hop, None) == "wgmma"
+
+
+def test_each_forward_schedule_asks_for_its_own_scratch():
+    b, lp, ft, half, ot = 200, 10240, 1024, 513, 9
+    ldc = cf.packed_width(half, BF16)
+    # A's is the same on both schedules: no K slices on either
+    assert cf.analysis_fwd_scratch(BF16, b, lp, ft, half) == {"xq": ((b, lp), BF16),
+                                                              "wp": ((ft, ldc), BF16)}
+    assert cf.analysis_fwd_scratch(torch.float32, b, lp, ft, half) == {
+        "xq": None, "wp": ((ft, 1028), torch.float32)}
+    rows = 7 * b  # the live frames 1 .. OT-2
+    wg = cf.synthesis_fwd_scratch("wgmma", BF16, b, ot, ft, half)
+    assert wg == {"wp": ((ft, ldc), BF16), "spec": ((rows, ldc), BF16),
+                  "frames": ((rows, ft), torch.float32)}  # written once: no K slices
+    mma = cf.synthesis_fwd_scratch("mma", BF16, b, ot, ft, half)
+    nsplit = cf.k_slices(rows, ft, ldc)
+    assert nsplit == 3 and mma["frames"] == ((nsplit, rows, ft), torch.float32)
+    assert mma["spec"] == wg["spec"] and mma["wp"] == wg["wp"]
+    # at 643 windows: 4,501 rows fill the card, so the mma loop takes one slice too
+    assert cf.synthesis_fwd_scratch("mma", BF16, 643, ot, ft, half)["frames"][0] == (
+        1, 7 * 643, ft)
+    f32 = cf.synthesis_fwd_scratch("mma", torch.float32, 100, ot, 602, 302)
+    assert f32["spec"] == ((700, 604), torch.float32)
+
+
+def test_the_forward_wrappers_refuse_an_unknown_or_impossible_schedule():
+    ft, hop = 64, 24
+    xp = torch.zeros(5, 512 + 2 * ft)
+    w = torch.zeros(ft, 2 * 33)
+    mag = torch.rand(9, 5, 33)
+    ws = torch.zeros(66, ft)
+    for bad in ("tma", "WGMMA", ""):
+        with pytest.raises(ValueError, match="schedule"):
+            cf.fused_analysis(xp, w, ft, hop, BF16, schedule=bad)
+        with pytest.raises(ValueError, match="schedule"):
+            cf.fused_synthesis(mag, mag, ws, ft, hop, BF16, schedule=bad)
+    with pytest.raises(ValueError, match="wgmma"):  # float32 stays on the mma.sync loop
+        cf.fused_analysis(xp, w, ft, hop, schedule="wgmma")
+    with pytest.raises(ValueError, match="wgmma"):
+        cf.fused_synthesis(mag, mag, ws, ft, hop, schedule="wgmma")
+    ragged = torch.zeros(7, 700 + 200)
+    with pytest.raises(ValueError, match="wgmma"):  # hop 30: not a TMA stride of A's frames
+        cf.fused_analysis(ragged, torch.zeros(100, 102), 100, 30, BF16, schedule="wgmma")
+    # B takes wgmma at the ragged geometry; on CPU tensors either schedule
+    # names the same plain version
+    rmag = torch.rand(9, 7, 51)
+    rw = torch.randn(102, 100)
+    got = [cf.fused_synthesis(rmag, rmag, rw, 100, 30, BF16, schedule=s) for s in cf.SCHEDULES]
+    assert torch.equal(got[0], got[1])
+    got = [cf.fused_analysis(xp + 1, w + 1, ft, hop, BF16, schedule=s) for s in cf.SCHEDULES]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+
+
+def test_the_forward_schedules_match_jax_pallas():
+    """A and B in bf16 with each schedule named, on CPU tensors (their plain
+    versions), against the JAX package's bf16 Pallas kernels in interpret
+    mode, run once, on the same numpy inputs at the "small" geometry:
+    magnitude 2e-5, phase 2e-4 on bins >= 1e-2 (assert_analysis_close), wave
+    3e-4 + 3e-4|w|."""
+    ft, hop, chunk, b = 64, 24, 512, 5
+    half = ft // 2 + 1
+    inp = analysis_bwd_inputs(ft, hop, chunk, b)
+    xp = np.pad(inp["x"], ((0, 0), (ft, ft)))
+    jw = pf.stack_analysis_weights(jnp.asarray(inp["wr"]), jnp.asarray(inp["wi"]), half)
+    jmag, jphs = pf.fused_analysis(jnp.asarray(xp), jw, ft, hop, half, jnp.bfloat16, True)
+    w = cf.stack_analysis_weights(t(inp["wr"]), t(inp["wi"]), half)
+
+    sinp = synthesis_bwd_inputs(ft, hop, b)
+    wr_eff, wi_eff = jfrontend.fold_synthesis_weights(jnp.asarray(sinp["wr"]),
+                                                      jnp.asarray(sinp["wi"]), half)
+    want = pf.fused_synthesis(jnp.asarray(sinp["mag"]), jnp.asarray(sinp["phs"]),
+                              pf.stack_synthesis_weights(wr_eff, wi_eff, half), ft, hop, half,
+                              jnp.bfloat16, True)
+    pw = cf.stack_synthesis_weights(*frontend.fold_synthesis_weights(t(sinp["wr"]), t(sinp["wi"]),
+                                                                     half))
+    for schedule in cf.SCHEDULES:
+        _cuda.reset_counts()
+        mag, phs = cf.fused_analysis(t(xp), w, ft, hop, BF16, schedule=schedule)
+        assert cf.ANALYSIS_BF16.plain_calls == 1 and cf.ANALYSIS_BF16_MMA.launches == 0
+        assert_analysis_close(mag, phs, jmag, jphs)
+        wave = cf.fused_synthesis(t(sinp["mag"]), t(sinp["phs"]), pw, ft, hop, BF16,
+                                  schedule=schedule)
+        assert cf.SYNTHESIS_BF16.plain_calls == 1
+        np.testing.assert_allclose(wave.numpy(), np.asarray(want), atol=3e-4, rtol=3e-4)
 
 
 @pytest.mark.parametrize("dtype", [BF16, torch.float32])
