@@ -25,9 +25,13 @@ Phases (any failure raises and exits non-zero):
      same inputs and must be bit-equal; B and E are also held, as A is, to
      their largest error against a float64 plain version beside the plain f32
      version's (within twice it plus 1e-6 * max|result|); E's edge frames must
-     be exact zeros. C's chunked schedule (a 30 s row) must be bit-equal to its
-     row schedule on the serving path's gain curve, on randn and on a step to
-     silence that never meets, and all within 1e-6 of the plain version;
+     be exact zeros. C is bit-equal to its plain version at every shape; its
+     chunked schedule (a 30 s row) must be bit-equal to its row schedule on
+     the serving path's gain curve, on randn and on a step to silence that
+     never meets; the adversarial rows (cli/time_smoother.adversarial_rows:
+     ties, +-0.0, subnormals, the alphas' extremes) by rows and chunked,
+     and by rows from memory 4 bytes off a 16-byte boundary (the row scan's
+     4-byte copies), bit-equal to the plain version;
   2b. the bf16 modes of A, B, D and E (compute_dtype=torch.bfloat16), each
      against its plain bf16 version (the same operands rounded to bf16, a
      float32 product with TF32 off) at the training shapes, A and B also at
@@ -50,11 +54,13 @@ Phases (any failure raises and exits non-zero):
      float64 on both schedules at both batches. Each check's control:
      the float32 kernel on the same inputs must land more than GAP_B, GAP_D,
      GAP_E times over its limit;
-  2c. kernel L (csrc/iir.cu, lfilter) against its plain version within
-     1e-5 + 1e-6 |y|, each case run twice and bit-equal: the Compressor's dB
-     envelope at (200, 8192), order 1 with its steady-state zi and per-row
-     cutoffs over the knob range; the LowPass at (200, 8192), order 3, with
-     rows at 10, 100 and 2000 Hz; the Compressor's envelope over one 30 s row;
+  2c. kernel L (csrc/iir.cu, lfilter) bit-equal to its plain version, each
+     case run twice and bit-equal: the Compressor's dB envelope at (200,
+     8192), order 1 with its steady-state zi and per-row cutoffs over the
+     knob range; the LowPass at (200, 8192), order 3, with rows at 10, 100
+     and 2000 Hz; the Compressor's envelope over one 30 s row; the
+     adversarial rows of orders 1 and 3 (cli/time_lfilter.adversarial_inputs),
+     also from memory 4 bytes off;
   3. the serving path, with every kernel counter set to 0 just before it and
      read just after: demo/model_comp4c_demo.tar loaded onto the card, a
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
@@ -303,7 +309,6 @@ CKPT = HERE / "demo" / "model_comp4c_demo.tar"
 KNOBS_WC = np.array([-25.0, 4.0, 0.005, 0.02], np.float32)
 CLIP_SECONDS = 30.0
 MIN_CORR = 0.98
-C_CHAIN_OPS = 2  # kernel C: one fma and one select a step, dependent
 BF16 = torch.bfloat16
 F32 = torch.float32
 TRAIN_BATCH = 200
@@ -346,6 +351,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def off_boundary(t: torch.Tensor) -> torch.Tensor:
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary: the row scan of kernels C and L then copies 4 bytes at
+    a time instead of in bulk."""
+    view = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)[1 : 1 + t.numel()]
+    return view.view(t.shape).copy_(t)
 
 
 def disagreement(name: str, got: torch.Tensor, want: torch.Tensor) -> str:
@@ -808,25 +821,34 @@ DENOISE_MAX_MAE_RATIO = 0.3  # MAE(prediction, clean) over MAE(noisy, clean)
 
 
 def check_lfilter(dev) -> dict:
-    """Phase 2c: kernel L against its plain version on the cases of
-    cli/time_lfilter.py, each run twice and bit-equal."""
+    """Phase 2c: kernel L bit-equal to its plain version on the cases of
+    cli/time_lfilter.py and its adversarial rows, each run twice and
+    bit-equal."""
     from signaltrain_tpu_torch.cli import time_lfilter
 
     cases = {}
     for case in time_lfilter.CASES:
-        r = time_lfilter.check(case, dev)
-        cases[case] = r
-        print(f"L lfilter {case} x {r['shape']} order {r['order']}: max|dy| {r['max_abs_err']:.3e} "
-              f"({r['elements_differing']} elements differ; tolerance 1e-5+1e-6|y|); two runs "
-              f"bit-equal; plain version {r['plain_s']:.2f} s")
+        cases[case] = time_lfilter.check(case, dev)
+    # the adversarial rows of each order, also from memory 4 bytes off (the
+    # row scan's 4-byte copies instead of its bulk ones)
+    for order in (1, 3):
+        b, a, x, zi = time_lfilter.adversarial_inputs(8192, order, dev)
+        cases[f"adversarial_{order}"] = time_lfilter.check_inputs(f"adversarial, order {order}",
+                                                                  b, a, x, zi)
+        cases[f"adversarial_{order}_off"] = time_lfilter.check_inputs(
+            f"adversarial, order {order}, 4 bytes off", b, a, off_boundary(x), zi)
+    for case, r in cases.items():
+        print(f"L lfilter {case} x {r['shape']} order {r['order']}: bit-equal to the plain version "
+              f"(max|dy| {r['max_abs_err']:.3e}); two runs bit-equal; plain version "
+              f"{r['plain_s']:.2f} s")
     return {"max_abs_err": max(r["max_abs_err"] for r in cases.values()),
             "elements_differing": {c: r["elements_differing"] for c, r in cases.items()},
             "plain_s_all_checks": sum(r["plain_s"] for r in cases.values()),
             "plain_ms": cases["comp"]["plain_s"] * 1e3,
             "lowpass_plain_ms": cases["lowpass"]["plain_s"] * 1e3,
             "row_30s_plain_ms": cases["row_30s"]["plain_s"] * 1e3,
-            "tolerance": "1e-5 + 1e-6*|y| against the plain version (the same fma steps); two "
-                         "runs bit-equal"}
+            "tolerance": "bit-equal to the plain version (the same fma steps), the adversarial "
+                         "rows (time_lfilter.adversarial_inputs) included; two runs bit-equal"}
 
 
 def train_every_effect(dev, results: dict, chunk: int, out_chunk: int, sr: int) -> dict:
@@ -1040,12 +1062,12 @@ def gen_datasets(dev, root: str, results: dict) -> dict:
     (the same knob arithmetic; rounded to 16 bits for --pcm16). Then C and L
     at that shape, all 64 rows bit-equal to their plain versions, timed
     beside their bounds, chain floors and plain versions."""
-    from signaltrain_tpu_torch.cli import gen_dataset, time_lfilter
+    from signaltrain_tpu_torch.cli import gen_dataset, time_lfilter, time_smoother
     from signaltrain_tpu_torch.data import audio_io, file_data
     from signaltrain_tpu_torch.dsp import effects, iir
     from signaltrain_tpu_torch.dsp import knobs as knobs_mod
     from signaltrain_tpu_torch.ops import cuda_kernels
-    from signaltrain_tpu_torch.utils.card import FMA_CYCLES, sm_clock_mhz
+    from signaltrain_tpu_torch.utils.card import sm_clock_mhz
     from signaltrain_tpu_torch.utils.card import bound_ms as bound
 
     report = {}
@@ -1123,7 +1145,8 @@ def gen_datasets(dev, root: str, results: dict) -> dict:
         lambda: cuda_kernels.switched_one_pole_reference(gx, aa, ar)))
     r["gen_bound_ms"], r["gen_bound_by"] = bound(4.0 * gx.numel(),
                                                  4.0 * (2 * gx.numel() + 2 * GEN_BATCH))
-    r["gen_chain_floor_ms"] = n * C_CHAIN_OPS * FMA_CYCLES / (sm_mhz * 1e3)
+    r["gen_chain_floor_ms"] = n * time_smoother.CHAIN_CYCLES / (sm_mhz * 1e3)
+    r["gen_chain_cycles"] = time_smoother.CHAIN_CYCLES
     r["gen_shape"] = f"g {tuple(gx.shape)} (gen_dataset's device batch; row schedule)"
     r = results["lfilter"]
     attack = torch.empty(GEN_BATCH, device=dev).uniform_(1e-3, 4e-2, generator=g)
@@ -1134,12 +1157,15 @@ def gen_datasets(dev, root: str, results: dict) -> dict:
                                lambda: iir.lfilter_reference(b, a, db, zi)))
     r["gen_bound_ms"], r["gen_bound_by"] = time_lfilter.bound_ms(db, 1)
     r["gen_chain_floor_ms"] = time_lfilter.chain_floor_ms(n, 1, sm_mhz)
+    r["gen_chain_cycles"] = time_lfilter.chain_cycles(1)
     r["gen_shape"] = f"x {tuple(db.shape)}, order 1 (gen_dataset -e comp's device batch)"
     for k in ("switched_one_pole", "lfilter"):
         r = results[k]
-        print(f"{k} at {r['gen_shape']}: {r['gen_ms']:.4f} ms (bound {r['gen_bound_ms']:.4f} ms "
-              f"by {r['gen_bound_by']}, chain floor {r['gen_chain_floor_ms']:.4f} ms at "
-              f"{sm_mhz:.0f} MHz, plain {r['gen_plain_ms']:.1f} ms); all {GEN_BATCH} rows "
+        r["gen_cycles_per_step"] = r["gen_ms"] * sm_mhz * 1e3 / n
+        print(f"{k} at {r['gen_shape']}: {r['gen_ms']:.4f} ms, {r['gen_cycles_per_step']:.2f} "
+              f"cycles a step (bound {r['gen_bound_ms']:.4f} ms by {r['gen_bound_by']}, chain "
+              f"floor {r['gen_chain_floor_ms']:.4f} ms, {r['gen_chain_cycles']:.2f} cycles a step, "
+              f"at {sm_mhz:.0f} MHz, plain {r['gen_plain_ms']:.1f} ms); all {GEN_BATCH} rows "
               f"bit-equal to the plain version (max|d| {r['gen_max_abs_err']:.1e})")
     return report
 
@@ -2772,15 +2798,16 @@ def main() -> None:
     from signaltrain_tpu_torch.ops import _cuda, cuda_frontend, cuda_kernels
     from signaltrain_tpu_torch.training import graphs
     from signaltrain_tpu_torch.training import train as train_mod
-    from signaltrain_tpu_torch.utils.card import (FMA_CYCLES, PEAK_BF16_FLOPS,
+    from signaltrain_tpu_torch.utils.card import (PEAK_BF16_FLOPS,
                                                   PEAK_SPLIT_TF32_FLOPS, sm_clock_mhz)
     from signaltrain_tpu_torch.utils.card import bound_ms as bound
     from signaltrain_tpu_torch.utils.load_model import load_model
 
-    c_chain_cycles = C_CHAIN_OPS * FMA_CYCLES
+    c_chain_cycles = time_smoother.CHAIN_CYCLES  # C's floor: an fma and a select a step
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     # ---- 1. card, model and clip, build (the build last, so that kernel
     # A's first check follows it directly)
@@ -2913,9 +2940,25 @@ def main() -> None:
             err = float((s - rs).abs().max())
             smooth_err = max(smooth_err, err)
             print(f"C switched_one_pole g {(b, n)} ({'chunked' if cuda_kernels.uses_chunks(b, n) else 'row'}"
-                  f" schedule): max|ds| {err:.3e}; tolerance 1e-6 (plain version "
+                  f" schedule, {cuda_kernels.rows_per_block(b, sms)} rows a block): bit-equal to the "
+                  f"plain version {torch.equal(s, rs)} (plain version "
                   f"{time.perf_counter() - t_start:.2f} s)")
-            check(err <= 1e-6 and bool(torch.all(s[:, 0] == 0)), disagreement("C", s, rs))
+            check(torch.equal(s, rs) and bool(torch.all(s[:, 0] == 0)), disagreement("C", s, rs))
+        # the adversarial rows (ties, +-0.0, subnormals, the alphas' extremes),
+        # by rows at the training chunk and chunked at 70,000 samples, from
+        # aligned memory (bulk copies) and from memory 4 bytes off (4-byte copies)
+        for n in (chunk, 70_000):
+            g, aa, ar = time_smoother.adversarial_rows(n, dev)
+            s = cuda_kernels.switched_one_pole_batched(g, aa, ar)
+            moved = cuda_kernels.smoother_rows(off_boundary(g), aa, ar)
+            t_start = time.perf_counter()
+            rs = cuda_kernels.switched_one_pole_reference(g, aa, ar)
+            plain_c_s += time.perf_counter() - t_start
+            same = all(torch.equal(v.view(torch.int32), rs.view(torch.int32)) for v in (s, moved))
+            print(f"C adversarial rows g {tuple(g.shape)} "
+                  f"({'chunked' if cuda_kernels.uses_chunks(*g.shape) else 'row'} schedule; by rows "
+                  f"from memory 4 bytes off too): bit-equal to the plain version {same}")
+            check(same, disagreement("C (adversarial rows)", s, rs))
         # the chunked schedule on whole-clip rows, bit-equal to the row schedule:
         # the serving path's own gain curve, randn, and a row that never meets
         plain_c_ms = None
@@ -2933,18 +2976,19 @@ def main() -> None:
             err = float((s - rs).abs().max())
             smooth_err = max(smooth_err, err)
             print(f"C chunked schedule, {case} g {tuple(g.shape)}: bit-equal to the row schedule "
-                  f"{torch.equal(s, rows)}; max|ds| {err:.3e} against the plain version "
+                  f"{torch.equal(s, rows)}, to the plain version {torch.equal(s, rs)} "
                   f"({t_plain:.2f} s); W {int(stats[0, 0])}, L {cuda_kernels.CHUNK}, "
                   f"{math.ceil(g.shape[1] / cuda_kernels.CHUNK)} virtual rows, "
                   f"{int(stats[0, 1])} steps re-run")
             check(torch.equal(s, rows), f"kernel C: the chunked schedule differs from the row "
                                         f"schedule on {case}")
-            check(err <= 1e-6, disagreement(f"C (chunked, {case})", s, rs))
+            check(torch.equal(s, rs), disagreement(f"C (chunked, {case})", s, rs))
         print(f"C: the plain version took {plain_c_s:.2f} s in all")
         results["switched_one_pole"] = dict(
             max_abs_err=smooth_err, plain_s_all_checks=plain_c_s,
-            tolerance="1e-6 against the plain version; the chunked schedule bit-equal to the row "
-                      "schedule")
+            tolerance="bit-equal to the plain version at every shape, the adversarial rows "
+                      "(time_smoother.adversarial_rows) included; the chunked schedule bit-equal "
+                      "to the row schedule")
 
         # D and E at the training shapes; cotangents scaled by 64/ft so the
         # gradients stay O(1-10), as in the CPU tests against the JAX package
@@ -3340,13 +3384,18 @@ def main() -> None:
         sm_mhz = sm_clock_mhz()
         r["sm_clock_mhz"] = sm_mhz
         r["chain_floor_ms"] = (r["warmup"] + r["chunk"]) * c_chain_cycles / (sm_mhz * 1e3)
+        r["chain_cycles"] = c_chain_cycles
+        # a virtual row's W + L steps in the call's time (phase 1, the verify walk, launches)
+        r["cycles_per_step"] = r["ms"] * sm_mhz * 1e3 / (r["warmup"] + r["chunk"])
         r["shape"] = (f"g {(1, len(clip))} (go_wc on the whole clip, the serving gain curve; "
                       f"chunked schedule)")
         gb = torch.randn(ct_batch, chunk, generator=gen, device=dev)
         ab = torch.full((ct_batch,), 0.99, device=dev)
         rb = torch.full((ct_batch,), 0.95, device=dev)
         batch_ms = cuda_ms(lambda: cuda_kernels.switched_one_pole_batched(gb, ab, rb), reps=10)
-        print(f"C at calc_ct's batch {tuple(gb.shape)}: {batch_ms:.4f} ms")
+        print(f"C at calc_ct's batch {tuple(gb.shape)}: {batch_ms:.4f} ms, "
+              f"{batch_ms * sm_mhz * 1e3 / chunk:.2f} cycles a step at {sm_mhz:.0f} MHz (chain "
+              f"floor {c_chain_cycles}), {cuda_kernels.rows_per_block(ct_batch, sms)} rows a block")
 
         def serve():
             pl.predict_long(clip, knobs_nn, model)
@@ -3447,6 +3496,8 @@ def main() -> None:
             lambda: cuda_kernels.switched_one_pole_reference(gt, at, rt), reps=1, warmup=0)
         r["train_bound_ms"] = bound(4.0 * gt.numel(), 4.0 * (2 * gt.numel() + 2 * tb))[0]
         r["train_chain_floor_ms"] = chunk * c_chain_cycles / (sm_mhz * 1e3)  # one thread a row
+        r["train_cycles_per_step"] = r["train_ms"] * sm_mhz * 1e3 / chunk
+        r["ct_batch_cycles_per_step"] = batch_ms * sm_mhz * 1e3 / chunk
         r["train_shape"] = f"g {tuple(gt.shape)} (go_batch in data synthesis; row schedule)"
         r["ct_batch_ms"] = batch_ms
 
@@ -3462,6 +3513,7 @@ def main() -> None:
             r[f"{key}bound_ms"], r[f"{key}bound_by"] = time_lfilter.bound_ms(x_l, order)
             r[f"{key}chain_cycles"] = time_lfilter.chain_cycles(order)
             r[f"{key}chain_floor_ms"] = time_lfilter.chain_floor_ms(x_l.shape[1], order, sm_mhz)
+            r[f"{key}cycles_per_step"] = r[f"{key}ms"] * sm_mhz * 1e3 / x_l.shape[1]
             r[f"{key}shape"] = f"x {tuple(x_l.shape)}, order {order}"
         r["library_ms"] = None
         r["sm_clock_mhz"] = sm_mhz
@@ -3772,7 +3824,9 @@ def main() -> None:
                 "train_plain_ms", "train_library_ms", "train_bound_ms", "train_chain_floor_ms",
                 "train_bound_ms_cuda_cores", "train_tflops", "train_shape", "gen_ms",
                 "gen_plain_ms", "gen_bound_ms", "gen_bound_by", "gen_chain_floor_ms", "gen_shape",
-                "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "launches_file_training",
+                "gen_max_abs_err", "gen_tolerance", "launches_gen_dataset", "cycles_per_step",
+                "lowpass_cycles_per_step", "row_30s_cycles_per_step", "train_cycles_per_step",
+                "ct_batch_cycles_per_step", "gen_cycles_per_step", "gen_chain_cycles", "launches_file_training",
                 "launches_file_serving", "launches_surface", "launches_lr_finder", "launches_tools",
                 "launches_parallel", "launches_microbatch", "cublas_ms", "train_cublas_ms",
                 "serve_cublas_ms", "schedule", "mma_sync", "ms_min_max", "ms_without_dxp_min_max",
@@ -3796,16 +3850,20 @@ def main() -> None:
                       f"{r['serve_bound_ms']:.4f} ms, plain {r['serve_plain_ms']:.4f} ms, library "
                       f"{r['serve_library_ms']:.4f} ms, cuBLAS {r['serve_cublas_ms']:.4f} ms)")
         if name == "lfilter":
-            extra = (f"; at {r['shape']} its chain floor ({r['chain_cycles']:.2f} cycles a step at "
+            extra = (f"; at {r['shape']} {r['cycles_per_step']:.2f} cycles a step, its chain "
+                     f"floor ({r['chain_cycles']:.2f} cycles a step at "
                      f"{r['sm_clock_mhz']:.0f} MHz) {r['chain_floor_ms']:.4f} ms; LowPass "
-                     f"{r['lowpass_shape']}: {r['lowpass_ms']:.4f} ms (bound "
+                     f"{r['lowpass_shape']}: {r['lowpass_ms']:.4f} ms, "
+                     f"{r['lowpass_cycles_per_step']:.2f} cycles a step (bound "
                      f"{r['lowpass_bound_ms']:.4f}, chain floor {r['lowpass_chain_floor_ms']:.4f} at "
                      f"{r['lowpass_chain_cycles']:.2f} cycles a step, "
                      f"plain {r['lowpass_plain_ms']:.1f}); one row {r['row_30s_shape']}: "
-                     f"{r['row_30s_ms']:.4f} ms (bound {r['row_30s_bound_ms']:.4f}, chain floor "
+                     f"{r['row_30s_ms']:.4f} ms, {r['row_30s_cycles_per_step']:.2f} cycles a step "
+                     f"(bound {r['row_30s_bound_ms']:.4f}, chain floor "
                      f"{r['row_30s_chain_floor_ms']:.4f}, plain {r['row_30s_plain_ms']:.1f})")
         elif "chain_floor_ms" in r:
-            extra = (f"; the chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
+            extra = (f"; {r['cycles_per_step']:.2f} cycles a step of a virtual row's W + L; the "
+                     f"chunked design's chain floor (W {r['warmup']} + L {r['chunk']}) x "
                      f"{c_chain_cycles} cycles at {r['sm_clock_mhz']:.0f} MHz {r['chain_floor_ms']:.4f} "
                      f"ms; row schedule {r['rows_ms']:.4f} ms; randn input {r['randn_ms']:.4f} ms "
                      f"(row schedule {r['randn_rows_ms']:.4f}); never meeting {r['worst_ms']:.4f} "
@@ -3830,9 +3888,13 @@ def main() -> None:
             if "train_cublas_ms" in r:
                 tlib += f", cuBLAS {r['train_cublas_ms']:.4f} ms"
             ttf = f", {r['train_tflops']:.1f} TFLOP/s" if "train_tflops" in r else ""
+            tcy = (f", {r['train_cycles_per_step']:.2f} cycles a step against a chain floor of "
+                   f"{r['chain_cycles']:.2f} ({r['train_chain_floor_ms']:.4f} ms); calc_ct's batch "
+                   f"{r['ct_batch_ms']:.4f} ms, {r['ct_batch_cycles_per_step']:.2f} cycles a step"
+                   if "train_cycles_per_step" in r else "")
             print(f"  at the training shape {r['train_shape']}: {r['train_ms']:.4f} ms (bound "
                   f"{r['train_bound_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, library "
-                  f"{tlib}{ttf})")
+                  f"{tlib}{ttf}{tcy})")
     print(f"chip_smoke: {time.perf_counter() - t_main:.2f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

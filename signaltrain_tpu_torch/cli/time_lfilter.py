@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 A quicker loop than chip_smoke.py while working on csrc/iir.cu (under a
 minute). It builds the kernel, then for each case below runs it twice
-(bit-equal), holds it to its plain version (1e-5 + 1e-6 |y|), and prints its
-time (CUDA events) beside its bound (utils/card.py) and its chain floor, and
-the plain version's time. The card's name and power limit head the output.
+(bit-equal), holds it bit for bit to its plain version, and prints its time
+(CUDA events) and cycles a step at the SM clock it reads, beside its bound
+(utils/card.py) and its chain floor, and the plain version's time. The
+card's name and power limit head the output.
 """
 
 from __future__ import annotations
@@ -23,17 +24,20 @@ from ..dsp import iir
 from ..ops import _cuda, cuda_kernels
 from ..utils import card
 
-CASES = ("comp", "lowpass", "row_30s")
+CASES = ("comp", "lowpass", "row_30s")  # chip_smoke.py checks these
+TOOL_CASES = CASES + ("gen_batch",)      # and this tool also gen_dataset's device batch
 
 
 def inputs(case: str, dev: torch.device):
-    """(b, a, x, zi) on dev for one of CASES: the Compressor's dB envelope
-    at the training batch (200, 8192), order 1 with its steady-state zi and
-    per-row cutoffs over the knob range (attack/release 1-40 ms); the LowPass
-    at (200, 8192), order 3, rows at 10, 100 and 2000 Hz and the rest over
-    the knob range; the Compressor's envelope over one 30 s row (its
-    streamed target on a whole clip)."""
-    rows, n = {"comp": (200, 8192), "lowpass": (200, 8192), "row_30s": (1, 1_323_000)}[case]
+    """(b, a, x, zi) on dev for one of TOOL_CASES: the Compressor's dB
+    envelope at the training batch (200, 8192), order 1 with its
+    steady-state zi and per-row cutoffs over the knob range (attack/release
+    1-40 ms); the LowPass at (200, 8192), order 3, rows at 10, 100 and 2000
+    Hz and the rest over the knob range; the Compressor's envelope over one
+    30 s row (its streamed target on a whole clip), and over gen_dataset's
+    device batch of 64 files of 5 s (64, 221,184)."""
+    rows, n = {"comp": (200, 8192), "lowpass": (200, 8192), "row_30s": (1, 1_323_000),
+               "gen_batch": (64, 221_184)}[case]
     g = torch.Generator(device=dev).manual_seed(rows + n)
     sig = torch.randn(rows, n, generator=g, device=dev) * 0.3
     if case == "lowpass":
@@ -46,6 +50,41 @@ def inputs(case: str, dev: torch.device):
     db = 20.0 * torch.log10(sig.abs() + 1e-6)
     zi = (b[:, 1] - a[:, 1] * b[:, 0]) / (1.0 + a[:, 1])
     return b, a, db, (zi * db[:, 0])[:, None]
+
+
+# the rows of adversarial_inputs, in order: (name, cutoff over Nyquist)
+ADVERSARIAL = (("steady_state", 0.2), ("signed_zeros", 0.01), ("subnormal", 0.3),
+               ("subnormal_decay", 0.05), ("pole_near_1", 10.0 / 22050.0), ("cutoff_high", 0.95),
+               ("nyquist", 0.5), ("large", 0.002))
+
+
+def adversarial_inputs(n: int, order: int, dev: torch.device, seed: int = 0):
+    """(b, a, x, zi) on dev, one row of n samples for each entry of
+    ADVERSARIAL, each with its own Butterworth low-pass of the given order:
+    a constant input from its steady state (zi = lfilter_zi * x[0]); +-0.0
+    with a few small samples; subnormal inputs; an impulse whose response
+    decays through the subnormals; poles within 1.5e-3 of z = 1 (10 Hz);
+    a cutoff at 0.95 of Nyquist; +-1 at Nyquist; dB-sized inputs. Made on the
+    CPU from a seed, so that the CPU and the card see the same bits."""
+    gen = torch.Generator().manual_seed(seed + order)
+    rows = len(ADVERSARIAL)
+    randn = torch.randn(rows, n, generator=gen)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
+    t = torch.arange(n)
+    special = {
+        "steady_state": torch.full((n,), 2.0),
+        "signed_zeros": torch.where(t % 5 == 2, randn[1] * 1e-3, sign * 0.0),
+        "subnormal": randn[2] * 1e-39,
+        "subnormal_decay": torch.where(t == 0, 1e-36, 0.0),
+        "nyquist": torch.where(t % 2 == 0, 1.0, -1.0),
+        "large": randn[7] * 30.0 - 60.0,
+    }
+    x = torch.stack([special.get(name, randn[i]) for i, (name, _) in enumerate(ADVERSARIAL)])
+    b, a = iir.butter_lowpass(order, torch.tensor([w for _, w in ADVERSARIAL], dtype=torch.float32))
+    zi = torch.zeros(rows, order)
+    zi[0] = iir.lfilter_zi(b[0], a[0]) * x[0, 0]
+    zi[4] = torch.randn(order, generator=gen)
+    return tuple(v.float().contiguous().to(dev) for v in (b, a, x, zi))
 
 
 def bound_ms(x: torch.Tensor, order: int) -> tuple[float, str]:
@@ -69,9 +108,14 @@ def chain_floor_ms(n: int, order: int, sm_mhz: float) -> float:
 
 
 def check(case: str, dev: torch.device) -> dict:
-    """Kernel L on one case: twice, bit-equal; against its plain version.
+    """Kernel L on one case: twice, bit-equal; bit-equal to its plain version.
     Raises on a disagreement. Returns the errors and the plain seconds."""
     b, a, x, zi = inputs(case, dev)
+    return check_inputs(case, b, a, x, zi)
+
+
+def check_inputs(case: str, b, a, x, zi) -> dict:
+    """check() on given inputs."""
     y = iir.lfilter(b, a, x, zi)
     again = iir.lfilter(b, a, x, zi)
     torch.cuda.synchronize()
@@ -81,10 +125,10 @@ def check(case: str, dev: torch.device) -> dict:
     if not torch.equal(y, again):
         raise RuntimeError(f"kernel L ({case}): two runs on the same inputs are not bit-equal")
     err = (y - ref).abs()
-    excess = float((err - (1e-5 + 1e-6 * ref.abs())).max())
-    if not bool(torch.isfinite(y).all()) or excess > 0:
-        raise RuntimeError(f"kernel L ({case}) disagrees with its plain version: max error "
-                           f"{float(err.max()):.3e}")
+    if not bool(torch.isfinite(y).all()) or not torch.equal(y.view(torch.int32),
+                                                             ref.view(torch.int32)):
+        raise RuntimeError(f"kernel L ({case}) is not bit-equal to its plain version: max error "
+                           f"{float(err.max()):.3e}, {int((y != ref).sum())} elements differ")
     return {"max_abs_err": float(err.max()), "elements_differing": int((y != ref).sum()),
             "plain_s": plain_s, "shape": tuple(x.shape), "order": b.shape[-1] - 1}
 
@@ -112,16 +156,18 @@ def main() -> None:
     _cuda.build(["iir"])
     for line in _cuda.build_report("iir"):
         print(f"  ptxas[iir]: {line}")
-    for case in CASES:
+    for case in TOOL_CASES:
         r = check(case, dev)
-        ms = time_case(case, dev)
+        ms = time_case(case, dev, reps=5 if case in ("row_30s", "gen_batch") else 20)
         x = inputs(case, dev)[2]
         bound, by = bound_ms(x, r["order"])
-        floor = chain_floor_ms(x.shape[1], r["order"], card.sm_clock_mhz())
-        print(f"L {case} x {r['shape']} order {r['order']}: {ms:.4f} ms; bound {bound:.4f} ms by "
-              f"{by}; chain floor {floor:.4f} ms; plain "
-              f"{r['plain_s'] * 1e3:.1f} ms; max error {r['max_abs_err']:.3e}, "
-              f"{r['elements_differing']} elements differ")
+        mhz = card.sm_clock_mhz()
+        n = x.shape[1]
+        floor = chain_floor_ms(n, r["order"], mhz)
+        print(f"L {case} x {r['shape']} order {r['order']}: {ms:.4f} ms, "
+              f"{ms * mhz * 1e3 / n:.2f} cycles a step at {mhz:.0f} MHz; bound {bound:.4f} ms by "
+              f"{by}; chain floor {floor:.4f} ms ({chain_cycles(r['order']):.2f} cycles a step); "
+              f"plain {r['plain_s'] * 1e3:.1f} ms; bit-equal to it")
 
 
 if __name__ == "__main__":

@@ -7,12 +7,14 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc:
 
 A quicker loop than chip_smoke.py while working on csrc/smoother.cu (under a
 minute). It builds the kernel, then for each long row below runs the chunked
-schedule and the row schedule, requires them bit-equal and within 1e-6 of the
-plain version, and prints their times (CUDA events), each row's warm-up W,
-the steps its verification re-ran and the number of virtual rows, for every
-chunk length asked for. Then it times the row schedule at the batch shapes
-of calc_ct (645, 8192) and of training (200, 8192). The card's name and
-power limit head the output.
+schedule and the row schedule, requires them bit-equal to each other and to
+the plain version, and prints their times (CUDA events), each row's warm-up
+W, the steps its verification re-ran and the number of virtual rows, for
+every chunk length asked for. Then it times the row schedule at the batch
+shapes of training (200, 8192), calc_ct (645, 8192) and gen_dataset's device
+batch (64, 221,184), each in cycles a step at the SM clock it reads beside
+the chain floor (CHAIN_CYCLES). The card's name and power limit head the
+output.
 """
 
 from __future__ import annotations
@@ -27,11 +29,17 @@ import torch
 
 from ..dsp import compressors, synths
 from ..ops import _cuda, cuda_kernels as ck
+from ..utils import card
 
 CLIP_N = 1_323_000  # the 30 s serving clip at 44.1 kHz, smoothed as one row
 KNOBS_WC = (-25.0, 4.0, 0.005, 0.02)  # the serving path's comp_4c knobs
 CASES = ("serving_curve", "randn", "step_to_silence", "alpha_9999", "alphas_equal", "ragged",
          "at_warmup_cap", "three_rows")
+BATCH_SHAPES = ((200, 8192), (645, 8192), (64, 221_184))  # training, calc_ct, gen_dataset
+# the least cycles a step of C's chain: one fma and one select, dependent, at
+# card.FMA_CYCLES each (csrc/smoother.cu compiles the select to three
+# operations, FSETP -> SEL -> LOP3: see its header)
+CHAIN_CYCLES = 2 * card.FMA_CYCLES
 
 
 def long_rows(case: str, dev: torch.device, n: int = CLIP_N):
@@ -70,6 +78,43 @@ def long_rows(case: str, dev: torch.device, n: int = CLIP_N):
     raise ValueError(f"unknown case {case!r}")
 
 
+# the rows of adversarial_rows, in order: (name, alpha_a, alpha_r)
+ADVERSARIAL = (("ties", 0.5, 0.3), ("ties_release", 0.9, 0.5),
+               ("signed_zeros", 0.98, 0.9), ("negative_zeros", 0.5, 0.7),
+               ("subnormal", 0.5, 0.25), ("subnormal_decay", 0.9, 0.8),
+               ("attack_slower", 0.999, 0.9), ("alphas_equal", 0.97, 0.97),
+               ("alpha_0", 0.0, 0.0), ("alpha_0_9999", 0.0, 0.9999),
+               ("alpha_9999", 0.9999, 0.9999), ("step", 0.99, 0.999))
+
+
+def adversarial_rows(n: int, dev: torch.device, seed: int = 0):
+    """(g, alpha_a, alpha_r) on dev, one row of n samples for each entry of
+    ADVERSARIAL: the edges of the select g[n] < s[n-1] and of the
+    coefficients. A constant g, where the carry meets g exactly and the two
+    compare equal (a tie picks alpha_r); +-0.0 (a tie between -0.0 and +0.0),
+    all -0.0; subnormal inputs, and a carry decaying through the subnormals;
+    alpha_a > alpha_r, alpha_a == alpha_r, alphas of 0 (s = g) and 0.9999; a
+    step down to 0. Made on the CPU from a seed, so that the CPU and the card
+    see the same bits."""
+    gen = torch.Generator().manual_seed(seed)
+    randn = torch.randn(len(ADVERSARIAL), n, generator=gen)
+    sign = torch.where(torch.rand(n, generator=gen) < 0.5, -1.0, 1.0)
+    rows = {
+        "ties": torch.full((n,), -6.0),
+        "ties_release": torch.full((n,), 3.0),
+        "signed_zeros": torch.where(torch.arange(n) % 7 == 3, randn[2] * 1e-3, sign * 0.0),
+        "negative_zeros": torch.full((n,), -0.0),
+        "subnormal": randn[4] * 1e-39,
+        "subnormal_decay": torch.where(torch.arange(n) < 8, 1e-36, 0.0),
+        "step": torch.where(torch.arange(n) < n // 4, -20.0, 0.0),
+    }
+    g = torch.stack([rows.get(name, randn[i] * 10.0 if name == "alphas_equal" else randn[i])
+                     for i, (name, _, _) in enumerate(ADVERSARIAL)]).float()
+    aa = torch.tensor([a for _, a, _ in ADVERSARIAL], dtype=torch.float32)
+    ar = torch.tensor([r for _, _, r in ADVERSARIAL], dtype=torch.float32)
+    return g.contiguous().to(dev), aa.to(dev), ar.to(dev)
+
+
 def cuda_ms(fn, reps: int = 5, warmup: int = 1) -> float:
     """Mean milliseconds of fn() on the card (CUDA events), after warmup."""
     for _ in range(warmup):
@@ -92,8 +137,9 @@ def check_row(case: str, g, aa, ar, chunks) -> dict:
     plain = ck.switched_one_pole_reference(g, aa, ar)
     plain_s = time.perf_counter() - t0
     err = float((rows - plain).abs().max())
-    if err > 1e-6:
-        raise RuntimeError(f"{case}: the row schedule is {err:.3e} off the plain version")
+    if not torch.equal(rows, plain):
+        raise RuntimeError(f"{case}: the row schedule is not bit-equal to the plain version "
+                           f"(max error {err:.3e})")
     out = {"shape": tuple(g.shape), "plain_max_abs_err": err, "plain_s": plain_s,
            "rows_ms": cuda_ms(lambda: ck.smoother_rows(g, aa, ar))}
     for chunk in chunks:
@@ -135,11 +181,15 @@ def main(argv=None) -> int:
                          f"W {c['warmup']}, re-run {c['rerun_steps']}, "
                          f"{c['virtual_rows']} virtual rows")
             print(line + "; bit-equal", flush=True)
-        for b in (645, 200):
-            g = torch.randn(b, 8192, device=dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for b, n in BATCH_SHAPES:
+            g = torch.randn(b, n, device=dev)
             aa, ar = torch.full((b,), 0.99, device=dev), torch.full((b,), 0.95, device=dev)
-            print(f"rows ({b}, 8192): "
-                  f"{cuda_ms(lambda: ck.switched_one_pole_batched(g, aa, ar), reps=20):.4f} ms")
+            ms = cuda_ms(lambda: ck.switched_one_pole_batched(g, aa, ar), reps=20 if n < 10**5 else 5)
+            mhz = card.sm_clock_mhz()
+            print(f"rows ({b}, {n}), {ck.rows_per_block(b, sms)} a block: {ms:.4f} ms, "
+                  f"{ms * mhz * 1e3 / n:.2f} cycles a step at {mhz:.0f} MHz (chain floor "
+                  f"{CHAIN_CYCLES}: {n * CHAIN_CYCLES / (mhz * 1e3):.4f} ms)")
     print(f"on {smi}")
     return 0
 

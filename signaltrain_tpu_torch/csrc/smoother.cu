@@ -15,27 +15,40 @@
 //
 // What bounds it on an H100: by the roofline it is bytes (each sample read
 // once and written once, a handful of flops each), but a serial walk is bound
-// by the latency of its dependent chain, one step per ~30 cycles on one
-// thread. Two schedules, both exact, chosen by shape in ops/cuda_kernels.py:
+// by the latency of its dependent chain. The step (SwitchedStep) forms both
+// candidates, sa = fma(alpha_a, s, (1-alpha_a)*g) and sr likewise, beside the
+// compare, and selects one: at best two dependent operations, 8 cycles (an
+// fma, fmul or fadd takes 4.1 on this card). How the select compiles decides
+// the rest (cycles a step, one row alone, measured with clock64 on an H100):
+//   * `g < s ? sa : sr`: nvcc and ptxas make it FFMA sa; FSETP P, g, s; @P
+//     FFMA sr, a guarded fma overwriting sa, whose guard predicate costs ~14
+//     cycles: 18.4 with the inputs in registers, ~30 in the parent kernel,
+//     whose read-ahead loads the compiler also sank behind the steps;
+//   * select_lt below: a set.lt mask and a lop3 blend, which ptxas makes
+//     FSETP -> SEL -> LOP3, three 4-cycle operations and no guard: 13.2 in
+//     registers (`slct` on the sign of g - s: 22.3);
+//   * in the kernel the two products (1-alpha)*g also sit on the chain: ptxas
+//     schedules each FMUL just before the fma that takes it, between the
+//     FSETP and the fmas, and a warp issues in order: ~17 a step. Computed by
+//     the row scan's producer warp into shared memory instead, they cost
+//     more than they saved (18.1 at 2 rows a block, 24.8 at 8: the producer
+//     could not keep ahead), so they stay in the step.
+// Two schedules, both exact, chosen by shape in ops/cuda_kernels.py, both on
+// the row scan of row_scan.cuh (which says how it keeps the chain from
+// waiting on memory):
 //
 // * Rows (st_smoother): one thread owns one row and walks it in time, with
-//   the carry in a register; a batch of rows spreads over the card. Warp 0
-//   owns up to 8 rows and only computes; warps 1-3 stage time-major tiles of
-//   g through shared memory (so the loads of a warp's rows coalesce, even for
-//   one row) and write the finished tiles back, double-buffered, so the loads
-//   and stores of the next and previous tiles overlap the recursion on this
-//   one. A row owner reads 8 steps ahead into registers, and forms both
-//   candidate updates beside the compare, so each step is one fma and a
-//   select on the chain.
+//   the carry in a register; a batch of rows spreads over the card, the rows
+//   a block chosen by ops/cuda_kernels.rows_per_block.
 // * Chunks (st_smoother_chunked), for a few long rows (the serving call
 //   smooths a whole clip as ONE row, where one thread would walk millions of
 //   steps while 131 of 132 SMs idle): speculate, then verify.
 //   1. Each row is cut into chunks of L samples. Chunk k is a virtual row of
-//      the row kernel's design (smoother_chunks_kernel, whose rows are
-//      segments read from a table): it starts from a guessed carry
-//      s[kL-W-1] = 0 at max(0, kL-W), warms up to kL, writes only its own L
-//      outputs and records its state at kL-1 in spec[b, k]. A chunk whose
-//      warm-up reaches sample 0 starts at s[0] = 0 and is exact.
+//      the row scan (smoother_chunks_kernel, whose rows are segments read
+//      from a table): it starts from a guessed carry s[kL-W-1] = 0 at
+//      max(0, kL-W), warms up to kL, writes only its own L outputs and
+//      records its state at kL-1 in spec[b, k]. A chunk whose warm-up reaches
+//      sample 0 starts at s[0] = 0 and is exact.
 //      W = 24 / (1 - max alpha), at most 65,536, rounded up to a tile, per
 //      row: the step is a contraction (piecewise linear, continuous at
 //      s = g[n], slopes alpha_a, alpha_r < 1), so the guess's error shrinks
@@ -44,48 +57,30 @@
 //      and the inputs, so trajectories that are bit-equal at one step stay
 //      so: chunk k is exact iff chunk k-1 is and spec[b, k] equals
 //      out[b, kL-1] bit for bit. The comparisons run in parallel; from the
-//      first mismatch, one thread walks on in order, staged as in the row
-//      kernel, re-running a chunk from the exact carry until its state at a
-//      tile's end equals the speculated one (the rest of the chunk is then
-//      exact) or the chunk ends, and skipping the chunks that verify. Input
-//      that never meets makes the walk serial: phase 1 plus the row kernel's
-//      time, still exact. No spin-waits, no atomics; bit-equal run to run.
-//   Both schedules compute every step with the same code (run_tile), so
-//   their outputs are bit-equal.
+//      first mismatch, one thread walks on in order, its tiles staged by the
+//      block's other warps, re-running a chunk from the exact carry until its
+//      state at a tile's end equals the speculated one (the rest of the chunk
+//      is then exact) or the chunk ends, and skipping the chunks that verify.
+//      Input that never meets makes the walk serial: phase 1 plus the row
+//      kernel's time, still exact. No spin-waits, no atomics; bit-equal run
+//      to run.
+//   Every schedule computes every step with the same code (SwitchedStep
+//   through rs::run_tile), so their outputs are bit-equal.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_scan.cuh"
+
 namespace {
 
-constexpr int SM_ROWS = 8;       // rows per block: lanes 0-7 of warp 0 (few rows per
-                                 // block, so a batch spreads over many SMs)
-constexpr int SM_TT = 256;       // time steps per staged tile
-constexpr int SM_THREADS = 128;  // warp 0 computes, warps 1-3 stage tiles
+using rs::Seg;
+constexpr int SM_TT = rs::TT;    // time steps per staged tile
+constexpr int SM_THREADS = 128;  // the verify walk: thread 0 walks, warps 1-3 stage tiles
 constexpr int SM_STAGERS = SM_THREADS - 32;
 constexpr int SM_BURST = 8;      // loads a stager keeps in flight
-constexpr int SM_AHEAD = 8;      // steps a row owner reads ahead
 constexpr float WARMUP_DECAYS = 24.f;  // a chunk's warm-up: e^-24 of the guess's error left
 constexpr int64_t WARMUP_MAX = 65536;  // steps; a multiple of SM_TT
-
-// The part of a row one owner walks: samples [begin, end) of the row at
-// base, the carry entering `begin` guessed as 0 (begin 0: s[0] = 0, exact),
-// outputs from `write` on stored.
-struct Seg {
-  int64_t base, begin, write, end;
-};
-
-// Where a block's segments lie, for stage(): the walk's whole row b is
-// Rows{b, n}; phase 1's chunks are read from the table the block built in
-// shared memory.
-struct Rows {
-  int64_t v0, n;
-  __device__ Seg operator[](int r) const { return Seg{(v0 + r) * n, 0, 0, n}; }
-};
-struct Chunks {
-  const Seg* seg;
-  __device__ const Seg& operator[](int r) const { return seg[r]; }
-};
 
 __device__ __forceinline__ int64_t warmup_steps(float aa, float ar) {
   const float w = WARMUP_DECAYS / (1.f - fmaxf(aa, ar));
@@ -97,66 +92,62 @@ __device__ __forceinline__ bool same_bits(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b);
 }
 
-// Steps k..len-1 of one staged tile, in place (g in, s out), from carry s[k-1].
-__device__ __forceinline__ float run_tile(float* row, int k, int len, float aa, float ar,
-                                          float one_aa, float one_ar, float carry) {
-  float v[SM_AHEAD];
-  if (k + SM_AHEAD <= len) {
-#pragma unroll
-    for (int u = 0; u < SM_AHEAD; ++u) v[u] = row[k + u];
-  }
-  for (; k + SM_AHEAD <= len; k += SM_AHEAD) {
-    float next[SM_AHEAD];  // the following steps' inputs, read before this chain
-    const bool more = k + 2 * SM_AHEAD <= len;
-    if (more) {
-#pragma unroll
-      for (int u = 0; u < SM_AHEAD; ++u) next[u] = row[k + SM_AHEAD + u];
-    }
-#pragma unroll
-    for (int u = 0; u < SM_AHEAD; ++u) {
-      const float sa = __fmaf_rn(aa, carry, __fmul_rn(one_aa, v[u]));
-      const float sr = __fmaf_rn(ar, carry, __fmul_rn(one_ar, v[u]));
-      carry = v[u] < carry ? sa : sr;
-      row[k + u] = carry;
-    }
-    if (more) {
-#pragma unroll
-      for (int u = 0; u < SM_AHEAD; ++u) v[u] = next[u];
-    }
-  }
-  for (; k < len; ++k) {
-    const float gn = row[k];
-    const float sa = __fmaf_rn(aa, carry, __fmul_rn(one_aa, gn));
-    const float sr = __fmaf_rn(ar, carry, __fmul_rn(one_ar, gn));
-    carry = gn < carry ? sa : sr;
-    row[k] = carry;
-  }
-  return carry;
+// sa if g < s else sr, bit for bit as the compare selects: a mask of all ones
+// where g < s (set.lt gives 0 for g == s, so a tie takes sr; -0.0 == +0.0;
+// subnormals compare as they are, the build flushes none) blends the two by
+// lop3 (d = m ? sa : sr, table 0xCA). No guard predicate on the chain.
+__device__ __forceinline__ float select_lt(float g, float s, float sa, float sr) {
+  float r;
+  asm("{\n\t.reg .b32 m;\n\tset.lt.u32.f32 m, %1, %2;\n\tlop3.b32 %0, m, %3, %4, 0xCA;\n\t}"
+      : "=f"(r) : "f"(g), "f"(s), "f"(sa), "f"(sr));
+  return r;
 }
 
-// Threads worker, worker + workers, ... move tile `store_tile` of each of
-// `rows` segments from buf to out (its samples in [write, end)) and tile
-// `load_tile` from g into buf (zeros past end); -1 skips either. Tile i of a
-// segment is samples begin + i*SM_TT ... Up to SM_BURST loads in flight; the
-// same thread writes an element back before it refills it.
-template <class Segs>
-__device__ __forceinline__ void stage(float (*buf)[SM_TT + 1], Segs seg, int rows,
-                                      int64_t store_tile, int64_t load_tile,
-                                      const float* __restrict__ g, float* out,
+// One step of the smoother on one row, the carry s[n-1] in `carry`.
+struct SwitchedStep {
+  static constexpr bool kZeroFirst = true;  // s[0] = 0
+  struct In {
+    float g, ca, cr;  // g[n], (1-alpha_a)*g[n], (1-alpha_r)*g[n]: not on the chain
+  };
+  float aa, ar, one_aa, one_ar, carry;
+
+  __device__ __forceinline__ static SwitchedStep make(float aa, float ar) {
+    // 1 - alpha, rounded like the plain version; the carry entering a row is 0
+    return SwitchedStep{aa, ar, __fsub_rn(1.f, aa), __fsub_rn(1.f, ar), 0.f};
+  }
+  __device__ __forceinline__ float zero() {
+    carry = 0.f;
+    return 0.f;
+  }
+  __device__ __forceinline__ In prep(float g) const {
+    return In{g, __fmul_rn(one_aa, g), __fmul_rn(one_ar, g)};
+  }
+  __device__ __forceinline__ float operator()(const In& x) {
+    const float sa = __fmaf_rn(aa, carry, x.ca);
+    const float sr = __fmaf_rn(ar, carry, x.cr);
+    carry = select_lt(x.g, carry, sa, sr);
+    return carry;
+  }
+};
+
+// Threads worker, worker + workers, ... move tile `store_tile` of the row
+// `seg` from buf to out (its samples in [write, end)) and tile `load_tile`
+// from g into buf (zeros past end); -1 skips either. Tile i of a segment is
+// samples begin + i*SM_TT ... Up to SM_BURST loads in flight; the same thread
+// writes an element back before it refills it. (The verify walk's staging.)
+__device__ __forceinline__ void stage(float* buf, const Seg& s, int64_t store_tile,
+                                      int64_t load_tile, const float* __restrict__ g, float* out,
                                       int worker, int workers) {
-  const int total = rows * SM_TT;
-  for (int i0 = worker; i0 < total; i0 += workers * SM_BURST) {
+  for (int i0 = worker; i0 < SM_TT; i0 += workers * SM_BURST) {
     float v[SM_BURST];
 #pragma unroll
     for (int u = 0; u < SM_BURST; ++u) {
-      const int idx = i0 + workers * u;
+      const int k = i0 + workers * u;
       v[u] = 0.f;
-      if (idx < total) {
-        const Seg s = seg[idx / SM_TT];
-        const int k = idx % SM_TT;
+      if (k < SM_TT) {
         if (store_tile >= 0) {
           const int64_t t = s.begin + store_tile * SM_TT + k;
-          if (t >= s.write && t < s.end) out[s.base + t] = buf[idx / SM_TT][k];
+          if (t >= s.write && t < s.end) out[s.base + t] = buf[k];
         }
         if (load_tile >= 0) {
           const int64_t t = s.begin + load_tile * SM_TT + k;
@@ -167,167 +158,54 @@ __device__ __forceinline__ void stage(float (*buf)[SM_TT + 1], Segs seg, int row
     if (load_tile >= 0) {
 #pragma unroll
       for (int u = 0; u < SM_BURST; ++u) {
-        const int idx = i0 + workers * u;
-        if (idx < total) buf[idx / SM_TT][idx % SM_TT] = v[u];
+        const int k = i0 + workers * u;
+        if (k < SM_TT) buf[k] = v[u];
       }
     }
   }
 }
 
-// The row schedule: one thread a row, 8 rows a block.
-__global__ void __launch_bounds__(SM_THREADS) smoother_kernel(
+// The row schedule: one thread a row, `per_block` rows a block.
+__global__ void __launch_bounds__(rs::THREADS) smoother_kernel(
     const float* __restrict__ g, const float* __restrict__ alpha_a,
-    const float* __restrict__ alpha_r, float* __restrict__ out,
-    int batch, int64_t n) {
-  // two tiles, time-major per row; +1 so row owners read without bank conflicts
-  __shared__ float tile[2][SM_ROWS][SM_TT + 1];
-
-  const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.x * SM_ROWS;
+    const float* __restrict__ alpha_r, float* __restrict__ out, int batch, int64_t n,
+    int per_block) {
+  const int64_t row0 = (int64_t)blockIdx.x * per_block;
   const int64_t left = (int64_t)batch - row0;
-  const int rows = left < SM_ROWS ? (int)left : SM_ROWS;
-  const int64_t ntiles = (n + SM_TT - 1) / SM_TT;
-
-  // stager: thread tid-32 of warps 1-3 moves elements i0 + 96*u of a tile,
-  // SM_BURST loads in flight; the same thread writes an element back before
-  // it refills it. (stage() below does the same for segments read from a
-  // table; here each row's address is computed in place, because the table's
-  // lookups slow this schedule down at calc_ct's (645, 8192) batch.)
-  auto stage_rows = [&](int buf, int64_t store_tile, int64_t load_tile) {
-    const int total = rows * SM_TT;
-    for (int i0 = tid - 32; i0 < total; i0 += SM_STAGERS * SM_BURST) {
-      float v[SM_BURST];
-#pragma unroll
-      for (int u = 0; u < SM_BURST; ++u) {
-        const int idx = i0 + SM_STAGERS * u;
-        v[u] = 0.f;
-        if (idx < total) {
-          const int r = idx / SM_TT;
-          const int k = idx % SM_TT;
-          const int64_t base = (row0 + r) * n;
-          if (store_tile >= 0) out[base + store_tile * SM_TT + k] = tile[buf][r][k];
-          if (load_tile >= 0 && load_tile * SM_TT + k < n) v[u] = g[base + load_tile * SM_TT + k];
-        }
-      }
-      if (load_tile >= 0) {
-#pragma unroll
-        for (int u = 0; u < SM_BURST; ++u) {
-          const int idx = i0 + SM_STAGERS * u;
-          if (idx < total) tile[buf][idx / SM_TT][idx % SM_TT] = v[u];
-        }
-      }
-    }
-  };
-
-  if (tid >= 32) stage_rows(0, -1, 0);
-  __syncthreads();
-
-  const bool owner = tid < rows;
-  float aa = 0.f, ar = 0.f;
-  if (owner) {
-    aa = alpha_a[row0 + tid];
-    ar = alpha_r[row0 + tid];
-  }
-  const float one_aa = __fsub_rn(1.f, aa);  // 1 - alpha, rounded like the plain version
-  const float one_ar = __fsub_rn(1.f, ar);
-  float carry = 0.f;
-
-  for (int64_t i = 0; i < ntiles; ++i) {
-    const int cur = (int)(i & 1);
-    if (tid < 32) {
-      if (owner) {
-        float* row = tile[cur][tid];
-        const int64_t t0 = i * SM_TT;
-        const int len = n - t0 < SM_TT ? (int)(n - t0) : SM_TT;
-        int k = 0;
-        if (t0 == 0) {  // s[0] = 0 exactly
-          row[0] = 0.f;
-          k = 1;
-        }
-        carry = run_tile(row, k, len, aa, ar, one_aa, one_ar, carry);
-      }
-    } else {
-      // the other buffer: write back tile i-1, then fetch tile i+1 into it
-      stage_rows(cur ^ 1, i >= 1 ? i - 1 : -1, i + 1 < ntiles ? i + 1 : -1);
-    }
-    __syncthreads();
-  }
-  // the last tile, by every thread (all tiles before it are full-length)
-  const int last = (int)((ntiles - 1) & 1);
-  const int64_t tl = (ntiles - 1) * SM_TT;
-  for (int idx = tid; idx < rows * SM_TT; idx += SM_THREADS) {
-    const int r = idx / SM_TT;
-    const int k = idx % SM_TT;
-    if (tl + k < n) out[(row0 + r) * n + tl + k] = tile[last][r][k];
-  }
+  const int rows = left < per_block ? (int)left : per_block;
+  SwitchedStep st{};
+  if (threadIdx.x < rows)
+    st = SwitchedStep::make(alpha_a[row0 + threadIdx.x], alpha_r[row0 + threadIdx.x]);
+  rs::scan(g, out, rs::Rows{row0, n}, rows, st, [](int64_t) {});
 }
 
-// Phase 1 above: the row kernel over `vrows` virtual rows of 8 a block,
+// Phase 1 above: the row scan over `vrows` virtual rows, `per_block` a block,
 // virtual row v being chunk v % nch of row v / nch; its state at kL-1 goes to
 // spec[v].
-__global__ void __launch_bounds__(SM_THREADS) smoother_chunks_kernel(
+__global__ void __launch_bounds__(rs::THREADS) smoother_chunks_kernel(
     const float* __restrict__ g, const float* __restrict__ alpha_a,
     const float* __restrict__ alpha_r, float* __restrict__ out, float* __restrict__ spec,
-    int64_t vrows, int64_t n, int64_t chunk) {
-  __shared__ float tile[2][SM_ROWS][SM_TT + 1];
-  __shared__ Seg table[SM_ROWS];
+    int64_t vrows, int64_t n, int64_t chunk, int per_block) {
+  __shared__ Seg table[rs::MAX_ROWS];
 
   const int tid = threadIdx.x;
-  const int64_t v0 = (int64_t)blockIdx.x * SM_ROWS;
+  const int64_t v0 = (int64_t)blockIdx.x * per_block;
   const int64_t left = vrows - v0;
-  const int rows = left < SM_ROWS ? (int)left : SM_ROWS;
-  const bool owner = tid < rows;
-
-  float aa = 0.f, ar = 0.f;
-  if (owner) {
+  const int rows = left < per_block ? (int)left : per_block;
+  SwitchedStep st{};
+  int64_t write = 0;
+  if (tid < rows) {
     const int64_t nch = (n + chunk - 1) / chunk;
     const int64_t b = (v0 + tid) / nch, k = (v0 + tid) % nch;
-    aa = alpha_a[b];
-    ar = alpha_r[b];
-    const int64_t write = k * chunk, w = warmup_steps(aa, ar);
+    st = SwitchedStep::make(alpha_a[b], alpha_r[b]);  // the carry: the guess 0 at begin > 0
+    write = k * chunk;
+    const int64_t w = warmup_steps(st.aa, st.ar);
     table[tid] = Seg{b * n, write > w ? write - w : 0, write, write + chunk < n ? write + chunk : n};
   }
   __syncthreads();
-  const Chunks seg{table};
-  int64_t ntiles = 0;
-  for (int r = 0; r < rows; ++r) {
-    const int64_t t = (seg[r].end - seg[r].begin + SM_TT - 1) / SM_TT;
-    ntiles = t > ntiles ? t : ntiles;
-  }
-
-  if (tid >= 32) stage(tile[0], seg, rows, -1, 0, g, out, tid - 32, SM_STAGERS);
-  __syncthreads();
-
-  const float one_aa = __fsub_rn(1.f, aa);
-  const float one_ar = __fsub_rn(1.f, ar);
-  float carry = 0.f;  // the guess at begin > 0
-  Seg mine{0, 0, 0, 0};
-  if (owner) mine = seg[tid];
-
-  for (int64_t i = 0; i < ntiles; ++i) {
-    const int cur = (int)(i & 1);
-    if (tid < 32) {
-      const int64_t t0 = mine.begin + i * SM_TT;
-      const int64_t left_t = mine.end - t0;
-      const int len = left_t < SM_TT ? (int)left_t : SM_TT;
-      if (owner && len > 0) {
-        float* row = tile[cur][tid];
-        int k = 0;
-        if (t0 == 0) {  // s[0] = 0 exactly
-          row[0] = 0.f;
-          k = 1;
-        }
-        carry = run_tile(row, k, len, aa, ar, one_aa, one_ar, carry);
-        if (t0 + SM_TT == mine.write) spec[v0 + tid] = carry;  // the state at kL-1
-      }
-    } else {
-      stage(tile[cur ^ 1], seg, rows, i >= 1 ? i - 1 : -1, i + 1 < ntiles ? i + 1 : -1, g, out,
-            tid - 32, SM_STAGERS);
-    }
-    __syncthreads();
-  }
-  // the last tile, by every thread (a chunk's earlier tiles went back in the loop)
-  stage(tile[(int)((ntiles - 1) & 1)], seg, rows, ntiles - 1, -1, g, out, tid, SM_THREADS);
+  rs::scan(g, out, rs::Table{table}, rows, st, [&](int64_t t) {
+    if (t == write) spec[v0 + tid] = st.carry;  // the state at kL-1
+  });
 }
 
 // Phase 2 above: one block per row b, for the chunks that phase 1 wrote.
@@ -336,7 +214,7 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
     const float* __restrict__ g, const float* __restrict__ alpha_a,
     const float* __restrict__ alpha_r, float* out, const float* __restrict__ spec,
     long long* __restrict__ stats, int64_t n, int64_t chunk) {
-  __shared__ float tile[2][1][SM_TT + 1];
+  __shared__ __align__(16) float tile[2][rs::STRIDE];
   __shared__ int64_t first_of_warp[SM_THREADS / 32];
   __shared__ int64_t next_tile[2];  // by the walk's step parity: read before it is rewritten
   __shared__ float ends[2][2];      // per tile buffer: see fetch_ends
@@ -347,7 +225,7 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
   const int64_t ntl = (n + SM_TT - 1) / SM_TT;
   const float* wb = spec + b * nch;
   const float* ob = out + b * n;
-  const Rows row{b, n};  // tiles of the whole row, by absolute index
+  const Seg row{b * n, 0, 0, n};  // tiles of the whole row, by absolute index
   // what the walk compares at the end of tile tt, staged beside its samples so
   // that no load waits on the chain: the speculated value at its last sample
   // and, where it ends a chunk k, chunk k+1's speculated carry
@@ -376,13 +254,12 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
 
   const float aa = alpha_a[b], ar = alpha_r[b];
   long long steps = 0;
+  SwitchedStep st = SwitchedStep::make(aa, ar);
   if (first < nch) {
-    const float one_aa = __fsub_rn(1.f, aa);
-    const float one_ar = __fsub_rn(1.f, ar);
     float carry = ob[first * chunk - 1];  // exact: every chunk before `first` is
     int64_t t = first * chunk / SM_TT, prev = -1;
     int cur = 0;
-    stage(tile[0], row, 1, -1, t, g, out, tid, SM_THREADS);
+    stage(tile[0], row, -1, t, g, out, tid, SM_THREADS);
     if (tid == 0) fetch_ends(t, ends[0]);
     __syncthreads();
     for (int step = 0;; step ^= 1) {
@@ -390,7 +267,9 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
         const int64_t t0 = t * SM_TT;
         const int len = n - t0 < SM_TT ? (int)(n - t0) : SM_TT;
         const float spec_end = ends[cur][0];  // the speculated value there, untouched
-        carry = run_tile(tile[cur][0], 0, len, aa, ar, one_aa, one_ar, carry);
+        st.carry = carry;
+        rs::run_tile(tile[cur], 0, len, st);
+        carry = st.carry;
         steps += len;
         int64_t next = t + 1;
         const int64_t k = t0 / chunk;
@@ -412,8 +291,7 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
       } else if (tid >= 32) {
         // the other buffer: write back the previous tile, fetch the following one
         if (tid == 32 && t + 1 < ntl) fetch_ends(t + 1, ends[cur ^ 1]);
-        stage(tile[cur ^ 1], row, 1, prev, t + 1 < ntl ? t + 1 : -1, g, out, tid - 32,
-              SM_STAGERS);
+        stage(tile[cur ^ 1], row, prev, t + 1 < ntl ? t + 1 : -1, g, out, tid - 32, SM_STAGERS);
       }
       __syncthreads();
       const int64_t next = next_tile[step];
@@ -424,9 +302,9 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
         continue;
       }
       // a jump or the end: write this tile back (the fetched one is not needed)
-      stage(tile[cur], row, 1, t, -1, g, out, tid, SM_THREADS);
+      stage(tile[cur], row, t, -1, g, out, tid, SM_THREADS);
       if (next < 0) break;
-      stage(tile[cur ^ 1], row, 1, -1, next, g, out, tid, SM_THREADS);
+      stage(tile[cur ^ 1], row, -1, next, g, out, tid, SM_THREADS);
       if (tid == 0) fetch_ends(next, ends[cur ^ 1]);
       __syncthreads();
       prev = -1;
@@ -440,7 +318,9 @@ __global__ void __launch_bounds__(SM_THREADS) smoother_verify_kernel(
   }
 }
 
-unsigned blocks_for(int64_t rows) { return (unsigned)((rows + SM_ROWS - 1) / SM_ROWS); }
+unsigned blocks_for(int64_t rows, int per_block) {
+  return (unsigned)((rows + per_block - 1) / per_block);
+}
 
 }  // namespace
 
@@ -448,26 +328,32 @@ extern "C" {
 
 const char* st_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// g, out (batch, n) float32; alpha_a, alpha_r (batch,) float32. One thread a row.
+// g, out (batch, n) float32; alpha_a, alpha_r (batch,) float32. One thread a
+// row, per_block (1-8) rows a block.
 int st_smoother(const void* g, const void* alpha_a, const void* alpha_r, void* out,
-                int batch, long long n, void* stream) {
-  smoother_kernel<<<blocks_for(batch), SM_THREADS, 0, (cudaStream_t)stream>>>(
+                int batch, long long n, int per_block, void* stream) {
+  if (per_block < 1 || per_block > rs::MAX_ROWS) return (int)cudaErrorInvalidValue;
+  smoother_kernel<<<blocks_for(batch, per_block), rs::THREADS, rs::smem_bytes(per_block),
+                    (cudaStream_t)stream>>>(
       (const float*)g, (const float*)alpha_a, (const float*)alpha_r, (float*)out, batch,
-      (int64_t)n);
+      (int64_t)n, per_block);
   return (int)cudaGetLastError();
 }
 
-// The same function by chunks of `chunk` samples (a multiple of 256):
-// spec (batch, ceil(n / chunk)) float32 scratch; stats (batch, 2) int64 out,
-// each row's warm-up W and the steps its verification re-ran.
+// The same function by chunks of `chunk` samples (a multiple of 256), phase 1
+// per_block (1-8) chunks a block: spec (batch, ceil(n / chunk)) float32
+// scratch; stats (batch, 2) int64 out, each row's warm-up W and the steps its
+// verification re-ran.
 int st_smoother_chunked(const void* g, const void* alpha_a, const void* alpha_r, void* out,
                         void* spec, void* stats, int batch, long long n, long long chunk,
-                        void* stream) {
-  if (chunk <= 0 || chunk % SM_TT != 0) return (int)cudaErrorInvalidValue;
+                        int per_block, void* stream) {
+  if (chunk <= 0 || chunk % SM_TT != 0 || per_block < 1 || per_block > rs::MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
   const int64_t vrows = (int64_t)batch * ((n + chunk - 1) / chunk);
-  smoother_chunks_kernel<<<blocks_for(vrows), SM_THREADS, 0, (cudaStream_t)stream>>>(
+  smoother_chunks_kernel<<<blocks_for(vrows, per_block), rs::THREADS,
+                           rs::smem_bytes(per_block), (cudaStream_t)stream>>>(
       (const float*)g, (const float*)alpha_a, (const float*)alpha_r, (float*)out, (float*)spec,
-      vrows, (int64_t)n, (int64_t)chunk);
+      vrows, (int64_t)n, (int64_t)chunk, per_block);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   smoother_verify_kernel<<<(unsigned)batch, SM_THREADS, 0, (cudaStream_t)stream>>>(

@@ -35,10 +35,12 @@ switched_one_pole_reference = iir.switched_one_pole
 CHUNK = 1024               # samples a chunk (a multiple of the kernel's 256-step tile)
 CHUNK_MIN_N = 65536        # rows shorter than this take the row schedule
 MAX_VIRTUAL_ROWS = 4096    # ... and so do batches of more chunks than this
+MAX_ROWS_PER_BLOCK = 8     # csrc/row_scan.cuh: the lanes of one owner warp
 
-_ROWS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+_ROWS_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                      ctypes.c_void_p]
 _CHUNKED_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
 
 
 def uses_chunks(batch: int, n: int) -> bool:
@@ -48,6 +50,24 @@ def uses_chunks(batch: int, n: int) -> bool:
     batch of many rows fills it already, and short rows gain nothing from a
     warm-up of up to 65,536 steps."""
     return n >= CHUNK_MIN_N and batch * math.ceil(n / CHUNK) <= MAX_VIRTUAL_ROWS
+
+
+def rows_per_block(rows: int, sms: int) -> int:
+    """The rows one block of the row scan (``csrc/row_scan.cuh``) walks, for
+    kernels C and L: the least power of two, at most MAX_ROWS_PER_BLOCK, that
+    puts the rows on no more blocks than the card has SMs. A batch spreads
+    over the SMs first (one row a block up to ``sms`` rows, a training batch
+    of 200 two a block on 100 SMs), so that each block's producer stages as
+    little as the batch allows; past 8 x ``sms`` rows the blocks share SMs."""
+    per = 1
+    while per < MAX_ROWS_PER_BLOCK and per * sms < rows:
+        per *= 2
+    return per
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _checked(g: torch.Tensor, alpha_a: torch.Tensor, alpha_r: torch.Tensor) -> tuple[int, int]:
@@ -71,7 +91,7 @@ def smoother_rows(g: torch.Tensor, alpha_a: torch.Tensor, alpha_r: torch.Tensor)
     f = _cuda.function("smoother", "st_smoother", _ROWS_ARGS)
     with torch.cuda.device(g.device):
         status = f(_cuda.ptr(g), _cuda.ptr(alpha_a), _cuda.ptr(alpha_r), _cuda.ptr(out),
-                   b, n, _cuda.stream(g.device))
+                   b, n, rows_per_block(b, _sms(g.device)), _cuda.stream(g.device))
     _cuda.check(f, status)
     SMOOTHER.launches += 1
     return out
@@ -87,12 +107,14 @@ def smoother_chunked(g: torch.Tensor, alpha_a: torch.Tensor, alpha_r: torch.Tens
     if chunk <= 0 or chunk % 256:
         raise ValueError(f"smoother_chunked: chunk {chunk} is not a positive multiple of 256")
     out = torch.empty_like(g)
-    spec = torch.empty(b, math.ceil(n / chunk), dtype=torch.float32, device=g.device)
+    nch = math.ceil(n / chunk)
+    spec = torch.empty(b, nch, dtype=torch.float32, device=g.device)
     stats = torch.empty(b, 2, dtype=torch.int64, device=g.device)
     f = _cuda.function("smoother", "st_smoother_chunked", _CHUNKED_ARGS)
     with torch.cuda.device(g.device):
         status = f(_cuda.ptr(g), _cuda.ptr(alpha_a), _cuda.ptr(alpha_r), _cuda.ptr(out),
-                   _cuda.ptr(spec), _cuda.ptr(stats), b, n, chunk, _cuda.stream(g.device))
+                   _cuda.ptr(spec), _cuda.ptr(stats), b, n, chunk,
+                   rows_per_block(b * nch, _sms(g.device)), _cuda.stream(g.device))
     _cuda.check(f, status)
     SMOOTHER.launches += 1
     SMOOTHER_CHUNKED.launches += 1
@@ -114,7 +136,7 @@ def switched_one_pole_batched(g: torch.Tensor, alpha_a: torch.Tensor,
 
 
 _LFILTER_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-                                         ctypes.c_void_p]
+                                         ctypes.c_int, ctypes.c_void_p]
 LFILTER_ORDERS = (1, 3)  # the orders st_lfilter (csrc/iir.cu) is built for
 
 
@@ -140,7 +162,7 @@ def lfilter_rows(b: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
     f = _cuda.function("iir", "st_lfilter", _LFILTER_ARGS)
     with torch.cuda.device(x.device):
         status = f(_cuda.ptr(x), _cuda.ptr(b), _cuda.ptr(a), _cuda.ptr(zi), _cuda.ptr(out),
-                   bsz, n, order, _cuda.stream(x.device))
+                   bsz, n, order, rows_per_block(bsz, _sms(x.device)), _cuda.stream(x.device))
     _cuda.check(f, status)
     iir.LFILTER.launches += 1
     return out

@@ -8,8 +8,9 @@ skip. Run them on a GPU machine without the JAX package's test setup:
 
 Tolerances are those the port's CPU tests hold the plain versions to against
 the JAX package: magnitude 2e-5, wrapped phase 2e-4 on the bins of magnitude
->= 1e-2 and 2e-6 / mag below (assert_analysis_close), synthesis 3e-4,
-smoother 1e-6 (its chunked schedule bit-equal to its row schedule), model
+>= 1e-2 and 2e-6 / mag below (assert_analysis_close), synthesis 3e-4; the
+smoother (kernel C, by rows and chunked) and kernel L are bit-equal to their
+plain versions, which take the same fma steps; model
 output 1e-3; gradients 5e-4 + 5e-4*|g| element by element, kernel D's with well-conditioned phase cotangents included; kernel
 D's with unit-normal phase cotangents on every bin (heavy-tailed and
 ill-conditioned: max|dW| is 50-24,000 against a median of 0.7-18) against a
@@ -118,8 +119,16 @@ def test_synthesis_kernel_matches_plain(dev, ft, hop, chunk, b):
     torch.testing.assert_close(wave, ref, atol=3e-4, rtol=3e-4)
 
 
-@pytest.mark.parametrize("b,n", [(1, 8), (3, 50), (1024, 40), (33, 2 * 512 + 137), (1, 20000),
-                                 (9, 257), (5, 256), (2, 513), (17, 7)])
+# batches on each side of the row scan's rows a block (cuda_kernels.rows_per_block on
+# 132 SMs: 1 up to 132 rows, 2 up to 264, 4 up to 528, then 8), and lengths of one
+# sample, a tile (256) and either side of it, a row that is no multiple of 4 floats
+# (each tile copied 4 bytes at a time) and the training chunk
+SCAN_SHAPES = [(1, 8), (3, 50), (1024, 40), (33, 2 * 512 + 137), (1, 20000), (9, 257), (5, 256),
+               (2, 513), (17, 7), (1, 1), (7, 255), (8, 256), (9, 8192), (1, 8192), (7, 8192),
+               (8, 8192), (133, 300), (265, 257), (529, 64), (200, 8192), (645, 8192)]
+
+
+@pytest.mark.parametrize("b,n", SCAN_SHAPES)
 def test_smoother_kernel_matches_plain(dev, b, n):
     g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
     x = torch.randn(b, n, generator=g, device=dev)
@@ -127,12 +136,42 @@ def test_smoother_kernel_matches_plain(dev, b, n):
     ar = torch.empty(b, device=dev).uniform_(0.9, 0.999, generator=g)
     before, chunked = cuda_kernels.SMOOTHER.launches, cuda_kernels.SMOOTHER_CHUNKED.launches
     s = cuda_kernels.switched_one_pole_batched(x, aa, ar)
-    assert cuda_kernels.SMOOTHER.launches == before + 1
+    again = cuda_kernels.switched_one_pole_batched(x, aa, ar)
+    assert cuda_kernels.SMOOTHER.launches == before + 2
     assert cuda_kernels.SMOOTHER_CHUNKED.launches == chunked  # the row schedule
     ref = cuda_kernels.switched_one_pole_reference(x, aa, ar)
     torch.cuda.synchronize()
     assert torch.all(s[:, 0] == 0)
-    torch.testing.assert_close(s, ref, atol=1e-6, rtol=0)
+    assert torch.equal(s, again)
+    assert torch.equal(s, ref)
+
+
+def _misaligned(t):
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary: the row scan then copies 4 bytes at a time."""
+    flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    view = flat[1 : 1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("n", [257, 8192, 70_000])
+def test_smoother_kernel_adversarial_rows(dev, n):
+    """time_smoother.adversarial_rows (ties, +-0.0, subnormals, alpha_a >
+    alpha_r, equal alphas, alphas 0 and 0.9999, a step) bit-equal to the
+    plain version, by rows from aligned and from misaligned memory, and
+    chunked at 70,000 samples."""
+    g, aa, ar = time_smoother.adversarial_rows(n, dev)
+    b = g.shape[0]
+    rows = cuda_kernels.smoother_rows(g, aa, ar)
+    moved = cuda_kernels.smoother_rows(_misaligned(g), aa, ar)
+    s = cuda_kernels.switched_one_pole_batched(g, aa, ar)
+    ref = cuda_kernels.switched_one_pole_reference(g, aa, ar)
+    torch.cuda.synchronize()
+    assert cuda_kernels.uses_chunks(b, n) == (n >= cuda_kernels.CHUNK_MIN_N)
+    assert torch.equal(rows, ref) and torch.equal(moved, ref) and torch.equal(s, ref)
+    assert torch.equal(rows.view(torch.int32), ref.view(torch.int32))  # signed zeros too
 
 
 # the chunked schedule's rows (signaltrain_tpu_torch/cli/time_smoother.py), at lengths
@@ -159,7 +198,7 @@ def test_chunked_smoother_is_bit_equal_to_row_kernel(dev, case):
     plain = cuda_kernels.switched_one_pole_reference(g, aa, ar)
     torch.cuda.synchronize()
     assert torch.equal(s, rows) and torch.equal(s, again)
-    torch.testing.assert_close(s, plain, atol=1e-6, rtol=0)
+    assert torch.equal(s, plain)
     w = 24.0 / (1.0 - torch.maximum(aa, ar))  # in float32, as the kernel computes it
     assert stats[:, 0].tolist() == [min(65536, -(-math.ceil(v) // 256) * 256) for v in w.tolist()]
     if case == "step_to_silence":  # W = 65,536: the walk re-ran all from the first guessed chunk
@@ -178,7 +217,7 @@ def test_smoother_dispatch_threshold(dev, n, chunked):
     plain = cuda_kernels.switched_one_pole_reference(g, aa, ar)
     torch.cuda.synchronize()
     assert torch.equal(s, other)
-    torch.testing.assert_close(s, plain, atol=1e-6, rtol=0)
+    assert torch.equal(s, plain)
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -917,8 +956,7 @@ def test_compressor_copies_nothing_and_matches_its_earlier_expressions_on_card(d
 
 # ---- kernel L (csrc/iir.cu) and the synthesized effects on the card. L takes
 # the same fma steps as its plain version, which forms each in a Python float
-# (float64) and rounds it once: held to 1e-5 + 1e-6 |y| (lfilter's 1e-5 against the JAX
-# package, tests/test_dsp.py:31; the Compressor's envelope is in dB, ~1e2)
+# (float64) and rounds it once: bit-equal
 
 @pytest.mark.parametrize("case", ["comp", "lowpass", "row_30s"])
 def test_lfilter_kernel_matches_plain(dev, case):
@@ -937,8 +975,47 @@ def test_lfilter_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert torch.equal(y, again)
     assert bool(torch.isfinite(y).all())
-    err = (y - ref).abs()
-    assert float((err - (1e-5 + 1e-6 * ref.abs())).max()) <= 0, float(err.max())
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("b,n", [(1, 1), (7, 255), (8, 256), (9, 257), (133, 300), (265, 8192),
+                                 (529, 64), (200, 8192), (3, 2 * 512 + 137)])
+def test_lfilter_kernel_shapes(dev, order, b, n):
+    """Kernel L at batches on each side of the rows a block and lengths on
+    each side of a tile, one not a multiple of 4 floats; per-row cutoffs and
+    initial states; bit-equal to the plain version and from run to run."""
+    from signaltrain_tpu_torch.dsp import iir
+
+    g = torch.Generator(device=dev).manual_seed(order * 7 + b * 1000 + n)
+    wn = torch.empty(b, device=dev).uniform_(1e-3, 0.5, generator=g)
+    bb, aa = iir.butter_lowpass(order, wn)
+    x = torch.randn(b, n, generator=g, device=dev)
+    zi = torch.randn(b, order, generator=g, device=dev)
+    y = cuda_kernels.lfilter_rows(bb, aa, x, zi)
+    again = cuda_kernels.lfilter_rows(bb, aa, x, zi)
+    ref = iir.lfilter_reference(bb, aa, x, zi)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again) and torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("n", [257, 8192])
+def test_lfilter_kernel_adversarial_rows(dev, order, n):
+    """time_lfilter.adversarial_inputs (a steady state, +-0.0, subnormals, a
+    response decaying through the subnormals, poles near z = 1, a cutoff near
+    Nyquist, +-1 at Nyquist, dB-sized inputs) bit-equal to the plain
+    version, from aligned and from misaligned memory."""
+    from signaltrain_tpu_torch.cli import time_lfilter
+    from signaltrain_tpu_torch.dsp import iir
+
+    b, a, x, zi = time_lfilter.adversarial_inputs(n, order, dev)
+    y = cuda_kernels.lfilter_rows(b, a, x, zi)
+    moved = cuda_kernels.lfilter_rows(b, a, _misaligned(x), zi)
+    ref = iir.lfilter_reference(b, a, x, zi)
+    torch.cuda.synchronize()
+    assert torch.equal(y.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(moved.view(torch.int32), ref.view(torch.int32))
 
 
 def test_lfilter_wrapper_checks_its_inputs(dev):
@@ -1312,8 +1389,7 @@ def test_lfilter_folds_leading_axes_on_card(dev, order):
     assert iir.LFILTER.launches == before + 1 and iir.LFILTER.plain_calls == plain
     ref = iir.lfilter_reference(b, a, x, zi)
     assert y.shape == ref.shape == (2, 3, 4096)
-    err = (y - ref).abs()
-    assert float((err - (1e-5 + 1e-6 * ref.abs())).max()) <= 0, float(err.max())
+    assert torch.equal(y, ref)
     with pytest.raises(ValueError, match="order 2"):  # kernel L is built for orders 1 and 3
         iir.lfilter(*iir.butter_lowpass(2, torch.full((2, 3), 0.05, device=dev)), x)
 

@@ -93,6 +93,27 @@ def test_lfilter_matches_jax(order, with_zi, length):
     np.testing.assert_array_equal(n(one), n(got)[2])
 
 
+@pytest.mark.parametrize("order", [1, 3])
+def test_lfilter_adversarial_rows_match_jax(order):
+    """cli/time_lfilter.adversarial_inputs (a steady state, +-0.0, subnormals,
+    a response decaying through the subnormals, poles near z = 1, a cutoff
+    near Nyquist, +-1 at Nyquist, dB-sized inputs) through the plain version
+    against the JAX lfilter at its 1e-5 (relative to the dB-sized row's
+    scale there)."""
+    from signaltrain_tpu_torch.cli import time_lfilter
+
+    b, a, x, zi = time_lfilter.adversarial_inputs(700, order, torch.device("cpu"))
+    want = np.asarray(jiir.lfilter(jnp.asarray(n(b)), jnp.asarray(n(a)), jnp.asarray(n(x)),
+                                   zi=jnp.asarray(n(zi))))
+    got = n(iir.lfilter(b, a, x, zi))
+    scale = np.maximum(1.0, np.abs(want).max(axis=1, keepdims=True))
+    np.testing.assert_allclose(got / scale, want / scale, atol=1e-5)
+    names = [name for name, _ in time_lfilter.ADVERSARIAL]
+    np.testing.assert_allclose(got[names.index("steady_state")], 2.0, atol=1e-4)
+    decay = np.abs(got[names.index("subnormal_decay")])
+    assert np.any((decay > 0) & (decay < np.finfo(np.float32).tiny))
+
+
 @pytest.mark.parametrize("order,wn", [(1, 0.003), (3, 0.2)])
 def test_lfilter_zi_matches_jax(order, wn):
     # (order 3 at low cutoffs makes I - A^T near singular: two float32 solves

@@ -27,6 +27,7 @@ from signaltrain_tpu.dsp import compressors as jcomp
 from signaltrain_tpu.dsp import effects as jeffects
 from signaltrain_tpu.dsp import iir as jiir
 from signaltrain_tpu.ops import pallas_kernels as pk
+from signaltrain_tpu_torch.cli import time_smoother
 from signaltrain_tpu_torch.dsp import compressors, effects, iir, synths
 from signaltrain_tpu_torch.ops import _cuda, cuda_kernels
 from tests.torch_port_util import n, t
@@ -62,6 +63,42 @@ def test_plain_smoother_matches_pallas_and_scan(b, length):
     assert np.all(got[:, 0] == 0.0)
     np.testing.assert_allclose(got, np.asarray(want_kernel), atol=1e-6)
     np.testing.assert_allclose(got, np.asarray(want_scan), atol=1e-6)
+
+
+@pytest.mark.parametrize("length", [257, 1000])
+def test_plain_smoother_adversarial_rows_match_pallas_and_scan(length):
+    """cli/time_smoother.adversarial_rows (ties, +-0.0, subnormals, alpha_a >
+    alpha_r, equal alphas, alphas 0 and 0.9999, a step) through the plain
+    version, against the Pallas kernel in interpret mode and the lax.scan at
+    the same 1e-6 (on the CPU XLA may flush the subnormal rows to zero); the
+    rows hit what they are named for."""
+    g, aa, ar = (x.numpy() for x in time_smoother.adversarial_rows(length, torch.device("cpu")))
+    got = n(cuda_kernels.switched_one_pole_batched(t(g), t(aa), t(ar)))
+    want_kernel = pk.switched_one_pole_batched(jnp.asarray(g), jnp.asarray(aa),
+                                               jnp.asarray(ar), interpret=True)
+    want_scan = jax.vmap(jiir.switched_one_pole)(jnp.asarray(g), jnp.asarray(aa),
+                                                 jnp.asarray(ar))
+    np.testing.assert_allclose(got, np.asarray(want_kernel), atol=1e-6)
+    np.testing.assert_allclose(got, np.asarray(want_scan), atol=1e-6)
+    names = [name for name, _, _ in time_smoother.ADVERSARIAL]
+    ties = g[:, 1:] == got[:, :-1]  # g[n] == s[n-1]: the select takes alpha_r
+    for name in ("ties", "ties_release", "negative_zeros"):
+        assert ties[names.index(name)].sum() > length // 2, name
+    sub = np.abs(got[names.index("subnormal_decay")])
+    assert np.any((sub > 0) & (sub < np.finfo(np.float32).tiny))
+    zero = names.index("alpha_0")
+    np.testing.assert_array_equal(got[zero, 1:], g[zero, 1:])  # alpha 0: s = g
+
+
+@pytest.mark.parametrize("rows,sms,per", [
+    (1, 132, 1), (7, 132, 1), (8, 132, 1), (9, 132, 1), (64, 132, 1), (132, 132, 1),
+    (133, 132, 2), (200, 132, 2), (264, 132, 2), (265, 132, 4), (528, 132, 4),
+    (529, 132, 8), (645, 132, 8), (1292, 132, 8), (10**6, 132, 8), (9, 4, 4), (3, 1, 4),
+])
+def test_rows_per_block_rule(rows, sms, per):
+    """The row scan's rows a block: the least power of two, at most 8, that
+    puts the rows on no more blocks than there are SMs."""
+    assert cuda_kernels.rows_per_block(rows, sms) == per
 
 
 def test_plain_smoother_scalar_alphas_1d():
