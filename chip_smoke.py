@@ -13,15 +13,22 @@ Phases (any failure raises and exits non-zero):
      card, on seeded random inputs with the tolerance stated: A, B, C at the
      serving shapes and at the training shapes (flagship geometry, batch
      200), D and E at the training shapes. A and D are checked on three
-     seeds, A's first check straight after the build. A: every magnitude, the
+     seeds, A's first check straight after the build, each on both of its
+     float32 schedules (wgmma, the split-TF32 products of
+     csrc/wgmma_product.cuh, which the rule picks at these shapes, and the
+     mma.sync loop). A: every magnitude, the
      phase in two classes by the bin's magnitude (atan2 turns an error e of
      the spectrum into e / mag), and at the training batch its magnitude
-     error against a float64 spectrum beside the plain version's. D with
+     error against a float64 spectrum beside the plain version's (within 2 x
+     it + 1e-7; the control, one TF32 product with no split, more than
+     GAP_F32 times over). D with
      unit-normal phase cotangents (dphs / |spec| is ill-conditioned on bins of
      near-zero magnitude, so the kernel is held against a float64 plain
-     version, with the slack each element's conditioning gives it) and with
-     well-conditioned ones (every element
-     of dxp and dW against the plain version); B, D and E run twice on the
+     version, with the slack each element's conditioning gives it; the
+     control, the plain version on operands cut to TF32, more than GAP_F32
+     times over) and with well-conditioned ones (every element
+     of dxp and dW against the plain version), dW without dxp bit-equal to
+     dW with it; A, B, D and E run twice on the
      same inputs and must be bit-equal; B and E are also held, as A is, to
      their largest error against a float64 plain version beside the plain f32
      version's (within twice it plus 1e-6 * max|result|); E's edge frames must
@@ -66,7 +73,8 @@ Phases (any failure raises and exits non-zero):
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
      [-25, 4, 0.005, 0.02], and the comp_4c target by Compressor_4c.go_wc
      and calc_ct. A, B and C (go_wc's whole-clip row by its chunked schedule)
-     must have launched and no plain version run;
+     must have launched, A on the wgmma schedule (fused_analysis_mma 0), and
+     no plain version run;
      the prediction must be finite, of the expected length, correlate >= 0.98
      with the target (the floor of tests/test_shipped_model_quality.py) and
      agree with the plain CPU path on a short clip (atol 1e-3);
@@ -79,7 +87,9 @@ Phases (any failure raises and exits non-zero):
      once a replay), then its checkpoint through load_model (strict, in the
      same compute dtype) and predict_long on a 2 s clip. The path's four
      front-end kernels (A, B, D, E in its mode) and C must have launched,
-     none of the other mode, and no plain version run; every loss finite;
+     none of the other mode, none on the mma.sync schedule (bf16 A, B, D, E
+     and float32 A and D take wgmma at this shape; float32 B and E have the
+     mma.sync loop only), and no plain version run; every loss finite;
      the mean validation MAE lower after the last epoch than after the
      first; parameters float32; the served output finite and of the
      expected length. Then the same run dispatched op by op (the eager
@@ -135,7 +145,12 @@ Phases (any failure raises and exits non-zero):
      each way's card busy time, kernels
      on the card and launch calls from the host a step, and the capture
      time, after the graph's first 20 steps have shown the batches of steps
-     0, 1 and 19 bit-equal to batch_fn run eagerly; the
+     0, 1 and 19 bit-equal to batch_fn run eagerly; the kernels of one f32
+     step (torch.profiler): A's and D's split-TF32 wgmma products
+     (FrameSpectrum32, AnalysisDspecW32, FrameGrad32) and no
+     sum_analysis_partials; float32 A (both batches) and D (with and without
+     dxp) on both schedules in turns (wgmma, mma.sync, mma.sync, wgmma), each
+     also as one CUDA-graph replay; the
      bf16 modes of A, B, D and E at the training shapes (A and B also at the
      serving batch) beside their plain bf16 versions, cuDNN's bf16
      convolutions and the bound at the dense bf16 rate (989 TFLOP/s); beside
@@ -320,6 +335,10 @@ SEEDS = (0, 1, 2)
 # float32 kernel (or, for the train step, the bf16 model on the float32
 # kernels) must land
 GAP_B, GAP_D, GAP_E, GAP_STEP = 5.0, 2.0, 4.0, 2.0
+# the control of the float32 kernels' float64 rules (A's magnitude, D's
+# gradients under unit-normal phase cotangents): one TF32 product, its
+# operands cut to TF32 with no split, must land more than GAP_F32 times over
+GAP_F32 = 10.0
 # the bf16 train step's floors, loss (relative) and gradients (of a leaf's
 # max|g|), each near the geometric mean of the fused step's largest reading
 # and its control's smallest over the STEP_CHECK_BATCHES batches (loss 1.0e-6
@@ -417,6 +436,21 @@ def card_busy(fn, reps: int) -> dict:
     return {"card_busy_ms": busy_us / 1e3 / reps,
             "kernels_launched": sum(e.count for e in kernels) / reps,
             "host_launch_calls": launch_calls / reps}
+
+
+def card_kernel_names(fn, reps: int = 3) -> set:
+    """The names of the kernels that reps calls of fn() run on the card
+    (torch.profiler; the first kernels of a window can go unrecorded, so a
+    name is taken from any of the calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
 def phase_classes(phs: torch.Tensor, rphs: torch.Tensor, rmag: torch.Tensor) -> dict:
@@ -1007,9 +1041,11 @@ GEN_TOL = {"comp_4c": 1e-5, "comp": 1e-4}  # the card against the plain version 
 FILE_STEPS = TRAIN_POINTS // TRAIN_BATCH  # 20 steps an epoch, 5 validation batches
 BF16_NAMES = ["bf16_fused_analysis", "bf16_fused_synthesis", "bf16_fused_analysis_bwd",
               "bf16_fused_synthesis_bwd"]
-# the counters of the bf16 kernels' mma.sync schedule, which the main paths
-# at the flagship geometry never take (the rule picks wgmma there)
-MMA_NAMES = [name + "_mma" for name in BF16_NAMES]
+# the counters of the mma.sync schedule of the bf16 kernels and of float32 A
+# and D, which the main paths at the flagship geometry never take (the rule
+# picks wgmma there)
+F32_MMA_NAMES = ["fused_analysis_mma", "fused_analysis_bwd_mma"]
+MMA_NAMES = [name + "_mma" for name in BF16_NAMES] + F32_MMA_NAMES
 
 
 def counted(fn):
@@ -1435,8 +1471,9 @@ SURFACE_LOOPS = {"default": {}, "ragged": dict(status_every=7), "plots": dict(pl
 # in four runs, A, B, E, D (the wgmma schedules' products, A's and B's
 # included, are all "product<...>")
 FRONTEND_KERNELS = {"product", "spectrum_rows", "overlap_add", "halve_to_bf16", "pack_weights",
-                    "pack_transposed", "pad_dout", "pad_dout_zero_edges", "synthesis_adjoint",
-                    "sum_analysis_partials", "sum_synthesis_partials"}
+                    "pack_transposed", "pack_split_weights", "pack_split_transposed", "pad_dout",
+                    "pad_dout_zero_edges", "synthesis_adjoint", "sum_analysis_partials",
+                    "sum_synthesis_partials"}
 # a name each of A-E launches and nothing else does (the template argument of
 # A's and D's and E's products, B's first pass, C's row schedule)
 KERNEL_MARKS = {"A": "AnalysisFwd", "B": "spectrum_rows", "C": "smoother_kernel",
@@ -2849,54 +2886,88 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     with torch.inference_mode():
-        mag_err = phs_err = small_phs_err = 0.0
+        # A on both schedules (the rule's wgmma at these shapes, and mma.sync):
         # the serving batch on three seeds, the first straight after the
         # build, the training batch in between (the timing takes the last xp)
+        check(cuda_frontend.schedule_for(None, F32, ft, hop, lp, "A") == "wgmma",
+              "f32 A: the rule does not pick wgmma at the flagship geometry")
+        a_err = {sched: dict(mag=0.0, phs=0.0, small=0.0) for sched in cuda_frontend.SCHEDULES}
         a_checks = [(seed, n_windows) for seed in SEEDS]
         a_checks.insert(1, (len(SEEDS), TRAIN_BATCH))
         for seed, nb in a_checks:
             sg = torch.Generator(device=dev).manual_seed(seed)
             xp = torch.nn.functional.pad(
                 torch.randn(nb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
-            mag, phs = cuda_frontend.fused_analysis(xp, w_an, ft, hop)
             rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w_an, ft, hop)
-            torch.cuda.synchronize()
-            check(mag.shape == (frames, nb, half), f"analysis shape {tuple(mag.shape)}")
-            m_err = float((mag - rmag).abs().max())
-            mag_excess = float(((mag - rmag).abs() - (2e-5 + 2e-5 * rmag.abs())).max())
-            cls = phase_classes(phs, rphs, rmag)
-            print(f"A fused_analysis xp {tuple(xp.shape)} seed {seed}: max|dmag| {m_err:.3e} "
-                  f"(tolerance 2e-5+2e-5|mag|); wrapped phase: {cls['regular']['bins']} bins of "
-                  f"magnitude >= 1e-2, worst {cls['regular']['worst']:.3e} (tolerance "
-                  f"2e-4+2e-4|phs|); {cls['small']['bins']} smaller bins, worst "
-                  f"{cls['small']['worst']:.3e} (tolerance 2e-6/mag)")
-            check(mag_excess <= 0, disagreement(f"A (magnitude, seed {seed})", mag, rmag))
-            for name, c in cls.items():
-                check(c["excess"] <= 0, f"kernel A (phase, {name} bins, seed {seed}): worst "
-                                        f"difference {c['worst']:.3e}, {c['excess']:.3e} over its limit")
-            check(all(bool(torch.all(mag[e] == np.float32(1e-18))) and bool(torch.all(phs[e] == 0))
-                      for e in (0, -1)), "kernel A: an edge frame is not exactly (1e-18, 0)")
-            mag_err = max(mag_err, m_err)
-            phs_err = max(phs_err, cls["regular"]["worst"])
-            small_phs_err = max(small_phs_err, cls["small"]["worst"])
-            if nb == TRAIN_BATCH:  # as accurate as f32: both against a float64 spectrum
+            if nb == TRAIN_BATCH:  # as accurate as f32: against a float64 spectrum
                 spec64 = (xp.unfold(1, ft, hop).transpose(0, 1).double() * 0.5) @ w_an.double()
                 mag64 = torch.sqrt(spec64[..., :half] ** 2 + spec64[..., half:] ** 2)
                 mag64 = mag64.clamp_min(1e-18)
-                f64_err, f64_plain = as_accurate("A (magnitude)", mag, rmag, mag64, 1e-7)
-                emu = cuda_frontend.split_tf32_matmul(
-                    xp.unfold(1, ft, hop).transpose(0, 1).reshape(-1, ft) * 0.5, w_an)
+                del spec64
+            for sched in cuda_frontend.SCHEDULES:
+                mag, phs = cuda_frontend.fused_analysis(xp, w_an, ft, hop, schedule=sched)
+                again = cuda_frontend.fused_analysis(xp, w_an, ft, hop, schedule=sched)
+                torch.cuda.synchronize()
+                check(mag.shape == (frames, nb, half), f"analysis shape {tuple(mag.shape)}")
+                check(torch.equal(mag, again[0]) and torch.equal(phs, again[1]),
+                      f"kernel A ({sched}): two runs on the same inputs are not bit-equal")
+                m_err = float((mag - rmag).abs().max())
+                mag_excess = float(((mag - rmag).abs() - (2e-5 + 2e-5 * rmag.abs())).max())
+                cls = phase_classes(phs, rphs, rmag)
+                print(f"A fused_analysis {sched} xp {tuple(xp.shape)} seed {seed}: max|dmag| "
+                      f"{m_err:.3e} (tolerance 2e-5+2e-5|mag|); wrapped phase: "
+                      f"{cls['regular']['bins']} bins of magnitude >= 1e-2, worst "
+                      f"{cls['regular']['worst']:.3e} (tolerance 2e-4+2e-4|phs|); "
+                      f"{cls['small']['bins']} smaller bins, worst {cls['small']['worst']:.3e} "
+                      f"(tolerance 2e-6/mag); two runs bit-equal")
+                check(mag_excess <= 0, disagreement(f"A {sched} (magnitude, seed {seed})", mag, rmag))
+                for name, c in cls.items():
+                    check(c["excess"] <= 0, f"kernel A {sched} (phase, {name} bins, seed {seed}): "
+                                            f"worst difference {c['worst']:.3e}, {c['excess']:.3e} "
+                                            f"over its limit")
+                check(all(bool(torch.all(mag[e] == np.float32(1e-18))) and bool(torch.all(phs[e] == 0))
+                          for e in (0, -1)), f"kernel A {sched}: an edge frame is not exactly (1e-18, 0)")
+                e = a_err[sched]
+                e["mag"] = max(e["mag"], m_err)
+                e["phs"] = max(e["phs"], cls["regular"]["worst"])
+                e["small"] = max(e["small"], cls["small"]["worst"])
+                if nb == TRAIN_BATCH:
+                    e["f64"], e["f64_plain"] = as_accurate(f"A {sched} (magnitude)", mag, rmag,
+                                                           mag64, 1e-7)
+                    print(f"A {sched} against a float64 spectrum, xp {tuple(xp.shape)}: max "
+                          f"magnitude error kernel {e['f64']:.3e}, plain version "
+                          f"{e['f64_plain']:.3e}; limit 2 x plain + 1e-7; max|mag| "
+                          f"{float(mag64.max()):.3f}")
+            if nb == TRAIN_BATCH:
+                fr = xp.unfold(1, ft, hop).transpose(0, 1).reshape(-1, ft) * 0.5
+                emu = cuda_frontend.split_tf32_matmul(fr, w_an, chunk=32)
                 emu_err = float((cuda_frontend.mag_phs(emu[:, :half], emu[:, half:])[0]
                                  - mag64.reshape(-1, half)).abs().max())
-                print(f"A against a float64 spectrum, xp {tuple(xp.shape)}: max magnitude error "
-                      f"kernel {f64_err:.3e}, plain version {f64_plain:.3e}, split_tf32_matmul "
-                      f"{emu_err:.3e}; limit 2 x plain + 1e-7; max|mag| {float(mag64.max()):.3f}")
-                del spec64, mag64, emu
+                # the control: one TF32 product (the operands cut to TF32, no
+                # split) against the same float64 rule
+                one = cuda_frontend.split_tf32(fr)[0] @ cuda_frontend.split_tf32(w_an)[0]
+                one_err = float((cuda_frontend.mag_phs(one[:, :half], one[:, half:])[0]
+                                 - mag64.reshape(-1, half)).abs().max())
+                a_gap = one_err / (2 * a_err["wgmma"]["f64_plain"] + 1e-7)
+                print(f"A: split_tf32_matmul(chunk=32) against float64 {emu_err:.3e}; the control, "
+                      f"one TF32 product, {one_err:.3e}: {a_gap:.1f}x the limit (needs > "
+                      f"{GAP_F32:g}x)")
+                check(a_gap > GAP_F32, f"A's float64 rule cannot tell one TF32 product: {a_gap:.2f}x")
+                del mag64, emu, one, fr
+
+        def a_summary(e):
+            return dict(max_abs_err=e["mag"], max_phase_err=e["phs"],
+                        max_small_bin_phase_err=e["small"], max_err_vs_float64=e["f64"],
+                        plain_max_err_vs_float64=e["f64_plain"])
+
         results["fused_analysis"] = dict(
-            max_abs_err=mag_err, max_phase_err=phs_err, max_small_bin_phase_err=small_phs_err,
-            max_err_vs_float64=f64_err, plain_max_err_vs_float64=f64_plain,
+            **a_summary(a_err["wgmma"]), schedule="wgmma",
+            mma_sync=dict(**a_summary(a_err["mma"]), counter="fused_analysis_mma"),
+            control_one_tf32_product=a_gap,
             tolerance="mag 2e-5 + 2e-5*|mag|; wrapped phase 2e-4 + 2e-4*|phs| where mag >= 1e-2, "
-                      "2e-6/mag below; magnitude error against float64 <= 2 x plain's + 1e-7")
+                      "2e-6/mag below; magnitude error against float64 <= 2 x plain's + 1e-7, one "
+                      f"TF32 product > {GAP_F32:g}x that limit; both schedules at batches 200 and "
+                      "643; two runs bit-equal; edge frames exactly 1e-18 and 0")
 
         syn_err = syn_f64 = syn_f64_plain = 0.0
         for nb in (TRAIN_BATCH, n_windows):  # smag, sphs end as the serving ones, for the timing
@@ -2993,22 +3064,19 @@ def main() -> None:
         # D and E at the training shapes; cotangents scaled by 64/ft so the
         # gradients stay O(1-10), as in the CPU tests against the JAX package
         tb, tlp = TRAIN_BATCH, chunk + 2 * ft
-        d_dw_err = d_dx_err = d_reg_err = 0.0
+        check(cuda_frontend.schedule_for(None, F32, ft, hop, tlp, "D") == "wgmma",
+              "f32 D: the rule does not pick wgmma at the flagship geometry")
+        d_err = {sched: dict(dw=0.0, dx=0.0, reg=0.0, dx_share=0.0, dw_share=0.0)
+                 for sched in cuda_frontend.SCHEDULES}
         for seed in SEEDS:
             sg = torch.Generator(device=dev).manual_seed(100 + seed)
             txp = torch.nn.functional.pad(
                 torch.randn(tb, chunk, generator=sg, device=dev) * 0.3, (ft, ft))
             tdmag = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
             tdphs = torch.randn(frames, tb, half, generator=sg, device=dev) * (64.0 / ft)
-            dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop)
-            dxp2, dw2 = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop)
             rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, tdphs, ft, hop)
             xdxp, xdw = cuda_frontend.fused_analysis_bwd_reference(
                 txp.double(), w_an.double(), tdmag.double(), tdphs.double(), ft, hop)
-            torch.cuda.synchronize()
-            check(dxp.shape == (tb, tlp) and dw.shape == (ft, 2 * half), "D: shapes")
-            check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2),
-                  "kernel D: two runs on the same inputs are not bit-equal")
             # With a unit-normal phase cotangent on every bin, dphs / |spec|
             # amplifies the ~5e-7 by which two f32 spectra differ: two f32
             # results cannot be compared element by element (the plain version
@@ -3019,50 +3087,85 @@ def main() -> None:
             # padding's part carries the adjoint of the all-zero frames.
             sdxp, sdw = cuda_frontend.fused_analysis_bwd_conditioning(txp, w_an, tdmag, tdphs, ft, hop)
             sl = slice(ft, -ft)
-            report = {}
-            for who, gx, gw in (("kernel", dxp, dw), ("plain", rdxp, rdw)):
+
+            def shares(gx, gw):
                 ex = (gx[:, sl] - xdxp[:, sl]).abs()
                 ew = (gw - xdw).abs()
-                report[who] = (float(ex.max()), float(ew.max()),
-                               float((ex / (5e-4 + 5e-4 * xdxp[:, sl].abs() + sdxp[:, sl])).max()),
-                               float((ew / (5e-4 + 5e-4 * xdw.abs() + sdw)).max()))
-            dx_err, dw_err, dx_share, dw_share = report["kernel"]
-            print(f"D fused_analysis_bwd xp {tuple(txp.shape)} seed {seed}, against float64: max dx "
-                  f"error {dx_err:.3e} (plain version {report['plain'][0]:.3e}), max dW error "
-                  f"{dw_err:.3e} (plain version {report['plain'][1]:.3e}, max|dW| "
-                  f"{float(xdw.abs().max()):.3e}); largest share of the tolerance 5e-4+5e-4|g|+slack "
-                  f"used: dx {dx_share:.3f} (plain {report['plain'][2]:.3f}), dW {dw_share:.3f} (plain "
-                  f"{report['plain'][3]:.3f}); median slack dx {float(sdxp[:, sl].median()):.2e}, dW "
-                  f"{float(sdw.median()):.2e}; two runs bit-equal")
-            check(dx_share <= 1, f"kernel D (dx, seed {seed}) is {dx_share:.2f} of its tolerance "
-                                 f"off the float64 result")
-            check(dw_share <= 1, f"kernel D (dW, seed {seed}) is {dw_share:.2f} of its tolerance "
-                                 f"off the float64 result")
-            del xdxp, xdw, sdxp, sdw
-            d_dw_err, d_dx_err = max(d_dw_err, dw_err), max(d_dx_err, dx_err)
+                return (float(ex.max()), float(ew.max()),
+                        float((ex / (5e-4 + 5e-4 * xdxp[:, sl].abs() + sdxp[:, sl])).max()),
+                        float((ew / (5e-4 + 5e-4 * xdw.abs() + sdw)).max()))
+
+            plain = shares(rdxp, rdw)
+            if seed == SEEDS[0]:  # the control: the plain version on operands cut to TF32
+                cut = cuda_frontend.split_tf32
+                d_gap = min(shares(*cuda_frontend.fused_analysis_bwd_reference(
+                    cut(txp)[0], cut(w_an)[0], tdmag, tdphs, ft, hop))[2:])
+                print(f"D: the control, the plain version on operands cut to TF32, uses {d_gap:.1f}x "
+                      f"its tolerance against float64 (needs > {GAP_F32:g}x)")
+                check(d_gap > GAP_F32, f"D's float64 rule cannot tell one TF32 product: {d_gap:.2f}x")
             # the same with the phase cotangent zeroed on the bins of small
             # magnitude (the all-padding frames among them): dphs / |spec| is
             # then well conditioned and every element of dxp and dW is held
             kmag = cuda_frontend.fused_analysis_reference(txp, w_an, ft, hop)[0]
             cphs = tdphs * (kmag >= 0.25 * kmag.median())
-            dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, cphs, ft, hop)
-            rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, cphs, ft, hop)
-            torch.cuda.synchronize()
-            rx_err, rx_excess = elementwise_excess(dxp, rdxp, 5e-4)
-            rw_err, rw_excess = elementwise_excess(dw, rdw, 5e-4)
-            print(f"D well-conditioned, seed {seed}: max|d dxp| {rx_err:.3e} (median|dxp| "
-                  f"{float(rdxp.abs().median()):.3e}), max|d dW| {rw_err:.3e} (median|dW| "
-                  f"{float(rdw.abs().median()):.3e}, max {float(rdw.abs().max()):.3e}); "
-                  f"tolerance 5e-4+5e-4|g| on every element")
-            check(rx_excess <= 0, disagreement(f"D (dxp, well-conditioned, seed {seed})", dxp, rdxp))
-            check(rw_excess <= 0, disagreement(f"D (dW, well-conditioned, seed {seed})", dw, rdw))
-            d_reg_err = max(d_reg_err, rw_err, rx_err)
+            rcdxp, rcdw = cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, cphs, ft, hop)
+            for sched in cuda_frontend.SCHEDULES:
+                dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop,
+                                                           schedule=sched)
+                dxp2, dw2 = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop,
+                                                             schedule=sched)
+                only_dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop,
+                                                           need_dxp=False, schedule=sched)[1]
+                torch.cuda.synchronize()
+                check(dxp.shape == (tb, tlp) and dw.shape == (ft, 2 * half), "D: shapes")
+                check(torch.equal(dw, dw2) and torch.equal(dxp, dxp2) and torch.equal(dw, only_dw),
+                      f"kernel D ({sched}): two runs on the same inputs, or with and without dxp, "
+                      "are not bit-equal")
+                dx_err, dw_err, dx_share, dw_share = shares(dxp, dw)
+                print(f"D fused_analysis_bwd {sched} xp {tuple(txp.shape)} seed {seed}, against "
+                      f"float64: max dx error {dx_err:.3e} (plain version {plain[0]:.3e}), max dW "
+                      f"error {dw_err:.3e} (plain version {plain[1]:.3e}, max|dW| "
+                      f"{float(xdw.abs().max()):.3e}); largest share of the tolerance "
+                      f"5e-4+5e-4|g|+slack used: dx {dx_share:.3f} (plain {plain[2]:.3f}), dW "
+                      f"{dw_share:.3f} (plain {plain[3]:.3f}); median slack dx "
+                      f"{float(sdxp[:, sl].median()):.2e}, dW {float(sdw.median()):.2e}; two runs, "
+                      "and dW without dxp, bit-equal")
+                check(dx_share <= 1, f"kernel D {sched} (dx, seed {seed}) is {dx_share:.2f} of its "
+                                     "tolerance off the float64 result")
+                check(dw_share <= 1, f"kernel D {sched} (dW, seed {seed}) is {dw_share:.2f} of its "
+                                     "tolerance off the float64 result")
+                dxp, dw = cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, cphs, ft, hop,
+                                                           schedule=sched)
+                torch.cuda.synchronize()
+                rx_err, rx_excess = elementwise_excess(dxp, rcdxp, 5e-4)
+                rw_err, rw_excess = elementwise_excess(dw, rcdw, 5e-4)
+                print(f"D {sched} well-conditioned, seed {seed}: max|d dxp| {rx_err:.3e} (median|dxp| "
+                      f"{float(rcdxp.abs().median()):.3e}), max|d dW| {rw_err:.3e} (median|dW| "
+                      f"{float(rcdw.abs().median()):.3e}, max {float(rcdw.abs().max()):.3e}); "
+                      f"tolerance 5e-4+5e-4|g| on every element")
+                check(rx_excess <= 0, disagreement(f"D {sched} (dxp, well-conditioned, seed {seed})",
+                                                   dxp, rcdxp))
+                check(rw_excess <= 0, disagreement(f"D {sched} (dW, well-conditioned, seed {seed})",
+                                                   dw, rcdw))
+                e = d_err[sched]
+                e["dw"], e["dx"] = max(e["dw"], dw_err), max(e["dx"], dx_err)
+                e["dx_share"], e["dw_share"] = max(e["dx_share"], dx_share), max(e["dw_share"], dw_share)
+                e["reg"] = max(e["reg"], rw_err, rx_err)
+            del xdxp, xdw, sdxp, sdw
+
+        def d_summary(e):
+            return dict(max_abs_err=e["dw"], max_dx_err=e["dx"], max_regular_err=e["reg"],
+                        max_dx_share=e["dx_share"], max_dw_share=e["dw_share"])
+
         results["fused_analysis_bwd"] = dict(
-            max_abs_err=d_dw_err, max_dx_err=d_dx_err, max_regular_err=d_reg_err,
+            **d_summary(d_err["wgmma"]), schedule="wgmma",
+            mma_sync=dict(**d_summary(d_err["mma"]), counter="fused_analysis_bwd_mma"),
+            control_one_tf32_product=d_gap,
             tolerance="unit-normal phase cotangents, against float64: 5e-4 + 5e-4*|g| + the "
-                      "element's conditioning slack, dx on the unpadded signal and dW; "
-                      "well-conditioned ones, against the plain version: 5e-4 + 5e-4*|g| on every "
-                      "element of dxp and dW; two runs bit-equal")
+                      "element's conditioning slack, dx on the unpadded signal and dW, the plain "
+                      f"version on operands cut to TF32 > {GAP_F32:g}x it; well-conditioned ones, "
+                      "against the plain version: 5e-4 + 5e-4*|g| on every element of dxp and dW; "
+                      "both schedules on three seeds; two runs, and dW without dxp, bit-equal")
 
         tmag = torch.nn.functional.softplus(
             torch.randn(out_frames, tb, half, generator=gen, device=dev))
@@ -3122,6 +3225,8 @@ def main() -> None:
     for name in ("fused_analysis", "fused_synthesis", "switched_one_pole",
                  "switched_one_pole_chunked"):
         check(counts[name][0] > 0, f"serving path never launched kernel {name}")
+    for name in F32_MMA_NAMES:  # float32 A on the wgmma schedule only
+        check(counts[name][0] == 0, f"serving path launched {name} (the mma.sync schedule)")
     for name in results:
         check(counts[name][1] == 0, f"serving path ran the plain version of {name}")
         results[name]["launches_serving"] = counts[name][0]
@@ -3257,8 +3362,9 @@ def main() -> None:
                                                        bf16_names + MMA_NAMES)
     served_b, hist_b, mean_maes_b, t_path_b, phase4_b = training_path(BF16, bf16_names,
                                                                        f32_names + MMA_NAMES)
-    for name in MMA_NAMES:
-        results[name.removesuffix("_mma")]["launches_mma_sync_training_bfloat16"] = 0
+    for name in MMA_NAMES:  # checked 0 on both training paths
+        r = results[name.removesuffix("_mma")]
+        r["launches_mma_sync_training_float32"] = r["launches_mma_sync_training_bfloat16"] = 0
 
     # ---- 4b. every effect trained; 4c. the Denoise checkpoint served
     effects_report = train_every_effect(dev, results, chunk, out_chunk, sr)
@@ -3316,8 +3422,6 @@ def main() -> None:
 
     # ---- 5. timing at the main paths' shapes
     with torch.inference_mode():
-        results["fused_analysis"]["ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_analysis(xp, w_an, ft, hop), reps=20)
         results["fused_analysis"]["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis_reference(xp, w_an, ft, hop), reps=10)
         w_conv = w_an.t().contiguous()[:, None, :]  # (2*half, 1, ft)
@@ -3330,7 +3434,6 @@ def main() -> None:
         results["fused_analysis"].update(zip(("bound_ms", "bound_by"),
                                              bound(a_flops, a_bytes, PEAK_SPLIT_TF32_FLOPS)))
         results["fused_analysis"]["bound_ms_cuda_cores"] = bound(a_flops, a_bytes)[0]
-        results["fused_analysis"]["tflops"] = a_flops / results["fused_analysis"]["ms"] / 1e9
         results["fused_analysis"]["shape"] = f"xp {tuple(xp.shape)}, w {tuple(w_an.shape)}"
 
         results["fused_synthesis"]["ms"] = cuda_ms(
@@ -3406,11 +3509,6 @@ def main() -> None:
 
         # D and E at the training shapes (the inputs of their check)
         r = results["fused_analysis_bwd"]
-        r["ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop), reps=10)
-        r["ms_without_dxp"] = cuda_ms(  # what a train step launches: x needs no gradient
-            lambda: cuda_frontend.fused_analysis_bwd(txp, w_an, tdmag, tdphs, ft, hop,
-                                                     need_dxp=False), reps=10)
         r["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis_bwd_reference(txp, w_an, tdmag, tdphs, ft, hop),
             reps=5)
@@ -3428,8 +3526,6 @@ def main() -> None:
         d_bytes = 4.0 * (2 * tb * tlp + 2 * ft * 2 * half + 2 * frames * tb * half)
         r.update(zip(("bound_ms", "bound_by"), bound(d_flops, d_bytes, PEAK_SPLIT_TF32_FLOPS)))
         r["bound_ms_cuda_cores"] = bound(d_flops, d_bytes)[0]
-        r["tflops"] = d_flops / r["ms"] / 1e9
-        r["tflops_without_dxp"] = d_flops * 2 / 3 / r["ms_without_dxp"] / 1e9
         r["shape"] = f"xp {tuple(txp.shape)}, w {tuple(w_an.shape)}, dmag/dphs {tuple(tdmag.shape)}"
 
         r = results["fused_synthesis_bwd"]
@@ -3455,9 +3551,52 @@ def main() -> None:
         r["tflops"] = e_flops / r["ms"] / 1e9
         r["shape"] = f"mag/phs {tuple(tmag.shape)}, w {tuple(w_syn.shape)}, dout {tuple(tdout.shape)}"
 
+        # f32 A at both batches and D (with and without dxp) on both
+        # schedules, in turns (wgmma, mma, mma, wgmma): the mean of each way,
+        # its least and most, and one CUDA-graph replay of a call
+        f32_ways = {
+            ("A", "ms"): lambda sched: cuda_frontend.fused_analysis(xp, w_an, ft, hop,
+                                                                    schedule=sched),
+            ("A", "train_ms"): lambda sched: cuda_frontend.fused_analysis(txp, w_an, ft, hop,
+                                                                          schedule=sched),
+            ("D", "ms"): lambda sched: cuda_frontend.fused_analysis_bwd(
+                txp, w_an, tdmag, tdphs, ft, hop, schedule=sched),
+            ("D", "ms_without_dxp"): lambda sched: cuda_frontend.fused_analysis_bwd(
+                txp, w_an, tdmag, tdphs, ft, hop, need_dxp=False, schedule=sched)}
+        f32_turns = {(way, sched): [] for way in f32_ways for sched in cuda_frontend.SCHEDULES}
+        for sched in ("wgmma", "mma", "mma", "wgmma"):
+            for way, fn in f32_ways.items():
+                f32_turns[way, sched].append(cuda_ms(lambda: fn(sched), reps=10))
+        for (kernel, key), fn in f32_ways.items():
+            r = results["fused_analysis" if kernel == "A" else "fused_analysis_bwd"]
+            for sched, into in (("wgmma", r), ("mma", r["mma_sync"])):
+                runs = f32_turns[(kernel, key), sched]
+                into[key] = sum(runs) / len(runs)
+                into[f"{key}_min_max"] = [min(runs), max(runs)]
+                graph_key = key.replace("ms", "graph_ms") if kernel == "D" else (
+                    "graph_ms" if key == "ms" else "train_graph_ms")
+                into[graph_key] = time_frontend.graph_ms(lambda: fn(sched))
+        r = results["fused_analysis"]
+        r["tflops"] = a_flops / r["ms"] / 1e9
+        r["mma_sync"]["tflops"] = a_flops / r["mma_sync"]["ms"] / 1e9
+        r = results["fused_analysis_bwd"]
+        r["tflops"] = d_flops / r["ms"] / 1e9
+        r["tflops_without_dxp"] = d_flops * 2 / 3 / r["ms_without_dxp"] / 1e9
+        r["mma_sync"]["tflops"] = d_flops / r["mma_sync"]["ms"] / 1e9
+        r["mma_sync"]["tflops_without_dxp"] = d_flops * 2 / 3 / r["mma_sync"]["ms_without_dxp"] / 1e9
+        # without dxp: two products, and no dxp written
+        r["bound_ms_without_dxp"] = bound(d_flops * 2 / 3, d_bytes - 4.0 * tb * tlp,
+                                          PEAK_SPLIT_TF32_FLOPS)[0]
+        r["cublas_dw_ms"] = cuda_ms(lambda: d_frames.t() @ d_spec, reps=5)  # the dW product alone
+        for kernel, name in (("A", "fused_analysis"), ("D", "fused_analysis_bwd")):
+            r = results[name]
+            print(f"f32 {kernel} by schedule, in turns: " + "; ".join(
+                f"{key} wgmma {r[key]:.4f} {r[key + '_min_max']}, mma.sync {r['mma_sync'][key]:.4f} "
+                f"{r['mma_sync'][key + '_min_max']}" for k, key in f32_ways if k == kernel)
+                  + f" on {smi}")
+
         # A, B, C once more at the training shapes
         r = results["fused_analysis"]
-        r["train_ms"] = cuda_ms(lambda: cuda_frontend.fused_analysis(txp, w_an, ft, hop), reps=20)
         r["train_plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_analysis_reference(txp, w_an, ft, hop), reps=10)
         txp_c = txp[:, None, :]
@@ -3710,6 +3849,19 @@ def main() -> None:
         mopt, mlr_fn = opts[name]
         training["profile"][f"step_{name}"] = card_busy(
             lambda: train_mod.train_step_from_arrays(m, mopt, mlr_fn, 0, bx, by, bk), reps=10)
+    # the f32 step's A and D on the wgmma schedule's split-TF32 products (A's
+    # FrameSpectrum32, D's AnalysisDspecW32 and FrameGrad32), with no K-slice
+    # sum (sum_analysis_partials) anywhere
+    names = card_kernel_names(lambda: train_mod.train_step_from_arrays(
+        served, *opts["fused"], 0, bx, by, bk))
+    marks = ("FrameSpectrum32", "AnalysisDspecW32", "FrameGrad32")
+    front = sorted(n for n in names if any(m in n for m in marks + ("partials",)))
+    print("f32 train step, the analysis kernels on the card: " + "; ".join(front))
+    check(all(any(m in n for n in names) for m in marks),
+          "the f32 train step did not run A and D on the split-TF32 wgmma products")
+    check(not any("sum_analysis_partials" in n for n in names),
+          "the f32 train step ran sum_analysis_partials: D took K slices")
+    training["f32_step_analysis_kernels"] = front
 
     # the loop as train() runs it (data synthesis and step, LOOP_BLOCK steps,
     # then one fetch of their losses), fused, in each dtype: under CUDA graphs
@@ -3833,7 +3985,9 @@ def main() -> None:
                 "serve_ms_min_max", "serve_graph_ms", "serve_tflops",
                 "bound_ms_without_dxp", "max_err_less_slack", "max_dx_err_less_slack", "graph_ms",
                 "graph_ms_without_dxp",
-                "max_abs_err_at_serving_batch", "launches_mma_sync_training_bfloat16")
+                "max_abs_err_at_serving_batch", "launches_mma_sync_training_bfloat16",
+                "launches_mma_sync_training_float32", "control_one_tf32_product", "max_dx_share",
+                "max_dw_share", "train_graph_ms", "train_ms_min_max", "cublas_dw_ms")
                if k in r},
         })
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"

@@ -31,20 +31,28 @@ function.
 ``--dtype bfloat16`` times the kernels' bf16 modes instead; "float64" is then
 the float64 plain version of the same bf16-rounded computation, and TFLOP/s
 count the bf16 products. It then also splits D's error under unit-normal
-cotangents on each schedule by product (``d_error_split``), reads how far the
-spectrum D forms again lies from float64 (``spectrum_error``), and
-splits bf16 A and B (batches 200 and 643), D (with and without dxp) and E
-(batch 200) by pass on each schedule, the wgmma one of
+cotangents on each schedule by product (``d_error_split``) and reads how far
+the spectrum D forms again lies from float64 (``spectrum_error``).
+
+In either dtype it first splits A and B (batches 200 and 643), D (with and
+without dxp) and E (batch 200) by pass on each schedule, the wgmma one of
 ``csrc/wgmma_product.cuh`` and the mma.sync one of ``csrc/tc_product.cuh``
-(``schedule_splits`` with ``pass_split``):
-the median and spread over ``SPLIT_REPS`` calls of every kernel the call
-launches (pack, pad or halve, the spectrum rows, each product, the adjoint
-pass, the slice sums, the overlap-add), their sum (the card's time a call),
-the call's own time by CUDA events (which also holds the host's launch work
-whenever the card waits for it), and the call replayed from a CUDA graph (the
-card's time with no host work in between, as training runs it):
+(``schedule_splits`` with ``pass_split``; float32 B and E have the mma.sync
+one only): the median and spread over ``SPLIT_REPS`` calls of every kernel
+the call launches (pack, pad or halve, the spectrum rows, each product, the
+adjoint pass, the slice sums, the overlap-add), their sum (the card's time a
+call), the call's own time by CUDA events (which also holds the host's launch
+work whenever the card waits for it), and the call replayed from a CUDA graph
+(the card's time with no host work in between, as training runs it); then
+beside each call the cuBLAS products of the same linear part:
 
     python -m signaltrain_tpu_torch.cli.time_frontend A B --dtype bfloat16
+    python -m signaltrain_tpu_torch.cli.time_frontend A D --split-only
+
+The script imports the package by its name, so that with another checkout's
+root on PYTHONPATH, ``python signaltrain_tpu_torch/cli/time_frontend.py A D
+--split-only --schedules mma`` splits that checkout's kernels the same way
+(before and after a change: one process a tree, in turns).
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ import sys
 
 import torch
 
-from ..ops import _cuda, cuda_frontend as cf, framing, frontend
+from signaltrain_tpu_torch.ops import _cuda, cuda_frontend as cf, framing, frontend
 
 FT, HOP, CHUNK = 1024, 384, 8192
 HALF = FT // 2 + 1
@@ -112,6 +120,15 @@ def cublas_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, dtype):
 
         return run
     return lambda: (g @ b.t(), a.t() @ g)
+
+
+def cublas_dw(a: torch.Tensor, g: torch.Tensor, dtype):
+    """The dW product of ``cublas_backward`` alone (a^T g): what D without
+    dxp computes of its linear part. A callable."""
+    if dtype == torch.bfloat16:
+        ac = a.to(torch.bfloat16)
+        return lambda: frontend._mm(ac.t(), g.to(torch.bfloat16))
+    return lambda: a.t() @ g
 
 
 SPLIT_REPS = 20
@@ -194,38 +211,55 @@ def split_inputs(dev, batch: int, ot: int = 9) -> dict:
         dout=torch.randn(batch, (ot - 1) * HOP - FT, generator=g, device=dev))
 
 
-def schedule_splits(dev, which) -> None:
-    """bf16 A and B at batches 200 and 643, D (with and without dxp) and E at
-    batch 200, flagship geometry, split by pass on each schedule."""
-    bf = torch.bfloat16
+def schedule_splits(dev, which, dt=torch.bfloat16, schedules=cf.SCHEDULES) -> None:
+    """A and B at batches 200 and 643, D (with and without dxp) and E at
+    batch 200, flagship geometry, in the compute dtype ``dt``, split by pass
+    on each of ``schedules`` (float32 B and E: the mma.sync one only), then
+    each call's time beside the cuBLAS products of its linear part
+    (``cublas_*``; D without dxp beside the dW product alone, ``cublas_dw``)."""
+    f32 = dt == torch.float32
     with torch.no_grad():
         wa = frontend.Analysis(FT, HOP, device=dev).stacked_weights().contiguous()
         ws = frontend.Synthesis(FT, HOP, device=dev).stacked_weights().contiguous()
-    calls = []  # (title, fn(schedule))
+    both, mma_only = tuple(schedules), tuple(s for s in schedules if s == "mma")
+    calls = []  # (title, fn(schedule), its schedules, the cuBLAS products)
     for batch in (200, 643):
         x = split_inputs(dev, batch)
         if "A" in which:
             calls.append((f"A, batch {batch}", lambda s, x=x: cf.fused_analysis(
-                x["xp"], wa, FT, HOP, bf, schedule=s)))
+                x["xp"], wa, FT, HOP, dt, schedule=s), both,
+                cublas_analysis(x["xp"], wa, FT, HOP, dt)))
         if "B" in which:
             calls.append((f"B, batch {batch}", lambda s, x=x: cf.fused_synthesis(
-                x["mag"], x["phs"], ws, FT, HOP, bf, schedule=s)))
+                x["mag"], x["phs"], ws, FT, HOP, dt, schedule=s), mma_only if f32 else both,
+                cublas_synthesis(synthesis_spectrum(x["mag"], x["phs"]), ws, dt)))
         if batch != 200:
             continue
         if "D" in which:
+            frames = x["xp"].unfold(1, FT, HOP).reshape(-1, FT)
+            g = torch.Generator(device=dev).manual_seed(batch + 2)
+            dspec = torch.randn(frames.shape[0], 2 * HALF, generator=g, device=dev)
             calls.append(("D, batch 200", lambda s, x=x: cf.fused_analysis_bwd(
-                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, compute_dtype=bf, schedule=s)))
+                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, compute_dtype=dt, schedule=s), both,
+                cublas_backward(frames, wa, dspec, dt)))
             calls.append(("D without dxp, batch 200", lambda s, x=x: cf.fused_analysis_bwd(
-                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, need_dxp=False, compute_dtype=bf,
-                schedule=s)))
+                x["xp"], wa, x["dmag"], x["dphs"], FT, HOP, need_dxp=False, compute_dtype=dt,
+                schedule=s), both, cublas_dw(frames, dspec, dt)))
         if "E" in which:
+            spec = synthesis_spectrum(x["mag"], x["phs"]).reshape(-1, 2 * HALF)
+            dframes = torch.nn.functional.pad(x["dout"], (FT, FT)).unfold(1, FT, HOP)
             calls.append(("E, batch 200", lambda s, x=x: cf.fused_synthesis_bwd(
-                x["mag"], x["phs"], ws, x["dout"], FT, HOP, compute_dtype=bf, schedule=s)))
-    print("bf16 kernels by pass, each schedule (ms):")
+                x["mag"], x["phs"], ws, x["dout"], FT, HOP, compute_dtype=dt, schedule=s),
+                mma_only if f32 else both, cublas_backward(spec, ws, dframes.reshape(-1, FT), dt)))
+    print(f"{dt} kernels by pass, each schedule (ms):")
     with torch.inference_mode():
-        for sched in cf.SCHEDULES:
-            for title, fn in calls:
-                print_split(f"{title}, {sched}", pass_split(lambda: fn(sched)))
+        for sched in schedules:
+            for title, fn, scheds, _ in calls:
+                if sched in scheds:
+                    print_split(f"{title}, {sched}", pass_split(lambda: fn(sched)))
+        for title, fn, scheds, lib in calls:
+            print(f"  {title}: " + ", ".join(f"{s} a call {ms(lambda: fn(s)):.4f}" for s in scheds)
+                  + f"; cuBLAS's products {ms(lib):.4f} ms")
 
 
 def kernel_rows(fn, reps=5):
@@ -364,6 +398,10 @@ def main():
                         help="which kernels to time (default: all four)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                         help="the kernels' compute dtype")
+    parser.add_argument("--schedules", nargs="+", default=list(cf.SCHEDULES),
+                        choices=list(cf.SCHEDULES), help="the schedules the split by pass takes")
+    parser.add_argument("--split-only", action="store_true",
+                        help="only the split by pass and the cuBLAS products beside it")
     args = parser.parse_args()
     which, dt = set(args.kernels or "ADBE"), getattr(torch, args.dtype)
     if not torch.cuda.is_available():
@@ -380,8 +418,9 @@ def main():
     occ = _cuda.function("frontend", "st_analysis_blocks_per_sm", [ctypes.c_int])
     print(f"compute dtype {args.dtype}; blocks of kernel A's product an SM holds at once: "
           f"{occ(int(dt == torch.bfloat16))}")
-    if dt == torch.bfloat16:
-        schedule_splits(dev, which)
+    schedule_splits(dev, which, dt, args.schedules)
+    if args.split_only:
+        return
     if which & {"B", "E"}:
         synthesis(dev, which, dt)
     if not which & {"A", "D"}:

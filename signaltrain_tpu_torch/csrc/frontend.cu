@@ -76,6 +76,16 @@
 // 0.2190-0.2277 against 0.2150 at 643; B's 0.0226 against 0.0155), and each
 // tile's epilogue drained a share a K step beside the next tile's products
 // (A 0.0927-0.0932 against 0.0925; B 0.0185 against 0.0153).
+//
+// The float32 mode of A has the wgmma schedule too (the rule takes it where
+// ft, hop and lp are multiples of 4 floats and xp is 16-byte aligned), on the
+// split-TF32 products of wgmma_product.cuh: the same epilogue on
+// wg::FrameSpectrum32, which reads the frames of xp itself through a 3-D map
+// of floats and splits them in registers, against the planes hi, lo of the
+// packed weights' transpose (ldc, ft) that tc::pack_split_t writes (TF32
+// wgmma reads its shared-memory operand K-major only); the model's x/2 is
+// applied to the finished sums, as on the mma.sync loop. Bound: 165 TFLOP/s
+// of f32-accurate work (three TF32 products at the dense 495).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -182,19 +192,26 @@ int synthesis_fwd(const float* mag, const float* phs, const float* w, T* wp, T* 
 // A: kernel D's spectrum product (wg::FrameSpectrum over the frames of the
 // halved bf16 signal, padded rows R = t * bpad + b, 128-column tiles), its
 // finished (re, im) pairs made magnitude and phase as AnalysisFwd makes them;
-// padding rows and columns past 2 * half write nothing.
-struct AnalysisFwdW : wg::FrameSpectrum<128> {
+// padding rows and columns past 2 * half write nothing. In float32 the same
+// on wg::FrameSpectrum32 (the frames of xp itself, split in registers, and
+// the split planes of W^T), with the model's x/2 on the finished sums.
+template <class Product>
+struct AnalysisFwdT : Product {
   float* mag;
   float* phs;
   int batch, half;
-  __device__ void pair(int r, int n, float re, float im, wg::NoAux) const {
+  float scale;  // 1 in bf16 (the frames were halved), 0.5 in float32
+  __device__ void pair(int r, int n, float re2, float im2, wg::NoAux) const {
     const int t = r / this->bpad, b = r - t * this->bpad, bin = n >> 1;
     if (r >= this->m || b >= batch || bin >= half) return;
+    const float re = scale * re2, im = scale * im2;
     const int64_t at = ((int64_t)t * batch + b) * half + bin;
     mag[at] = sqrtf(fmaxf(re * re + im * im, 1e-36f));
     phs[at] = atan2f(im, re + 1e-7f);
   }
 };
+using AnalysisFwdW = AnalysisFwdT<wg::FrameSpectrum<128>>;
+using AnalysisFwdW32 = AnalysisFwdT<wg::FrameSpectrum32<128>>;
 
 int analysis_fwd_wgmma(const float* xp, const float* w, tc::bf16* xq, tc::bf16* wp, float* mag,
                        float* phs, int batch, int lp, int ft, int hop, int half, int frames,
@@ -208,7 +225,23 @@ int analysis_fwd_wgmma(const float* xp, const float* w, tc::bf16* xq, tc::bf16* 
   if ((err = wg::frames_map(&p.frames, signal, ft, batch, frames, lp, hop))) return err;
   if ((err = wg::matrix_map(&p.w, wp, ft, p.n))) return err;
   p.bpad = wg::pad_rows(batch), p.ft = ft, p.hop = hop, p.live_lo = 0, p.live_hi = lp;
-  p.mag = mag, p.phs = phs, p.batch = batch, p.half = half;
+  p.mag = mag, p.phs = phs, p.batch = batch, p.half = half, p.scale = 1.f;
+  return wg::launch(p, s);
+}
+
+// float32: the frames of xp itself (16-byte aligned, hop, lp and ft
+// multiples of 4) and W^T's split planes wt_hi, wt_lo (ldc, ft).
+int analysis_fwd_wgmma32(const float* xp, const float* w, float* wt_hi, float* wt_lo, float* mag,
+                         float* phs, int batch, int lp, int ft, int hop, int half, int frames,
+                         cudaStream_t s) {
+  int err = tc::pack_split_t(w, wt_hi, wt_lo, ft, half, s);
+  if (err) return err;
+  AnalysisFwdW32 p;
+  p.m = frames * wg::pad_rows(batch), p.n = tc::packed_width<float>(half);
+  if ((err = wg::frames_map32(&p.frames, xp, ft, batch, frames, lp, hop))) return err;
+  if ((err = wg::split_maps(&p, wt_hi, wt_lo, p.n, ft))) return err;
+  p.bpad = wg::pad_rows(batch), p.ft = ft, p.hop = hop, p.live_lo = 0, p.live_hi = lp;
+  p.mag = mag, p.phs = phs, p.batch = batch, p.half = half, p.scale = tc::SIGNAL_SCALE<float>;
   return wg::launch(p, s);
 }
 
@@ -327,6 +360,19 @@ int st_analysis_fwd_wgmma(const void* xp, const void* w, void* xq, void* wp, voi
                           int batch, int lp, int ft, int hop, int half, int frames, void* stream) {
   return analysis_fwd_wgmma((const float*)xp, (const float*)w, (tc::bf16*)xq, (tc::bf16*)wp, (float*)mag,
              (float*)phs, batch, lp, ft, hop, half, frames, (cudaStream_t)stream);
+}
+
+// The float32 mode of st_analysis_fwd on the wgmma schedule (split TF32 on
+// wgmma_product.cuh), for geometries whose hop, lp and ft are multiples of 4
+// (16 bytes) and a 16-byte aligned xp. Scratch, in float32, with ldc =
+// 2*half rounded up to a multiple of 4: wt_hi, wt_lo (ldc, ft), the split
+// planes of the packed weights' transpose.
+int st_analysis_fwd_wgmma_f32(const void* xp, const void* w, void* wt_hi, void* wt_lo, void* mag,
+                              void* phs, int batch, int lp, int ft, int hop, int half, int frames,
+                              void* stream) {
+  return analysis_fwd_wgmma32((const float*)xp, (const float*)w, (float*)wt_hi, (float*)wt_lo,
+                              (float*)mag, (float*)phs, batch, lp, ft, hop, half, frames,
+                              (cudaStream_t)stream);
 }
 
 // The bf16 mode of st_synthesis_fwd on the wgmma schedule, for any geometry

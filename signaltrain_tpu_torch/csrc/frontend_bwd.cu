@@ -90,8 +90,17 @@
 // accumulators), no K slices and so no partials and no pass to add them
 // (synthesis_adjoint, sum_*_partials are the mma.sync schedule's). The
 // wrapper picks it by a rule on the shape (cuda_frontend.uses_wgmma: every
-// frame offset a multiple of 16 bytes, which TMA needs); other shapes, and
-// the float32 modes, run the mma.sync loop above.
+// frame offset a multiple of 16 bytes, which TMA needs); other shapes run
+// the mma.sync loop above. D's float32 mode has the wgmma schedule too (the
+// split-TF32 products of wgmma_product.cuh, xp 16-byte aligned besides), E's
+// stays on the mma.sync loop: its spectrum pass (wg::FrameSpectrum32) forms
+// dspec in f32 and writes it twice when asked, in rows for dxp's frame
+// product (wg::RowProduct32, against the split planes of W) and transposed,
+// split into hi and lo planes, for dW (wg::FrameGrad32, whose A, the frames,
+// is read M-major into registers): TF32 wgmma reads its shared-memory
+// operand K-major only, and the transpose costs the epilogue one more walk
+// over its staged tile instead of a pass. No K slices, so no
+// sum_analysis_partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -428,8 +437,8 @@ int synthesis_bwd(const float* mag, const float* phs, const float* w, const floa
 // the tile's lines of both into L2 when the tile starts (a row's bins
 // [n0 / 2, (n0 + w) / 2) of frame t + t_off), so that the epilogue's reads,
 // which first touch them in device memory, overlap the tile's products.
-template <int TN>
-struct BinsSpectrum : wg::FrameSpectrum<TN> {
+template <class Spectrum>
+struct Bins : Spectrum {
   int batch, half, ldc;
   __device__ void prefetch_bins(const float* x, const float* y, int t_off, int m0, int n0, int w,
                                 int lane) const {
@@ -447,6 +456,8 @@ struct BinsSpectrum : wg::FrameSpectrum<TN> {
     }
   }
 };
+template <int TN>
+using BinsSpectrum = Bins<wg::FrameSpectrum<TN>>;
 
 // D's spectrum again, then (dmag, dphs) -> dspec, interleaved, rounded once to
 // bf16 (the JAX kernel's `dspec.astype(compute_dtype)`); padding rows and
@@ -486,12 +497,80 @@ struct AnalysisDspecW : BinsSpectrum<128> {
   }
 };
 
+// D's spectrum again in float32 (wg::FrameSpectrum32, the model's x/2 on the
+// finished sums), then dspec as AnalysisDspecW forms it, in f32: written
+// row by row to dspec (rows, ldc) when dxp is asked for (the frame product's
+// A, split in registers there), and handed back to the staging buffer
+// (RESTAGE), from which transposed() writes it as the split planes dspect_hi,
+// dspect_lo (ldc, rows) when dW is asked for (the dW product's B, which TF32
+// wgmma reads K-major only): the epilogue reads dmag / dphs along the rows
+// and writes the planes along their rows, both contiguous across a warp.
+struct AnalysisDspecW32 : Bins<wg::FrameSpectrum32<128>> {
+  static constexpr bool RESTAGE = true;
+  const float* dmag;
+  const float* dphs;
+  float* dspec;      // (rows, ldc) or null
+  float* dspect_hi;  // (ldc, rows) or null, with dspect_lo
+  float* dspect_lo;
+  using Aux = float2;  // (dmag, dphs) of the bin, 0 outside
+  __device__ float2 fetch(int r, int n) const {
+    const int t = r / bpad, b = r - t * bpad, bin = n >> 1;
+    if (r >= m || b >= batch || bin >= half) return make_float2(0.f, 0.f);
+    const int64_t at = ((int64_t)t * batch + b) * half + bin;
+    return make_float2(__ldg(dmag + at), __ldg(dphs + at));
+  }
+  __device__ void prefetch(int m0, int n0, int w, int lane) const {
+    prefetch_bins(dmag, dphs, 0, m0, n0, w, lane);
+  }
+  __device__ float2 pair(int r, int n, float re2, float im2, float2 cot) const {
+    const int t = r / bpad, b = r - t * bpad;
+    float d_re = 0.f, d_im = 0.f;
+    const int bin = n >> 1;
+    if (r < m && b < batch && bin < half) {
+      const float re = tc::SIGNAL_SCALE<float> * re2, im = tc::SIGNAL_SCALE<float> * im2;
+      const float dm = cot.x;
+      const float dp = cot.y;
+      // mag = sqrt(max(sq, 1e-36)): no gradient under the floor
+      const float sq = re * re + im * im;
+      const float gm = sq >= 1e-36f ? dm / sqrtf(fmaxf(sq, 1e-36f)) : 0.f;
+      // phs = atan2(im, re + 1e-7)
+      const float rr = re + 1e-7f;
+      const float den = rr * rr + im * im;
+      d_re = gm * re - dp * im / den;
+      d_im = gm * im + dp * rr / den;
+    }
+    if (dspec && r < m && n < ldc) tc::store2(dspec + (int64_t)r * ldc + n, d_re, d_im);
+    return make_float2(d_re, d_im);
+  }
+  // the warpgroup's 64 staged rows of dspec from row m0, columns n0 .. n0 + w,
+  // into the planes: consecutive threads on consecutive rows of a column
+  __device__ void transposed(const float* stg, int ld, int m0, int n0, int w, int th) const {
+    if (!dspect_hi) return;
+    for (int i = th; i < 64 * (w / 2); i += 128) {
+      const int row = i % 64, c = 2 * (i / 64);
+      const int r = m0 + row, n = n0 + c;
+      if (r >= m || n >= ldc) continue;
+      const float2 v = *reinterpret_cast<const float2*>(stg + row * ld + c);
+      uint32_t hi, lo;
+      tc::split_tf32(v.x, hi, lo);
+      dspect_hi[(int64_t)n * m + r] = __uint_as_float(hi);
+      dspect_lo[(int64_t)n * m + r] = __uint_as_float(lo);
+      if (n + 1 < ldc) {
+        tc::split_tf32(v.y, hi, lo);
+        dspect_hi[(int64_t)(n + 1) * m + r] = __uint_as_float(hi);
+        dspect_lo[(int64_t)(n + 1) * m + r] = __uint_as_float(lo);
+      }
+    }
+  }
+};
+
 // dframes[t * batch + b, j] for dxp's overlap-add (tc::gather).
-struct DxFramesW : wg::RowProduct<128> {
+template <class Product>
+struct DxFrames : Product {
   float* dframes;
   int batch, bpad, ft;
   __device__ void pair(int r, int j, float v0, float v1, wg::NoAux) const {
-    if (r >= m) return;
+    if (r >= this->m) return;
     const int t = r / bpad, b = r - t * bpad;
     if (b >= batch) return;
     float* dst = dframes + ((int64_t)t * batch + b) * ft + j;
@@ -502,18 +581,25 @@ struct DxFramesW : wg::RowProduct<128> {
     }
   }
 };
+using DxFramesW = DxFrames<wg::RowProduct<128>>;
+using DxFramesW32 = DxFrames<wg::RowProduct32<128>>;
 
-// dw[j, part * half + bin] from column 2 * bin + part.
-struct AnalysisDwW : wg::FrameGrad<64> {
+// dw[j, part * half + bin] from column 2 * bin + part, times scale (1 in
+// bf16, whose frames were halved; the model's x/2 in float32).
+template <class Product>
+struct AnalysisDw : Product {
   float* dw;
   int half;
+  float scale;
   __device__ void pair(int j, int c, float v0, float v1, wg::NoAux) const {
-    if (j >= m || c >= 2 * half) return;
+    if (j >= this->m || c >= 2 * half) return;
     float* row = dw + (int64_t)j * 2 * half;
-    row[c >> 1] = v0;
-    row[half + (c >> 1)] = v1;
+    row[c >> 1] = scale * v0;
+    row[half + (c >> 1)] = scale * v1;
   }
 };
+using AnalysisDwW = AnalysisDw<wg::FrameGrad<64>>;
+using AnalysisDwW32 = AnalysisDw<wg::FrameGrad32<64>>;
 
 int analysis_bwd_wgmma(const float* xp, const float* w, const float* dmag, const float* dphs,
                        tc::bf16* xq, tc::bf16* wp, tc::bf16* dspec, float* dframes, float* dxp,
@@ -552,7 +638,55 @@ int analysis_bwd_wgmma(const float* xp, const float* w, const float* dmag, const
     p3.m = ft, p3.n = ldc;
     p3.frames = p1.frames, p3.s = dspec_map;
     p3.bpad = bpad, p3.hop = hop, p3.n_frames = frames, p3.live_lo = 0, p3.live_hi = lp;
-    p3.dw = dw, p3.half = half;
+    p3.dw = dw, p3.half = half, p3.scale = 1.f;
+    if ((err = wg::launch(p3, s))) return err;
+  }
+  return 0;
+}
+
+// The float32 mode on the same schedule: the frames of xp itself (16-byte
+// aligned, hop, lp and ft multiples of 4), split in registers; B's split
+// planes: W^T's (ldc, ft) for the spectrum, W's (ft, ldc) for dxp's frame
+// product, dspec's transpose (ldc, rows) for dW, which the spectrum pass
+// writes. dspec (rows, ldc) in f32 only for dxp.
+int analysis_bwd_wgmma32(const float* xp, const float* w, const float* dmag, const float* dphs,
+                         float* wt_hi, float* wt_lo, float* wp_hi, float* wp_lo, float* dspec,
+                         float* dspect_hi, float* dspect_lo, float* dframes, float* dxp, float* dw,
+                         int batch, int lp, int ft, int hop, int half, int frames, int need_dxp,
+                         int need_dw, cudaStream_t s) {
+  const int ldc = tc::packed_width<float>(half);
+  const int bpad = wg::pad_rows(batch);
+  const int rows = frames * bpad;
+  int err = tc::pack_split_t(w, wt_hi, wt_lo, ft, half, s);
+  if (err) return err;
+  AnalysisDspecW32 p1;
+  p1.m = rows, p1.n = ldc;
+  if ((err = wg::frames_map32(&p1.frames, xp, ft, batch, frames, lp, hop))) return err;
+  if ((err = wg::split_maps(&p1, wt_hi, wt_lo, ldc, ft))) return err;
+  p1.bpad = bpad, p1.ft = ft, p1.hop = hop, p1.live_lo = 0, p1.live_hi = lp;  // every sample
+  p1.dmag = dmag, p1.dphs = dphs;
+  p1.dspec = need_dxp ? dspec : nullptr;
+  p1.dspect_hi = need_dw ? dspect_hi : nullptr, p1.dspect_lo = need_dw ? dspect_lo : nullptr;
+  p1.batch = batch, p1.half = half, p1.ldc = ldc;
+  if ((err = wg::launch(p1, s))) return err;
+  if (need_dxp) {
+    if ((err = tc::pack_split(w, wp_hi, wp_lo, ft, half, s))) return err;
+    DxFramesW32 p2;
+    p2.m = rows, p2.n = ft;
+    if ((err = wg::matrix_map32(&p2.d, dspec, rows, ldc, wg::BM))) return err;
+    if ((err = wg::split_maps(&p2, wp_hi, wp_lo, ft, ldc))) return err;
+    p2.k = ldc;
+    p2.dframes = dframes, p2.batch = batch, p2.bpad = bpad, p2.ft = ft;
+    if ((err = wg::launch(p2, s))) return err;
+    if ((err = tc::gather(dframes, dxp, batch, lp, 0, ft, hop, 0, frames, 1, 0.5f, s))) return err;
+  }
+  if (need_dw) {
+    AnalysisDwW32 p3;
+    p3.m = ft, p3.n = ldc;
+    p3.frames = p1.frames;
+    if ((err = wg::split_maps(&p3, dspect_hi, dspect_lo, ldc, rows))) return err;
+    p3.bpad = bpad, p3.hop = hop, p3.n_frames = frames, p3.live_lo = 0, p3.live_hi = lp;
+    p3.dw = dw, p3.half = half, p3.scale = tc::SIGNAL_SCALE<float>;
     if ((err = wg::launch(p3, s))) return err;
   }
   return 0;
@@ -723,6 +857,24 @@ int st_analysis_bwd_wgmma(const void* xp, const void* w, const void* dmag, const
                             (const float*)dphs, (tc::bf16*)xq, (tc::bf16*)wp, (tc::bf16*)dspec,
                             (float*)dframes, (float*)dxp, (float*)dw, batch, lp, ft, hop, half,
                             frames, need_dxp, need_dw, (cudaStream_t)stream);
+}
+
+// The float32 mode of st_analysis_bwd on the wgmma schedule (split TF32 on
+// wgmma_product.cuh), for geometries whose hop, lp and ft are multiples of 4
+// (16 bytes) and a 16-byte aligned xp. Scratch, in float32, with ldc as above
+// and rows = frames * bpad: wt_hi, wt_lo (ldc, ft); when need_dxp wp_hi,
+// wp_lo (ft, ldc), dspec (rows, ldc) and dframes (frames*batch, ft); when
+// need_dw dspect_hi, dspect_lo (ldc, rows). No partials.
+int st_analysis_bwd_wgmma_f32(const void* xp, const void* w, const void* dmag, const void* dphs,
+                              void* wt_hi, void* wt_lo, void* wp_hi, void* wp_lo, void* dspec,
+                              void* dspect_hi, void* dspect_lo, void* dframes, void* dxp, void* dw,
+                              int batch, int lp, int ft, int hop, int half, int frames,
+                              int need_dxp, int need_dw, void* stream) {
+  return analysis_bwd_wgmma32(
+      (const float*)xp, (const float*)w, (const float*)dmag, (const float*)dphs, (float*)wt_hi,
+      (float*)wt_lo, (float*)wp_hi, (float*)wp_lo, (float*)dspec, (float*)dspect_hi,
+      (float*)dspect_lo, (float*)dframes, (float*)dxp, (float*)dw, batch, lp, ft, hop, half,
+      frames, need_dxp, need_dw, (cudaStream_t)stream);
 }
 
 // The bf16 mode of st_synthesis_bwd on the wgmma schedule, for geometries

@@ -26,7 +26,10 @@
 // chunk of 16 forms the exact products; as above, each chunk starts from
 // zero and is added to the f32 accumulator by a round-to-nearest add (64 adds
 // at K = 1024). Bound: the dense bf16 rate, 989 TFLOP/s; mma.sync reaches
-// about half of it (wgmma is later work).
+// about half of it. The wgmma schedule of wgmma_product.cuh takes over every
+// bf16 mode and the float32 modes of A and D where TMA can read their
+// operands; this loop stays as their second schedule and as the only one of
+// float32 B and E.
 //
 // Feeding it: a 128 x 128 output tile a block (256 threads, 8 warps as 2 x 4,
 // 4 x 4 mma tiles a warp, 64 accumulators a thread), K step 32, a ring of 3
@@ -516,6 +519,66 @@ inline int pack_synthesis(const float* w, T* wp, int ft, int half, cudaStream_t 
   const int ldc = packed_width<T>(half);
   pack_transposed<T><<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
       w, wp, ft, half, ldc);
+  return (int)cudaGetLastError();
+}
+
+// The split-TF32 planes of the packed weights, for the float32 products of
+// wgmma_product.cuh (whose TF32 B operand is read from shared memory,
+// K-major, and split in advance): hi and lo of every element of wp, as
+// split_tf32 cuts it, each plane f32 values that are TF32 numbers.
+//   pack_split: wp's own layout (ft, ldc), K the interleaved column (D's
+//     frame product, dframes = dspec . W^T, reads W's rows j).
+//   pack_split_transposed: its transpose (ldc, ft), K the frame sample (the
+//     spectrum product of A and D reads W^T's rows c).
+__device__ __forceinline__ float analysis_weight(const float* w, int k, int c, int half) {
+  return w[(int64_t)k * 2 * half + (c & 1) * half + (c >> 1)];
+}
+
+__global__ void pack_split_weights(const float* __restrict__ w, float* __restrict__ hi,
+                                   float* __restrict__ lo, int ft, int half, int ldc) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)ft * ldc) return;
+  const int k = (int)(i / ldc), c = (int)(i % ldc);
+  uint32_t h, l;
+  split_tf32(c < 2 * half ? analysis_weight(w, k, c, half) : 0.f, h, l);
+  hi[i] = __uint_as_float(h);
+  lo[i] = __uint_as_float(l);
+}
+
+inline int pack_split(const float* w, float* hi, float* lo, int ft, int half, cudaStream_t stream) {
+  const int ldc = packed_width<float>(half);
+  pack_split_weights<<<blocks((int64_t)ft * ldc, 256), 256, 0, stream>>>(w, hi, lo, ft, half, ldc);
+  return (int)cudaGetLastError();
+}
+
+// 32 x 32 tiles through shared memory (32 x 8 threads): reads along w's rows,
+// writes along the planes' rows.
+__global__ void pack_split_transposed(const float* __restrict__ w, float* __restrict__ hi,
+                                      float* __restrict__ lo, int ft, int half, int ldc) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int k = k0 + i, c = c0 + tx;
+    tile[i][tx] = k < ft && c < 2 * half ? analysis_weight(w, k, c, half) : 0.f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < 32; i += 8) {
+    const int c = c0 + i, k = k0 + tx;
+    if (c < ldc && k < ft) {
+      uint32_t h, l;
+      split_tf32(tile[tx][i], h, l);
+      hi[(int64_t)c * ft + k] = __uint_as_float(h);
+      lo[(int64_t)c * ft + k] = __uint_as_float(l);
+    }
+  }
+}
+
+inline int pack_split_t(const float* w, float* hi, float* lo, int ft, int half,
+                        cudaStream_t stream) {
+  const int ldc = packed_width<float>(half);
+  pack_split_transposed<<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
+      w, hi, lo, ft, half, ldc);
   return (int)cudaGetLastError();
 }
 

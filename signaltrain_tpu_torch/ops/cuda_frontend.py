@@ -3,10 +3,11 @@
 Counterparts of signaltrain_tpu/ops/pallas_frontend.py. Each kernel is
 hand-written CUDA C++ for Hopper: A and B in ``csrc/frontend.cu``, D and E in
 ``csrc/frontend_bwd.cu`` (the headers say what bounds each on the card and
-how its design answers that); the products of all four share one
-tensor-core main loop, ``csrc/tc_product.cuh``, which forms every f32 product
-from three TF32 ones (``split_tf32_matmul`` below is that arithmetic in plain
-PyTorch, for the tests and reports; nothing on the main path calls it). This
+how its design answers that); their products run on two tensor-core
+schedules, ``csrc/tc_product.cuh``'s ``mma.sync`` loop and
+``csrc/wgmma_product.cuh``, both of which form every f32 product from three
+TF32 ones (``split_tf32_matmul`` below is that arithmetic in plain PyTorch,
+for the tests and reports; nothing on the main path calls it). This
 module holds the wrappers, the plain PyTorch version of every kernel, the two
 ``torch.autograd.Function``s and the weight stacking.
 
@@ -31,16 +32,20 @@ launch counter (``bf16_*`` for bfloat16).
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
-The bf16 modes of all four have two schedules (``SCHEDULES``): "wgmma"
-(``csrc/wgmma_product.cuh``: TMA into a ring of shared-memory stages, wgmma,
-no K slices) and "mma" (the ``mma.sync`` loop of ``csrc/tc_product.cuh``).
-The wrapper picks by a rule on the shape (``schedule_for``): for A, D and E,
-which read frames through TMA, "wgmma" where every frame offset and length is
-a multiple of 16 bytes (``uses_wgmma``), "mma" elsewhere; for B, which reads
-none, "wgmma" at every shape. ``schedule=`` names one for the tests and
-timers. Each schedule has its own launch counter. A schedule that cannot take
-the shape, or fails to build or launch, raises; nothing retries on the other
-one. The float32 modes have one schedule, "mma".
+The bf16 modes of all four, and the float32 modes of A and D, have two
+schedules (``SCHEDULES``): "wgmma" (``csrc/wgmma_product.cuh``: TMA into a
+ring of shared-memory stages, wgmma, no K slices; in float32 split TF32 with
+A's fragments split in registers and B's operand in pre-split planes) and
+"mma" (the ``mma.sync`` loop of ``csrc/tc_product.cuh``). The wrapper picks
+by a rule on the shape (``schedule_for``): for A, D and E, which read frames
+through TMA, "wgmma" where every frame offset and length is a multiple of 16
+bytes (``uses_wgmma``; in float32 also a 16-byte aligned signal, which TMA
+reads as it is), "mma" elsewhere; for B, which reads none, "wgmma" at every
+shape in bf16. ``schedule=`` names one for the tests and timers. Each
+schedule has its own launch counter (``..._mma`` for the mma.sync one). A
+schedule that cannot take the shape, or fails to build or launch, raises;
+nothing retries on the other one. Float32 B and E have one schedule,
+"mma".
 
 All four are bound by operations (f32-accurate matrix products). On the
 mma.sync loop a product whose output has too few tiles to fill the card (dW
@@ -74,10 +79,12 @@ import torch.nn.functional as F
 
 from . import _cuda, framing
 
-ANALYSIS = _cuda.counter("fused_analysis")
+ANALYSIS = _cuda.counter("fused_analysis")  # float32 A: the wgmma schedule
 SYNTHESIS = _cuda.counter("fused_synthesis")
-ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")
+ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")  # float32 D: the wgmma schedule
 SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
+ANALYSIS_MMA = _cuda.counter("fused_analysis_mma")
+ANALYSIS_BWD_MMA = _cuda.counter("fused_analysis_bwd_mma")
 ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")  # the wgmma schedule
 SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")  # the wgmma schedule
 ANALYSIS_BF16_MMA = _cuda.counter("bf16_fused_analysis_mma")
@@ -98,6 +105,8 @@ _SYNTHESIS_WGMMA_ARGS = [_P] * 7 + [_I] * 6 + [_P]
 _ANALYSIS_BWD_ARGS = [_P] * 11 + [_I] * 11 + [_P]
 _SYNTHESIS_BWD_ARGS = [_P] * 12 + [_I] * 11 + [_P]
 _ANALYSIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 8 + [_P]
+_ANALYSIS_WGMMA_F32_ARGS = [_P] * 6 + [_I] * 6 + [_P]
+_ANALYSIS_BWD_WGMMA_F32_ARGS = [_P] * 14 + [_I] * 8 + [_P]
 _SYNTHESIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 7 + [_P]
 
 
@@ -152,14 +161,16 @@ def copy_width(ft: int, hop: int, lp: int, *tensors: torch.Tensor,
     return wide if aligned and all(t.data_ptr() % 16 == 0 for t in tensors) else 1
 
 
-def uses_wgmma(ft: int, hop: int, lp: int) -> bool:
-    """The rule that picks the bf16 schedule of kernels A, D and E: "wgmma" when
+def uses_wgmma(ft: int, hop: int, lp: int, dtype: torch.dtype = torch.bfloat16) -> bool:
+    """The rule that picks the schedule of kernels A, D and E: "wgmma" when
     the frames can be read by TMA, i.e. when ft, hop and the padded row
-    length lp are multiples of 16 bytes of bf16 (8 elements), else "mma".
-    TMA reads only the launch's own scratch (the halved or padded signal, the
-    packed weights, dspec, E's spectrum), which the allocator aligns, so no
-    pointer enters the rule. The flagship geometry (1024, 384, 10240) takes
-    wgmma; the tests' "ragged" one (hop 30) cannot.
+    length lp are multiples of 16 bytes of the operand type ``dtype`` (8
+    bf16, 4 floats), else "mma". In bf16 TMA reads only the launch's own
+    scratch (the halved or padded signal, the packed weights, dspec, E's
+    spectrum), which the allocator aligns, so no pointer enters the rule; in
+    float32 (A and D only) it reads the signal itself, whose alignment
+    ``schedule_for`` takes as ``aligned``. The flagship geometry (1024, 384,
+    10240) takes wgmma; the tests' "ragged" one (hop 30) cannot.
 
     Kernel B reads no frames through TMA: its two TMA operands are the
     spectrum of the live frames (rows, ldc) and the packed weights (ft, ldc),
@@ -167,24 +178,43 @@ def uses_wgmma(ft: int, hop: int, lp: int) -> bool:
     its epilogue writes the frames (rows, ft) in float32 at any ft. So B's
     rule (``schedule_for`` with ``lp=None``) takes wgmma at every geometry,
     the "ragged" one included."""
-    wide = _wide(torch.bfloat16)
+    wide = _wide(dtype)
     return ft % wide == 0 and hop % wide == 0 and lp % wide == 0
 
 
+# the kernels whose float32 mode has a wgmma schedule
+F32_WGMMA_KERNELS = ("A", "D")
+
+
 def schedule_for(schedule: str | None, compute_dtype: torch.dtype, ft: int, hop: int,
-                 lp: int | None) -> str:
-    """The schedule of a bf16 launch of A, B, D or E: ``schedule`` if given
-    (one of ``SCHEDULES``; "wgmma" only in bf16 and, for the kernels that read
-    frames of a row of length ``lp`` through TMA (A, D, E), where
-    ``uses_wgmma`` holds; ``lp=None`` for B, which reads none), else the
-    rule's. Raises on anything else."""
+                 lp: int | None, kernel: str | None = None, aligned: bool = True) -> str:
+    """The schedule of a launch of A, B, D or E: ``schedule`` if given (one of
+    ``SCHEDULES``), else the rule's. "wgmma" in bf16 for the kernels that read
+    frames of a row of length ``lp`` through TMA (A, D, E) where
+    ``uses_wgmma`` holds, and for B (``lp=None``: it reads none) at every
+    shape; in float32 only for ``kernel`` "A" or "D", where ``uses_wgmma``
+    holds for floats and the signal is 16-byte ``aligned`` (TMA reads it as
+    it is). Raises on anything else, a "wgmma" the rule cannot give
+    included."""
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES} or None, got {schedule!r}")
-    wgmma_ok = compute_dtype == torch.bfloat16 and (lp is None or uses_wgmma(ft, hop, lp))
+    if compute_dtype == torch.bfloat16:
+        wgmma_ok = lp is None or uses_wgmma(ft, hop, lp)
+    else:
+        wgmma_ok = (kernel in F32_WGMMA_KERNELS and lp is not None and aligned
+                    and uses_wgmma(ft, hop, lp, torch.float32))
     if schedule == "wgmma" and not wgmma_ok:
-        raise ValueError(f"the wgmma schedule takes bf16 and 16-byte frames (ft={ft}, hop={hop}, "
-                         f"lp={lp}, compute_dtype={compute_dtype})")
+        raise ValueError(f"the wgmma schedule takes bf16, or float32 in kernels "
+                         f"{F32_WGMMA_KERNELS} with an aligned signal, and 16-byte frames "
+                         f"(ft={ft}, hop={hop}, lp={lp}, compute_dtype={compute_dtype}, "
+                         f"kernel={kernel}, aligned={aligned})")
     return schedule or ("wgmma" if wgmma_ok else "mma")
+
+
+def aligned_16(t: torch.Tensor) -> bool:
+    """Whether t's data starts on a 16-byte boundary (what TMA needs of a
+    tensor it reads as it is: float32 A's and D's signal)."""
+    return t.data_ptr() % 16 == 0
 
 
 def pad_rows(batch: int) -> int:
@@ -193,12 +223,18 @@ def pad_rows(batch: int) -> int:
     return -(-batch // 8) * 8
 
 
-def analysis_fwd_scratch(compute_dtype: torch.dtype, b: int, lp: int, ft: int, half: int) -> dict:
+def analysis_fwd_scratch(compute_dtype: torch.dtype, b: int, lp: int, ft: int, half: int,
+                         schedule: str = "mma") -> dict:
     """The scratch tensors kernel A's launch takes, name -> (shape, dtype), in
     the launcher's order (None: not needed): the halved and rounded signal in
-    bf16 and the packed weights, the same on either schedule (A's product has
-    enough tiles on both, so neither cuts K into slices)."""
+    bf16 and the packed weights, the same on either bf16 schedule (A's
+    product has enough tiles on both, so neither cuts K into slices); in
+    float32 on the wgmma schedule the split planes of the packed weights'
+    transpose (ldc, ft) instead."""
     op = compute_dtype
+    if op == torch.float32 and schedule == "wgmma":
+        wt = ((packed_width(half), ft), op)
+        return {"wt_hi": wt, "wt_lo": wt}
     return {"xq": ((b, lp), op) if op == torch.bfloat16 else None,
             "wp": ((ft, packed_width(half, op)), op)}
 
@@ -220,10 +256,21 @@ def analysis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, lp: 
     """The scratch tensors kernel D's launch takes, name -> (shape, dtype), in
     the launcher's order (None: not needed). The mma schedule's f32 K-slice
     partials of dW and the wgmma schedule's padded dspec rows are the
-    difference."""
+    difference; in float32 the wgmma schedule takes the split planes of its
+    B operands."""
     op, f32 = compute_dtype, torch.float32
     ldc = packed_width(half, compute_dtype)
     bf16 = compute_dtype == torch.bfloat16
+    if schedule == "wgmma" and not bf16:
+        # split TF32: W^T's planes for the spectrum, W's for dxp's frame
+        # product, dspec in rows for dxp, its transpose's planes for dW
+        rows = t * pad_rows(b)
+        wt, wp, dspect = ((ldc, ft), f32), ((ft, ldc), f32), ((ldc, rows), f32)
+        return {"wt_hi": wt, "wt_lo": wt, "wp_hi": wp if need_dxp else None,
+                "wp_lo": wp if need_dxp else None,
+                "dspec": ((rows, ldc), f32) if need_dxp else None,
+                "dspect_hi": dspect if need_dw else None, "dspect_lo": dspect if need_dw else None,
+                "dframes": ((t * b, ft), f32) if need_dxp else None}
     if schedule == "wgmma":
         return {"xq": ((b, lp), op), "wp": ((ft, ldc), op), "dspec": ((t * pad_rows(b), ldc), op),
                 "dframes": ((t * b, ft), f32) if need_dxp else None}
@@ -297,14 +344,48 @@ def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """a @ b as kernels A, B, D and E form it on the tensor cores: three products
-    of TF32 operands summed in float32, the small terms first. Not used on
-    the main path: the tests and ``chip_smoke.py`` hold the kernels' accuracy
-    against it."""
+    of TF32 operands summed in float32, the small terms first. ``chunk``: K
+    cut into chunks of that many, each chunk's three products summed from
+    zero and the chunks joined in order by float32 (round-to-nearest) adds,
+    as the kernels join a chunk to their sums (the mma.sync loop's chunks are
+    8, the wgmma schedule's 32, one K step); None: K in one chunk. Not used
+    on the main path: the tests and ``chip_smoke.py`` hold the kernels'
+    accuracy against it."""
     a_hi, a_lo = split_tf32(a)
     b_hi, b_lo = split_tf32(b)
-    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+    k = a.shape[-1]
+    out = None
+    for k0 in range(0, k, chunk or max(k, 1)):
+        sa, sb = (..., slice(k0, k0 + (chunk or k))), slice(k0, k0 + (chunk or k))
+        part = ((torch.matmul(a_lo[sa], b_hi[sb]) + torch.matmul(a_hi[sa], b_lo[sb]))
+                + torch.matmul(a_hi[sa], b_hi[sb]))
+        out = part if out is None else out + part
+    return out
+
+
+def interleave(w: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., 2*half) stacked as [re | im] -> (..., width) with re and im of a
+    bin side by side (column 2*bin + part) and zeros past 2*half: the layout
+    of the kernels' packed weights and spectra."""
+    half = w.shape[-1] // 2
+    out = w.new_zeros(*w.shape[:-1], width)
+    out[..., 0 : 2 * half : 2] = w[..., :half]
+    out[..., 1 : 2 * half : 2] = w[..., half:]
+    return out
+
+
+def pack_split_reference(w: torch.Tensor, transposed: bool = False):
+    """Plain version of the weight repacks of the float32 wgmma schedule
+    (csrc/tc_product.cuh ``pack_split`` and ``pack_split_transposed``): the
+    stacked analysis weights (ft, 2*half) interleaved into (ft, ldc) (K the
+    column, kernel D's frame product), or its transpose (ldc, ft) (K the
+    frame sample, the spectrum product of A and D), as the two planes
+    ``split_tf32`` cuts: (hi, lo). TF32 wgmma reads its shared-memory
+    operand K-major only, so the kernels read each plane as it lies."""
+    wp = interleave(w, packed_width(w.shape[-1] // 2))
+    return split_tf32(wp.t().contiguous() if transposed else wp)
 
 
 def fused_analysis_bwd_conditioning(xp: torch.Tensor, w: torch.Tensor, dmag: torch.Tensor,
@@ -538,7 +619,7 @@ def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
                   compute_dtype: torch.dtype, schedule: str | None = None):
     count = _counters(ANALYSIS, ANALYSIS_BF16, compute_dtype)
     lp = xp.shape[1] if xp.dim() == 2 else 0
-    sched = schedule_for(schedule, compute_dtype, ft, hop, lp)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, lp, "A", aligned_16(xp))
     if _is_cpu(xp):
         return fused_analysis_reference(xp, w, ft, hop, compute_dtype)
     dev = xp.device
@@ -548,15 +629,16 @@ def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
     f32 = _empty(dev, torch.float32)
     bf16 = compute_dtype == torch.bfloat16
     mag, phs = f32(t, b, half), f32(t, b, half)
-    sc = _scratch(analysis_fwd_scratch(compute_dtype, b, lp, ft, half), dev)
-    ptrs = [_cuda.ptr(v) for v in (xp, w, sc["xq"], sc["wp"], mag, phs)]
+    sc = _scratch(analysis_fwd_scratch(compute_dtype, b, lp, ft, half, sched), dev)
+    ptrs = [_cuda.ptr(v) for v in (xp, w, *sc.values(), mag, phs)]
     with torch.cuda.device(dev):
         if sched == "wgmma":
-            f = _cuda.function("frontend", "st_analysis_fwd_wgmma", _ANALYSIS_WGMMA_ARGS)
+            name, args = (("st_analysis_fwd_wgmma", _ANALYSIS_WGMMA_ARGS) if bf16
+                          else ("st_analysis_fwd_wgmma_f32", _ANALYSIS_WGMMA_F32_ARGS))
+            f = _cuda.function("frontend", name, args)
             status = f(*ptrs, b, lp, ft, hop, half, t, _cuda.stream(dev))
         else:
-            if bf16:
-                count = ANALYSIS_BF16_MMA
+            count = ANALYSIS_BF16_MMA if bf16 else ANALYSIS_MMA
             vec = copy_width(ft, hop, lp, xp if sc["xq"] is None else sc["xq"], sc["wp"],
                              dtype=compute_dtype)
             f = _cuda.function("frontend", "st_analysis_fwd", _ANALYSIS_ARGS)
@@ -569,7 +651,7 @@ def _analysis_fwd(xp: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
 def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: int, hop: int,
                    compute_dtype: torch.dtype, schedule: str | None = None) -> torch.Tensor:
     count = _counters(SYNTHESIS, SYNTHESIS_BF16, compute_dtype)
-    sched = schedule_for(schedule, compute_dtype, ft, hop, None)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, None, "B")
     if _is_cpu(mag):
         return fused_synthesis_reference(mag, phs, w, ft, hop, compute_dtype)
     dev = mag.device
@@ -628,7 +710,7 @@ def _analysis_bwd(xp, w, dmag, dphs, ft, hop, need_dxp, need_dw, compute_dtype, 
     """fused_analysis_bwd, and the scratch of its launch (None on the CPU)."""
     count = _counters(ANALYSIS_BWD, ANALYSIS_BWD_BF16, compute_dtype)
     b, lp = xp.shape if xp.dim() == 2 else (0, 0)
-    sched = schedule_for(schedule, compute_dtype, ft, hop, lp)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, lp, "D", aligned_16(xp))
     if _is_cpu(xp):
         dxp, dw = fused_analysis_bwd_reference(xp, w, dmag, dphs, ft, hop, compute_dtype)
         return (dxp if need_dxp else None), (dw if need_dw else None), None
@@ -647,12 +729,13 @@ def _analysis_bwd(xp, w, dmag, dphs, ft, hop, need_dxp, need_dw, compute_dtype, 
     ins = [_cuda.ptr(xp), _cuda.ptr(w), _cuda.ptr(dmag), _cuda.ptr(dphs)]
     with torch.cuda.device(dev):
         if sched == "wgmma":
-            f = _cuda.function("frontend_bwd", "st_analysis_bwd_wgmma", _ANALYSIS_BWD_WGMMA_ARGS)
+            name, args = (("st_analysis_bwd_wgmma", _ANALYSIS_BWD_WGMMA_ARGS) if bf16
+                          else ("st_analysis_bwd_wgmma_f32", _ANALYSIS_BWD_WGMMA_F32_ARGS))
+            f = _cuda.function("frontend_bwd", name, args)
             status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), _cuda.ptr(dxp), _cuda.ptr(dw),
                        b, lp, ft, hop, half, t, int(need_dxp), int(need_dw), _cuda.stream(dev))
         else:
-            if bf16:
-                count = ANALYSIS_BWD_BF16_MMA
+            count = ANALYSIS_BWD_BF16_MMA if bf16 else ANALYSIS_BWD_MMA
             nsplit = k_slices(ft, sc["wp"].shape[1], t * b)
             vec = copy_width(ft, hop, lp, xp if sc["xq"] is None else sc["xq"], sc["wp"],
                              sc["dspec"], dtype=compute_dtype)
@@ -673,7 +756,7 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
     (the rule, ``schedule_for``), "wgmma" or "mma"."""
     count = _counters(SYNTHESIS_BWD, SYNTHESIS_BWD_BF16, compute_dtype)
     out_len = dout.shape[-1]
-    sched = schedule_for(schedule, compute_dtype, ft, hop, out_len + 2 * ft)
+    sched = schedule_for(schedule, compute_dtype, ft, hop, out_len + 2 * ft, "E")
     if _is_cpu(mag):
         dmag, dphs, dw = fused_synthesis_bwd_reference(mag, phs, w, dout, ft, hop, compute_dtype)
         return dmag, dphs, (dw if need_dw else None)

@@ -47,6 +47,16 @@ def dev():
 
 
 GEOMS = [(64, 24, 512, 5), (1024, 384, 8192, 3), (100, 30, 700, 7), (1024, 384, 8192, 130)]
+
+
+def _f32_counter(kernel, ft, hop, xp, schedule=None):
+    """The launch counter of float32 kernel A or D on ``schedule`` (None: the
+    rule's for this signal)."""
+    sched = schedule or cuda_frontend.schedule_for(None, torch.float32, ft, hop, xp.shape[1],
+                                                   kernel, cuda_frontend.aligned_16(xp))
+    names = {("A", "wgmma"): "ANALYSIS", ("A", "mma"): "ANALYSIS_MMA",
+             ("D", "wgmma"): "ANALYSIS_BWD", ("D", "mma"): "ANALYSIS_BWD_MMA"}
+    return getattr(cuda_frontend, names[kernel, sched])
 # kernels A and D copy 16 bytes at a time where hop, ft and the padded length
 # are multiples of 4 floats ((1024, 384), (64, 24)) and 4 bytes elsewhere
 # ((100, 30), (16, 5)); batches that are a multiple of no tile (200, 643, 1)
@@ -63,9 +73,10 @@ def test_analysis_kernel_matches_plain(dev, ft, hop, chunk, b):
         an.conv_analysis_real.weight.add_(torch.randn(ft, 1, ft, generator=g, device=dev) * 0.01)
         w = an.stacked_weights()
         xp = torch.nn.functional.pad(torch.randn(b, chunk, generator=g, device=dev) * 0.3, (ft, ft))
-        before = cuda_frontend.ANALYSIS.launches
+        count = _f32_counter("A", ft, hop, xp)
+        before = count.launches
         mag, phs = cuda_frontend.fused_analysis(xp, w, ft, hop)
-        assert cuda_frontend.ANALYSIS.launches == before + 1
+        assert count.launches == before + 1
         rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w, ft, hop)
     torch.cuda.synchronize()
     assert mag.shape == rmag.shape == ((chunk + ft) // hop + 1, b, half)
@@ -90,6 +101,128 @@ def test_analysis_kernel_is_as_accurate_as_f32(dev):
         exact = torch.sqrt(spec[..., :half] ** 2 + spec[..., half:] ** 2).clamp_min(1e-18)
     err, plain_err = float((mag - exact).abs().max()), float((rmag - exact).abs().max())
     assert err <= 2 * plain_err + 1e-7, (err, plain_err)
+
+
+# ---- float32 A and D on both schedules: the split-TF32 products on wgmma
+# (csrc/wgmma_product.cuh), which the rule picks where TMA can read the frames,
+# and the mma.sync loop (csrc/tc_product.cuh), at the flagship geometry
+
+
+def _flagship_analysis(dev, b, seed=7):
+    ft, hop, chunk = 1024, 384, 8192
+    g = torch.Generator(device=dev).manual_seed(seed + b)
+    with torch.no_grad():
+        w = frontend.Analysis(ft, hop, device=dev).stacked_weights()
+        w = (w + torch.randn(w.shape, generator=g, device=dev) * 0.01).contiguous()
+        xp = torch.nn.functional.pad(torch.randn(b, chunk, generator=g, device=dev) * 0.3, (ft, ft))
+    return w, xp
+
+
+@pytest.mark.parametrize("schedule", ["wgmma", "mma"])
+@pytest.mark.parametrize("b", [200, 643])
+def test_f32_analysis_schedules_hold_the_float64_rule(dev, b, schedule):
+    """Float32 A on each schedule at the training and the serving batch:
+    every magnitude and the phase in its two classes against the plain
+    version (assert_analysis_close), the magnitude within twice the plain
+    version's error against float64 plus 1e-7, the edge frames exactly 1e-18
+    and 0, two runs bit-equal, the schedule's counter."""
+    ft, hop = 1024, 384
+    half = ft // 2 + 1
+    w, xp = _flagship_analysis(dev, b)
+    assert cuda_frontend.schedule_for(None, torch.float32, ft, hop, xp.shape[1], "A") == "wgmma"
+    count = _f32_counter("A", ft, hop, xp, schedule)
+    with torch.no_grad():
+        before = count.launches
+        mag, phs = cuda_frontend.fused_analysis(xp, w, ft, hop, schedule=schedule)
+        again = cuda_frontend.fused_analysis(xp, w, ft, hop, schedule=schedule)
+        assert count.launches == before + 2
+        rmag, rphs = cuda_frontend.fused_analysis_reference(xp, w, ft, hop)
+        spec = (xp.unfold(1, ft, hop).transpose(0, 1).double() * 0.5) @ w.double()
+        exact = torch.sqrt(spec[..., :half] ** 2 + spec[..., half:] ** 2).clamp_min(1e-18)
+    torch.cuda.synchronize()
+    assert torch.equal(mag, again[0]) and torch.equal(phs, again[1])
+    assert_analysis_close(mag, phs, rmag, rphs)
+    err, plain_err = float((mag - exact).abs().max()), float((rmag - exact).abs().max())
+    assert err <= 2 * plain_err + 1e-7, (err, plain_err)
+    for e in (0, -1):
+        assert torch.all(mag[e] == np.float32(1e-18)) and torch.all(phs[e] == 0)
+
+
+@pytest.mark.parametrize("schedule", ["wgmma", "mma"])
+@pytest.mark.parametrize("need_dxp", [True, False])
+@pytest.mark.parametrize("cot", ["full", "regular"])
+def test_f32_analysis_bwd_schedules_hold_the_float64_rule(dev, cot, need_dxp, schedule):
+    """Float32 D on each schedule at the training shape (flagship, batch 200),
+    with and without dxp: with unit-normal phase cotangents every element of
+    dx (the unpadded signal) and dW against float64 within 5e-4 + 5e-4|g| plus
+    its conditioning slack (cuda_frontend.fused_analysis_bwd_conditioning's
+    sigma); with well-conditioned ones every element within 5e-4 + 5e-4|g| of
+    the plain version; two runs bit-equal, dW the same without dxp."""
+    ft, hop, chunk, b = TRAIN_GEOM
+    inp = analysis_bwd_inputs(ft, hop, chunk, b)
+    if cot == "regular":
+        inp["c"] = regular_phase_cotangent(inp, ft, hop)
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in inp.items()}
+    half = ft // 2 + 1
+    xp = torch.nn.functional.pad(inp["x"], (ft, ft))
+    w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
+    args = (xp, w, inp["a"], inp["c"], ft, hop)
+    assert cuda_frontend.schedule_for(None, torch.float32, ft, hop, xp.shape[1], "D") == "wgmma"
+    count = _f32_counter("D", ft, hop, xp, schedule)
+    before = count.launches
+    dxp, dw = cuda_frontend.fused_analysis_bwd(*args, need_dxp=need_dxp, schedule=schedule)
+    dxp2, dw2 = cuda_frontend.fused_analysis_bwd(*args, need_dxp=need_dxp, schedule=schedule)
+    assert count.launches == before + 2
+    torch.cuda.synchronize()
+    assert (dxp is None) == (not need_dxp) and torch.equal(dw, dw2)
+    assert dxp is None or torch.equal(dxp, dxp2)
+    assert torch.equal(dw, cuda_frontend.fused_analysis_bwd(*args, need_dxp=not need_dxp,
+                                                            schedule=schedule)[1])
+    if cot == "regular":
+        rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(*args)
+        torch.testing.assert_close(dw, rdw, atol=5e-4, rtol=5e-4)
+        if need_dxp:
+            torch.testing.assert_close(dxp, rdxp, atol=5e-4, rtol=5e-4)
+        return
+    xdxp, xdw = cuda_frontend.fused_analysis_bwd_reference(*(a.double() for a in args[:4]), ft, hop)
+    sdxp, sdw = cuda_frontend.fused_analysis_bwd_conditioning(*args)
+    assert_close_where_conditioned(dw, xdw, sdw, name=f"{schedule} dW")
+    if need_dxp:
+        sl = slice(ft, -ft)
+        assert_close_where_conditioned(dxp[:, sl], xdxp[:, sl], sdxp[:, sl], name=f"{schedule} dx")
+
+
+def test_f32_wgmma_schedule_refuses_what_tma_cannot_read(dev):
+    """The "ragged" geometry (hop 30: 120 bytes) and a signal 4 bytes off a
+    16-byte boundary take the mma.sync schedule by the rule, in A and D
+    alike; an explicit schedule="wgmma" on either raises."""
+    ft, hop, chunk, b = 100, 30, 700, 7
+    half = ft // 2 + 1
+    inp = {k: torch.from_numpy(v).to(dev) for k, v in analysis_bwd_inputs(ft, hop, chunk, b).items()}
+    xp = torch.nn.functional.pad(inp["x"], (ft, ft))
+    w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
+    fw, fxp = _flagship_analysis(dev, 5)
+    off = torch.empty(fxp.numel() + 1, device=dev)[1:].view(fxp.shape).copy_(fxp)
+    assert not cuda_frontend.aligned_16(off)
+    for x, wt, g in ((xp, w, (ft, hop)), (off, fw, (1024, 384))):
+        assert cuda_frontend.schedule_for(None, torch.float32, *g, x.shape[1], "A",
+                                          cuda_frontend.aligned_16(x)) == "mma"
+        _cuda.reset_counts()
+        mag = cuda_frontend.fused_analysis(x, wt, *g)[0]
+        assert cuda_frontend.ANALYSIS_MMA.launches == 1 and cuda_frontend.ANALYSIS.launches == 0
+        t = mag.shape[0]
+        cot = torch.ones(t, x.shape[0], wt.shape[1] // 2, device=dev)
+        cuda_frontend.fused_analysis_bwd(x, wt, cot, cot, *g)
+        assert cuda_frontend.ANALYSIS_BWD_MMA.launches == 1 and cuda_frontend.ANALYSIS_BWD.launches == 0
+        with pytest.raises(ValueError, match="wgmma"):
+            cuda_frontend.fused_analysis(x, wt, *g, schedule="wgmma")
+        with pytest.raises(ValueError, match="wgmma"):
+            cuda_frontend.fused_analysis_bwd(x, wt, cot, cot, *g, schedule="wgmma")
+    torch.cuda.synchronize()
+    # the misaligned copy gives the aligned signal's result (4-byte copies)
+    torch.testing.assert_close(cuda_frontend.fused_analysis(off, fw, 1024, 384)[0],
+                               cuda_frontend.fused_analysis(fxp, fw, 1024, 384, schedule="mma")[0],
+                               atol=2e-5, rtol=2e-5)
 
 
 # kernels B and E: a ragged last row tile (7 live frames x 100 windows = 700
@@ -249,10 +382,11 @@ def test_analysis_bwd_kernel_matches_plain(dev, ft, hop, chunk, b, cot):
     half = ft // 2 + 1
     xp = torch.nn.functional.pad(inp["x"], (ft, ft))
     w = cuda_frontend.stack_analysis_weights(inp["wr"], inp["wi"], half)
-    before = cuda_frontend.ANALYSIS_BWD.launches
+    count = _f32_counter("D", ft, hop, xp)
+    before = count.launches
     dxp, dw = cuda_frontend.fused_analysis_bwd(xp, w, inp["a"], inp["c"], ft, hop)
     dxp2, dw2 = cuda_frontend.fused_analysis_bwd(xp, w, inp["a"], inp["c"], ft, hop)
-    assert cuda_frontend.ANALYSIS_BWD.launches == before + 2
+    assert count.launches == before + 2
     rdxp, rdw = cuda_frontend.fused_analysis_bwd_reference(xp, w, inp["a"], inp["c"], ft, hop)
     torch.cuda.synchronize()
     assert torch.equal(dw, dw2) and torch.equal(dxp, dxp2)  # no atomics: bit-equal

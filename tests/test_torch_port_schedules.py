@@ -40,8 +40,16 @@ BF16 = torch.bfloat16
 def test_the_rule_picks_wgmma_where_tma_can_read_the_frames(ft, hop, lp, want):
     assert cf.uses_wgmma(ft, hop, lp) == (want == "wgmma")
     assert cf.schedule_for(None, BF16, ft, hop, lp) == want
-    assert cf.schedule_for(None, torch.float32, ft, hop, lp) == "mma"  # f32 has one schedule
+    # float32: D (and A) on wgmma where the frames are 16 bytes of floats and
+    # the signal is aligned; E has one float32 schedule
+    f32_d = "wgmma" if ft % 4 == hop % 4 == lp % 4 == 0 else "mma"
+    assert cf.uses_wgmma(ft, hop, lp, torch.float32) == (f32_d == "wgmma")
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "D") == f32_d
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "D", aligned=False) == "mma"
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "E") == "mma"
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp) == "mma"  # no kernel named
     assert cf.schedule_for("mma", BF16, ft, hop, lp) == "mma"
+    assert cf.schedule_for("mma", torch.float32, ft, hop, lp, "D") == "mma"
 
 
 # (ft, hop, padded row length of A) -> the pick of A's rule and of B's: B
@@ -57,10 +65,16 @@ def test_the_rule_picks_wgmma_where_tma_can_read_the_frames(ft, hop, lp, want):
 def test_the_rule_picks_the_forward_schedules_by_shape(ft, hop, lp, want_a):
     assert cf.schedule_for(None, BF16, ft, hop, lp) == want_a
     assert cf.schedule_for(None, BF16, ft, hop, None) == "wgmma"
-    for lp_b in (lp, None):  # float32 has one schedule for A and B alike
-        assert cf.schedule_for(None, torch.float32, ft, hop, lp_b) == "mma"
+    # float32 A takes wgmma where its frames are 16 bytes of floats; B has one
+    # float32 schedule
+    f32_a = "wgmma" if ft % 4 == hop % 4 == lp % 4 == 0 else "mma"
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "A") == f32_a
+    assert cf.schedule_for(None, torch.float32, ft, hop, None, "B") == "mma"
+    for lp_b in (lp, None):
         assert cf.schedule_for("mma", BF16, ft, hop, lp_b) == "mma"
     assert cf.schedule_for("wgmma", BF16, ft, hop, None) == "wgmma"
+    with pytest.raises(ValueError, match="wgmma"):
+        cf.schedule_for("wgmma", torch.float32, ft, hop, None, "B")
 
 
 def test_each_forward_schedule_asks_for_its_own_scratch():
@@ -71,6 +85,9 @@ def test_each_forward_schedule_asks_for_its_own_scratch():
                                                               "wp": ((ft, ldc), BF16)}
     assert cf.analysis_fwd_scratch(torch.float32, b, lp, ft, half) == {
         "xq": None, "wp": ((ft, 1028), torch.float32)}
+    # float32 on wgmma: the split planes of the packed weights' transpose
+    assert cf.analysis_fwd_scratch(torch.float32, b, lp, ft, half, "wgmma") == {
+        "wt_hi": ((1028, ft), torch.float32), "wt_lo": ((1028, ft), torch.float32)}
     rows = 7 * b  # the live frames 1 .. OT-2
     wg = cf.synthesis_fwd_scratch("wgmma", BF16, b, ot, ft, half)
     assert wg == {"wp": ((ft, ldc), BF16), "spec": ((rows, ldc), BF16),
@@ -97,13 +114,19 @@ def test_the_forward_wrappers_refuse_an_unknown_or_impossible_schedule():
             cf.fused_analysis(xp, w, ft, hop, BF16, schedule=bad)
         with pytest.raises(ValueError, match="schedule"):
             cf.fused_synthesis(mag, mag, ws, ft, hop, BF16, schedule=bad)
-    with pytest.raises(ValueError, match="wgmma"):  # float32 stays on the mma.sync loop
-        cf.fused_analysis(xp, w, ft, hop, schedule="wgmma")
+    # float32 A takes wgmma only from a 16-byte aligned signal (TMA reads it
+    # as it is); float32 B stays on the mma.sync loop
+    off = torch.zeros(xp.numel() + 1)[1:].view(xp.shape)  # 4 bytes past a boundary
+    with pytest.raises(ValueError, match="wgmma"):
+        cf.fused_analysis(off, w, ft, hop, schedule="wgmma")
     with pytest.raises(ValueError, match="wgmma"):
         cf.fused_synthesis(mag, mag, ws, ft, hop, schedule="wgmma")
     ragged = torch.zeros(7, 700 + 200)
-    with pytest.raises(ValueError, match="wgmma"):  # hop 30: not a TMA stride of A's frames
-        cf.fused_analysis(ragged, torch.zeros(100, 102), 100, 30, BF16, schedule="wgmma")
+    for dtype in (BF16, torch.float32):  # hop 30: not a TMA stride of A's frames
+        with pytest.raises(ValueError, match="wgmma"):
+            cf.fused_analysis(ragged, torch.zeros(100, 102), 100, 30, dtype, schedule="wgmma")
+    got = [cf.fused_analysis(xp + 1, w + 1, ft, hop, schedule=s) for s in cf.SCHEDULES]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
     # B takes wgmma at the ragged geometry; on CPU tensors either schedule
     # names the same plain version
     rmag = torch.rand(9, 7, 51)
@@ -175,18 +198,24 @@ def test_the_wrapper_refuses_an_unknown_or_impossible_schedule():
     for bad in ("tma", "WGMMA", ""):
         with pytest.raises(ValueError, match="schedule"):
             cf.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=bad)
-    with pytest.raises(ValueError, match="wgmma"):  # float32 stays on the mma.sync loop
-        cf.fused_analysis_bwd(*args, schedule="wgmma")
+    off = torch.zeros(xp.numel() + 1)[1:].view(xp.shape)  # 4 bytes past a boundary
+    with pytest.raises(ValueError, match="wgmma"):  # float32 TMA reads the signal itself
+        cf.fused_analysis_bwd(off, *args[1:], schedule="wgmma")
     mag = torch.rand(9, 5, 33)
     ws = torch.zeros(66, 64)
     dout = torch.zeros(5, 8 * 24 - 64)
     with pytest.raises(ValueError, match="schedule"):
         cf.fused_synthesis_bwd(mag, mag, ws, dout, 64, 24, compute_dtype=BF16, schedule="tma")
+    with pytest.raises(ValueError, match="wgmma"):  # float32 E stays on the mma.sync loop
+        cf.fused_synthesis_bwd(mag, mag, ws, dout, 64, 24, schedule="wgmma")
     ragged = torch.zeros(7, 700 + 200)
-    with pytest.raises(ValueError, match="wgmma"):  # hop 30: not a TMA stride
-        cf.fused_analysis_bwd(ragged, torch.zeros(100, 102), torch.zeros(30, 7, 51),
-                              torch.zeros(30, 7, 51), 100, 30, compute_dtype=BF16,
-                              schedule="wgmma")
+    for dtype in (BF16, torch.float32):  # hop 30: not a TMA stride
+        with pytest.raises(ValueError, match="wgmma"):
+            cf.fused_analysis_bwd(ragged, torch.zeros(100, 102), torch.zeros(30, 7, 51),
+                                  torch.zeros(30, 7, 51), 100, 30, compute_dtype=dtype,
+                                  schedule="wgmma")
+    got = [cf.fused_analysis_bwd(*args, schedule=s) for s in cf.SCHEDULES]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
     # both schedules name the same plain version on CPU tensors
     got = [cf.fused_analysis_bwd(*args, compute_dtype=BF16, schedule=s) for s in cf.SCHEDULES]
     assert all(torch.equal(a, b) for a, b in zip(*got))
@@ -208,6 +237,15 @@ def test_each_schedule_asks_for_its_own_scratch():
     assert with_dxp["dframes"] == ((25 * 5, 64), torch.float32)
     f32 = cf.analysis_bwd_scratch("mma", torch.float32, b, lp, ft, half, t, True, True)
     assert f32["xq"] is None and f32["wp"] == ((ft, 1028), torch.float32)
+    # float32 on wgmma: B's split planes, dspec's transpose for dW, no partials
+    f32 = torch.float32
+    wg32 = cf.analysis_bwd_scratch("wgmma", f32, b, lp, ft, half, t, False, True)
+    assert wg32 == {"wt_hi": ((1028, ft), f32), "wt_lo": ((1028, ft), f32), "wp_hi": None,
+                    "wp_lo": None, "dspec": None, "dspect_hi": ((1028, t * 200), f32),
+                    "dspect_lo": ((1028, t * 200), f32), "dframes": None}
+    wg32 = cf.analysis_bwd_scratch("wgmma", f32, 5, 640, 64, 33, 25, True, False)
+    assert wg32["wp_hi"] == wg32["wp_lo"] == ((64, 68), f32) and wg32["dspect_hi"] is None
+    assert wg32["dspec"] == ((25 * 8, 68), f32) and wg32["dframes"] == ((25 * 5, 64), f32)
 
     ot, out_len = 9, 2048
     wg = cf.synthesis_bwd_scratch("wgmma", BF16, b, ot, ft, half, out_len, True)
