@@ -13,8 +13,8 @@ Phases (any failure raises and exits non-zero):
      card, on seeded random inputs with the tolerance stated: A, B, C at the
      serving shapes and at the training shapes (flagship geometry, batch
      200), D and E at the training shapes. A and D are checked on three
-     seeds, A's first check straight after the build, each on both of its
-     float32 schedules (wgmma, the split-TF32 products of
+     seeds, A's first check straight after the build; A, B, D and E each on
+     both of its float32 schedules (wgmma, the split-TF32 products of
      csrc/wgmma_product.cuh, which the rule picks at these shapes, and the
      mma.sync loop). A: every magnitude, the
      phase in two classes by the bin's magnitude (atan2 turns an error e of
@@ -29,10 +29,12 @@ Phases (any failure raises and exits non-zero):
      times over) and with well-conditioned ones (every element
      of dxp and dW against the plain version), dW without dxp bit-equal to
      dW with it; A, B, D and E run twice on the
-     same inputs and must be bit-equal; B and E are also held, as A is, to
-     their largest error against a float64 plain version beside the plain f32
-     version's (within twice it plus 1e-6 * max|result|); E's edge frames must
-     be exact zeros. C is bit-equal to its plain version at every shape; its
+     same inputs and must be bit-equal; B (at both batches) and E are also
+     held, as A is, to their largest error against a float64 plain version
+     beside the plain f32 version's (within twice it plus 1e-6 *
+     max|result|; the control, the plain version on operands cut to TF32,
+     more than GAP_F32 times over); E's edge frames must be exact zeros. C
+     is bit-equal to its plain version at every shape; its
      chunked schedule (a 30 s row) must be bit-equal to its row schedule on
      the serving path's gain curve, on randn and on a step to silence that
      never meets; the adversarial rows (cli/time_smoother.adversarial_rows:
@@ -73,8 +75,8 @@ Phases (any failure raises and exits non-zero):
      seeded 30 s music-like clip through predict_long at the comp_4c knobs
      [-25, 4, 0.005, 0.02], and the comp_4c target by Compressor_4c.go_wc
      and calc_ct. A, B and C (go_wc's whole-clip row by its chunked schedule)
-     must have launched, A on the wgmma schedule (fused_analysis_mma 0), and
-     no plain version run;
+     must have launched, A and B on the wgmma schedule (fused_analysis_mma
+     and fused_synthesis_mma 0), and no plain version run;
      the prediction must be finite, of the expected length, correlate >= 0.98
      with the target (the floor of tests/test_shipped_model_quality.py) and
      agree with the plain CPU path on a short clip (atol 1e-3);
@@ -87,9 +89,9 @@ Phases (any failure raises and exits non-zero):
      once a replay), then its checkpoint through load_model (strict, in the
      same compute dtype) and predict_long on a 2 s clip. The path's four
      front-end kernels (A, B, D, E in its mode) and C must have launched,
-     none of the other mode, none on the mma.sync schedule (bf16 A, B, D, E
-     and float32 A and D take wgmma at this shape; float32 B and E have the
-     mma.sync loop only), and no plain version run; every loss finite;
+     none of the other mode, none on the mma.sync schedule (A, B, D and E
+     take wgmma at this shape in both modes), and no plain version run;
+     every loss finite;
      the mean validation MAE lower after the last epoch than after the
      first; parameters float32; the served output finite and of the
      expected length. Then the same run dispatched op by op (the eager
@@ -146,11 +148,13 @@ Phases (any failure raises and exits non-zero):
      on the card and launch calls from the host a step, and the capture
      time, after the graph's first 20 steps have shown the batches of steps
      0, 1 and 19 bit-equal to batch_fn run eagerly; the kernels of one f32
-     step (torch.profiler): A's and D's split-TF32 wgmma products
-     (FrameSpectrum32, AnalysisDspecW32, FrameGrad32) and no
-     sum_analysis_partials; float32 A (both batches) and D (with and without
-     dxp) on both schedules in turns (wgmma, mma.sync, mma.sync, wgmma), each
-     also as one CUDA-graph replay; the
+     step (torch.profiler): the split-TF32 wgmma products of A, B, D and E
+     (A's and D's FrameSpectrum32, D's AnalysisDspecW32, B's SynthesisFrames
+     on RowProduct32, E's SynthesisDspecW32, D's and E's FrameGrad32) and no
+     K-slice pass (sum_analysis_partials, synthesis_adjoint,
+     sum_synthesis_partials); float32 A and B (both batches), D (with and
+     without dxp) and E on both schedules in turns (wgmma, mma.sync,
+     mma.sync, wgmma), each also as one CUDA-graph replay; the
      bf16 modes of A, B, D and E at the training shapes (A and B also at the
      serving batch) beside their plain bf16 versions, cuDNN's bf16
      convolutions and the bound at the dense bf16 rate (989 TFLOP/s); beside
@@ -501,12 +505,26 @@ def f64_rule(name: str, got: torch.Tensor, plain: torch.Tensor, exact: torch.Ten
 
 
 def f64_rule_ratio(got: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor,
-                   slack: torch.Tensor | None = None) -> float:
-    """How many times over f64_rule's limit ``got`` lands (a control)."""
+                   slack: torch.Tensor | None = None, share: float = 1e-3) -> float:
+    """How many times over f64_rule's limit ``got`` lands (a control);
+    ``share``: the limit's floor as a share of max|exact| (the float32
+    kernels' rule: 1e-6)."""
     diff = (got.double() - exact).abs()
     err = float((diff if slack is None else diff - slack).max())
     plain_err = float((plain.double() - exact).abs().max())
-    return err / (2 * plain_err + 1e-3 * float(exact.abs().max()))
+    return err / (2 * plain_err + share * float(exact.abs().max()))
+
+
+def one_tf32_synthesis(cf, mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: int,
+                       hop: int) -> torch.Tensor:
+    """Kernel B's function with its frame product as one TF32 product (the
+    spectrum and the weights cut to TF32, no split): the control of float32
+    B's float64 rule."""
+    from signaltrain_tpu_torch.ops import framing
+
+    spec = torch.cat([mag * torch.cos(phs), mag * torch.sin(phs)], -1)
+    wave = framing.overlap_add((cf.split_tf32(spec)[0] @ cf.split_tf32(w)[0]).transpose(0, 1), hop)
+    return wave[:, ft : wave.shape[1] - ft]
 
 
 def rounding_shows(name: str, ratio: float, factor: float) -> float:
@@ -1041,10 +1059,11 @@ GEN_TOL = {"comp_4c": 1e-5, "comp": 1e-4}  # the card against the plain version 
 FILE_STEPS = TRAIN_POINTS // TRAIN_BATCH  # 20 steps an epoch, 5 validation batches
 BF16_NAMES = ["bf16_fused_analysis", "bf16_fused_synthesis", "bf16_fused_analysis_bwd",
               "bf16_fused_synthesis_bwd"]
-# the counters of the mma.sync schedule of the bf16 kernels and of float32 A
-# and D, which the main paths at the flagship geometry never take (the rule
-# picks wgmma there)
-F32_MMA_NAMES = ["fused_analysis_mma", "fused_analysis_bwd_mma"]
+# the counters of the mma.sync schedule of the kernels in both modes, which
+# the main paths at the flagship geometry never take (the rule picks wgmma
+# there)
+F32_MMA_NAMES = ["fused_analysis_mma", "fused_synthesis_mma", "fused_analysis_bwd_mma",
+                 "fused_synthesis_bwd_mma"]
 MMA_NAMES = [name + "_mma" for name in BF16_NAMES] + F32_MMA_NAMES
 
 
@@ -1471,7 +1490,8 @@ SURFACE_LOOPS = {"default": {}, "ragged": dict(status_every=7), "plots": dict(pl
 # in four runs, A, B, E, D (the wgmma schedules' products, A's and B's
 # included, are all "product<...>")
 FRONTEND_KERNELS = {"product", "spectrum_rows", "overlap_add", "halve_to_bf16", "pack_weights",
-                    "pack_transposed", "pack_split_weights", "pack_split_transposed", "pad_dout",
+                    "pack_transposed", "pack_split_weights", "pack_split_transposed",
+                    "pack_split_synthesis_rows", "pad_dout",
                     "pad_dout_zero_edges", "synthesis_adjoint", "sum_analysis_partials",
                     "sum_synthesis_partials"}
 # a name each of A-E launches and nothing else does (the template argument of
@@ -2969,33 +2989,57 @@ def main() -> None:
                       f"TF32 product > {GAP_F32:g}x that limit; both schedules at batches 200 and "
                       "643; two runs bit-equal; edge frames exactly 1e-18 and 0")
 
-        syn_err = syn_f64 = syn_f64_plain = 0.0
+        # B on both schedules (the rule's wgmma at every shape, and mma.sync)
+        # at the training and the serving batch; the float64 rule's control:
+        # the plain version on operands cut to TF32 (one product, no split)
+        check(cuda_frontend.schedule_for(None, F32, ft, hop, None, "B") == "wgmma",
+              "f32 B: the rule does not pick wgmma")
+        b_err = {sched: dict(err=0.0, f64=0.0, f64_plain=0.0) for sched in cuda_frontend.SCHEDULES}
+        b_gap = math.inf
         for nb in (TRAIN_BATCH, n_windows):  # smag, sphs end as the serving ones, for the timing
             smag = torch.nn.functional.softplus(
                 torch.randn(out_frames, nb, half, generator=gen, device=dev))
             sphs = torch.randn(out_frames, nb, half, generator=gen, device=dev) * 2.0
-            wave = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
-            wave2 = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop)
             rwave = cuda_frontend.fused_synthesis_reference(smag, sphs, w_syn, ft, hop)
             xwave = cuda_frontend.fused_synthesis_reference(smag.double(), sphs.double(),
                                                             w_syn.double(), ft, hop)
-            torch.cuda.synchronize()
-            check(wave.shape == (nb, out_len), f"synthesis shape {tuple(wave.shape)}")
-            check(torch.equal(wave, wave2), "kernel B: two runs on the same inputs are not bit-equal")
-            err, syn_excess = elementwise_excess(wave, rwave, 3e-4)
-            f64, f64_plain = as_accurate("B", wave, rwave, xwave, 1e-6 * float(xwave.abs().max()))
-            print(f"B fused_synthesis mag {tuple(smag.shape)}: max|dwave| {err:.3e}; "
-                  f"tolerance 3e-4+3e-4|wave|; against float64: kernel {f64:.3e}, plain version "
-                  f"{f64_plain:.3e} (limit 2 x plain + 1e-6 max|wave|, max|wave| "
-                  f"{float(xwave.abs().max()):.3f}); two runs bit-equal")
-            check(syn_excess <= 0, disagreement("B", wave, rwave))
-            syn_err, syn_f64, syn_f64_plain = (max(syn_err, err), max(syn_f64, f64),
-                                               max(syn_f64_plain, f64_plain))
+            b_floor = 1e-6 * float(xwave.abs().max())
+            gap = f64_rule_ratio(one_tf32_synthesis(cuda_frontend, smag, sphs, w_syn, ft, hop),
+                                 rwave, xwave, share=1e-6)
+            print(f"B mag {tuple(smag.shape)}: the control, one TF32 product, uses {gap:.1f}x the "
+                  f"float64 rule's limit (needs > {GAP_F32:g}x)")
+            check(gap > GAP_F32, f"B's float64 rule cannot tell one TF32 product: {gap:.2f}x")
+            b_gap = min(b_gap, gap)
+            for sched in cuda_frontend.SCHEDULES:
+                wave = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop, schedule=sched)
+                wave2 = cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop, schedule=sched)
+                torch.cuda.synchronize()
+                check(wave.shape == (nb, out_len), f"synthesis shape {tuple(wave.shape)}")
+                check(torch.equal(wave, wave2),
+                      f"kernel B ({sched}): two runs on the same inputs are not bit-equal")
+                err, syn_excess = elementwise_excess(wave, rwave, 3e-4)
+                f64, f64_plain = as_accurate(f"B {sched}", wave, rwave, xwave, b_floor)
+                print(f"B fused_synthesis {sched} mag {tuple(smag.shape)}: max|dwave| {err:.3e}; "
+                      f"tolerance 3e-4+3e-4|wave|; against float64: kernel {f64:.3e}, plain "
+                      f"version {f64_plain:.3e} (limit 2 x plain + 1e-6 max|wave|, max|wave| "
+                      f"{float(xwave.abs().max()):.3f}); two runs bit-equal")
+                check(syn_excess <= 0, disagreement(f"B {sched}", wave, rwave))
+                e = b_err[sched]
+                e["err"], e["f64"], e["f64_plain"] = (max(e["err"], err), max(e["f64"], f64),
+                                                      max(e["f64_plain"], f64_plain))
             del xwave
+
+        def err_summary(e):
+            return dict(max_abs_err=e["err"], max_err_vs_float64=e["f64"],
+                        plain_max_err_vs_float64=e["f64_plain"])
+
         results["fused_synthesis"] = dict(
-            max_abs_err=syn_err, max_err_vs_float64=syn_f64, plain_max_err_vs_float64=syn_f64_plain,
-            tolerance="3e-4 + 3e-4*|wave|; error against float64 <= 2 x plain's + 1e-6*max|wave|; "
-                      "two runs bit-equal")
+            **err_summary(b_err["wgmma"]), schedule="wgmma",
+            mma_sync=dict(**err_summary(b_err["mma"]), counter="fused_synthesis_mma"),
+            control_one_tf32_product=b_gap,
+            tolerance="3e-4 + 3e-4*|wave|; error against float64 <= 2 x plain's + 1e-6*max|wave|, "
+                      f"one TF32 product > {GAP_F32:g}x that limit; both schedules at batches 200 "
+                      "and 643; two runs bit-equal")
 
         smooth_shapes = [(1, len(clip)), (1, chunk), (ct_batch, chunk), (TRAIN_BATCH, chunk)]
         smooth_err, plain_c_s = 0.0, 0.0
@@ -3171,32 +3215,53 @@ def main() -> None:
             torch.randn(out_frames, tb, half, generator=gen, device=dev))
         tphs = torch.randn(out_frames, tb, half, generator=gen, device=dev) * 2.0
         tdout = torch.randn(tb, out_len, generator=gen, device=dev)
-        e_got = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
-        e_again = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop)
+        check(cuda_frontend.schedule_for(None, F32, ft, hop, out_len + 2 * ft, "E") == "wgmma",
+              "f32 E: the rule does not pick wgmma at the flagship geometry")
         e_want = cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, w_syn, tdout, ft, hop)
         e_exact = cuda_frontend.fused_synthesis_bwd_reference(
             tmag.double(), tphs.double(), w_syn.double(), tdout.double(), ft, hop)
-        torch.cuda.synchronize()
-        e_err = e_f64 = e_f64_plain = 0.0
-        for name, g1, g2, r, x in zip(("dmag", "dphs", "dW"), e_got, e_again, e_want, e_exact):
-            check(torch.equal(g1, g2), f"kernel E: two runs differ in {name}")
-            err = float((g1 - r).abs().max())
-            excess = float(((g1 - r).abs() - (5e-4 + 5e-4 * r.abs())).max())
-            check(excess <= 0, disagreement(f"E ({name})", g1, r))
-            f64, f64_plain = as_accurate(f"E ({name})", g1, r, x, 1e-6 * float(x.abs().max()))
-            print(f"E {name}: max error {err:.3e}; against float64: kernel {f64:.3e}, plain "
-                  f"version {f64_plain:.3e} (max|{name}| {float(x.abs().max()):.3e})")
-            e_err, e_f64, e_f64_plain = max(e_err, err), max(e_f64, f64), max(e_f64_plain, f64_plain)
+        # the control: the plain version on operands cut to TF32 (dout and w)
+        cut = cuda_frontend.split_tf32
+        e_ones = cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, cut(w_syn)[0],
+                                                             cut(tdout)[0], ft, hop)
+        e_gap = min(f64_rule_ratio(o, r, x, share=1e-6) for o, r, x in zip(e_ones, e_want, e_exact))
+        print(f"E: the control, the plain version on operands cut to TF32, uses {e_gap:.1f}x the "
+              f"float64 rule's limit (needs > {GAP_F32:g}x)")
+        check(e_gap > GAP_F32, f"E's float64 rule cannot tell one TF32 product: {e_gap:.2f}x")
+        del e_ones
+        e_errs = {sched: dict(err=0.0, f64=0.0, f64_plain=0.0) for sched in cuda_frontend.SCHEDULES}
+        for sched in cuda_frontend.SCHEDULES:
+            e_got = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop,
+                                                      schedule=sched)
+            e_again = cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop,
+                                                        schedule=sched)
+            torch.cuda.synchronize()
+            e = e_errs[sched]
+            for name, g1, g2, r, x in zip(("dmag", "dphs", "dW"), e_got, e_again, e_want, e_exact):
+                check(torch.equal(g1, g2), f"kernel E ({sched}): two runs differ in {name}")
+                err = float((g1 - r).abs().max())
+                excess = float(((g1 - r).abs() - (5e-4 + 5e-4 * r.abs())).max())
+                check(excess <= 0, disagreement(f"E {sched} ({name})", g1, r))
+                f64, f64_plain = as_accurate(f"E {sched} ({name})", g1, r, x,
+                                             1e-6 * float(x.abs().max()))
+                print(f"E {sched} {name}: max error {err:.3e}; against float64: kernel {f64:.3e}, "
+                      f"plain version {f64_plain:.3e} (max|{name}| {float(x.abs().max()):.3e})")
+                e["err"], e["f64"], e["f64_plain"] = (max(e["err"], err), max(e["f64"], f64),
+                                                      max(e["f64_plain"], f64_plain))
+            for g1 in e_got[:2]:  # frames wholly inside the trimmed margin
+                check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
+                      f"kernel E ({sched}): the first or last frame's gradient is not exactly 0")
+            print(f"E fused_synthesis_bwd {sched} mag {tuple(tmag.shape)}: max error "
+                  f"{e['err']:.3e} (tolerance 5e-4+5e-4|g|); two runs bit-equal; edge frames "
+                  "exactly 0")
         del e_exact
-        for g1 in e_got[:2]:  # frames wholly inside the trimmed margin
-            check(bool(torch.all(g1[0] == 0)) and bool(torch.all(g1[-1] == 0)),
-                  "kernel E: the first or last frame's gradient is not exactly 0")
-        print(f"E fused_synthesis_bwd mag {tuple(tmag.shape)}: max error {e_err:.3e} "
-              f"(tolerance 5e-4+5e-4|g|); two runs bit-equal; edge frames exactly 0")
         results["fused_synthesis_bwd"] = dict(
-            max_abs_err=e_err, max_err_vs_float64=e_f64, plain_max_err_vs_float64=e_f64_plain,
+            **err_summary(e_errs["wgmma"]), schedule="wgmma",
+            mma_sync=dict(**err_summary(e_errs["mma"]), counter="fused_synthesis_bwd_mma"),
+            control_one_tf32_product=e_gap,
             tolerance="5e-4 + 5e-4*|g| for dmag, dphs, dW; error against float64 <= 2 x plain's + "
-                      "1e-6*max|g|; two runs bit-equal; edge frames exactly 0")
+                      f"1e-6*max|g|, the plain version on operands cut to TF32 > {GAP_F32:g}x that "
+                      "limit; both schedules; two runs bit-equal; edge frames exactly 0")
     torch.cuda.synchronize()
 
     # ---- 2b. the bf16 modes of A, B, D and E against their plain bf16 versions
@@ -3225,7 +3290,7 @@ def main() -> None:
     for name in ("fused_analysis", "fused_synthesis", "switched_one_pole",
                  "switched_one_pole_chunked"):
         check(counts[name][0] > 0, f"serving path never launched kernel {name}")
-    for name in F32_MMA_NAMES:  # float32 A on the wgmma schedule only
+    for name in F32_MMA_NAMES:  # float32 A and B on the wgmma schedule only
         check(counts[name][0] == 0, f"serving path launched {name} (the mma.sync schedule)")
     for name in results:
         check(counts[name][1] == 0, f"serving path ran the plain version of {name}")
@@ -3436,8 +3501,6 @@ def main() -> None:
         results["fused_analysis"]["bound_ms_cuda_cores"] = bound(a_flops, a_bytes)[0]
         results["fused_analysis"]["shape"] = f"xp {tuple(xp.shape)}, w {tuple(w_an.shape)}"
 
-        results["fused_synthesis"]["ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop), reps=20)
         results["fused_synthesis"]["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis_reference(smag, sphs, w_syn, ft, hop), reps=10)
         spec_bct = torch.cat([smag * torch.cos(sphs), smag * torch.sin(sphs)], -1).permute(1, 2, 0)
@@ -3457,7 +3520,6 @@ def main() -> None:
         b_bytes = 4.0 * (2 * live * n_windows * half + 2 * half * ft + n_windows * out_len)
         r.update(zip(("bound_ms", "bound_by"), bound(b_flops, b_bytes, PEAK_SPLIT_TF32_FLOPS)))
         r["bound_ms_cuda_cores"] = bound(b_flops, b_bytes)[0]
-        r["tflops"] = b_flops / r["ms"] / 1e9
         r["shape"] = f"mag {tuple(smag.shape)}, w {tuple(w_syn.shape)}"
 
         # C on the whole clip as one row, chunked: the serving path's gain
@@ -3529,8 +3591,6 @@ def main() -> None:
         r["shape"] = f"xp {tuple(txp.shape)}, w {tuple(w_an.shape)}, dmag/dphs {tuple(tdmag.shape)}"
 
         r = results["fused_synthesis_bwd"]
-        r["ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_synthesis_bwd(tmag, tphs, w_syn, tdout, ft, hop), reps=10)
         r["plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis_bwd_reference(tmag, tphs, w_syn, tdout, ft, hop),
             reps=5)
@@ -3548,10 +3608,9 @@ def main() -> None:
         e_bytes = 4.0 * (2 * (live + out_frames) * tb * half + 2 * 2 * half * ft + tb * out_len)
         r.update(zip(("bound_ms", "bound_by"), bound(e_flops, e_bytes, PEAK_SPLIT_TF32_FLOPS)))
         r["bound_ms_cuda_cores"] = bound(e_flops, e_bytes)[0]
-        r["tflops"] = e_flops / r["ms"] / 1e9
         r["shape"] = f"mag/phs {tuple(tmag.shape)}, w {tuple(w_syn.shape)}, dout {tuple(tdout.shape)}"
 
-        # f32 A at both batches and D (with and without dxp) on both
+        # f32 A and B at both batches, D (with and without dxp) and E on both
         # schedules, in turns (wgmma, mma, mma, wgmma): the mean of each way,
         # its least and most, and one CUDA-graph replay of a call
         f32_ways = {
@@ -3562,13 +3621,21 @@ def main() -> None:
             ("D", "ms"): lambda sched: cuda_frontend.fused_analysis_bwd(
                 txp, w_an, tdmag, tdphs, ft, hop, schedule=sched),
             ("D", "ms_without_dxp"): lambda sched: cuda_frontend.fused_analysis_bwd(
-                txp, w_an, tdmag, tdphs, ft, hop, need_dxp=False, schedule=sched)}
+                txp, w_an, tdmag, tdphs, ft, hop, need_dxp=False, schedule=sched),
+            ("B", "ms"): lambda sched: cuda_frontend.fused_synthesis(smag, sphs, w_syn, ft, hop,
+                                                                     schedule=sched),
+            ("B", "train_ms"): lambda sched: cuda_frontend.fused_synthesis(tmag, tphs, w_syn, ft,
+                                                                           hop, schedule=sched),
+            ("E", "ms"): lambda sched: cuda_frontend.fused_synthesis_bwd(
+                tmag, tphs, w_syn, tdout, ft, hop, schedule=sched)}
+        f32_results = {"A": "fused_analysis", "B": "fused_synthesis", "D": "fused_analysis_bwd",
+                       "E": "fused_synthesis_bwd"}
         f32_turns = {(way, sched): [] for way in f32_ways for sched in cuda_frontend.SCHEDULES}
         for sched in ("wgmma", "mma", "mma", "wgmma"):
             for way, fn in f32_ways.items():
                 f32_turns[way, sched].append(cuda_ms(lambda: fn(sched), reps=10))
         for (kernel, key), fn in f32_ways.items():
-            r = results["fused_analysis" if kernel == "A" else "fused_analysis_bwd"]
+            r = results[f32_results[kernel]]
             for sched, into in (("wgmma", r), ("mma", r["mma_sync"])):
                 runs = f32_turns[(kernel, key), sched]
                 into[key] = sum(runs) / len(runs)
@@ -3588,7 +3655,11 @@ def main() -> None:
         r["bound_ms_without_dxp"] = bound(d_flops * 2 / 3, d_bytes - 4.0 * tb * tlp,
                                           PEAK_SPLIT_TF32_FLOPS)[0]
         r["cublas_dw_ms"] = cuda_ms(lambda: d_frames.t() @ d_spec, reps=5)  # the dW product alone
-        for kernel, name in (("A", "fused_analysis"), ("D", "fused_analysis_bwd")):
+        for name, flops in (("fused_synthesis", b_flops), ("fused_synthesis_bwd", e_flops)):
+            r = results[name]
+            r["tflops"] = flops / r["ms"] / 1e9
+            r["mma_sync"]["tflops"] = flops / r["mma_sync"]["ms"] / 1e9
+        for kernel, name in f32_results.items():
             r = results[name]
             print(f"f32 {kernel} by schedule, in turns: " + "; ".join(
                 f"{key} wgmma {r[key]:.4f} {r[key + '_min_max']}, mma.sync {r['mma_sync'][key]:.4f} "
@@ -3611,8 +3682,6 @@ def main() -> None:
         r["train_tflops"] = at_flops / r["train_ms"] / 1e9
         r["train_shape"] = f"xp {tuple(txp.shape)}"
         r = results["fused_synthesis"]
-        r["train_ms"] = cuda_ms(
-            lambda: cuda_frontend.fused_synthesis(tmag, tphs, w_syn, ft, hop), reps=20)
         r["train_plain_ms"] = cuda_ms(
             lambda: cuda_frontend.fused_synthesis_reference(tmag, tphs, w_syn, ft, hop), reps=10)
         tspec_bct = torch.cat([tmag * torch.cos(tphs), tmag * torch.sin(tphs)], -1)
@@ -3626,6 +3695,7 @@ def main() -> None:
         r["train_bound_ms"] = bound(bt_flops, bt_bytes, PEAK_SPLIT_TF32_FLOPS)[0]
         r["train_bound_ms_cuda_cores"] = bound(bt_flops, bt_bytes)[0]
         r["train_tflops"] = bt_flops / r["train_ms"] / 1e9
+        r["mma_sync"]["train_tflops"] = bt_flops / r["mma_sync"]["train_ms"] / 1e9
         r["train_shape"] = f"mag {tuple(tmag.shape)}"
         r = results["switched_one_pole"]
         gt = torch.randn(tb, chunk, generator=gen, device=dev)
@@ -3849,19 +3919,26 @@ def main() -> None:
         mopt, mlr_fn = opts[name]
         training["profile"][f"step_{name}"] = card_busy(
             lambda: train_mod.train_step_from_arrays(m, mopt, mlr_fn, 0, bx, by, bk), reps=10)
-    # the f32 step's A and D on the wgmma schedule's split-TF32 products (A's
-    # FrameSpectrum32, D's AnalysisDspecW32 and FrameGrad32), with no K-slice
-    # sum (sum_analysis_partials) anywhere
+    # the f32 step's A, B, D and E on the wgmma schedule's split-TF32
+    # products (A's FrameSpectrum32, B's SynthesisFrames on RowProduct32, D's
+    # AnalysisDspecW32 and FrameGrad32, E's SynthesisDspecW32 and its
+    # SynthesisDw on FrameGrad32), with no K-slice pass (sum_analysis_partials,
+    # synthesis_adjoint, sum_synthesis_partials) anywhere
     names = card_kernel_names(lambda: train_mod.train_step_from_arrays(
         served, *opts["fused"], 0, bx, by, bk))
-    marks = ("FrameSpectrum32", "AnalysisDspecW32", "FrameGrad32")
-    front = sorted(n for n in names if any(m in n for m in marks + ("partials",)))
-    print("f32 train step, the analysis kernels on the card: " + "; ".join(front))
-    check(all(any(m in n for n in names) for m in marks),
-          "the f32 train step did not run A and D on the split-TF32 wgmma products")
-    check(not any("sum_analysis_partials" in n for n in names),
-          "the f32 train step ran sum_analysis_partials: D took K slices")
-    training["f32_step_analysis_kernels"] = front
+    marks = (("AnalysisFwdT", "FrameSpectrum32"), ("SynthesisFrames", "RowProduct32"),
+             ("AnalysisDspecW32",), ("AnalysisDw", "FrameGrad32"), ("SynthesisDspecW32",),
+             ("SynthesisDw", "FrameGrad32"))
+    k_slice_passes = ("sum_analysis_partials", "synthesis_adjoint", "sum_synthesis_partials")
+    front = sorted(n for n in names if any(m[-1] in n for m in marks)
+                   or any(k in n for k in k_slice_passes))
+    print("f32 train step, the front-end products on the card: " + "; ".join(front))
+    for m in marks:
+        check(any(all(part in n for part in m) for n in names),
+              f"the f32 train step did not run the split-TF32 wgmma product {' on '.join(m)}")
+    for k in k_slice_passes:
+        check(not any(k in n for n in names), f"the f32 train step ran {k}: a product took K slices")
+    training["f32_step_frontend_kernels"] = front
 
     # the loop as train() runs it (data synthesis and step, LOOP_BLOCK steps,
     # then one fetch of their losses), fused, in each dtype: under CUDA graphs

@@ -37,8 +37,8 @@ the spectrum D forms again lies from float64 (``spectrum_error``).
 In either dtype it first splits A and B (batches 200 and 643), D (with and
 without dxp) and E (batch 200) by pass on each schedule, the wgmma one of
 ``csrc/wgmma_product.cuh`` and the mma.sync one of ``csrc/tc_product.cuh``
-(``schedule_splits`` with ``pass_split``; float32 B and E have the mma.sync
-one only): the median and spread over ``SPLIT_REPS`` calls of every kernel
+(``schedule_splits`` with ``pass_split``): the median and spread over
+``SPLIT_REPS`` calls of every kernel
 the call launches (pack, pad or halve, the spectrum rows, each product, the
 adjoint pass, the slice sums, the overlap-add), their sum (the card's time a
 call), the call's own time by CUDA events (which also holds the host's launch
@@ -214,14 +214,13 @@ def split_inputs(dev, batch: int, ot: int = 9) -> dict:
 def schedule_splits(dev, which, dt=torch.bfloat16, schedules=cf.SCHEDULES) -> None:
     """A and B at batches 200 and 643, D (with and without dxp) and E at
     batch 200, flagship geometry, in the compute dtype ``dt``, split by pass
-    on each of ``schedules`` (float32 B and E: the mma.sync one only), then
-    each call's time beside the cuBLAS products of its linear part
-    (``cublas_*``; D without dxp beside the dW product alone, ``cublas_dw``)."""
-    f32 = dt == torch.float32
+    on each of ``schedules``, then each call's time beside the cuBLAS
+    products of its linear part (``cublas_*``; D without dxp beside the dW
+    product alone, ``cublas_dw``)."""
     with torch.no_grad():
         wa = frontend.Analysis(FT, HOP, device=dev).stacked_weights().contiguous()
         ws = frontend.Synthesis(FT, HOP, device=dev).stacked_weights().contiguous()
-    both, mma_only = tuple(schedules), tuple(s for s in schedules if s == "mma")
+    both = tuple(schedules)
     calls = []  # (title, fn(schedule), its schedules, the cuBLAS products)
     for batch in (200, 643):
         x = split_inputs(dev, batch)
@@ -231,7 +230,7 @@ def schedule_splits(dev, which, dt=torch.bfloat16, schedules=cf.SCHEDULES) -> No
                 cublas_analysis(x["xp"], wa, FT, HOP, dt)))
         if "B" in which:
             calls.append((f"B, batch {batch}", lambda s, x=x: cf.fused_synthesis(
-                x["mag"], x["phs"], ws, FT, HOP, dt, schedule=s), mma_only if f32 else both,
+                x["mag"], x["phs"], ws, FT, HOP, dt, schedule=s), both,
                 cublas_synthesis(synthesis_spectrum(x["mag"], x["phs"]), ws, dt)))
         if batch != 200:
             continue
@@ -250,7 +249,7 @@ def schedule_splits(dev, which, dt=torch.bfloat16, schedules=cf.SCHEDULES) -> No
             dframes = torch.nn.functional.pad(x["dout"], (FT, FT)).unfold(1, FT, HOP)
             calls.append(("E, batch 200", lambda s, x=x: cf.fused_synthesis_bwd(
                 x["mag"], x["phs"], ws, x["dout"], FT, HOP, compute_dtype=dt, schedule=s),
-                mma_only if f32 else both, cublas_backward(spec, ws, dframes.reshape(-1, FT), dt)))
+                both, cublas_backward(spec, ws, dframes.reshape(-1, FT), dt)))
     print(f"{dt} kernels by pass, each schedule (ms):")
     with torch.inference_mode():
         for sched in schedules:

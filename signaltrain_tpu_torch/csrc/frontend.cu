@@ -77,15 +77,24 @@
 // tile's epilogue drained a share a K step beside the next tile's products
 // (A 0.0927-0.0932 against 0.0925; B 0.0185 against 0.0153).
 //
-// The float32 mode of A has the wgmma schedule too (the rule takes it where
-// ft, hop and lp are multiples of 4 floats and xp is 16-byte aligned), on the
-// split-TF32 products of wgmma_product.cuh: the same epilogue on
-// wg::FrameSpectrum32, which reads the frames of xp itself through a 3-D map
-// of floats and splits them in registers, against the planes hi, lo of the
-// packed weights' transpose (ldc, ft) that tc::pack_split_t writes (TF32
-// wgmma reads its shared-memory operand K-major only); the model's x/2 is
-// applied to the finished sums, as on the mma.sync loop. Bound: 165 TFLOP/s
-// of f32-accurate work (three TF32 products at the dense 495).
+// The float32 modes have the wgmma schedule too, on the split-TF32 products
+// of wgmma_product.cuh (bound: 165 TFLOP/s of f32-accurate work, three TF32
+// products at the dense 495):
+//   A (the rule takes it where ft, hop and lp are multiples of 4 floats and
+//     xp is 16-byte aligned): the same epilogue on wg::FrameSpectrum32, which
+//     reads the frames of xp itself through a 3-D map of floats and splits
+//     them in registers, against the planes hi, lo of the packed weights'
+//     transpose (ldc, ft) that tc::pack_split_t writes (TF32 wgmma reads its
+//     shared-memory operand K-major only); the model's x/2 is applied to the
+//     finished sums, as on the mma.sync loop.
+//   B (at every geometry, as in bf16: it reads no frames through TMA): the
+//     same three passes, the spectrum rows in f32 and the frame product on
+//     wg::RowProduct32 (the rows split in registers, one 128-row box a step;
+//     the planes (ft, ldc) of the packed synthesis weights that
+//     tc::pack_split_synthesis writes), 128 x 128 tiles, no K slices. K is
+//     ldc: at the flagship geometry 1,028 columns are 33 steps of 32, the last
+//     holding the Nyquist bin's two columns and two of zeros (the maps read
+//     zeros past ldc); bounding K by 2 * half would not save that step.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -249,7 +258,8 @@ int analysis_fwd_wgmma32(const float* xp, const float* w, float* wt_hi, float* w
 // (kernel D's DxFramesW product: spec and the packed weights both K-major,
 // rows r = t * batch + b of the live frames), written once in f32 for the
 // overlap-add.
-struct SynthesisFramesW : wg::RowProduct<128> {
+template <class Product>
+struct SynthesisFrames : Product {
   float* frames;
   int ft;
   __device__ void pair(int r, int j, float v0, float v1, wg::NoAux) const {
@@ -263,6 +273,11 @@ struct SynthesisFramesW : wg::RowProduct<128> {
     }
   }
 };
+using SynthesisFramesW = SynthesisFrames<wg::RowProduct<128>>;
+
+// float32: the spectrum rows split in registers, the planes of the packed
+// synthesis weights (ft, ldc).
+using SynthesisFramesW32 = SynthesisFrames<wg::RowProduct32<128>>;
 
 int synthesis_fwd_wgmma(const float* mag, const float* phs, const float* w, tc::bf16* wp,
                         tc::bf16* spec, float* frames, float* out, int batch, int out_frames,
@@ -281,6 +296,28 @@ int synthesis_fwd_wgmma(const float* mag, const float* phs, const float* w, tc::
   p.m = rows, p.n = ft;
   if ((err = wg::matrix_map(&p.d, spec, rows, ldc))) return err;
   if ((err = wg::matrix_map(&p.w, wp, ft, ldc))) return err;
+  p.k = ldc, p.frames = frames, p.ft = ft;
+  if ((err = wg::launch(p, s))) return err;
+  return tc::gather(frames, out, batch, out_len, ft, ft, hop, 1, live, 1, 1.f, s);
+}
+
+int synthesis_fwd_wgmma32(const float* mag, const float* phs, const float* w, float* wp_hi,
+                          float* wp_lo, float* spec, float* frames, float* out, int batch,
+                          int out_frames, int ft, int hop, int half, int out_len, cudaStream_t s) {
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int rows = live * batch;
+  const int ldc = tc::packed_width<float>(half);
+  int err = tc::pack_split_synthesis(w, wp_hi, wp_lo, ft, half, false, s);
+  if (err) return err;
+  if (rows <= 0)  // no frame reaches the trimmed output
+    return (int)cudaMemsetAsync(out, 0, sizeof(float) * batch * out_len, s);
+  spectrum_rows<float><<<tc::blocks((int64_t)rows * (ldc / 2), 256), 256, 0, s>>>(
+      mag, phs, spec, rows, batch, half, ldc);
+  if ((err = (int)cudaGetLastError())) return err;
+  SynthesisFramesW32 p;
+  p.m = rows, p.n = ft;
+  if ((err = wg::matrix_map32(&p.d, spec, rows, ldc, wg::BM))) return err;
+  if ((err = wg::split_maps(&p, wp_hi, wp_lo, ft, ldc))) return err;
   p.k = ldc, p.frames = frames, p.ft = ft;
   if ((err = wg::launch(p, s))) return err;
   return tc::gather(frames, out, batch, out_len, ft, ft, hop, 1, live, 1, 1.f, s);
@@ -385,6 +422,22 @@ int st_synthesis_fwd_wgmma(const void* mag, const void* phs, const void* w, void
   return synthesis_fwd_wgmma((const float*)mag, (const float*)phs, (const float*)w, (tc::bf16*)wp,
              (tc::bf16*)spec, (float*)frames, (float*)out, batch, out_frames, ft, hop, half,
              out_len, (cudaStream_t)stream);
+}
+
+// The float32 mode of st_synthesis_fwd on the wgmma schedule (split TF32 on
+// wgmma_product.cuh), for any geometry (its operands are rows of ldc floats,
+// 16-byte multiples). Scratch, in float32, with ldc = 2*half rounded up to a
+// multiple of 4 and rows = (out_frames - 2)*batch: wp_hi, wp_lo (ft, ldc),
+// the split planes of the packed synthesis weights; spec (rows, ldc); frames
+// (rows, ft). No K slices.
+int st_synthesis_fwd_wgmma_f32(const void* mag, const void* phs, const void* w, void* wp_hi,
+                               void* wp_lo, void* spec, void* frames, void* out, int batch,
+                               int out_frames, int ft, int hop, int half, int out_len,
+                               void* stream) {
+  return synthesis_fwd_wgmma32((const float*)mag, (const float*)phs, (const float*)w,
+                               (float*)wp_hi, (float*)wp_lo, (float*)spec, (float*)frames,
+                               (float*)out, batch, out_frames, ft, hop, half, out_len,
+                               (cudaStream_t)stream);
 }
 
 }  // extern "C"

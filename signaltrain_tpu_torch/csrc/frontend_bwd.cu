@@ -91,16 +91,21 @@
 // (synthesis_adjoint, sum_*_partials are the mma.sync schedule's). The
 // wrapper picks it by a rule on the shape (cuda_frontend.uses_wgmma: every
 // frame offset a multiple of 16 bytes, which TMA needs); other shapes run
-// the mma.sync loop above. D's float32 mode has the wgmma schedule too (the
-// split-TF32 products of wgmma_product.cuh, xp 16-byte aligned besides), E's
-// stays on the mma.sync loop: its spectrum pass (wg::FrameSpectrum32) forms
-// dspec in f32 and writes it twice when asked, in rows for dxp's frame
-// product (wg::RowProduct32, against the split planes of W) and transposed,
-// split into hi and lo planes, for dW (wg::FrameGrad32, whose A, the frames,
-// is read M-major into registers): TF32 wgmma reads its shared-memory
-// operand K-major only, and the transpose costs the epilogue one more walk
-// over its staged tile instead of a pass. No K slices, so no
-// sum_analysis_partials.
+// the mma.sync loop above. The float32 modes have the wgmma schedule too,
+// on the split-TF32 products of wgmma_product.cuh, under the same rule on
+// the floats (D: xp 16-byte aligned besides; E reads only its own scratch).
+// D's spectrum pass (wg::FrameSpectrum32) forms dspec in f32 and writes it
+// twice when asked, in rows for dxp's frame product (wg::RowProduct32,
+// against the split planes of W) and transposed, split into hi and lo
+// planes, for dW (wg::FrameGrad32, whose A, the frames, is read M-major into
+// registers): TF32 wgmma reads its shared-memory operand K-major only, and
+// the transpose costs the epilogue one more walk over its staged tile
+// instead of a pass. E's dspec pass (wg::FrameSpectrum32 on the padded dout,
+// against the planes (ldc, ft) of the synthesis weights, whose rows are w's
+// rows interleaved) forms dmag / dphs in its epilogue as in bf16 and writes
+// the spectrum (mag*cos, mag*sin) the same way, transposed and split, for dW
+// (wg::FrameGrad32 on the frames of the padded dout). No K slices, so no
+// sum_analysis_partials, synthesis_adjoint or sum_synthesis_partials.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -280,10 +285,11 @@ __global__ void pad_dout(const float* __restrict__ dout, T* __restrict__ doutp, 
   doutp[i] = tc::round_to<T>(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
 }
 
-// pad_dout in bf16, and the exact zeros of dmag and dphs on frames 0 and
+// pad_dout, and the exact zeros of dmag and dphs on frames 0 and
 // out_frames - 1 (wholly in the trimmed margin), which the wgmma schedule's
 // dspec product, over the live frames only, does not write.
-__global__ void pad_dout_zero_edges(const float* __restrict__ dout, tc::bf16* __restrict__ doutp,
+template <class T>
+__global__ void pad_dout_zero_edges(const float* __restrict__ dout, T* __restrict__ doutp,
                                     float* __restrict__ dmag, float* __restrict__ dphs, int batch,
                                     int out_len, int ft, int lp, int out_frames, int half) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -295,7 +301,7 @@ __global__ void pad_dout_zero_edges(const float* __restrict__ dout, tc::bf16* __
   }
   if (i >= (int64_t)batch * lp) return;
   const int b = (int)(i / lp), p = (int)(i % lp) - ft;
-  doutp[i] = __float2bfloat16_rn(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
+  doutp[i] = tc::round_to<T>(p >= 0 && p < out_len ? dout[(int64_t)b * out_len + p] : 0.f);
 }
 
 // dspec of the live frames, interleaved: slice z of the K steps (frame samples)
@@ -497,6 +503,23 @@ struct AnalysisDspecW : BinsSpectrum<128> {
   }
 };
 
+// The restaged rows of a float32 spectrum pass's epilogue (RESTAGE) written
+// once more, transposed and split: the warpgroup's 64 staged rows from row
+// m0, columns n0 .. n0 + w, into the planes (ldc, m) of `out`, consecutive
+// threads on consecutive rows of a column. D's dspec and E's spectrum, for
+// their dW products' B operand (TF32 wgmma reads it K-major only).
+__device__ __forceinline__ void split_transposed(const float* stg, int ld, int m0, int n0, int w,
+                                                 int th, int m, int ldc, tc::Split out) {
+  for (int i = th; i < 64 * (w / 2); i += 128) {
+    const int row = i % 64, c = 2 * (i / 64);
+    const int r = m0 + row, n = n0 + c;
+    if (r >= m || n >= ldc) continue;
+    const float2 v = *reinterpret_cast<const float2*>(stg + row * ld + c);
+    out((int64_t)n * m + r, v.x);
+    if (n + 1 < ldc) out((int64_t)(n + 1) * m + r, v.y);
+  }
+}
+
 // D's spectrum again in float32 (wg::FrameSpectrum32, the model's x/2 on the
 // finished sums), then dspec as AnalysisDspecW forms it, in f32: written
 // row by row to dspec (rows, ldc) when dxp is asked for (the frame product's
@@ -542,25 +565,8 @@ struct AnalysisDspecW32 : Bins<wg::FrameSpectrum32<128>> {
     if (dspec && r < m && n < ldc) tc::store2(dspec + (int64_t)r * ldc + n, d_re, d_im);
     return make_float2(d_re, d_im);
   }
-  // the warpgroup's 64 staged rows of dspec from row m0, columns n0 .. n0 + w,
-  // into the planes: consecutive threads on consecutive rows of a column
   __device__ void transposed(const float* stg, int ld, int m0, int n0, int w, int th) const {
-    if (!dspect_hi) return;
-    for (int i = th; i < 64 * (w / 2); i += 128) {
-      const int row = i % 64, c = 2 * (i / 64);
-      const int r = m0 + row, n = n0 + c;
-      if (r >= m || n >= ldc) continue;
-      const float2 v = *reinterpret_cast<const float2*>(stg + row * ld + c);
-      uint32_t hi, lo;
-      tc::split_tf32(v.x, hi, lo);
-      dspect_hi[(int64_t)n * m + r] = __uint_as_float(hi);
-      dspect_lo[(int64_t)n * m + r] = __uint_as_float(lo);
-      if (n + 1 < ldc) {
-        tc::split_tf32(v.y, hi, lo);
-        dspect_hi[(int64_t)(n + 1) * m + r] = __uint_as_float(hi);
-        dspect_lo[(int64_t)(n + 1) * m + r] = __uint_as_float(lo);
-      }
-    }
+    if (dspect_hi) split_transposed(stg, ld, m0, n0, w, th, m, ldc, {dspect_hi, dspect_lo});
   }
 };
 
@@ -692,58 +698,83 @@ int analysis_bwd_wgmma32(const float* xp, const float* w, const float* dmag, con
   return 0;
 }
 
-// E's dspec over the live frames, and in its epilogue what synthesis_adjoint
-// does with it: dmag = d_re*cos + d_im*sin, dphs = mag*(d_im*cos - d_re*sin),
-// and (when spec is given) the live rows' spectrum (mag*cos, mag*sin) in bf16
-// (the JAX kernel's `spec.astype(compute_dtype)`) for the dW product, padding
-// rows and columns 0.
-struct SynthesisDspecW : BinsSpectrum<128> {
+// E's dspec product, whose epilogue fetches (mag, phs) of the bin (frame t +
+// 1: t counts the live frames) and does what synthesis_adjoint does with
+// dspec: dmag = d_re*cos + d_im*sin, dphs = mag*(d_im*cos - d_re*sin).
+// adjoint() writes them and returns the spectrum (mag*cos, mag*sin) of the
+// bin, 0 on padding rows and columns.
+template <class Spectrum>
+struct SynthesisBins : Bins<Spectrum> {
   const float* mag;
   const float* phs;
   float* dmag;
   float* dphs;
-  tc::bf16* spec;
   using Aux = float2;  // (mag, phs) of the bin, 0 outside
   __device__ float2 fetch(int r, int n) const {
-    const int t = r / bpad, b = r - t * bpad, bin = n >> 1;
-    if (r >= m || b >= batch || bin >= half) return make_float2(0.f, 0.f);
-    const int64_t at = ((int64_t)(t + 1) * batch + b) * half + bin;
+    const int t = r / this->bpad, b = r - t * this->bpad, bin = n >> 1;
+    if (r >= this->m || b >= this->batch || bin >= this->half) return make_float2(0.f, 0.f);
+    const int64_t at = ((int64_t)(t + 1) * this->batch + b) * this->half + bin;
     return make_float2(__ldg(mag + at), __ldg(phs + at));
   }
   __device__ void prefetch(int m0, int n0, int w, int lane) const {
-    prefetch_bins(mag, phs, 1, m0, n0, w, lane);
+    this->prefetch_bins(mag, phs, 1, m0, n0, w, lane);
   }
+  __device__ float2 adjoint(int r, int n, float d_re, float d_im, float2 mp) const {
+    const int t = r / this->bpad, b = r - t * this->bpad, bin = n >> 1;
+    if (r >= this->m || b >= this->batch || bin >= this->half) return make_float2(0.f, 0.f);
+    const int64_t at = ((int64_t)(t + 1) * this->batch + b) * this->half + bin;
+    float sn, cs;
+    sincosf(mp.y, &sn, &cs);
+    const float mg = mp.x;
+    dmag[at] = d_re * cs + d_im * sn;
+    dphs[at] = mg * (d_im * cs - d_re * sn);
+    return make_float2(mg * cs, mg * sn);
+  }
+};
+
+// bf16: the spectrum, when spec is given, in bf16 (the JAX kernel's
+// `spec.astype(compute_dtype)`) for the dW product.
+struct SynthesisDspecW : SynthesisBins<wg::FrameSpectrum<128>> {
+  tc::bf16* spec;
   __device__ void pair(int r, int n, float d_re, float d_im, float2 mp) const {
     if (r >= m || n >= ldc) return;
-    const int t = r / bpad, b = r - t * bpad;  // t counts the live frames, from frame 1
-    const int bin = n >> 1;
-    float re = 0.f, im = 0.f;
-    if (b < batch && bin < half) {
-      const int64_t at = ((int64_t)(t + 1) * batch + b) * half + bin;
-      float sn, cs;
-      sincosf(mp.y, &sn, &cs);
-      const float mg = mp.x;
-      dmag[at] = d_re * cs + d_im * sn;
-      dphs[at] = mg * (d_im * cs - d_re * sn);
-      re = mg * cs;
-      im = mg * sn;
-    }
-    if (spec) tc::store2(spec + (int64_t)r * ldc + n, re, im);
+    const float2 s = adjoint(r, n, d_re, d_im, mp);
+    if (spec) tc::store2(spec + (int64_t)r * ldc + n, s.x, s.y);
+  }
+};
+
+// float32 (wg::FrameSpectrum32 on the frames of the padded dout, split in
+// registers, against the planes (ldc, ft) of the synthesis weights): the
+// spectrum handed back to the staging buffer (RESTAGE), from which
+// transposed() writes its split planes spect_hi, spect_lo (ldc, rows) when dW
+// is asked for (the dW product's B, which TF32 wgmma reads K-major only).
+struct SynthesisDspecW32 : SynthesisBins<wg::FrameSpectrum32<128>> {
+  static constexpr bool RESTAGE = true;
+  float* spect_hi;  // (ldc, rows) or null, with spect_lo
+  float* spect_lo;
+  __device__ float2 pair(int r, int n, float d_re, float d_im, float2 mp) const {
+    return adjoint(r, n, d_re, d_im, mp);
+  }
+  __device__ void transposed(const float* stg, int ld, int m0, int n0, int w, int th) const {
+    if (spect_hi) split_transposed(stg, ld, m0, n0, w, th, m, ldc, {spect_hi, spect_lo});
   }
 };
 
 // dw[part * half + bin, j] from column 2 * bin + part: the transpose, the
 // epilogue walking the tile down its rows (j).
-struct SynthesisDwW : wg::FrameGrad<64> {
+template <class Product>
+struct SynthesisDw : Product {
   static constexpr bool ROW_FAST = true;  // consecutive j: a warp writes along dw's rows
   float* dw;
   int half;
   __device__ void pair(int j, int c, float v0, float v1, wg::NoAux) const {
-    if (j >= m || c >= 2 * half) return;
-    dw[(int64_t)(c >> 1) * m + j] = v0;
-    dw[(int64_t)(half + (c >> 1)) * m + j] = v1;
+    if (j >= this->m || c >= 2 * half) return;
+    dw[(int64_t)(c >> 1) * this->m + j] = v0;
+    dw[(int64_t)(half + (c >> 1)) * this->m + j] = v1;
   }
 };
+using SynthesisDwW = SynthesisDw<wg::FrameGrad<64>>;
+using SynthesisDwW32 = SynthesisDw<wg::FrameGrad32<64>>;
 
 int synthesis_bwd_wgmma(const float* mag, const float* phs, const float* w, const float* dout,
                         tc::bf16* wp, tc::bf16* doutp, tc::bf16* spec, float* dmag, float* dphs,
@@ -759,8 +790,8 @@ int synthesis_bwd_wgmma(const float* mag, const float* phs, const float* w, cons
   int err = tc::pack_synthesis(w, wp, ft, half, s);
   if (err) return err;
   const int64_t size = (int64_t)batch * lp;
-  pad_dout_zero_edges<<<tc::blocks(size, 256), 256, 0, s>>>(dout, doutp, dmag, dphs, batch,
-                                                            out_len, ft, lp, out_frames, half);
+  pad_dout_zero_edges<tc::bf16><<<tc::blocks(size, 256), 256, 0, s>>>(
+      dout, doutp, dmag, dphs, batch, out_len, ft, lp, out_frames, half);
   if ((err = (int)cudaGetLastError())) return err;
   if (live <= 0)  // no frame reaches the trimmed output: every gradient is 0
     return need_dw ? (int)cudaMemsetAsync(dw, 0, sizeof(float) * 2 * half * ft, s) : 0;
@@ -776,6 +807,49 @@ int synthesis_bwd_wgmma(const float* mag, const float* phs, const float* w, cons
   p2.m = ft, p2.n = ldc;
   p2.frames = p1.frames;
   if ((err = wg::matrix_map(&p2.s, spec, rows, ldc))) return err;
+  p2.bpad = bpad, p2.hop = hop, p2.n_frames = live, p2.live_lo = live_lo, p2.live_hi = live_hi;
+  p2.dw = dw, p2.half = half;
+  return wg::launch(p2, s);
+}
+
+// The float32 mode on the same schedule: doutp in f32 (hop, ft and lp
+// multiples of 4, so that every frame of it is 16-byte aligned), its frames
+// split in registers; B's split planes: the synthesis weights' (ldc, ft) for
+// dspec, the spectrum's transpose (ldc, rows) for dW, which the dspec pass
+// writes.
+int synthesis_bwd_wgmma32(const float* mag, const float* phs, const float* w, const float* dout,
+                          float* wt_hi, float* wt_lo, float* doutp, float* spect_hi,
+                          float* spect_lo, float* dmag, float* dphs, float* dw, int batch,
+                          int out_frames, int ft, int hop, int half, int out_len, int need_dw,
+                          cudaStream_t s) {
+  const int ldc = tc::packed_width<float>(half);
+  const int lp = out_len + 2 * ft;
+  const int live = out_frames - 2;  // frames 1 .. out_frames - 2 reach the trimmed output
+  const int bpad = wg::pad_rows(batch);
+  const int rows = live * bpad;
+  const float* frame1 = doutp + hop;  // frame t of the live ones at t*hop
+  const int live_lo = ft - hop, live_hi = ft + out_len - hop;  // the trimmed output, from frame1
+  int err = tc::pack_split_synthesis(w, wt_hi, wt_lo, ft, half, true, s);
+  if (err) return err;
+  const int64_t size = (int64_t)batch * lp;
+  pad_dout_zero_edges<float><<<tc::blocks(size, 256), 256, 0, s>>>(
+      dout, doutp, dmag, dphs, batch, out_len, ft, lp, out_frames, half);
+  if ((err = (int)cudaGetLastError())) return err;
+  if (live <= 0)  // no frame reaches the trimmed output: every gradient is 0
+    return need_dw ? (int)cudaMemsetAsync(dw, 0, sizeof(float) * 2 * half * ft, s) : 0;
+  SynthesisDspecW32 p1;
+  p1.m = rows, p1.n = ldc;
+  if ((err = wg::frames_map32(&p1.frames, frame1, ft, batch, live, lp, hop))) return err;
+  if ((err = wg::split_maps(&p1, wt_hi, wt_lo, ldc, ft))) return err;
+  p1.bpad = bpad, p1.ft = ft, p1.hop = hop, p1.live_lo = live_lo, p1.live_hi = live_hi;
+  p1.mag = mag, p1.phs = phs, p1.dmag = dmag, p1.dphs = dphs;
+  p1.spect_hi = need_dw ? spect_hi : nullptr, p1.spect_lo = need_dw ? spect_lo : nullptr;
+  p1.batch = batch, p1.half = half, p1.ldc = ldc;
+  if ((err = wg::launch(p1, s)) || !need_dw) return err;
+  SynthesisDwW32 p2;
+  p2.m = ft, p2.n = ldc;
+  p2.frames = p1.frames;
+  if ((err = wg::split_maps(&p2, spect_hi, spect_lo, ldc, rows))) return err;
   p2.bpad = bpad, p2.hop = hop, p2.n_frames = live, p2.live_lo = live_lo, p2.live_hi = live_hi;
   p2.dw = dw, p2.half = half;
   return wg::launch(p2, s);
@@ -889,6 +963,24 @@ int st_synthesis_bwd_wgmma(const void* mag, const void* phs, const void* w, cons
                              (const float*)dout, (tc::bf16*)wp, (tc::bf16*)doutp,
                              (tc::bf16*)spec, (float*)dmag, (float*)dphs, (float*)dw, batch,
                              out_frames, ft, hop, half, out_len, need_dw, (cudaStream_t)stream);
+}
+
+// The float32 mode of st_synthesis_bwd on the wgmma schedule (split TF32 on
+// wgmma_product.cuh), for geometries whose hop, ft and out_len + 2*ft are
+// multiples of 4. Scratch, in float32, with ldc = 2*half rounded up to a
+// multiple of 4 and rows = (out_frames - 2)*bpad: wt_hi, wt_lo (ldc, ft), the
+// split planes of the packed synthesis weights' transpose; doutp (batch,
+// out_len + 2*ft); when need_dw spect_hi, spect_lo (ldc, rows). No partials.
+int st_synthesis_bwd_wgmma_f32(const void* mag, const void* phs, const void* w, const void* dout,
+                               void* wt_hi, void* wt_lo, void* doutp, void* spect_hi,
+                               void* spect_lo, void* dmag, void* dphs, void* dw, int batch,
+                               int out_frames, int ft, int hop, int half, int out_len,
+                               int need_dw, void* stream) {
+  return synthesis_bwd_wgmma32(
+      (const float*)mag, (const float*)phs, (const float*)w, (const float*)dout, (float*)wt_hi,
+      (float*)wt_lo, (float*)doutp, (float*)spect_hi, (float*)spect_lo, (float*)dmag,
+      (float*)dphs, (float*)dw, batch, out_frames, ft, hop, half, out_len, need_dw,
+      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -27,9 +27,10 @@
 // zero and is added to the f32 accumulator by a round-to-nearest add (64 adds
 // at K = 1024). Bound: the dense bf16 rate, 989 TFLOP/s; mma.sync reaches
 // about half of it. The wgmma schedule of wgmma_product.cuh takes over every
-// bf16 mode and the float32 modes of A and D where TMA can read their
-// operands; this loop stays as their second schedule and as the only one of
-// float32 B and E.
+// mode of A, B, D and E, in bf16 and in float32, where TMA can read its
+// operands; this loop stays as their second schedule and as the only one
+// where TMA cannot read the frames (a hop or row that is no multiple of 16
+// bytes, or float32 A's and D's signal off a 16-byte boundary).
 //
 // Feeding it: a 128 x 128 output tile a block (256 threads, 8 warps as 2 x 4,
 // 4 x 4 mma tiles a warp, 64 accumulators a thread), K step 32, a ring of 3
@@ -495,11 +496,30 @@ inline int pack(const float* w, T* wp, int ft, int half, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Where a repack puts element i of its output: rounded to the operand type
+// T (wp), or cut by split_tf32 into the planes hi and lo (the float32 wgmma
+// products' pre-split B operand, below).
+template <class T>
+struct Rounded {
+  T* wp;
+  __device__ void operator()(int64_t i, float x) const { wp[i] = round_to<T>(x); }
+};
+
+struct Split {
+  float* hi;
+  float* lo;
+  __device__ void operator()(int64_t i, float x) const {
+    uint32_t h, l;
+    split_tf32(x, h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  }
+};
+
 // 32 x 32 tiles through shared memory (32 x 8 threads), so that the reads run
 // along the rows of w and the writes along the rows of wp.
-template <class T>
-__global__ void pack_transposed(const float* __restrict__ w, T* __restrict__ wp, int ft, int half,
-                                int ldc) {
+template <class Out>
+__global__ void pack_transposed(const float* __restrict__ w, Out out, int ft, int half, int ldc) {
   __shared__ float tile[32][33];
   const int j0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
   const int tx = threadIdx.x;
@@ -510,16 +530,21 @@ __global__ void pack_transposed(const float* __restrict__ w, T* __restrict__ wp,
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int j = j0 + i, c = c0 + tx;
-    if (j < ft && c < ldc) wp[(int64_t)j * ldc + c] = round_to<T>(tile[tx][i]);
+    if (j < ft && c < ldc) out((int64_t)j * ldc + c, tile[tx][i]);
   }
+}
+
+template <class Out>
+inline int pack_synthesis_as(const float* w, Out out, int ft, int half, int ldc,
+                             cudaStream_t stream) {
+  pack_transposed<Out><<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
+      w, out, ft, half, ldc);
+  return (int)cudaGetLastError();
 }
 
 template <class T>
 inline int pack_synthesis(const float* w, T* wp, int ft, int half, cudaStream_t stream) {
-  const int ldc = packed_width<T>(half);
-  pack_transposed<T><<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
-      w, wp, ft, half, ldc);
-  return (int)cudaGetLastError();
+  return pack_synthesis_as(w, Rounded<T>{wp}, ft, half, packed_width<T>(half), stream);
 }
 
 // The split-TF32 planes of the packed weights, for the float32 products of
@@ -530,6 +555,7 @@ inline int pack_synthesis(const float* w, T* wp, int ft, int half, cudaStream_t 
 //     frame product, dframes = dspec . W^T, reads W's rows j).
 //   pack_split_transposed: its transpose (ldc, ft), K the frame sample (the
 //     spectrum product of A and D reads W^T's rows c).
+// pack_split_synthesis, below, cuts the synthesis weights the same two ways.
 __device__ __forceinline__ float analysis_weight(const float* w, int k, int c, int half) {
   return w[(int64_t)k * 2 * half + (c & 1) * half + (c >> 1)];
 }
@@ -579,6 +605,32 @@ inline int pack_split_t(const float* w, float* hi, float* lo, int ft, int half,
   const int ldc = packed_width<float>(half);
   pack_split_transposed<<<dim3(blocks(ft, 32), blocks(ldc, 32)), dim3(32, 8), 0, stream>>>(
       w, hi, lo, ft, half, ldc);
+  return (int)cudaGetLastError();
+}
+
+// The same planes of the packed synthesis weights (pack_synthesis's values,
+// wp[j, 2 * bin + part] = w[part * half + bin, j], w (2 * half, ft)):
+//   pack_split_synthesis(..., false): wp's own layout (ft, ldc), K the
+//     interleaved column (kernel B's frame product reads W's rows j);
+//     pack_synthesis's transposing tiles;
+//   pack_split_synthesis(..., true): its transpose (ldc, ft), K the frame
+//     sample (kernel E's dspec product reads its rows c), which is w's own
+//     rows interleaved (row c = w's row (c & 1) * half + (c >> 1)): a copy
+//     row by row, no transpose.
+__global__ void pack_split_synthesis_rows(const float* __restrict__ w, Split out, int ft,
+                                          int half, int ldc) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)ldc * ft) return;
+  const int c = (int)(i / ft), j = (int)(i % ft);
+  out(i, c < 2 * half ? w[(int64_t)((c & 1) * half + (c >> 1)) * ft + j] : 0.f);
+}
+
+inline int pack_split_synthesis(const float* w, float* hi, float* lo, int ft, int half,
+                                bool transposed, cudaStream_t stream) {
+  const int ldc = packed_width<float>(half);
+  if (!transposed) return pack_synthesis_as(w, Split{hi, lo}, ft, half, ldc, stream);
+  pack_split_synthesis_rows<<<blocks((int64_t)ldc * ft, 256), 256, 0, stream>>>(w, Split{hi, lo},
+                                                                               ft, half, ldc);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,10 @@
 // filled by the Tensor Memory Accelerator (TMA) against mbarriers, one
 // producer warp, and two consumer warpgroups that multiply with
 // wgmma.mma_async. The bf16 modes of kernels A and B (frontend.cu) and D and
-// E (frontend_bwd.cu) run their products on it, and so do the float32 modes
-// of A and D (the split-TF32 instances at the end of this file); the float32
-// modes of B and E stay on the mma.sync loop of tc_product.cuh, which also
-// remains every one of these kernels' second schedule.
+// E (frontend_bwd.cu) run their products on it, and so do their float32
+// modes (the split-TF32 instances at the end of this file); the mma.sync
+// loop of tc_product.cuh remains every one of these kernels' second
+// schedule, the one the rule takes where TMA cannot read the frames.
 //
 // What it replaces, and why. tc_product.cuh's bf16 loop issues one
 // mma.sync.m16n8k16 a K chunk of 16 from registers that its threads load
@@ -159,8 +159,9 @@
 //     multiplies the M-major frame tile with no transposed copy of frames;
 //   * B comes pre-split, as two K-major planes (hi, lo) of f32 values that
 //     are TF32 numbers, written by the pass before the product (the weight
-//     repacks tc::pack_split / pack_split_transposed; the transposed dspec of
-//     D's spectrum pass for its dW), each read by TMA.
+//     repacks tc::pack_split / pack_split_transposed / pack_split_synthesis;
+//     the transposed dspec of D's spectrum pass for its dW, the transposed
+//     spectrum of E's dspec pass for its dW), each read by TMA.
 // A K step is one 128-byte swizzle row of 32 floats: 4 k8 chunks x 3 terms,
 // 12 wgmmas, the small terms first (all a_lo.b_hi, then a_hi.b_lo, then
 // a_hi.b_hi), summed from zero in the tensor cores and joined to the tile's
@@ -1148,7 +1149,8 @@ inline int split_maps(SplitB<TN>* p, const float* hi, const float* lo, int n, in
 
 // FrameSpectrum in float32: C[R, c] = sum_k frame_R[k] * W^T[c, k], the
 // frames K-major (16 frame boxes of 32 samples a step, split in registers),
-// W^T's planes (N, ft). Kernel A's product and D's spectrum pass.
+// W^T's planes (N, ft). Kernel A's product, D's spectrum pass and E's dspec
+// (the frames of the padded dout, the synthesis weights' planes (ldc, ft)).
 template <int TN>
 struct FrameSpectrum32 : SplitB<TN> {
   static constexpr bool ROW_FAST = false;
@@ -1175,7 +1177,8 @@ struct FrameSpectrum32 : SplitB<TN> {
 
 // RowProduct in float32: C[R, j] = sum_c D[R, c] * W[j, c], D's rows (M, K)
 // one box of 128 rows a step, split in registers; W's planes (N, K). Kernel
-// D's frame gradients (for dxp).
+// D's frame gradients (for dxp) and kernel B's frames (the spectrum rows and
+// the synthesis weights' planes (ft, ldc)).
 template <int TN>
 struct RowProduct32 : SplitB<TN> {
   static constexpr bool ROW_FAST = false;
@@ -1197,8 +1200,8 @@ struct RowProduct32 : SplitB<TN> {
 // FrameGrad in float32: C[j, c] = sum over the padded rows R of frame_R[j] *
 // S^T[c, R], the frames M-major (four blocks of 32 samples j by four groups
 // of 8 rows a step: 16 boxes, read into registers as they lie), S^T's planes
-// (N, rows). The dW of kernel D. A tile of samples j takes only the K steps
-// of the frames with a live sample among them.
+// (N, rows). The dW of kernels D and E. A tile of samples j takes only the K
+// steps of the frames with a live sample among them.
 template <int TN>
 struct FrameGrad32 : SplitB<TN> {
   static constexpr bool ROW_FAST = false;

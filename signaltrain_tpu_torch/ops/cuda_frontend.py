@@ -32,20 +32,19 @@ launch counter (``bf16_*`` for bfloat16).
 * ``fused_analysis_bwd(xp, w, dmag, dphs, ft, hop)`` -> (dxp, dw).
 * ``fused_synthesis_bwd(mag, phs, w, dout, ft, hop)`` -> (dmag, dphs, dw).
 
-The bf16 modes of all four, and the float32 modes of A and D, have two
-schedules (``SCHEDULES``): "wgmma" (``csrc/wgmma_product.cuh``: TMA into a
-ring of shared-memory stages, wgmma, no K slices; in float32 split TF32 with
-A's fragments split in registers and B's operand in pre-split planes) and
-"mma" (the ``mma.sync`` loop of ``csrc/tc_product.cuh``). The wrapper picks
-by a rule on the shape (``schedule_for``): for A, D and E, which read frames
-through TMA, "wgmma" where every frame offset and length is a multiple of 16
-bytes (``uses_wgmma``; in float32 also a 16-byte aligned signal, which TMA
+Each of the four has two schedules in each compute dtype (``SCHEDULES``):
+"wgmma" (``csrc/wgmma_product.cuh``: TMA into a ring of shared-memory
+stages, wgmma, no K slices; in float32 split TF32 with A's fragments split
+in registers and B's operand in pre-split planes) and "mma" (the
+``mma.sync`` loop of ``csrc/tc_product.cuh``). The wrapper picks by a rule
+on the shape (``schedule_for``): for A, D and E, which read frames through
+TMA, "wgmma" where every frame offset and length is a multiple of 16 bytes
+(``uses_wgmma``; in float32 A and D also a 16-byte aligned signal, which TMA
 reads as it is), "mma" elsewhere; for B, which reads none, "wgmma" at every
-shape in bf16. ``schedule=`` names one for the tests and timers. Each
-schedule has its own launch counter (``..._mma`` for the mma.sync one). A
-schedule that cannot take the shape, or fails to build or launch, raises;
-nothing retries on the other one. Float32 B and E have one schedule,
-"mma".
+shape. ``schedule=`` names one for the tests and timers. Each schedule has
+its own launch counter (``..._mma`` for the mma.sync one). A schedule that
+cannot take the shape, or fails to build or launch, raises; nothing retries
+on the other one.
 
 All four are bound by operations (f32-accurate matrix products). On the
 mma.sync loop a product whose output has too few tiles to fill the card (dW
@@ -80,11 +79,13 @@ import torch.nn.functional as F
 from . import _cuda, framing
 
 ANALYSIS = _cuda.counter("fused_analysis")  # float32 A: the wgmma schedule
-SYNTHESIS = _cuda.counter("fused_synthesis")
+SYNTHESIS = _cuda.counter("fused_synthesis")  # float32 B: the wgmma schedule
 ANALYSIS_BWD = _cuda.counter("fused_analysis_bwd")  # float32 D: the wgmma schedule
-SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")
+SYNTHESIS_BWD = _cuda.counter("fused_synthesis_bwd")  # float32 E: the wgmma schedule
 ANALYSIS_MMA = _cuda.counter("fused_analysis_mma")
+SYNTHESIS_MMA = _cuda.counter("fused_synthesis_mma")
 ANALYSIS_BWD_MMA = _cuda.counter("fused_analysis_bwd_mma")
+SYNTHESIS_BWD_MMA = _cuda.counter("fused_synthesis_bwd_mma")
 ANALYSIS_BF16 = _cuda.counter("bf16_fused_analysis")  # the wgmma schedule
 SYNTHESIS_BF16 = _cuda.counter("bf16_fused_synthesis")  # the wgmma schedule
 ANALYSIS_BF16_MMA = _cuda.counter("bf16_fused_analysis_mma")
@@ -108,6 +109,8 @@ _ANALYSIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 8 + [_P]
 _ANALYSIS_WGMMA_F32_ARGS = [_P] * 6 + [_I] * 6 + [_P]
 _ANALYSIS_BWD_WGMMA_F32_ARGS = [_P] * 14 + [_I] * 8 + [_P]
 _SYNTHESIS_BWD_WGMMA_ARGS = [_P] * 10 + [_I] * 7 + [_P]
+_SYNTHESIS_WGMMA_F32_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+_SYNTHESIS_BWD_WGMMA_F32_ARGS = [_P] * 12 + [_I] * 7 + [_P]
 
 
 def _counters(f32: _cuda.KernelCounter, bf16: _cuda.KernelCounter, compute_dtype: torch.dtype):
@@ -168,45 +171,50 @@ def uses_wgmma(ft: int, hop: int, lp: int, dtype: torch.dtype = torch.bfloat16) 
     bf16, 4 floats), else "mma". In bf16 TMA reads only the launch's own
     scratch (the halved or padded signal, the packed weights, dspec, E's
     spectrum), which the allocator aligns, so no pointer enters the rule; in
-    float32 (A and D only) it reads the signal itself, whose alignment
-    ``schedule_for`` takes as ``aligned``. The flagship geometry (1024, 384,
+    float32 A and D read the signal itself, whose alignment ``schedule_for``
+    takes as ``aligned``. The flagship geometry (1024, 384,
     10240) takes wgmma; the tests' "ragged" one (hop 30) cannot.
 
     Kernel B reads no frames through TMA: its two TMA operands are the
-    spectrum of the live frames (rows, ldc) and the packed weights (ft, ldc),
-    rows of ``packed_width`` bf16, a multiple of 16 bytes for every half, and
-    its epilogue writes the frames (rows, ft) in float32 at any ft. So B's
-    rule (``schedule_for`` with ``lp=None``) takes wgmma at every geometry,
-    the "ragged" one included."""
+    spectrum of the live frames (rows, ldc) and the packed weights (ft, ldc)
+    (in float32 the weights' split planes), rows of ``packed_width``
+    elements, a multiple of 16 bytes for every half, and its epilogue writes
+    the frames (rows, ft) in float32 at any ft. So B's rule (``schedule_for``
+    with ``lp=None``) takes wgmma at every geometry in both dtypes, the
+    "ragged" one included. Kernel E reads the frames of its own scratch
+    (the padded dout), so no pointer enters its rule in either dtype."""
     wide = _wide(dtype)
     return ft % wide == 0 and hop % wide == 0 and lp % wide == 0
 
 
 # the kernels whose float32 mode has a wgmma schedule
-F32_WGMMA_KERNELS = ("A", "D")
+F32_WGMMA_KERNELS = ("A", "B", "D", "E")
 
 
 def schedule_for(schedule: str | None, compute_dtype: torch.dtype, ft: int, hop: int,
                  lp: int | None, kernel: str | None = None, aligned: bool = True) -> str:
     """The schedule of a launch of A, B, D or E: ``schedule`` if given (one of
-    ``SCHEDULES``), else the rule's. "wgmma" in bf16 for the kernels that read
+    ``SCHEDULES``), else the rule's. "wgmma" for the kernels that read
     frames of a row of length ``lp`` through TMA (A, D, E) where
-    ``uses_wgmma`` holds, and for B (``lp=None``: it reads none) at every
-    shape; in float32 only for ``kernel`` "A" or "D", where ``uses_wgmma``
-    holds for floats and the signal is 16-byte ``aligned`` (TMA reads it as
-    it is). Raises on anything else, a "wgmma" the rule cannot give
+    ``uses_wgmma`` holds for the compute dtype's elements, and for B
+    (``lp=None``: it reads none) at every shape. In float32 the ``kernel``
+    must be named (one of ``F32_WGMMA_KERNELS``), and A's and D's signal,
+    which TMA reads as it is, must be 16-byte ``aligned``; E's frames are its
+    own scratch. Raises on anything else, a "wgmma" the rule cannot give
     included."""
     if schedule is not None and schedule not in SCHEDULES:
         raise ValueError(f"schedule must be one of {SCHEDULES} or None, got {schedule!r}")
     if compute_dtype == torch.bfloat16:
         wgmma_ok = lp is None or uses_wgmma(ft, hop, lp)
-    else:
-        wgmma_ok = (kernel in F32_WGMMA_KERNELS and lp is not None and aligned
-                    and uses_wgmma(ft, hop, lp, torch.float32))
+    elif kernel == "B":  # float32 B reads no frames: every shape, as in bf16
+        wgmma_ok = lp is None
+    else:  # float32 A and D read the signal itself, E its own padded dout
+        wgmma_ok = (kernel in F32_WGMMA_KERNELS and lp is not None
+                    and (aligned or kernel == "E") and uses_wgmma(ft, hop, lp, torch.float32))
     if schedule == "wgmma" and not wgmma_ok:
         raise ValueError(f"the wgmma schedule takes bf16, or float32 in kernels "
-                         f"{F32_WGMMA_KERNELS} with an aligned signal, and 16-byte frames "
-                         f"(ft={ft}, hop={hop}, lp={lp}, compute_dtype={compute_dtype}, "
+                         f"{F32_WGMMA_KERNELS} (A and D with an aligned signal), and 16-byte "
+                         f"frames (ft={ft}, hop={hop}, lp={lp}, compute_dtype={compute_dtype}, "
                          f"kernel={kernel}, aligned={aligned})")
     return schedule or ("wgmma" if wgmma_ok else "mma")
 
@@ -242,13 +250,16 @@ def analysis_fwd_scratch(compute_dtype: torch.dtype, b: int, lp: int, ft: int, h
 def synthesis_fwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, ot: int, ft: int,
                           half: int) -> dict:
     """The scratch tensors kernel B's launch takes, name -> (shape, dtype), in
-    the launcher's order: the packed weights, the spectrum of the live frames
-    and their samples in float32, in K slices (``k_slices``) on the mma
-    schedule, written once on the wgmma one."""
+    the launcher's order: the packed weights (in float32 on the wgmma
+    schedule their split planes hi, lo), the spectrum of the live frames and
+    their samples in float32, in K slices (``k_slices``) on the mma schedule,
+    written once on the wgmma one."""
     op, f32 = compute_dtype, torch.float32
     ldc, rows = packed_width(half, op), max(0, ot - 2) * b
     frames = (rows, ft) if schedule == "wgmma" else (k_slices(rows, ft, ldc), rows, ft)
-    return {"wp": ((ft, ldc), op), "spec": ((rows, ldc), op), "frames": (frames, f32)}
+    wp = {"wp_hi": ((ft, ldc), f32), "wp_lo": ((ft, ldc), f32)} if (
+        schedule == "wgmma" and op == f32) else {"wp": ((ft, ldc), op)}
+    return {**wp, "spec": ((rows, ldc), op), "frames": (frames, f32)}
 
 
 def analysis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, lp: int, ft: int,
@@ -284,9 +295,15 @@ def synthesis_bwd_scratch(schedule: str, compute_dtype: torch.dtype, b: int, ot:
                           half: int, out_len: int, need_dw: bool) -> dict:
     """The scratch tensors kernel E's launch takes, name -> (shape, dtype), in
     the launcher's order (None: not needed): the mma schedule's f32 K-slice
-    partials of dspec and dW against the wgmma schedule's none."""
+    partials of dspec and dW against the wgmma schedule's none; in float32
+    the wgmma schedule takes the split planes of its B operands, the
+    synthesis weights' (ldc, ft) and the spectrum's transpose (ldc, rows)."""
     op, f32 = compute_dtype, torch.float32
     ldc, rows, lp = packed_width(half, compute_dtype), max(0, ot - 2) * b, out_len + 2 * ft
+    if schedule == "wgmma" and op == f32:
+        wt, spect = ((ldc, ft), f32), ((ldc, max(0, ot - 2) * pad_rows(b)), f32)
+        return {"wt_hi": wt, "wt_lo": wt, "doutp": ((b, lp), f32),
+                "spect_hi": spect if need_dw else None, "spect_lo": spect if need_dw else None}
     if schedule == "wgmma":
         return {"wp": ((ft, ldc), op), "doutp": ((b, lp), op),
                 "spec": ((max(0, ot - 2) * pad_rows(b), ldc), op) if need_dw else None}
@@ -385,6 +402,17 @@ def pack_split_reference(w: torch.Tensor, transposed: bool = False):
     ``split_tf32`` cuts: (hi, lo). TF32 wgmma reads its shared-memory
     operand K-major only, so the kernels read each plane as it lies."""
     wp = interleave(w, packed_width(w.shape[-1] // 2))
+    return split_tf32(wp.t().contiguous() if transposed else wp)
+
+
+def pack_split_synthesis_reference(w: torch.Tensor, transposed: bool = False):
+    """Plain version of csrc/tc_product.cuh ``pack_split_synthesis``: the
+    stacked synthesis weights (2*half, ft) packed as kernel B reads them,
+    (ft, ldc) with column 2*bin + part = row part*half + bin (K the column,
+    B's frame product), or its transpose (ldc, ft), w's rows interleaved (K
+    the frame sample, E's dspec product), as the two planes ``split_tf32``
+    cuts: (hi, lo), zero past 2*half."""
+    wp = interleave(w.t(), packed_width(w.shape[0] // 2))
     return split_tf32(wp.t().contiguous() if transposed else wp)
 
 
@@ -661,19 +689,21 @@ def _synthesis_fwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor, ft: in
     _cuda.require(w, "w", (2 * half, ft), dev)
     sc = _scratch(synthesis_fwd_scratch(sched, compute_dtype, b, ot, ft, half), dev)
     out = torch.empty((b, out_len), device=dev, dtype=torch.float32)
-    ptrs = [_cuda.ptr(v) for v in (mag, phs, w, sc["wp"], sc["spec"], sc["frames"], out)]
+    ptrs = [_cuda.ptr(v) for v in (mag, phs, w, *sc.values(), out)]
+    bf16 = compute_dtype == torch.bfloat16
     with torch.cuda.device(dev):
         if sched == "wgmma":
-            f = _cuda.function("frontend", "st_synthesis_fwd_wgmma", _SYNTHESIS_WGMMA_ARGS)
+            name, args = (("st_synthesis_fwd_wgmma", _SYNTHESIS_WGMMA_ARGS) if bf16
+                          else ("st_synthesis_fwd_wgmma_f32", _SYNTHESIS_WGMMA_F32_ARGS))
+            f = _cuda.function("frontend", name, args)
             status = f(*ptrs, b, ot, ft, hop, half, out_len, _cuda.stream(dev))
         else:
-            if compute_dtype == torch.bfloat16:
-                count = SYNTHESIS_BF16_MMA
+            count = SYNTHESIS_BF16_MMA if bf16 else SYNTHESIS_MMA
             nsplit = sc["frames"].shape[0]
             f = _cuda.function("frontend", "st_synthesis_fwd", _SYNTHESIS_ARGS)
             status = f(*ptrs, b, ot, ft, hop, half, out_len, nsplit,
                        copy_width(0, 0, 0, sc["wp"], sc["spec"], dtype=compute_dtype),
-                       int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
+                       int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
     return out
@@ -774,14 +804,16 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
                   dev)
     ins = [_cuda.ptr(mag), _cuda.ptr(phs), _cuda.ptr(w), _cuda.ptr(dout)]
     outs = [_cuda.ptr(dmag), _cuda.ptr(dphs), _cuda.ptr(dw)]
+    bf16 = compute_dtype == torch.bfloat16
     with torch.cuda.device(dev):
         if sched == "wgmma":
-            f = _cuda.function("frontend_bwd", "st_synthesis_bwd_wgmma", _SYNTHESIS_BWD_WGMMA_ARGS)
+            name, args = (("st_synthesis_bwd_wgmma", _SYNTHESIS_BWD_WGMMA_ARGS) if bf16
+                          else ("st_synthesis_bwd_wgmma_f32", _SYNTHESIS_BWD_WGMMA_F32_ARGS))
+            f = _cuda.function("frontend_bwd", name, args)
             status = f(*ins, *(_cuda.ptr(v) for v in sc.values()), *outs, b, ot, ft, hop, half,
                        out_len, int(need_dw), _cuda.stream(dev))
         else:
-            if compute_dtype == torch.bfloat16:
-                count = SYNTHESIS_BWD_BF16_MMA
+            count = SYNTHESIS_BWD_BF16_MMA if bf16 else SYNTHESIS_BWD_MMA
             ldc, rows = packed_width(half, compute_dtype), max(0, ot - 2) * b
             n_dspec, n_dw = k_slices(rows, ldc, ft), k_slices(ft, ldc, rows)
             f = _cuda.function("frontend_bwd", "st_synthesis_bwd", _SYNTHESIS_BWD_ARGS)
@@ -789,7 +821,7 @@ def fused_synthesis_bwd(mag: torch.Tensor, phs: torch.Tensor, w: torch.Tensor,
                        out_len, n_dspec, n_dw, int(need_dw),
                        copy_width(ft, hop, lp, sc["doutp"], sc["wp"], sc["dspec"],
                                   dtype=compute_dtype),
-                       int(compute_dtype == torch.bfloat16), _cuda.stream(dev))
+                       int(bf16), _cuda.stream(dev))
     _cuda.check(f, status)
     count.launches += 1
     return dmag, dphs, dw

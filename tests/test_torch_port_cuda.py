@@ -815,6 +815,102 @@ def test_bf16_wgmma_schedule_refuses_what_tma_cannot_read(dev):
     assert _fwd_counter("A", "mma").launches == before + 1
 
 
+# ---- float32 B and E on both schedules: the split-TF32 products on wgmma
+# (csrc/wgmma_product.cuh; the rule's pick for B at every shape, for E where
+# TMA can read the frames of its padded dout) and the mma.sync loop
+
+
+def _f32_syn_counter(kernel, schedule):
+    """The launch counter of float32 kernel B or E on a schedule."""
+    names = {("B", "wgmma"): "SYNTHESIS", ("B", "mma"): "SYNTHESIS_MMA",
+             ("E", "wgmma"): "SYNTHESIS_BWD", ("E", "mma"): "SYNTHESIS_BWD_MMA"}
+    return getattr(cuda_frontend, names[kernel, schedule])
+
+
+# "small", and the flagship at the training and the serving batch
+F32_SYN_GEOMS = [(64, 24, 5), (1024, 384, 200), (1024, 384, 643)]
+
+
+@pytest.mark.parametrize("schedule", ["wgmma", "mma"])
+@pytest.mark.parametrize("ft,hop,b", F32_SYN_GEOMS)
+def test_f32_synthesis_schedules_hold_the_float64_rule(dev, ft, hop, b, schedule):
+    """Float32 B on each schedule: the wave within 3e-4 + 3e-4|wave| of the
+    plain version and within twice the plain version's error against float64
+    plus 1e-6 * max|wave|, two runs bit-equal, the schedule's counter."""
+    g = torch.Generator(device=dev).manual_seed(ft + b + 3)
+    half, ot = ft // 2 + 1, 9
+    assert cuda_frontend.schedule_for(None, torch.float32, ft, hop, None, "B") == "wgmma"
+    count = _f32_syn_counter("B", schedule)
+    with torch.no_grad():
+        w = frontend.Synthesis(ft, hop, device=dev).stacked_weights()
+        w = (w + torch.randn(w.shape, generator=g, device=dev) * 0.01).contiguous()
+        mag = torch.nn.functional.softplus(torch.randn(ot, b, half, generator=g, device=dev))
+        phs = torch.randn(ot, b, half, generator=g, device=dev) * 2.0
+        before = count.launches
+        wave = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, schedule=schedule)
+        again = cuda_frontend.fused_synthesis(mag, phs, w, ft, hop, schedule=schedule)
+        assert count.launches == before + 2
+        ref = cuda_frontend.fused_synthesis_reference(mag, phs, w, ft, hop)
+        exact = cuda_frontend.fused_synthesis_reference(mag.double(), phs.double(), w.double(),
+                                                        ft, hop)
+    torch.cuda.synchronize()
+    assert wave.shape == ref.shape == (b, (ot - 1) * hop - ft)
+    assert torch.equal(wave, again)
+    torch.testing.assert_close(wave, ref, atol=3e-4, rtol=3e-4)
+    _f64_rule(f"B {schedule}", wave, ref, exact, floor=1e-6)
+
+
+@pytest.mark.parametrize("schedule", ["wgmma", "mma"])
+@pytest.mark.parametrize("ft,hop,b", F32_SYN_GEOMS[:2])
+def test_f32_synthesis_bwd_schedules_hold_the_float64_rule(dev, ft, hop, b, schedule):
+    """Float32 E on each schedule: dmag, dphs and dW within 5e-4 + 5e-4|g|
+    of the plain version and within twice its error against float64 plus
+    1e-6 * max|g|, two runs bit-equal, the edge frames exactly 0, dmag and
+    dphs the same without dW, the schedule's counter."""
+    args = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
+    out_len = args[3].shape[1]
+    assert cuda_frontend.schedule_for(None, torch.float32, ft, hop, out_len + 2 * ft,
+                                      "E") == "wgmma"
+    count = _f32_syn_counter("E", schedule)
+    before = count.launches
+    got = cuda_frontend.fused_synthesis_bwd(*args, schedule=schedule)
+    again = cuda_frontend.fused_synthesis_bwd(*args, schedule=schedule)
+    assert count.launches == before + 2
+    want = cuda_frontend.fused_synthesis_bwd_reference(*args)
+    exact = cuda_frontend.fused_synthesis_bwd_reference(*(a.double() for a in args[:4]), ft, hop)
+    torch.cuda.synchronize()
+    for g, g2, r, x, name in zip(got, again, want, exact, ("dmag", "dphs", "dW")):
+        assert torch.equal(g, g2), name
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
+        _f64_rule(f"E {schedule} {name}", g, r, x, floor=1e-6)
+    for g in got[:2]:  # frames wholly inside the trimmed margin
+        assert torch.all(g[0] == 0) and torch.all(g[-1] == 0)
+    only = cuda_frontend.fused_synthesis_bwd(*args, need_dw=False, schedule=schedule)
+    assert only[2] is None and torch.equal(only[0], got[0]) and torch.equal(only[1], got[1])
+
+
+def test_f32_synthesis_bwd_wgmma_refuses_what_tma_cannot_read(dev):
+    """At the "ragged" geometry (hop 30: 120 bytes) float32 E takes the
+    mma.sync schedule by the rule and a forced wgmma raises; B takes wgmma
+    there as at every geometry."""
+    ft, hop, chunk, b = BWD_GEOMS[1]
+    args = (*_bf16_synthesis_bwd_case(dev, ft, hop, b), ft, hop)
+    _cuda.reset_counts()
+    got = cuda_frontend.fused_synthesis_bwd(*args)
+    assert cuda_frontend.SYNTHESIS_BWD_MMA.launches == 1
+    assert cuda_frontend.SYNTHESIS_BWD.launches == 0
+    with pytest.raises(ValueError, match="wgmma"):
+        cuda_frontend.fused_synthesis_bwd(*args, schedule="wgmma")
+    want = cuda_frontend.fused_synthesis_bwd_reference(*args)
+    wave = cuda_frontend.fused_synthesis(*args[:3], ft, hop)
+    assert cuda_frontend.SYNTHESIS.launches == 1 and cuda_frontend.SYNTHESIS_MMA.launches == 0
+    ref = cuda_frontend.fused_synthesis_reference(*args[:3], ft, hop)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(wave, ref, atol=3e-4, rtol=3e-4)
+
+
 class _Bf16GemmFloat64(torch.autograd.Function):
     """The bf16 gemm policy (operands and cotangent rounded to bf16) with
     every product summed in float64: the float64 reference step's front-end."""

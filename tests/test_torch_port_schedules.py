@@ -41,12 +41,14 @@ def test_the_rule_picks_wgmma_where_tma_can_read_the_frames(ft, hop, lp, want):
     assert cf.uses_wgmma(ft, hop, lp) == (want == "wgmma")
     assert cf.schedule_for(None, BF16, ft, hop, lp) == want
     # float32: D (and A) on wgmma where the frames are 16 bytes of floats and
-    # the signal is aligned; E has one float32 schedule
+    # the signal is aligned; E where its frames are 16 bytes of floats (they
+    # are its own scratch, so no alignment enters)
     f32_d = "wgmma" if ft % 4 == hop % 4 == lp % 4 == 0 else "mma"
     assert cf.uses_wgmma(ft, hop, lp, torch.float32) == (f32_d == "wgmma")
     assert cf.schedule_for(None, torch.float32, ft, hop, lp, "D") == f32_d
     assert cf.schedule_for(None, torch.float32, ft, hop, lp, "D", aligned=False) == "mma"
-    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "E") == "mma"
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "E") == f32_d
+    assert cf.schedule_for(None, torch.float32, ft, hop, lp, "E", aligned=False) == f32_d
     assert cf.schedule_for(None, torch.float32, ft, hop, lp) == "mma"  # no kernel named
     assert cf.schedule_for("mma", BF16, ft, hop, lp) == "mma"
     assert cf.schedule_for("mma", torch.float32, ft, hop, lp, "D") == "mma"
@@ -65,16 +67,16 @@ def test_the_rule_picks_wgmma_where_tma_can_read_the_frames(ft, hop, lp, want):
 def test_the_rule_picks_the_forward_schedules_by_shape(ft, hop, lp, want_a):
     assert cf.schedule_for(None, BF16, ft, hop, lp) == want_a
     assert cf.schedule_for(None, BF16, ft, hop, None) == "wgmma"
-    # float32 A takes wgmma where its frames are 16 bytes of floats; B has one
-    # float32 schedule
+    # float32 A takes wgmma where its frames are 16 bytes of floats; B, as in
+    # bf16, at every geometry
     f32_a = "wgmma" if ft % 4 == hop % 4 == lp % 4 == 0 else "mma"
     assert cf.schedule_for(None, torch.float32, ft, hop, lp, "A") == f32_a
-    assert cf.schedule_for(None, torch.float32, ft, hop, None, "B") == "mma"
+    assert cf.schedule_for(None, torch.float32, ft, hop, None, "B") == "wgmma"
     for lp_b in (lp, None):
         assert cf.schedule_for("mma", BF16, ft, hop, lp_b) == "mma"
     assert cf.schedule_for("wgmma", BF16, ft, hop, None) == "wgmma"
-    with pytest.raises(ValueError, match="wgmma"):
-        cf.schedule_for("wgmma", torch.float32, ft, hop, None, "B")
+    assert cf.schedule_for("wgmma", torch.float32, ft, hop, None, "B") == "wgmma"
+    assert cf.schedule_for("mma", torch.float32, ft, hop, None, "B") == "mma"
 
 
 def test_each_forward_schedule_asks_for_its_own_scratch():
@@ -115,12 +117,13 @@ def test_the_forward_wrappers_refuse_an_unknown_or_impossible_schedule():
         with pytest.raises(ValueError, match="schedule"):
             cf.fused_synthesis(mag, mag, ws, ft, hop, BF16, schedule=bad)
     # float32 A takes wgmma only from a 16-byte aligned signal (TMA reads it
-    # as it is); float32 B stays on the mma.sync loop
+    # as it is); float32 B, which reads no frames, takes it at any shape, and
+    # on CPU tensors runs its plain version on either schedule
     off = torch.zeros(xp.numel() + 1)[1:].view(xp.shape)  # 4 bytes past a boundary
     with pytest.raises(ValueError, match="wgmma"):
         cf.fused_analysis(off, w, ft, hop, schedule="wgmma")
-    with pytest.raises(ValueError, match="wgmma"):
-        cf.fused_synthesis(mag, mag, ws, ft, hop, schedule="wgmma")
+    got = [cf.fused_synthesis(mag, mag, ws, ft, hop, schedule=s) for s in cf.SCHEDULES]
+    assert torch.equal(got[0], got[1])
     ragged = torch.zeros(7, 700 + 200)
     for dtype in (BF16, torch.float32):  # hop 30: not a TMA stride of A's frames
         with pytest.raises(ValueError, match="wgmma"):
@@ -206,8 +209,13 @@ def test_the_wrapper_refuses_an_unknown_or_impossible_schedule():
     dout = torch.zeros(5, 8 * 24 - 64)
     with pytest.raises(ValueError, match="schedule"):
         cf.fused_synthesis_bwd(mag, mag, ws, dout, 64, 24, compute_dtype=BF16, schedule="tma")
-    with pytest.raises(ValueError, match="wgmma"):  # float32 E stays on the mma.sync loop
-        cf.fused_synthesis_bwd(mag, mag, ws, dout, 64, 24, schedule="wgmma")
+    # float32 E reads the frames of its padded dout through TMA: hop 30 (120
+    # bytes) cannot be a stride, hop 24 can
+    rmag, rws, rdout = torch.rand(9, 7, 51), torch.zeros(102, 100), torch.zeros(7, 8 * 30 - 100)
+    with pytest.raises(ValueError, match="wgmma"):
+        cf.fused_synthesis_bwd(rmag, rmag, rws, rdout, 100, 30, schedule="wgmma")
+    got = [cf.fused_synthesis_bwd(mag, mag, ws, dout, 64, 24, schedule=s) for s in cf.SCHEDULES]
+    assert all(torch.equal(a, b) for a, b in zip(*got))
     ragged = torch.zeros(7, 700 + 200)
     for dtype in (BF16, torch.float32):  # hop 30: not a TMA stride
         with pytest.raises(ValueError, match="wgmma"):

@@ -162,19 +162,24 @@ def test_schedule_for_gives_float32_a_and_d_wgmma_where_tma_reads_the_signal(ft,
                                                                              want):
     """Float32 A and D take the wgmma schedule where ft, hop and the row
     length are multiples of 4 floats and the signal is 16-byte aligned (TMA
-    reads it as it lies); B and E keep the mma.sync loop at every shape, and
-    a schedule the rule cannot give raises."""
+    reads it as it lies); E where the row is so, at any alignment (its frames
+    are its own scratch); B at every shape; a schedule the rule cannot give
+    raises."""
     for kernel in ("A", "D"):
         assert cf.schedule_for(None, F32, ft, hop, lp, kernel, aligned) == want
         assert cf.schedule_for("mma", F32, ft, hop, lp, kernel, aligned) == "mma"
         if want == "mma":
             with pytest.raises(ValueError, match="wgmma"):
                 cf.schedule_for("wgmma", F32, ft, hop, lp, kernel, aligned)
-    assert cf.schedule_for(None, F32, ft, hop, lp, "E", aligned) == "mma"
-    assert cf.schedule_for(None, F32, ft, hop, None, "B") == "mma"
+    want_e = "wgmma" if cf.uses_wgmma(ft, hop, lp, F32) else "mma"
+    assert cf.schedule_for(None, F32, ft, hop, lp, "E", aligned) == want_e
+    assert cf.schedule_for(None, F32, ft, hop, None, "B") == "wgmma"
+    assert cf.schedule_for("wgmma", F32, ft, hop, None, "B") == "wgmma"
     for kernel, lp_k in (("E", lp), ("B", None)):
+        assert cf.schedule_for("mma", F32, ft, hop, lp_k, kernel) == "mma"
+    if want_e == "mma":
         with pytest.raises(ValueError, match="wgmma"):
-            cf.schedule_for("wgmma", F32, ft, hop, lp_k, kernel)
+            cf.schedule_for("wgmma", F32, ft, hop, lp, "E")
     # bf16 keeps its own rule, which no pointer enters
     assert cf.schedule_for(None, torch.bfloat16, ft, hop, lp, "A", aligned) == (
         "wgmma" if cf.uses_wgmma(ft, hop, lp) else "mma")
