@@ -202,7 +202,7 @@ Phases (any failure raises and exits non-zero):
      the six spectrogram and weight images, the checkpoint loaded strict and
      equal to the final weights, both .dat logs equal to the history, A-E
      (bf16) and C launched and no plain version run, the trace naming A-E;
-     7b from the trace's second train_block (20 replays) the card's ms a
+     7b from the trace's second train.block span (20 replays) the card's ms a
      step in five groups by each replay's kernel order (data synthesis, the
      front-end kernels, the autoencoders, the loss, clip + Adam) and the ten
      kernels of most time; 7c train() in turns, two turns each, 3 epochs of
@@ -1534,7 +1534,7 @@ def kernel_base(name: str) -> str:
 
 
 def block_split(trace_path: str, steps: int, block: int = 1) -> dict:
-    """The card's time a step in one ``train_block`` of a torch.profiler
+    """The card's time a step in one ``train.block`` span of a torch.profiler
     trace of train() (the ``block``-th, all graph replays), in five groups
     by each replay's kernel order: its device events grouped by the
     correlation of their cudaGraphLaunch, the front-end's library kernels in
@@ -1545,9 +1545,9 @@ def block_split(trace_path: str, steps: int, block: int = 1) -> dict:
     group, and the ten kernels of most time."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    blocks = sorted((e for e in events if e.get("name") == "train_block"
+    blocks = sorted((e for e in events if e.get("name") == "train.block"
                      and e.get("cat") == "user_annotation"), key=lambda e: e["ts"])
-    check(len(blocks) > block, f"trace: {len(blocks)} train_block ranges")
+    check(len(blocks) > block, f"trace: {len(blocks)} train.block spans")
     t0, t1 = blocks[block]["ts"], blocks[block]["ts"] + blocks[block]["dur"]
     launches = {e["args"]["correlation"] for e in events
                 if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e.get("name", "")

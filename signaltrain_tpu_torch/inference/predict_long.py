@@ -27,9 +27,19 @@ full output window. For it the port returns what the JAX package returns:
 the model's output over ``MIN_BUCKET`` windows of the zero-padded signal (its
 smallest bucket), cut where a negative ``keep`` cuts it, counted from the end
 (1,964 samples for 300 at chunk 512 / out 128).
+
+A call is the span ``predict_long`` (``utils/profiling.py``; its id a
+process-wide request number) around ``predict_long.upload``, one
+``predict_long.super_batch`` a super-batch, ``predict_long.join`` (the
+concatenation, with a mesh the ``predict_long.all_reduce`` inside it, the
+cut and the PCM conversion) and ``predict_long.pull``. On a card the
+request counts ``device_allocs`` (the caching allocator's ``cudaMalloc``
+calls, read only while spans record).
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -37,6 +47,7 @@ import torch
 from ..data import audio_io
 from ..dsp.compressors import mu_compand
 from ..ops import framing
+from ..utils import profiling
 
 SUPER_BATCH = 1024  # windows per forward
 MIN_BUCKET = 16  # the JAX package's smallest window bucket
@@ -61,11 +72,33 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     first (the only conversion offered)."""
     if out_dtype is not None and np.dtype(out_dtype) != np.int16:
         raise ValueError(f"predict_long: out_dtype must be None or int16, got {out_dtype}")
+    with profiling.span("predict_long", next(_REQUESTS)):
+        allocs = _device_allocs(model.device) if profiling.active() else None
+        y = _predict_long(signal, knobs_nn, model, chunk_size, out_chunk_size, compand,
+                          return_device, out_dtype, mesh)
+        if allocs is not None:
+            profiling.count("device_allocs", _device_allocs(model.device) - allocs)
+    return y
+
+
+_REQUESTS = itertools.count()
+
+
+def _device_allocs(dev: torch.device) -> int:
+    """The caching allocator's cudaMalloc calls on ``dev`` so far (0 off a card)."""
+    if dev.type != "cuda":
+        return 0
+    return torch.cuda.memory_stats_as_nested_dict(dev).get("num_device_alloc", 0)
+
+
+def _predict_long(signal, knobs_nn, model, chunk_size, out_chunk_size, compand, return_device,
+                  out_dtype, mesh):
     dev = model.device
     chunk_size = chunk_size or model.spec.in_chunk_size
     out_chunk_size = out_chunk_size or model.spec.out_chunk_size
-    signal = torch.as_tensor(signal, dtype=torch.float32).to(dev)
-    knobs = torch.as_tensor(knobs_nn, dtype=torch.float32).to(dev)
+    with profiling.span("predict_long.upload"):
+        signal = torch.as_tensor(signal, dtype=torch.float32).to(dev)
+        knobs = torch.as_tensor(knobs_nn, dtype=torch.float32).to(dev)
 
     overlap = chunk_size - out_chunk_size
     length = int(signal.shape[-1])
@@ -86,24 +119,31 @@ def predict_long(signal, knobs_nn, model, chunk_size: int | None = None,
     outs = []
     with torch.inference_mode():
         for start in range(first, first + share, SUPER_BATCH):
-            x = windows[start : min(start + SUPER_BATCH, first + share)]
-            x = mu_compand(x) if compand else x.contiguous()
-            kb = knobs[None, :].expand(x.shape[0], knobs.shape[-1])
-            y_hat, _, _ = model(x, kb)
-            outs.append(y_hat.reshape(-1))
-        y = torch.cat(outs)
-    if mesh is not None:
-        # every window's output, zeros but for this rank's share; summed out of
-        # inference mode, as the collective writes into it from its own thread
-        full = torch.zeros(n_run * out_chunk_size, dtype=y.dtype, device=y.device)
-        full[first * out_chunk_size : (first + share) * out_chunk_size] = y
-        y = mesh.all_reduce(full)
-    unique = chunk_size + (n_windows - 1) * out_chunk_size
-    keep = n_windows * out_chunk_size - max(0, unique - length)
-    y = y[:keep]  # keep <= 0 (no full window) counts from the end, as in JAX
-    if out_dtype is not None:
-        y = audio_io.to_pcm16(y)
-    return y if return_device else y.cpu().numpy()
+            with profiling.span("predict_long.super_batch"):
+                x = windows[start : min(start + SUPER_BATCH, first + share)]
+                x = mu_compand(x) if compand else x.contiguous()
+                kb = knobs[None, :].expand(x.shape[0], knobs.shape[-1])
+                y_hat, _, _ = model(x, kb)
+                outs.append(y_hat.reshape(-1))
+    with profiling.span("predict_long.join"):
+        with torch.inference_mode():
+            y = torch.cat(outs)
+        if mesh is not None:
+            with profiling.span("predict_long.all_reduce"):
+                # every window's output, zeros but for this rank's share; summed out of
+                # inference mode, as the collective writes into it from its own thread
+                full = torch.zeros(n_run * out_chunk_size, dtype=y.dtype, device=y.device)
+                full[first * out_chunk_size : (first + share) * out_chunk_size] = y
+                y = mesh.all_reduce(full)
+        unique = chunk_size + (n_windows - 1) * out_chunk_size
+        keep = n_windows * out_chunk_size - max(0, unique - length)
+        y = y[:keep]  # keep <= 0 (no full window) counts from the end, as in JAX
+        if out_dtype is not None:
+            y = audio_io.to_pcm16(y)
+    if return_device:
+        return y
+    with profiling.span("predict_long.pull"):
+        return y.cpu().numpy()
 
 
 def calc_ct(signal, effect, knobs_wc, out_chunk_size: int, chunk_size: int, sr: int = 44100,

@@ -51,6 +51,13 @@ nothing; a replay launches every captured kernel without calling them. So
 each graph takes back what its capture counted and adds it once a replay
 (``ops/_cuda.add_launches``): the counters keep counting launches.
 
+``TrainGraph``'s single graph keeps the train step's phase marks at its
+capture (``utils/profiling.phase``: the device nodes before synthesis,
+forward, loss, backward and update, and in all) and publishes them as
+``profiling.graph_phases("train")``; the other graphs mark nothing.
+``TrainGraph.__call__`` runs each step in the span ``train.step`` (its id
+the step) around ``train.reseed``, ``train.set_lr`` and ``train.replay``.
+
 With a data mesh (``parallel/mesh.py``, one process a rank) a train step is
 two captured graphs around one collective that the host calls between their
 replays (no collective is captured): graph 1 draws this rank's rows from its
@@ -83,6 +90,7 @@ graph refuses such a model: ``train()`` then dispatches its steps op by op
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -90,6 +98,7 @@ import torch
 from ..data import synth_data
 from ..models.st_model import STModel
 from ..ops import _cuda
+from ..utils import profiling
 from . import train as train_mod
 
 
@@ -113,10 +122,12 @@ class _Graph:
     """``body()`` as one CUDA graph: the first call runs it on a side stream
     (the warm-up) and captures it; every later call replays it and adds its
     launch counts. ``generator`` is the one ``body`` draws from, if it draws;
-    else ``device`` names the card."""
+    else ``device`` names the card. A graph given a ``name`` publishes its
+    capture's phase marks under it (``profiling.graph_phases``)."""
 
     def __init__(self, body, generator: torch.Generator | None = None,
-                 device: torch.device | None = None, capture_error_mode: str = "global"):
+                 device: torch.device | None = None, capture_error_mode: str = "global",
+                 name: str | None = None):
         dev = generator.device if generator is not None else torch.device(device)
         if dev.type != "cuda":
             what = "generator" if generator is not None else "device"
@@ -125,6 +136,7 @@ class _Graph:
         self.generator = generator
         self.capture_error_mode = capture_error_mode
         self.device = dev
+        self.name = name
         self.graph: torch.cuda.CUDAGraph | None = None
         self.counts: dict[str, int] = {}
         self.capture_s = 0.0
@@ -151,8 +163,11 @@ class _Graph:
         if self.generator is not None:
             graph.register_generator_state(self.generator)
         counted = _cuda.launch_counts()
+        marks = (contextlib.nullcontext() if self.name is None
+                 else profiling.GraphMarks(stream, self.name))
         with torch.cuda.graph(graph, stream=stream, capture_error_mode=self.capture_error_mode):
-            self.body()
+            with marks:
+                self.body()
         now = _cuda.launch_counts()
         self.counts = {k: v - counted.get(k, 0) for k, v in now.items() if v != counted.get(k, 0)}
         _cuda.add_launches(self.counts, -1)  # the capture launched nothing
@@ -209,7 +224,7 @@ class TrainGraph:
         self._batches = [None, None]  # the warm-up's batch, the captured one each replay fills
         self.shard, self.update = 0, None
         if mesh is None:
-            self.graph = _Graph(self._body, generator)
+            self.graph = _Graph(self._body, generator, name="train")
         else:
             self.batch_size, self.shard = mesh.local_batch(batch_size), mesh.data_index
             self.bucket = train_mod.GradBucket(model)
@@ -217,12 +232,14 @@ class TrainGraph:
             self.update = _MeanUpdate(model, opt, mesh, self.losses, self.bucket)
 
     def _body(self) -> None:
+        profiling.phase("synthesis")
         batch = self.batch_fn(self.batch_size, self.generator)
         _append(self.losses, train_mod.optimizer_step(self.model, self.opt, *batch,
                                                       micro=self.micro))
         self._batches[torch.cuda.is_current_stream_capturing()] = batch
 
     def _grads(self) -> None:
+        profiling.phase("synthesis")
         batch = self.batch_fn(self.batch_size, self.generator)
         self.bucket.put_loss(train_mod.loss_and_grads(self.model, *batch, self.bucket,
                                                       self.micro))
@@ -236,11 +253,15 @@ class TrainGraph:
         if not 1 <= n <= self.losses.numel():
             raise ValueError(f"TrainGraph: {n} steps, capacity {self.losses.numel()}")
         for step in range(step0, step0 + n):
-            synth_data.step_generator(self.generator, self.seed, step, self.shard)
-            train_mod.set_lr(self.opt, self.lr_fn(step))
-            self.graph()
-            if self.update is not None:
-                self.update()
+            with profiling.span("train.step", step):
+                with profiling.span("train.reseed"):
+                    synth_data.step_generator(self.generator, self.seed, step, self.shard)
+                with profiling.span("train.set_lr"):
+                    train_mod.set_lr(self.opt, self.lr_fn(step))
+                with profiling.span("train.replay"):
+                    self.graph()
+                    if self.update is not None:
+                        self.update()
         return self.losses[-n:].clone()
 
 

@@ -31,9 +31,16 @@ loop:
   images every 20 epochs and at the last) are written by one background
   thread (``utils/async_io.AsyncWriter``). A failed write fails the run.
 
-``ST_TPU_TIMING=1`` prints each epoch's wall time to stderr, split into the
-loop's buckets: dispatch, pending, eval, evproc, cp and fetch (the host
-tier's waits on its prefetcher), and the rest.
+The loop marks what it does with the spans of ``utils/profiling.py``
+(``train.block``, and the buckets ``train.dispatch``, ``train.pending``,
+``train.eval``, ``train.evproc``, ``train.cp`` and ``train.fetch``, the host
+tier's waits on its prefetcher), the steps with ``train.step`` and the
+step's phases (``profiling.phase``: synthesis, forward, loss, backward,
+update), ``HostCopy`` with ``train.losses_to_host`` and ``train.wait_losses``.
+They record under a ``torch.profiler`` session or with ``ST_TPU_TIMING=1``,
+which prints each epoch's wall time to stderr on the primary rank, split
+into the buckets' self times (a bucket less the buckets inside it) and the
+rest.
 
 ``ST_TPU_MICROBATCH=k`` (``microbatches``, read once, after the mesh fixes
 the local batch) runs each step's forward and backward in k slices of the
@@ -107,7 +114,7 @@ from ..models.st_model import STModel, st_model
 from ..parallel import distributed
 from ..parallel import mesh as meshlib
 from ..parallel import tensor as tp
-from ..utils import async_io
+from ..utils import async_io, profiling
 from ..utils.device import resolve_device
 from . import checkpoint, loss as loss_mod, schedule
 
@@ -188,10 +195,22 @@ def pick_n_inner(steps_per_epoch: int, status_every: int, cap: int = 50) -> int:
     return best
 
 
+def _loss(model: STModel, x, y, y_hat, mag_hat):
+    scale = loss_mod.freq_scale(model.spec.ft_size // 2 + 1, str(x.device))
+    return loss_mod.calc_loss(y_hat, y, mag_hat, scale_by_freq=scale)
+
+
 def _model_loss(model: STModel, x, y, knobs):
     y_hat, mag, mag_hat = model(x, knobs)
-    scale = loss_mod.freq_scale(model.spec.ft_size // 2 + 1, str(x.device))
-    return loss_mod.calc_loss(y_hat, y, mag_hat, scale_by_freq=scale), (y_hat, mag, mag_hat)
+    return _loss(model, x, y, y_hat, mag_hat), (y_hat, mag, mag_hat)
+
+
+def _step_loss(model: STModel, x, y, knobs):
+    """A train step's forward and loss, each marked as its phase."""
+    profiling.phase("forward")
+    y_hat, _, mag_hat = model(x, knobs)
+    profiling.phase("loss")
+    return _loss(model, x, y, y_hat, mag_hat)
 
 
 class GradBucket:
@@ -252,13 +271,14 @@ def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor, knobs: torc
     order), the slice losses are summed, and both sums are multiplied by
     float32 1 / k. The mean loss and gradients of the whole batch, to
     float32 reassociation; a slice's activations are freed before the next
-    slice runs."""
+    slice runs. Marks the phases forward, loss and backward (each slice's)."""
     if bucket is None:
         model.zero_grad(set_to_none=True)
     else:
         bucket.zero()
     if micro == 1:
-        l, _ = _model_loss(model, x, y, knobs)
+        l = _step_loss(model, x, y, knobs)
+        profiling.phase("backward")
         l.backward()
         return l.detach()
     if x.shape[0] % micro:
@@ -266,7 +286,8 @@ def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor, knobs: torc
     rows = x.shape[0] // micro
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for xs, ys, ks in zip(x.split(rows), y.split(rows), knobs.split(rows)):
-        l, _ = _model_loss(model, xs, ys, ks)
+        l = _step_loss(model, xs, ys, ks)
+        profiling.phase("backward")
         l.backward()
         total = total + l.detach()
     inv = 1.0 / micro  # a multiply in float32, as JAX scales its sums
@@ -293,12 +314,13 @@ def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
     (``reduce_grads``), the front-end clip and one optimizer step at the
     learning rate already set; returns the loss (a device scalar). Without a
     mesh it runs no host work that reads the card: what a train graph
-    captures."""
+    captures. The clip and Adam's step are the phase ``update``."""
     if mesh is None:
         l = loss_and_grads(model, x, y, knobs, micro=micro)
     else:
         bucket = GradBucket(model)
         l = reduce_grads(bucket, loss_and_grads(model, x, y, knobs, bucket, micro), mesh)
+    profiling.phase("update")
     clip_frontend_grads(model, clip_max_norm)
     opt.step()
     return l
@@ -333,15 +355,18 @@ def eager_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, batch_fn, bat
     rank draws its ``batch_size // n_data`` rows from its data index's
     stream (``shard=mesh.data_index``) and the step takes the mean over the
     data ranks (``reduce_grads``). The whole local batch is synthesized at
-    once and its forward and backward run in ``micro`` slices."""
+    once and its forward and backward run in ``micro`` slices. Each step is
+    the span ``train.step``, its batch the phase ``synthesis``."""
     local, shard = ((batch_size, 0) if mesh is None
                     else (mesh.local_batch(batch_size), mesh.data_index))
-    return torch.stack([
-        train_step_from_arrays(
-            model, opt, lr_fn, s,
-            *batch_fn(local, synth_data.step_generator(generator, seed, s, shard)), mesh=mesh,
-            micro=micro)
-        for s in range(step0, step0 + n)])
+    losses = []
+    for s in range(step0, step0 + n):
+        with profiling.span("train.step", s):
+            profiling.phase("synthesis")
+            batch = batch_fn(local, synth_data.step_generator(generator, seed, s, shard))
+            losses.append(train_step_from_arrays(model, opt, lr_fn, s, *batch, mesh=mesh,
+                                                 micro=micro))
+    return torch.stack(losses)
 
 
 def pmean_validation(mesh, losses: torch.Tensor, maes: torch.Tensor):
@@ -379,11 +404,14 @@ def host_steps(model: STModel, opt: torch.optim.Optimizer, lr_fn, next_batch, st
     (a ``file_data.HostBatch``; with ``mesh``, this rank's rows of it),
     dispatched one op at a time: the (n,) losses on the device. The host
     tier's loop on the CPU, and the reference ``graphs.ArraysTrainGraph`` is
-    bit-equal to on the card."""
+    bit-equal to on the card. Each step is the span ``train.step``."""
     dev = next(model.parameters()).device
-    return torch.stack([train_step_from_arrays(model, opt, lr_fn, s, *next_batch().take(dev),
-                                               mesh=mesh)
-                        for s in range(step0, step0 + n)])
+    losses = []
+    for s in range(step0, step0 + n):
+        with profiling.span("train.step", s):
+            losses.append(train_step_from_arrays(model, opt, lr_fn, s, *next_batch().take(dev),
+                                                 mesh=mesh))
+    return torch.stack(losses)
 
 
 def host_validation(model: STModel, batches, mesh=None) -> tuple[torch.Tensor, torch.Tensor, tuple]:
@@ -401,57 +429,40 @@ def host_validation(model: STModel, batches, mesh=None) -> tuple[torch.Tensor, t
 
 class HostCopy:
     """A device tensor's copy to the host, started now (into pinned memory,
-    with an event behind it on the card) and read later (``get`` waits for
-    the event only). On the CPU it is the tensor itself."""
+    with an event behind it on the card; the span ``train.losses_to_host``)
+    and read later (``get`` waits for the event only: ``train.wait_losses``).
+    On the CPU it is the tensor itself."""
 
     def __init__(self, t: torch.Tensor):
         self.event = None
         if t.device.type != "cuda":
             self.host = t
             return
-        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        self.host.copy_(t, non_blocking=True)
-        self.event = torch.cuda.Event()
-        self.event.record(torch.cuda.current_stream(t.device))
+        with profiling.span("train.losses_to_host"):
+            self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self.host.copy_(t, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(t.device))
 
     def get(self) -> torch.Tensor:
         if self.event is not None:
-            self.event.synchronize()
+            with profiling.span("train.wait_losses"):
+                self.event.synchronize()
         return self.host
 
 
-class _Timing:
-    """``ST_TPU_TIMING=1``: each epoch's wall time split into the loop's
-    buckets, printed to stderr. A bucket's time excludes the buckets timed
-    inside it."""
+TIMING_BUCKETS = ("dispatch", "pending", "eval", "evproc", "cp", "fetch")
 
-    BUCKETS = ("dispatch", "pending", "eval", "evproc", "cp", "fetch")
 
-    def __init__(self, on: bool):
-        self.on = on
-        self.acc = dict.fromkeys(self.BUCKETS, 0.0)
-        self.t_epoch = 0.0
-
-    def clock(self, bucket: str, fn, *args, **kwargs):
-        if not self.on:
-            return fn(*args, **kwargs)
-        inner = sum(self.acc.values())
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        self.acc[bucket] += time.perf_counter() - t0 - (sum(self.acc.values()) - inner)
-        return out
-
-    def start_epoch(self) -> None:
-        self.acc = dict.fromkeys(self.BUCKETS, 0.0)
-        self.t_epoch = time.perf_counter()
-
-    def report(self, epoch: int) -> None:
-        if not self.on:
-            return
-        total = time.perf_counter() - self.t_epoch
-        print(f"\n[timing] epoch {epoch + 1}: total={total:.4f}s "
-              + " ".join(f"{k}={v:.4f}" for k, v in self.acc.items())
-              + f" other={total - sum(self.acc.values()):.4f}", file=sys.stderr)
+def timing_line(epoch: int, total_s: float, records) -> str:
+    """``ST_TPU_TIMING``'s line for an epoch of ``total_s`` seconds, from its
+    span records: each bucket's self time (``profiling.self_times``) and the
+    rest."""
+    times = profiling.self_times(records, [f"train.{b}" for b in TIMING_BUCKETS])
+    acc = {b: times[f"train.{b}"] for b in TIMING_BUCKETS}
+    return (f"[timing] epoch {epoch + 1}: total={total_s:.4f}s "
+            + " ".join(f"{k}={v:.4f}" for k, v in acc.items())
+            + f" other={total_s - sum(acc.values()):.4f}")
 
 
 def train(
@@ -553,7 +564,7 @@ def train(
     n_inner = pick_n_inner(steps_per_epoch, status_every)
     host_data, prefetcher = False, None
     # the primary rank alone times and prints its epochs (JAX: `if timing and primary`)
-    timing = _Timing(os.environ.get("ST_TPU_TIMING", "0") == "1" and primary)
+    timing = os.environ.get("ST_TPU_TIMING", "0") == "1" and primary
     if datapath is None:
         batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr, augment=True)
         val_batch_fn = synth_data.make_synth_batch_fn(effect, chunk, out_chunk, sr=sr,
@@ -585,7 +596,11 @@ def train(
         # every rank draws the global batch from the one stream and crops its rows
         rows = None if mesh is None else mesh.local_rows(batch_size)
         prefetcher = train_ds.prefetch_batches(batch_size, np.random.default_rng(seed), rows=rows)
-        next_batch = functools.partial(timing.clock, "fetch", prefetcher.next)
+
+        def next_batch():
+            with profiling.span("train.fetch"):
+                return prefetcher.next()
+
         shapes = [(local_batch, chunk), (local_batch, out_chunk), (local_batch, num_knobs)]
 
         def val_batches():  # the frozen validation stream
@@ -686,80 +701,93 @@ def train(
     def save(snap, epoch, step):
         checkpoint.save_checkpoint(out_checkpointname, spec, effect, epoch, snap.to_host(), step)
 
-    try:
-        for epoch in range(epochs):
-            say("")
-            timing.start_epoch()
-            for block in range(steps_per_epoch // n_inner):
-                with torch.profiler.record_function("train_block"):
-                    losses = timing.clock("dispatch", run_steps, iter_count, n_inner)
-                # each item leaves ``pending`` before it is processed, so the
-                # error path never processes it twice
-                pend, pending = pending, (HostCopy(losses), epoch, iter_count,
-                                          block * n_inner * batch_size)
-                iter_count += n_inner
-                if pend is not None:
-                    timing.clock("pending", process_pending, pend)
+    # ST_TPU_TIMING (the primary rank) turns the spans on for the loop
+    with profiling.recording(timing):
+        try:
+            for epoch in range(epochs):
+                say("")
+                t_epoch = time.perf_counter()
+                if timing:
+                    profiling.take()  # the epoch's records alone
+                for block in range(steps_per_epoch // n_inner):
+                    with profiling.span("train.block"):
+                        with profiling.span("train.dispatch"):
+                            losses = run_steps(iter_count, n_inner)
+                        # each item leaves ``pending`` before it is processed, so the
+                        # error path never processes it twice
+                        pend, pending = pending, (HostCopy(losses), epoch, iter_count,
+                                                  block * n_inner * batch_size)
+                        iter_count += n_inner
+                        if pend is not None:
+                            with profiling.span("train.pending"):
+                                process_pending(pend)
 
-            # ---- validation over the frozen batches, dispatched; read next epoch
-            do_val_plot = primary and make_plots and (epoch + 1) % plot_every == 0
-            spec_due = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
-            do_spec_plot = primary and spec_due
-            model.eval()
-            losses_val, maes_val, last = timing.clock("eval", validate)
-            model.train()
-            weights = (checkpoint.training_tensors(model)["state_dict"] if gathers and spec_due
-                       else None)
-            new_eval = (epoch, iter_count, HostCopy(losses_val), HostCopy(maes_val),
-                        async_io.snapshot(last) if do_val_plot or do_spec_plot else None,
-                        async_io.snapshot(weights) if do_spec_plot else None,
-                        do_val_plot)
-            pend, pending = pending, None
-            timing.clock("pending", process_pending, pend)
-            ev, pending_eval = pending_eval, new_eval
+                # ---- validation over the frozen batches, dispatched; read next epoch
+                do_val_plot = primary and make_plots and (epoch + 1) % plot_every == 0
+                spec_due = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
+                do_spec_plot = primary and spec_due
+                model.eval()
+                with profiling.span("train.eval"):
+                    losses_val, maes_val, last = validate()
+                model.train()
+                weights = (checkpoint.training_tensors(model)["state_dict"] if gathers and spec_due
+                           else None)
+                new_eval = (epoch, iter_count, HostCopy(losses_val), HostCopy(maes_val),
+                            async_io.snapshot(last) if do_val_plot or do_spec_plot else None,
+                            async_io.snapshot(weights) if do_spec_plot else None,
+                            do_val_plot)
+                pend, pending = pending, None
+                with profiling.span("train.pending"):
+                    process_pending(pend)
+                ev, pending_eval = pending_eval, new_eval
+                if ev is not None:
+                    with profiling.span("train.evproc"):
+                        process_eval(ev)
+
+                if gathers and (((epoch + 1) % cp_every == 0) or (epoch == epochs - 1)):
+                    tensors = checkpoint.training_tensors(model, opt)
+                    if primary:
+                        with profiling.span("train.cp"):
+                            snap = async_io.snapshot(tensors)
+                        writer.submit(functools.partial(save, snap, epoch, iter_count))
+
+                if timing:
+                    records, dropped = profiling.take()
+                    print("\n" + timing_line(epoch, time.perf_counter() - t_epoch, records)
+                          + (f" dropped={dropped}" if dropped else ""), file=sys.stderr)
+                if epoch == 0:
+                    secs_left = (time.time() - first_time) * (epochs - 1)
+                    say(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
+                        f"on {time.ctime(time.time() + secs_left)}")
+
+            # drain the pipelines: the last epoch's validation
+            ev, pending_eval = pending_eval, None
             if ev is not None:
-                timing.clock("evproc", process_eval, ev)
-
-            if gathers and (((epoch + 1) % cp_every == 0) or (epoch == epochs - 1)):
-                tensors = checkpoint.training_tensors(model, opt)
-                if primary:
-                    snap = timing.clock("cp", async_io.snapshot, tensors)
-                    writer.submit(functools.partial(save, snap, epoch, iter_count))
-
-            timing.report(epoch)
-            if epoch == 0:
-                secs_left = (time.time() - first_time) * (epochs - 1)
-                say(f"\nExpect run to finish in roughly {secs_left / 3600.0:.1f} hours, "
-                    f"on {time.ctime(time.time() + secs_left)}")
-
-        # drain the pipelines: the last epoch's validation
-        ev, pending_eval = pending_eval, None
-        if ev is not None:
-            process_eval(ev)
-    except BaseException:
-        # keep what already ran: the losses and the validation in flight are
-        # written to the logs (a flush that fails must not hide the error)
-        try:
-            if pending is not None:
-                process_pending(pending)
-            if pending_eval is not None:
-                process_eval(pending_eval)
-        except Exception:
-            traceback.print_exc()
-        raise
-    finally:
-        # the producer thread ends with the run, or its error; the writer
-        # drains, and re-raises a failed write unless another error is in flight
-        in_flight = sys.exc_info()[0] is not None
-        if prefetcher is not None:
-            prefetcher.close()
-        try:
-            if writer is not None:
-                writer.close()
-        except Exception:
-            if not in_flight:
-                raise
-            traceback.print_exc()
+                process_eval(ev)
+        except BaseException:
+            # keep what already ran: the losses and the validation in flight are
+            # written to the logs (a flush that fails must not hide the error)
+            try:
+                if pending is not None:
+                    process_pending(pending)
+                if pending_eval is not None:
+                    process_eval(pending_eval)
+            except Exception:
+                traceback.print_exc()
+            raise
+        finally:
+            # the producer thread ends with the run, or its error; the writer
+            # drains, and re-raises a failed write unless another error is in flight
+            in_flight = sys.exc_info()[0] is not None
+            if prefetcher is not None:
+                prefetcher.close()
+            try:
+                if writer is not None:
+                    writer.close()
+            except Exception:
+                if not in_flight:
+                    raise
+                traceback.print_exc()
 
     say("\nTotal elapsed time for training loop =", time.time() - first_time)
     return model, history

@@ -189,7 +189,7 @@ def test_run_train_cli(tmp_path, monkeypatch, capsys):
     traces = os.listdir("prof")
     assert len(traces) == 1 and traces[0].endswith(".pt.trace.json")
     with open(os.path.join("prof", traces[0])) as f:
-        assert "train_block" in f.read()  # the loop's blocks are named in the trace
+        assert '"train.block"' in f.read()  # the loop's blocks are named in the trace
     with pytest.raises(SystemExit) as e:  # --nmodel 2 needs n_data x 2 ranks, not one
         run_train.main(["--nmodel", "2", "--device", "cpu"])
     assert e.value.code == 1

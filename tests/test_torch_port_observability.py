@@ -14,8 +14,7 @@
   the JAX file names (``num_plots=2``);
 * ``utils/async_io.py``: the writer's FIFO order and its first failure
   raised at ``close()`` (as tests/test_misc_utils.py:100-150 holds the JAX
-  writer), and a snapshot that survives an in-place update of its original;
-  ``profiling.StepTimer`` skips its warm-up steps.
+  writer), and a snapshot that survives an in-place update of its original.
 """
 
 import os
@@ -34,7 +33,7 @@ from signaltrain_tpu_torch.dsp import effects
 from signaltrain_tpu_torch.models import autoencoder
 from signaltrain_tpu_torch.models import st_model as pst
 from signaltrain_tpu_torch.training import checkpoint
-from signaltrain_tpu_torch.utils import async_io, flops, plots, profiling
+from signaltrain_tpu_torch.utils import async_io, flops, plots
 from tests.torch_port_util import jax_params, model_inputs, n, port_model, t, tiny_spec
 
 ATOL = 1e-3  # the model-output tolerance
@@ -200,12 +199,3 @@ def test_snapshot_survives_an_update_of_its_original():
     assert torch.equal(got["moments"][1][0], torch.zeros(2)) and got["moments"][1][1] == 7
     assert snap.event is None  # on the CPU a snapshot is a clone
 
-
-def test_step_timer_skips_the_warmup_steps():
-    timer = profiling.StepTimer(warmup=3)
-    for _ in range(3):
-        timer.tick(torch.ones(1))
-    assert np.isnan(timer.mean_ms)  # no step timed yet
-    for _ in range(4):
-        timer.tick(torch.ones(1))
-    assert timer._timed_steps == 4 and 0.0 <= timer.mean_ms < 1e3
