@@ -514,6 +514,63 @@ def test_predict_long_card_matches_cpu(dev):
     np.testing.assert_allclose(ct_card, ct_cpu, atol=1e-5)
 
 
+def _demo_on_card(dev):
+    from signaltrain_tpu_torch.utils.load_model import load_model
+
+    model, _ = load_model(os.path.join(REPO, "demo", "model_comp4c_demo.tar"), device=dev)
+    return model
+
+
+@pytest.mark.parametrize("out_dtype", [None, "int16"])
+def test_predict_long_pinned_pull_is_bit_equal_to_a_plain_copy(dev, monkeypatch, out_dtype):
+    """The numpy result, pulled super-batch by super-batch into pinned
+    memory on the copy stream, equals the device result copied plainly; 62
+    windows of the demo model in super-batches of 16 (the last short)."""
+    from signaltrain_tpu_torch.dsp import synths
+    from signaltrain_tpu_torch.inference import predict_long as pl
+
+    model = _demo_on_card(dev)
+    monkeypatch.setattr(pl, "SUPER_BATCH", 16)
+    clip = synths.music_like_clip(3.0, seed=4)
+    knobs = np.array([0.1, -0.2, 0.0, 0.3], np.float32)
+    assert pl._num_windows(len(clip), 8192, 6144) == 62
+    got = pl.predict_long(clip, knobs, model, out_dtype=out_dtype)
+    want = pl.predict_long(clip, knobs, model, out_dtype=out_dtype, return_device=True)
+    assert isinstance(got, np.ndarray) and got.dtype == (np.float32 if out_dtype is None
+                                                         else np.int16)
+    assert np.array_equal(got, want.cpu().numpy())
+    assert torch.from_numpy(got).is_pinned()
+
+
+def test_predict_long_pinned_blocks_are_reused_and_never_shared(dev):
+    """A request after the last result of its size was dropped pins nothing
+    new (``pinned_allocs`` 0); a result the caller holds is not overwritten by
+    the next request of its size."""
+    import gc
+
+    from signaltrain_tpu_torch.dsp import synths
+    from signaltrain_tpu_torch.inference import predict_long as pl
+    from signaltrain_tpu_torch.utils import profiling
+
+    model = _demo_on_card(dev)
+    clips = [synths.music_like_clip(2.0, seed=s) for s in (6, 7, 8)]
+    knobs = np.array([0.1, -0.2, 0.0, 0.3], np.float32)
+    profiling.take()
+    with profiling.recording(True):
+        y = pl.predict_long(clips[0], knobs, model)
+        del y
+        gc.collect()
+        held = pl.predict_long(clips[1], knobs, model)
+        kept = held.copy()
+        nxt = pl.predict_long(clips[2], knobs, model)
+    records, _ = profiling.take()
+    counts = [r.counts for r in records if r.name == "predict_long"]
+    assert len(counts) == 3 and all("pinned_allocs" in c for c in counts)
+    assert counts[1]["pinned_allocs"] == 0
+    assert np.array_equal(held, kept) and not np.array_equal(nxt, held)
+    assert held.ctypes.data != nxt.ctypes.data
+
+
 # ---- the bfloat16 modes of A, B, D and E (compute_dtype=torch.bfloat16): each
 # against its plain bf16 version, which rounds the same operands and multiplies
 # in float32, so the two differ by the order of float32 sums only and the f32

@@ -7,6 +7,9 @@
 * ``predict_long``'s request holds one ``super_batch`` span a super-batch
   between its upload and its join and pull, and counts its ``device_allocs``
   (none on the CPU), on lengths down to one under the lookback;
+* each super-batch's output placed in a preallocated result gives
+  exactly the old concatenated and cut output, in float32 and in int16, for
+  every case of the cut;
 * an eager step's phase spans come in the order synthesis, forward, loss,
   backward, update (the middle three once a slice under microbatching), and
   a step called outside any span, under two profiler sessions in turn,
@@ -28,10 +31,11 @@ import numpy as np
 import pytest
 import torch
 
-from signaltrain_tpu_torch.data import synth_data
+from signaltrain_tpu_torch.data import audio_io, synth_data
 from signaltrain_tpu_torch.dsp import effects
 from signaltrain_tpu_torch.inference import predict_long as pl
 from signaltrain_tpu_torch.models.st_model import st_model
+from signaltrain_tpu_torch.ops import framing
 from signaltrain_tpu_torch.training import train as train_mod
 from signaltrain_tpu_torch.utils import profiling
 
@@ -175,6 +179,49 @@ def test_predict_long_counts_its_request(tiny, monkeypatch, length, super_batch)
                                            * -(-windows // super_batch)
                                            + ["predict_long.join", "predict_long.pull"])
         assert all(r.id == req.id and r.counts is None for r in inner)
+
+
+_CUT = {}  # (length, super_batch): the float32 output, shared by both dtypes' cases
+
+
+def _concatenate_then_cut(model, sig, knobs, super_batch, out_dtype):
+    """The output as ``predict_long`` formed it before it placed each
+    super-batch's part: every output concatenated, cut to ``keep`` (counted
+    from the end for a signal shorter than the lookback), then converted."""
+    chunk, out = 512, 128
+    if (len(sig), super_batch) not in _CUT:
+        n = pl._num_windows(len(sig), chunk, chunk - out)
+        x = torch.from_numpy(sig)
+        if n < 1:
+            x = torch.nn.functional.pad(x, (0, chunk + (pl.MIN_BUCKET - 1) * out - len(sig)))
+        windows = framing.sliding_window(x, chunk, chunk - out)
+        kb = torch.from_numpy(knobs)
+        with torch.inference_mode():
+            outs = [model(w.contiguous(), kb[None, :].expand(len(w), 4))[0].reshape(-1)
+                    for w in windows.split(super_batch)]
+            y = torch.cat(outs)[: n * out - max(0, chunk + (n - 1) * out - len(sig))]
+        _CUT[len(sig), super_batch] = y
+    y = _CUT[len(sig), super_batch]
+    return (y if out_dtype is None else audio_io.to_pcm16(y)).numpy()
+
+
+# lookback 384: shorter than it (the MIN_BUCKET case, and the empty output at
+# exactly the lookback), one window (cut, and whole), one super-batch of 8,
+# several with a short last one, an exact multiple of 8 (whole, and cut)
+@pytest.mark.parametrize("out_dtype", [None, "int16"])
+@pytest.mark.parametrize("super_batch", [8, 1024])
+@pytest.mark.parametrize("length", [300, 384, 450, 512, 1408, 2000, 2432, 2382])
+def test_each_super_batch_placed_equals_concatenate_then_cut(tiny, monkeypatch, length,
+                                                              super_batch, out_dtype):
+    model, _ = tiny
+    model.eval()
+    monkeypatch.setattr(pl, "SUPER_BATCH", super_batch)
+    sig = np.random.default_rng(length).uniform(-0.9, 0.9, length).astype(np.float32)
+    knobs = np.array([0.1, -0.2, 0.3, 0.0], np.float32)
+    got = pl.predict_long(sig, knobs, model, out_dtype=out_dtype)
+    want = _concatenate_then_cut(model, sig, knobs, super_batch, out_dtype)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert len(got) == max(0, length - 384) or length < 384
 
 
 @pytest.mark.parametrize("micro", [1, 2])
