@@ -3,9 +3,16 @@
 Examples:
     python -m signaltrain_tpu_torch.cli.run_train --epochs 10 -n 2000 -b 100 --effect comp_4c
     python -m signaltrain_tpu_torch.cli.run_train --path mydata -e files [-t chunk] [--compand]
+    python -m signaltrain_tpu_torch.cli.run_train --model tcn -b 32 --epochs 10 -n 3200
 
-Runs on the CUDA card unless ``--device cpu`` is given, in bfloat16 unless
-``--dtype float32`` is given (the JAX CLI's default), through
+``--model tcn`` trains TCN-300-C (``models/tcn.py``) in place of the spectral
+model, at the sizes ``--n-blocks``, ``--kernel-size``, ``--dilation-growth``,
+``--channels``, ``--causal`` / ``--no-causal`` and ``--out-chunk-size`` give
+(TCN-300-C's by default; ``--scale`` and ``--shrink`` do not apply), in
+float32, its only dtype, on one process.
+
+Runs on the CUDA card unless ``--device cpu`` is given, the spectral model
+in bfloat16 unless ``--dtype float32`` is given (the JAX CLI's default), through
 ``config.RunConfig`` and ``train_from_config``. ``--effect`` takes every
 effect of the JAX package; ``files`` reads the knob metadata of the dataset
 at ``--path``, which then holds ``Train/`` and ``Val/`` (any other effect
@@ -47,6 +54,9 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..models.kinds import MODEL_KINDS
+    from ..models.tcn import TCNSpec
+
     parser = argparse.ArgumentParser(
         description="Trains neural network to reproduce input-output transformations.",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
@@ -73,8 +83,25 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Shink output chunk relative to input by this divisor", default=4)
     parser.add_argument("-t", "--target", help="type of target: chunk or stream (with "
                         "--path)", default="stream")
-    parser.add_argument("--dtype", default="bfloat16",
-                        help="compute dtype: bfloat16 (bf16) or float32 (f32)")
+    parser.add_argument("--dtype", default=None,
+                        help="compute dtype: bfloat16 (bf16) or float32 (f32); default bfloat16, "
+                        "float32 for --model tcn")
+    parser.add_argument("--model", default="mpaec", choices=MODEL_KINDS,
+                        help="mpaec: the spectral autoencoder; tcn: TCN-300-C")
+    tcn = TCNSpec()
+    parser.add_argument("--n-blocks", dest="n_blocks", type=int, default=tcn.n_blocks,
+                        help="TCN: blocks")
+    parser.add_argument("--kernel-size", dest="kernel_size", type=int, default=tcn.kernel_size,
+                        help="TCN: taps of each dilated convolution")
+    parser.add_argument("--dilation-growth", dest="dilation_growth", type=int,
+                        default=tcn.dilation_growth, help="TCN: block i's dilation is this**i")
+    parser.add_argument("--channels", type=int, default=tcn.channels, help="TCN: channels")
+    parser.add_argument("--causal", action=argparse.BooleanOptionalAction, default=tcn.causal,
+                        help="TCN: crop the residual to its last samples (else its centre)")
+    parser.add_argument("--out-chunk-size", dest="out_chunk_size", type=int,
+                        default=tcn.out_chunk_size,
+                        help="TCN: output samples a training example (its input is longer by "
+                        "the receptive field less one)")
     parser.add_argument("--nmodel", type=int, default=1,
                         help="model-axis size: ranks that split the front-end's matrices "
                         "(the world, --nproc or torchrun's, is n_data x nmodel)")
@@ -112,7 +139,7 @@ def main(argv=None) -> None:
 
     args = build_parser().parse_args(argv)
     print("Command line: ", " ".join(sys.argv[:]))
-    if args.dtype not in DTYPES:
+    if args.dtype is not None and args.dtype not in DTYPES:
         print(f"Error: --dtype {args.dtype}: expected one of {', '.join(DTYPES)}")
         sys.exit(1)
 
@@ -120,6 +147,7 @@ def main(argv=None) -> None:
 
     from ..config import RunConfig, train_from_config
     from ..dsp import effects
+    from ..models import kinds
     from ..parallel import distributed, launch
     from ..utils import profiling
 
@@ -129,6 +157,11 @@ def main(argv=None) -> None:
               "--profile (which traces this process)")
         sys.exit(1)
     ranks = world["world_size"] if world is not None else args.nproc
+    try:
+        kinds.check_split(args.model, ranks=ranks)
+    except ValueError as e:
+        print(f"Error: --model {args.model}: {e}: no --nproc, no torchrun")
+        sys.exit(1)
     if args.nmodel < 1 or ranks % args.nmodel:
         print(f"Error: --nmodel {args.nmodel}: a world of {ranks} ranks is not n_data x "
               f"{args.nmodel}; run n_data x nmodel ranks (--nproc, or torchrun's)")

@@ -7,7 +7,9 @@ card unless ``"cpu"`` is asked for) and ``nproc``, the ranks ``cli.run_train``
 spawns (one process a rank, on ``device``'s card and the next ones; 1 trains
 in this process). ``n_model`` is the JAX ``"model"`` axis: the ranks that
 split the front-end's matrices (``parallel/mesh.py``); ``nproc`` must be
-``n_data x n_model``.
+``n_data x n_model``. ``model_kind`` ("mpaec" or "tcn", ``models/kinds.py``)
+and ``tcn``, a TCN's sizes (TCN-300-C's by default), pick the model; ``dtype``
+None is the model kind's ``default_dtype`` (bfloat16, or float32 for a TCN).
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import dataclasses
 
 import torch
 
+from .models import kinds
 from .models.st_model import ModelSpec, compute_spec
+from .models.tcn import TCNSpec
 
 DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16, "float32": torch.float32,
           "f32": torch.float32}
@@ -34,12 +38,14 @@ class RunConfig:
     n_data_points: int = 200_000
     batch_size: int = 200
     lr_max: float = 1e-4
-    # geometry
+    # model and geometry
+    model_kind: str = "mpaec"
+    tcn: TCNSpec = TCNSpec()
     sr: int = 44100
     scale_factor: float = 1.0
     shrink_factor: float = 4.0
     # numerics / placement
-    dtype: str = "bfloat16"
+    dtype: str | None = None
     seed: int = 218
     device: str = "cuda"
     # parallelism
@@ -58,7 +64,7 @@ class RunConfig:
                             num_knobs=num_knobs, sr=self.sr)
 
     def compute_dtype(self) -> torch.dtype:
-        return DTYPES[self.dtype]
+        return DTYPES[self.dtype] if self.dtype else kinds.spec_class(self.model_kind).default_dtype
 
     @classmethod
     def from_args(cls, args) -> "RunConfig":
@@ -72,6 +78,8 @@ class RunConfig:
             n_data_points=args.num,
             batch_size=args.batch,
             lr_max=args.lrmax,
+            model_kind=getattr(args, "model", "mpaec"),
+            tcn=TCNSpec(**{k: getattr(args, k) for k in TCNSpec.SIZES if hasattr(args, k)}),
             sr=args.sr,
             scale_factor=args.scale,
             shrink_factor=args.shrink,
@@ -128,4 +136,6 @@ def train_from_config(cfg: RunConfig, effect=None):
         target_type=cfg.target_type,
         compand=cfg.compand,
         n_model=cfg.n_model,
+        model_kind=cfg.model_kind,
+        tcn=cfg.tcn,
     )

@@ -12,7 +12,10 @@ head to align it).
 The windows are a strided view of the signal on the model's device
 (``ops/framing.sliding_window``); they run
 exactly, with no bucketing (the JAX package rounds the count up only to bound
-XLA recompiles), in super-batches of at most 1024 windows to bound memory.
+XLA recompiles), in super-batches of the model's ``windows_per_forward``
+(1024 for the spectral model; fewer for a TCN, ``models/tcn.py``, whose
+windows are long and activations wide), at most ``SUPER_BATCH``, to bound
+memory.
 Each super-batch's output is cut to what survives the trim (and converted
 to PCM there under ``out_dtype="int16"``, elementwise, so bit-equal to
 converting the whole); once every forward is queued, the result is
@@ -72,7 +75,7 @@ from ..dsp.compressors import mu_compand
 from ..ops import framing
 from ..utils import profiling
 
-SUPER_BATCH = 1024  # windows per forward
+SUPER_BATCH = 1024  # the most windows a forward, whatever the model's windows_per_forward
 MIN_BUCKET = 16  # the JAX package's smallest window bucket
 
 
@@ -167,10 +170,11 @@ def _predict_long(signal, knobs_nn, model, chunk_size, out_chunk_size, compand, 
              else len(range(n_real * out_chunk_size)[:keep]))
 
     parts = []  # (where a super-batch's output starts in the result, its part, its event)
+    size = min(SUPER_BATCH, model.windows_per_forward)
     with torch.inference_mode():
-        for start in range(first, first + share, SUPER_BATCH):
+        for start in range(first, first + share, size):
             with profiling.span("predict_long.super_batch"):
-                x = windows[start : min(start + SUPER_BATCH, first + share)]
+                x = windows[start : min(start + size, first + share)]
                 x = mu_compand(x) if compand else x.contiguous()
                 kb = knobs[None, :].expand(x.shape[0], knobs.shape[-1])
                 y_hat, _, _ = model(x, kb)

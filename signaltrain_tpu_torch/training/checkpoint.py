@@ -40,6 +40,14 @@ group to the whole (ft, ft) tensor under the reference's name, and loading
 takes the rows of the mesh it resumes on (``shard_state_dict``,
 ``restore_optimizer``), so a run resumes under any mesh shape (the JAX
 package's mesh-agnostic form, tests/test_mesh_elastic.py).
+
+A TCN's checkpoint (``models/tcn.py``; JAX has no TCN, so no interchange
+form applies) holds the same keys but the spectral geometry: its state dict
+(BatchNorm's running statistics included), ``model_kind`` "tcn", its sizes
+under ``tcn``, ``in_chunk_size``, ``out_chunk_size`` and ``sr``
+(``TCNSpec.run_values``); Adam's moments by parameter name as
+``adam_state`` {"exp_avg": ..., "exp_avg_sq": ...} and its count as
+``adam_step`` (``restore_adam``).
 """
 
 from __future__ import annotations
@@ -218,29 +226,46 @@ def restore_optimizer(model: torch.nn.Module, optimizer: torch.optim.Adam, leave
         }
 
 
+def restore_adam(model: torch.nn.Module, optimizer: torch.optim.Adam, moments: dict,
+                 step: int) -> None:
+    """Load a TCN checkpoint's ``adam_state`` (moments by parameter name)
+    and count into Adam's state, each tensor on its parameter's device."""
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32, device=p.device),
+            **{k: moments[k][name].to(p.device, torch.float32).reshape(p.shape).contiguous()
+               for k in ("exp_avg", "exp_avg_sq")},
+        }
+
+
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in tensors.items()}
+
+
 def save_checkpoint(checkpointname: str, spec, effect, epoch: int, tensors: dict,
                     step: int = 0) -> None:
     """Write a reference-schema .tar checkpoint from ``training_tensors``'
     dict (the live tensors, or ``async_io.snapshot``'s host copies of them)
-    and the model's ``ModelSpec``; with the moments also the optimizer state,
-    as ``optax_state`` (numpy leaves once loaded) / ``optax_step``."""
+    and the model's spec (``ModelSpec`` or ``TCNSpec``: its ``run_values``);
+    with the moments also the optimizer state in the spec's
+    ``optimizer_form``: "optax" as ``optax_state`` (numpy leaves once
+    loaded) / ``optax_step``, "adam" as ``adam_state`` / ``adam_step``."""
     print(f"\nsaving model to {checkpointname}", end="")
     state = {
         "epoch": epoch + 1,
-        "state_dict": {k: v.detach().cpu().clone() for k, v in tensors["state_dict"].items()},
+        "state_dict": _cpu(tensors["state_dict"]),
         "optimizer": {},  # schema slot; the reference never restores it either
         "effect_name": effect.name,
         "knob_names": effect.knob_names,
         "knob_ranges": np.asarray(effect.knob_ranges),
-        "scale_factor": spec.scale_factor,
-        "shrink_factor": spec.shrink_factor,
-        "in_chunk_size": spec.in_chunk_size,
-        "out_chunk_size": spec.out_chunk_size,
-        "sr": spec.sr,
+        **spec.run_values(),
     }
-    if "exp_avg" in tensors:
+    if "exp_avg" in tensors and spec.optimizer_form == "optax":
         state["optax_state"] = _optax_leaves(tensors["exp_avg"], tensors["exp_avg_sq"], step)
         state["optax_step"] = step
+    elif "exp_avg" in tensors:
+        state["adam_state"] = {k: _cpu(tensors[k]) for k in ("exp_avg", "exp_avg_sq")}
+        state["adam_step"] = step
     torch.save(state, checkpointname)
 
 
@@ -267,5 +292,6 @@ def load_checkpoint(checkpointname: str):
         if "state_dict" not in key:
             rv[key] = value
 
-    state_dict = {k: v.to(torch.float32) for k, v in checkpoint["state_dict"].items()}
+    state_dict = {k: v.to(torch.float32) if v.is_floating_point() else v
+                  for k, v in checkpoint["state_dict"].items()}
     return state_dict, rv

@@ -12,8 +12,11 @@ graph:
   forward (kernels A and B, or the GEMM front-end), ``calc_loss``, the
   backward (E, D), ``clip_frontend_grads`` and ``opt.step()``
   (``train.optimizer_step``, the body of ``train_step_from_arrays``). It is
-  replayed once a step. Under ``ST_TPU_MICROBATCH`` the forward and the
-  backward run in slices of the synthesized batch inside the same capture.
+  replayed once a step. A TCN's step (``models/tcn.py``) is captured the
+  same way: its BatchNorms' running statistics are buffers that each replay
+  updates in place, as the eager step does. Under ``ST_TPU_MICROBATCH`` the
+  forward and the backward run in slices of the synthesized batch inside
+  the same capture.
 * ``EvalGraph`` captures one validation batch (``val_batch_fn`` and
   ``eval_step_from_arrays``) and is replayed once a batch.
 * ``ArraysTrainGraph`` and ``ArraysEvalGraph`` are the counterparts of
@@ -111,7 +114,7 @@ def _append(buffer: torch.Tensor, value: torch.Tensor) -> None:
 def _capturable(model: STModel) -> None:
     """Refuse a tensor-parallel model whose collectives a graph may not hold
     (``Mesh.captures_collectives``)."""
-    mesh = model.mpaec.mesh
+    mesh = model.mesh
     if mesh is not None and not mesh.captures_collectives():
         raise ValueError("this model group's collectives are not captured in a CUDA graph "
                          "(gloo's cannot be; NCCL's only on a group of one rank): dispatch "
@@ -189,7 +192,7 @@ class _MeanUpdate:
 
     def _body(self) -> None:
         _append(self.losses, self.bucket.mean(self.mesh.n_data))
-        train_mod.clip_frontend_grads(self.model)
+        self.model.clip_grads()
         self.opt.step()
 
     def __call__(self) -> None:

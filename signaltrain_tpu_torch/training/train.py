@@ -6,6 +6,16 @@ forward (kernels A and B with ``frontend="fused"``), ``calc_loss``, backward
 (kernels E and D), the L1 clip of the front-end gradients, and Adam under the
 1cycle schedule.
 
+The loss and the clip are the model's own (``model.loss``,
+``model.clip_grads``), and the step runs inside ``model.numerics()``: so
+``train(model_kind="tcn")`` trains TCN-300-C (``models/tcn.py``: log-cosh on
+the waveform, Adam alone, cuDNN's convolutions in float32) through the same
+synthesis, schedule, Adam, graphs, validation and checkpoints. The compute
+dtype's default and the refusal of ranks and slices are the spec's
+(``default_dtype``, ``batch_statistics``, ``models/kinds.py``): a TCN trains
+in float32, on one process, with no microbatches, as its BatchNorm takes its
+statistics over the whole batch.
+
 On a CUDA device the loop runs the JAX package's fused multi-step dispatch as
 CUDA graphs (``training/graphs.py``): each step and each validation batch
 after the first (the capture's warm-up) is one replay of a captured graph,
@@ -110,39 +120,14 @@ import numpy as np
 import torch
 
 from ..data import synth_data
-from ..models.st_model import STModel, st_model
+from ..models import kinds
+from ..models.st_model import FRONTEND_PARAMS, STModel, clip_frontend_grads  # noqa: F401
+from ..models.tcn import TCNSpec
 from ..parallel import distributed
 from ..parallel import mesh as meshlib
-from ..parallel import tensor as tp
 from ..utils import async_io, profiling
 from ..utils.device import resolve_device
 from . import checkpoint, loss as loss_mod, schedule
-
-FRONTEND_PARAMS = (
-    "mpaec.dft_analysis.conv_analysis_real.weight",
-    "mpaec.dft_analysis.conv_analysis_imag.weight",
-    "mpaec.dft_synthesis.conv_synthesis_real.weight",
-    "mpaec.dft_synthesis.conv_synthesis_imag.weight",
-)
-
-
-def clip_frontend_grads(model: torch.nn.Module, max_norm: float = 1.0) -> torch.Tensor:
-    """L1-norm clip of the front-end gradients only, in place: the joint norm
-    over the four (ft, ft) matrices, coef = min(1, max_norm / (total + 1e-6)).
-    On a tensor-parallel model the total is the sum of each rank's shard
-    sums, all-reduced (summed) over the model group. Returns the norm (a
-    device scalar; nothing is fetched)."""
-    params = dict(model.named_parameters())
-    grads = [params[name].grad for name in FRONTEND_PARAMS]
-    total = torch.stack([g.abs().sum() for g in grads]).sum()
-    shard = model.mpaec.dft_analysis.shard
-    if shard is not None:
-        total = tp.all_reduce_sum(total, shard.group)
-    coef = torch.clamp(max_norm / (total + 1e-6), max=1.0)
-    for g in grads:
-        g.mul_(coef)
-    return total
-
 
 def make_optimizer(model: torch.nn.Module, lr_max: float, n_data_points: int, epochs: int,
                    batch_size: int):
@@ -195,14 +180,9 @@ def pick_n_inner(steps_per_epoch: int, status_every: int, cap: int = 50) -> int:
     return best
 
 
-def _loss(model: STModel, x, y, y_hat, mag_hat):
-    scale = loss_mod.freq_scale(model.spec.ft_size // 2 + 1, str(x.device))
-    return loss_mod.calc_loss(y_hat, y, mag_hat, scale_by_freq=scale)
-
-
 def _model_loss(model: STModel, x, y, knobs):
     y_hat, mag, mag_hat = model(x, knobs)
-    return _loss(model, x, y, y_hat, mag_hat), (y_hat, mag, mag_hat)
+    return model.loss(y_hat, y, mag_hat), (y_hat, mag, mag_hat)
 
 
 def _step_loss(model: STModel, x, y, knobs):
@@ -210,7 +190,7 @@ def _step_loss(model: STModel, x, y, knobs):
     profiling.phase("forward")
     y_hat, _, mag_hat = model(x, knobs)
     profiling.phase("loss")
-    return _loss(model, x, y, y_hat, mag_hat)
+    return model.loss(y_hat, y, mag_hat)
 
 
 class GradBucket:
@@ -271,24 +251,27 @@ def loss_and_grads(model: STModel, x: torch.Tensor, y: torch.Tensor, knobs: torc
     order), the slice losses are summed, and both sums are multiplied by
     float32 1 / k. The mean loss and gradients of the whole batch, to
     float32 reassociation; a slice's activations are freed before the next
-    slice runs. Marks the phases forward, loss and backward (each slice's)."""
+    slice runs. Marks the phases forward, loss and backward (each slice's).
+    Forward and backward run inside ``model.numerics()``."""
     if bucket is None:
         model.zero_grad(set_to_none=True)
     else:
         bucket.zero()
     if micro == 1:
-        l = _step_loss(model, x, y, knobs)
-        profiling.phase("backward")
-        l.backward()
+        with model.numerics():
+            l = _step_loss(model, x, y, knobs)
+            profiling.phase("backward")
+            l.backward()
         return l.detach()
     if x.shape[0] % micro:
         raise ValueError(f"{micro} microbatches do not divide a batch of {x.shape[0]}")
     rows = x.shape[0] // micro
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for xs, ys, ks in zip(x.split(rows), y.split(rows), knobs.split(rows)):
-        l = _step_loss(model, xs, ys, ks)
-        profiling.phase("backward")
-        l.backward()
+        with model.numerics():
+            l = _step_loss(model, xs, ys, ks)
+            profiling.phase("backward")
+            l.backward()
         total = total + l.detach()
     inv = 1.0 / micro  # a multiply in float32, as JAX scales its sums
     torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
@@ -314,14 +297,15 @@ def optimizer_step(model: STModel, opt: torch.optim.Optimizer, x: torch.Tensor,
     (``reduce_grads``), the front-end clip and one optimizer step at the
     learning rate already set; returns the loss (a device scalar). Without a
     mesh it runs no host work that reads the card: what a train graph
-    captures. The clip and Adam's step are the phase ``update``."""
+    captures. The clip (``model.clip_grads``: the spectral model's front-end
+    clip, nothing for a TCN) and Adam's step are the phase ``update``."""
     if mesh is None:
         l = loss_and_grads(model, x, y, knobs, micro=micro)
     else:
         bucket = GradBucket(model)
         l = reduce_grads(bucket, loss_and_grads(model, x, y, knobs, bucket, micro), mesh)
     profiling.phase("update")
-    clip_frontend_grads(model, clip_max_norm)
+    model.clip_grads(clip_max_norm)
     opt.step()
     return l
 
@@ -482,15 +466,21 @@ def train(
     status_every: int = 10,
     make_plots: bool = True,
     device: str | torch.device = "cuda",
-    compute_dtype: torch.dtype = torch.bfloat16,
+    compute_dtype: torch.dtype | None = None,
     datapath: str | None = None,
     target_type: str = "stream",
     compand: bool = False,
     device_resident_limit_bytes: int = 4 << 30,
     n_model: int = 1,
+    model_kind: str = "mpaec",
+    tcn: TCNSpec | None = None,
 ):
-    """Main training routine, computing in ``compute_dtype`` (torch.bfloat16,
-    the JAX package's default, or torch.float32), on data synthesized on the
+    """Main training routine of the model ``model_kind`` (``models/kinds.py``:
+    "mpaec", the spectral model of ``scale_factor`` and ``shrink_factor``, or
+    "tcn", TCN-300-C of ``tcn``'s sizes, its default), computing in
+    ``compute_dtype`` (torch.bfloat16 or torch.float32; None: bfloat16, the
+    JAX package's default, for the spectral model, float32 for a TCN, which
+    computes in nothing else), on data synthesized on the
     device or, with ``datapath``, on the file dataset there (``target_type``
     "chunk" re-runs ``effect`` on each cropped input; ``compand`` mu-law
     companding; ``device_resident_limit_bytes`` the device budget that picks
@@ -500,29 +490,35 @@ def train(
     drawn every ``plot_every`` epochs, the spectrogram and weight images
     every 20 epochs and at the last, on the background writer.
 
-    Returns (model, history): the trained ``STModel`` and a dict of the
+    Returns (model, history): the trained model and a dict of the
     per-step training losses (``train_loss``) and the per-epoch validation
     figures (``val_loss`` smoothed, ``val_mae`` of the last batch,
     ``val_mae_mean`` over the pass, ``step``). ``effect`` must live on
     ``device``. If ``in_checkpointname`` exists the run resumes from it: its
-    geometry overrides the arguments, and its optimizer state and step are
-    restored when it has them. On a CUDA device every step and validation
-    batch but the first is a CUDA-graph replay (``training/graphs.py``)."""
+    geometry overrides the arguments (a checkpoint of another model kind
+    raises), and its optimizer state and step are restored when it has them.
+    On a CUDA device every step and validation batch but the first is a
+    CUDA-graph replay (``training/graphs.py``)."""
     dev = resolve_device(device)
     if effect.device != dev:
         raise ValueError(f"effect is on {effect.device}, train() was given device {dev}")
+    if compute_dtype is None:
+        compute_dtype = kinds.spec_class(model_kind).default_dtype
     tensor_parallel = n_model > 1
+    kinds.check_split(model_kind, ranks=max(distributed.world_size(), n_model))
     mesh = None
     if distributed.is_initialized() or tensor_parallel:
         mesh = meshlib.make_mesh(n_model=n_model, device=dev)
     local_batch = batch_size if mesh is None else mesh.local_batch(batch_size)
     micro = microbatches(local_batch)
+    kinds.check_split(model_kind, micro=micro)
     primary = distributed.is_primary()
     say = print if primary else (lambda *a, **k: None)
     say(f"SignalTrain (PyTorch) training began at {time.ctime()}. Options:")
     say(f"    epochs = {epochs}, n_data_points = {n_data_points}, batch_size = {batch_size}")
-    say(f"    scale_factor = {scale_factor}, shrink_factor = {shrink_factor}, "
-        f"compute_dtype = {str(compute_dtype).removeprefix('torch.')}, device = {dev}")
+    say(f"    model = {model_kind}, scale_factor = {scale_factor}, shrink_factor = "
+        f"{shrink_factor}, compute_dtype = {str(compute_dtype).removeprefix('torch.')}, "
+        f"device = {dev}")
     if mesh is not None:
         say(f"    data parallel over {mesh.n_data} ranks, {local_batch} rows each a step")
     if tensor_parallel:
@@ -534,13 +530,18 @@ def train(
 
     # checkpoint resume: its metadata overrides the geometry arguments
     state_dict, rv = None, {}
+    sizes = {"scale_factor": scale_factor, "shrink_factor": shrink_factor, "tcn": tcn}
     if os.path.isfile(in_checkpointname):
         state_dict, rv = checkpoint.load_checkpoint(in_checkpointname)
-        scale_factor, shrink_factor, sr = rv["scale_factor"], rv["shrink_factor"], rv["sr"]
+        if kinds.kind_of(rv) != model_kind:
+            raise ValueError(f"{in_checkpointname} holds a {kinds.kind_of(rv)} model, and "
+                             f"this run trains a {model_kind} model")
+        sizes, sr = kinds.geometry(rv), rv["sr"]
 
-    model = st_model(scale_factor=scale_factor, shrink_factor=shrink_factor, num_knobs=num_knobs,
-                     sr=sr, device=dev, generator=torch.Generator().manual_seed(seed),
-                     compute_dtype=compute_dtype, mesh=mesh if tensor_parallel else None)
+    model = kinds.build_model(model_kind, num_knobs=num_knobs, sr=sr, device=dev,
+                              generator=torch.Generator().manual_seed(seed),
+                              compute_dtype=compute_dtype, **sizes,
+                              mesh=mesh if tensor_parallel else None)
     if state_dict is not None:
         model.load_state_dict(checkpoint.shard_state_dict(model, state_dict), strict=True)
     model.train()
@@ -554,6 +555,10 @@ def train(
     if "optax_state" in rv:
         step0 = int(rv.get("optax_step", 0))
         checkpoint.restore_optimizer(model, opt, rv["optax_state"], step0)
+        say(f"Restored optimizer state at step {step0}.")
+    elif "adam_state" in rv:
+        step0 = int(rv["adam_step"])
+        checkpoint.restore_adam(model, opt, rv["adam_state"], step0)
         say(f"Restored optimizer state at step {step0}.")
     if mesh is not None:  # every rank starts from one model
         mesh.broadcast_model(model)
@@ -631,7 +636,8 @@ def train(
     avg_loss, vl_avg, beta = 0.0, 0.0, 0.98
     pending = None  # (a block's losses on their way to the host, epoch, iter0, data_point0)
     pending_eval = None  # an epoch's validation results in flight
-    frame_major = model.mpaec.frontend == "fused"  # mag / mag_hat come back (T, B, F)
+    spectra = model.has_spectra  # a TCN has no spectra and no front-end to draw
+    frame_major = spectra and model.frame_major  # mag / mag_hat come (T, B, F)
     writer = async_io.AsyncWriter() if primary else None
     # the ranks that take part in gathering what rank 0 writes: rank 0's model group
     gathers = primary or (tensor_parallel and mesh.data_index == 0)
@@ -724,7 +730,8 @@ def train(
 
                 # ---- validation over the frozen batches, dispatched; read next epoch
                 do_val_plot = primary and make_plots and (epoch + 1) % plot_every == 0
-                spec_due = make_plots and ((epoch + 1) % 20 == 0 or epoch == epochs - 1)
+                spec_due = spectra and make_plots and ((epoch + 1) % 20 == 0
+                                                       or epoch == epochs - 1)
                 do_spec_plot = primary and spec_due
                 model.eval()
                 with profiling.span("train.eval"):

@@ -19,6 +19,7 @@ float64 plain version with the slack that each element's conditioning gives
 1e-1) within 1e-3 * max|g| of the leaf, no absolute floor.
 """
 
+import contextlib
 import math
 import os
 
@@ -1692,3 +1693,121 @@ def test_split_front_end_graph_under_nccl_is_the_gemm_graph(dev):
     (res,) = launch.spawn(torch_port_tp_ranks.nccl_world_one, [str(dev)], "nccl", timeout_s=300)
     assert res["replays"] == 4
     assert res["losses_equal"] and all(res["state_equal"].values()), res
+
+
+# ---- TCN-300-C (models/tcn.py) on the card: its train graph, its float32
+# convolutions, its phase marks; and the spectral train graphs as they were
+
+TCN_OUT = 4096  # TCN-300-C's widths, a short window: 17,428 input samples
+TCN_TOL = 2e-5  # float32 convolutions' largest gap to float64, as a share of the largest value
+
+
+def _tcn_setup(dev, n_models=2, out=TCN_OUT):
+    from signaltrain_tpu_torch.data import synth_data
+    from signaltrain_tpu_torch.dsp import effects
+    from signaltrain_tpu_torch.models.kinds import build_model
+    from signaltrain_tpu_torch.models.tcn import TCNSpec
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    effect = effects.make_effect("comp_4c", device=dev)
+    spec = TCNSpec(out_chunk_size=out)
+    models = [build_model("tcn", device=dev, tcn=spec,
+                          generator=torch.Generator().manual_seed(3)).train()
+              for _ in range(n_models)]
+    opts = [train_mod.make_optimizer(m, 1e-3, 4000, 3, 200) for m in models]
+    batch_fn = synth_data.make_synth_batch_fn(effect, spec.in_chunk_size, spec.out_chunk_size)
+    return models, opts, batch_fn
+
+
+def test_tcn_train_graph_is_bit_equal_to_eager_steps(dev):
+    """8 steps of a TCN's train graph (the warm-up, then 7 replays) against 8
+    eager steps from the same weights and seeds: every loss, parameter and
+    BatchNorm running statistic bit-equal."""
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.training import train as train_mod
+
+    (gm, em), ((gopt, lr_fn), (eopt, _)), batch_fn = _tcn_setup(dev)
+    graph = graphs.TrainGraph(gm, gopt, lr_fn, batch_fn, 4, torch.Generator(device=dev), 218,
+                              capacity=8)
+    got = torch.cat([graph(0, 1), graph(1, 7)])
+    want = train_mod.eager_steps(em, eopt, lr_fn, batch_fn, 4, torch.Generator(device=dev), 218,
+                                 0, 8)
+    assert graph.graph.replays == 7 and torch.equal(got, want), (got, want)
+    for (name, a), b in zip(gm.state_dict().items(), em.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert int(gm.blocks[3].film.bn.num_batches_tracked) == 8
+
+
+def test_tcn_float32_convolutions_hold_to_float64_where_tf32_does_not(dev, monkeypatch):
+    """The TCN's forward and its convolution weights' gradients, training
+    mode, at TCN-300-C's widths (batch 2, 4096 outputs), against
+    tests/tcn_reference.py in float64: within TCN_TOL of the largest value
+    with the model's own float32 convolutions, and beyond it with cuDNN
+    allowed TF32 (the model's scope taken away)."""
+    from signaltrain_tpu_torch.models import tcn as tcn_mod
+    from tests import tcn_reference
+
+    (model,), _, batch_fn = _tcn_setup(dev, n_models=1)
+    x, y, knobs = batch_fn(2, torch.Generator(device=dev).manual_seed(5))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    spec = dict(n_blocks=4, dilation_growth=10, causal=True)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in state.items()
+              if k.endswith("conv1.weight")}
+    want, _ = tcn_reference.forward({**state, **leaves}, x, knobs, spec)
+    want_g = torch.autograd.grad(tcn_reference.logcosh(want, y), list(leaves.values()))
+    want = want.detach()
+
+    def gaps():
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        with model.numerics():
+            y_hat = model(x, knobs)[0]
+            model.loss(y_hat, y).backward()
+        params = dict(model.named_parameters())
+        g = [float((params[k].grad.double() - w).abs().max() / w.abs().max())
+             for k, w in zip(leaves, want_g)]
+        return float((y_hat.detach().double() - want).abs().max() / want.abs().max()), max(g)
+
+    f32 = gaps()
+    monkeypatch.setattr(tcn_mod, "float32_convolutions", contextlib.nullcontext)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = gaps()
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    print("tcn gaps to float64 (forward, conv weight gradients): f32", f32, "tf32", tf32)
+    assert max(f32) <= TCN_TOL and max(tf32) > TCN_TOL, (f32, tf32)
+
+
+def test_tcn_train_graph_marks_its_blocks_phases(dev):
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.utils import profiling
+
+    (model,), ((opt, lr_fn),), batch_fn = _tcn_setup(dev, n_models=1)
+    graphs.TrainGraph(model, opt, lr_fn, batch_fn, 4, torch.Generator(device=dev), 218,
+                      capacity=1)(0, 1)
+    phases = profiling.graph_phases("train")
+    names = [name for name, _ in phases.marks]
+    assert names == (["synthesis", "forward"] + ["tcn.conv", "tcn.norm"] * 4
+                     + ["forward", "loss", "backward", "update"])
+    at = [n for _, n in phases.marks] + [phases.total]
+    assert all(a < b for a, b in zip(at, at[1:])), phases  # every phase holds device work
+
+
+TRAIN_NODES = {"bfloat16": 924, "float32": 826}  # the benchmark's cells, batch 200
+
+
+@pytest.mark.parametrize("dtype", sorted(TRAIN_NODES))
+def test_the_spectral_train_graphs_keep_their_node_counts(dev, dtype):
+    from signaltrain_tpu_torch.training import graphs
+    from signaltrain_tpu_torch.utils import profiling
+
+    (m,), ((opt, lr_fn),), batch_fn, _ = _graph_setup(dev, "fused", getattr(torch, dtype),
+                                                      n_models=1)
+    graphs.TrainGraph(m, opt, lr_fn, batch_fn, 200, torch.Generator(device=dev), 218,
+                      capacity=1)(0, 1)
+    phases = profiling.graph_phases("train")
+    assert [name for name, _ in phases.marks] == ["synthesis", "forward", "loss", "backward",
+                                                  "update"]
+    assert phases.total == TRAIN_NODES[dtype], phases

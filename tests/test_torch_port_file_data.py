@@ -451,7 +451,8 @@ def test_run_config_from_args_round_trip():
             "--cp-every", "2", "--device", "cpu"]
     args = run_train.build_parser().parse_args(argv)
     cfg, jcfg = config.RunConfig.from_args(args), jconfig.RunConfig.from_args(args)
-    port_only = {"device", "nproc"}  # nproc: the data-parallel ranks run_train spawns
+    # nproc: the data-parallel ranks run_train spawns; model_kind and tcn: the TCN (JAX has none)
+    port_only = {"device", "nproc", "model_kind", "tcn"}
     fields = set(jconfig.RunConfig.__dataclass_fields__)
     assert set(config.RunConfig.__dataclass_fields__) == fields | port_only
     for field in fields - {"cp_every"}:  # the JAX CLI has no --cp-every
